@@ -1,0 +1,267 @@
+"""The port's foundations behave like the JAX package's on the same calls.
+
+Covers the copied telemetry storage (registry, event log, spans,
+LRUSet), the slim obs facade, the static routing engine, the config
+layer, the memory helpers, the fp32 precision layer and the roofline
+helper.
+"""
+
+import dataclasses
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from veles.simd_tpu import obs as jobs
+from veles.simd_tpu.obs import lru as jlru
+from veles.simd_tpu.obs import registry as jregistry
+from veles.simd_tpu.obs import spans as jspans
+from veles.simd_tpu.runtime import precision as jprx
+from veles.simd_tpu.runtime import routing as jrouting
+from veles.simd_tpu.utils import config as jconfig
+from veles.simd_tpu.utils import memory as jmemory
+from veles.simd_tpu_torch import obs as tobs
+from veles.simd_tpu_torch.obs import lru as tlru
+from veles.simd_tpu_torch.obs import registry as tregistry
+from veles.simd_tpu_torch.obs import spans as tspans
+from veles.simd_tpu_torch.runtime import precision as tprx
+from veles.simd_tpu_torch.runtime import routing as trouting
+from veles.simd_tpu_torch.utils import benchmark as tbench
+from veles.simd_tpu_torch.utils import config as tconfig
+from veles.simd_tpu_torch.utils import memory as tmemory
+
+# the facades' events() functions shadow the submodules' names
+jevents = importlib.import_module("veles.simd_tpu.obs.events")
+tevents = importlib.import_module("veles.simd_tpu_torch.obs.events")
+
+torch.set_num_threads(1)
+
+
+def _lru_trace(mod):
+    s = mod.LRUSet(3)
+    seen = []
+    for key in ("a", "b", "c", "a", "d", "b", "e"):
+        seen.append(key in s)
+        s.add(key)
+    seen.append(s.check_and_add("f"))
+    seen.append(s.check_and_add("e"))
+    s.discard("e")
+    seen.append("e" in s)
+    return seen, len(s), s.info()
+
+
+def test_lru_set_matches():
+    assert _lru_trace(tlru) == _lru_trace(jlru)
+
+
+def _registry_trace(mod):
+    r = mod.MetricsRegistry()
+    r.count("dispatch", op="convolve", backend="x")
+    r.count("dispatch", 2, op="convolve", backend="x")
+    r.count("decisions", op="convolve", decision="fft")
+    r.gauge("depth", 3.5, queue="a")
+    for v in (2e-6, 5e-4, 0.2, 50.0):
+        r.observe("span.convolve.dispatch", v, phase="steady")
+    return r.snapshot(), r.counter_value("dispatch", op="convolve",
+                                         backend="x")
+
+
+def test_registry_matches():
+    assert _registry_trace(tregistry) == _registry_trace(jregistry)
+
+
+def _events_trace(mod):
+    log = mod.EventLog(max_events=3)
+    for i in range(5):
+        log.record("convolve", "fft", x_length=i, forced=False)
+    return log.events(), log.dropped
+
+
+def test_event_log_matches():
+    assert _events_trace(tevents) == _events_trace(jevents)
+    with pytest.raises(ValueError):
+        tevents.EventLog(0)
+
+
+def _span_trace(mod):
+    seen = []
+    tracer = mod.SpanTracer(lambda name, v, **lab: seen.append(
+        (name, lab["phase"])))
+    for _ in range(2):
+        with tracer.span("convolve.dispatch", algo="fft"):
+            with tracer.span("convolve.os_route", route="xla_matmul"):
+                pass
+    events = tracer.to_chrome_trace()["traceEvents"][1:]
+    shape = [(e["name"], e["ph"], e["args"]) for e in events]
+    return seen, sorted(shape, key=repr), tracer.dropped
+
+
+def test_spans_match():
+    assert _span_trace(tspans) == _span_trace(jspans)
+    assert repr(tspans.NULL_SPAN) == repr(jspans.NULL_SPAN)
+
+
+@pytest.fixture
+def both_obs():
+    states = (jobs.enabled(), tobs.enabled())
+    jobs.enable(compile_listeners=False)
+    tobs.enable()
+    jobs.reset()
+    tobs.reset()
+    yield
+    for mod, was in zip((jobs, tobs), states):
+        mod.reset()
+        if not was:
+            mod.disable()
+
+
+def test_obs_facade_matches(both_obs):
+    for mod, cfg in ((jobs, jconfig), (tobs, tconfig)):
+        mod.count("dispatch", op="convolve", backend="b")
+        mod.record_decision("convolve", "overlap_save", x_length=8,
+                            h_length=2, forced=False)
+        with mod.span("convolve.dispatch", algo="fft"):
+            pass
+        cfg.resolve_simd(None, op="convolve")
+        cfg.resolve_simd(False, op="convolve")
+    for name, labels in [
+            ("dispatch", {"op": "convolve", "backend": "b"}),
+            ("decisions", {"op": "convolve",
+                           "decision": "overlap_save"})]:
+        assert tobs.counter_value(name, **labels) == \
+            jobs.counter_value(name, **labels) == 1
+    # the port names its device backend "torch", the JAX one "xla"
+    assert tobs.counter_value("dispatch", op="convolve",
+                              backend="torch") == \
+        jobs.counter_value("dispatch", op="convolve", backend="xla") == 1
+    assert tobs.counter_value("dispatch", op="convolve",
+                              backend="oracle") == 1
+    assert tobs.events() == jobs.events()
+    snap = tobs.snapshot()
+    assert [h["name"] for h in snap["histograms"]] == \
+        ["span.convolve.dispatch"]
+    text = tobs.report()
+    assert "dispatch" in text and "overlap_save" in text
+
+
+def test_obs_disabled_is_a_no_op(both_obs):
+    tobs.disable()
+    tobs.count("dispatch", op="x")
+    tobs.record_decision("convolve", "fft")
+    assert tobs.span("x") is tspans.NULL_SPAN
+    assert tobs.counter_value("dispatch", op="x") == 0
+    assert tobs.events() == []
+    assert "no telemetry" in tobs.report()
+
+
+def _family(mod, env):
+    return mod.family("test.port_parity", (
+        mod.Route("fast", predicate=lambda n, **_: n >= 8,
+                  disable_env=env),
+        mod.Route("mid", predicate=lambda n, **_: n >= 2),
+        mod.Route("slow"),
+    ))
+
+
+@pytest.mark.parametrize("opt_out", [False, True])
+def test_routing_matches(monkeypatch, opt_out):
+    env = "VELES_SIMD_TEST_PORT_PARITY_OFF"
+    if opt_out:
+        monkeypatch.setenv(env, "yes")
+    fams = [_family(jrouting, env), _family(trouting, env)]
+    for n in (0, 1, 2, 7, 8, 100):
+        got = [(f.eligible(n=n), f.static_select(n=n), f.gate("fast", n=n),
+                f.select(n=n), f.select(eligible=["mid", "slow"], n=n),
+                f.select(eligible=[], n=n)) for f in fams]
+        assert got[0] == got[1], n
+    assert fams[1].names() == ("fast", "mid", "slow")
+    assert trouting.get_family("test.port_parity") is fams[1]
+    for f, mod in zip(fams, (jrouting, trouting)):
+        with pytest.raises(ValueError, match="route must be one of"):
+            f.gate("nope", n=1)
+        with pytest.raises(ValueError, match="duplicate"):
+            mod.family("dup", (mod.Route("a"), mod.Route("a")))
+        with pytest.raises(ValueError, match="no routes"):
+            mod.family("empty", ())
+    with pytest.raises(ValueError, match="unknown route family"):
+        trouting.get_family("no.such.family")
+
+
+def test_routing_helpers_match(monkeypatch):
+    for v in (0, 1, 2, 3, 1000, 1 << 20, (1 << 20) + 1):
+        assert trouting.pow2_bucket(v) == jrouting.pow2_bucket(v)
+    for raw in ("1", "true", "YES", " on ", "0", "no", ""):
+        monkeypatch.setenv("VELES_SIMD_TEST_TRUTHY", raw)
+        assert trouting.env_truthy("VELES_SIMD_TEST_TRUTHY") == \
+            jrouting.env_truthy("VELES_SIMD_TEST_TRUTHY")
+
+
+def test_config_matches():
+    prev = tconfig.get_config()
+    try:
+        cfg = tconfig.set_config(conv_precision="high", device="cpu")
+        assert cfg.conv_precision == "high" and cfg.device == "cpu"
+        assert tconfig.get_config() is cfg
+        for mod in (jconfig, tconfig):
+            with pytest.raises(ValueError, match="conv_precision"):
+                mod.Config(conv_precision="default")
+        with pytest.raises(ValueError, match="device"):
+            tconfig.Config(device="tpu")
+    finally:
+        tconfig.set_config(**dataclasses.asdict(prev))
+    assert tconfig.Config().device == "cuda"
+    prev_b = tconfig.set_backend(tconfig.Backend.ORACLE)
+    try:
+        assert tconfig.resolve_simd(None) is False
+        assert tconfig.resolve_simd(1) is True
+    finally:
+        tconfig.set_backend(prev_b)
+
+
+def test_memory_helpers_match():
+    for v in (0, 1, 2, 3, 100, 128, 1000):
+        assert tmemory.next_highest_power_of_2(v) == \
+            jmemory.next_highest_power_of_2(v)
+        assert tmemory.zeropadding_length(v) == \
+            jmemory.zeropadding_length(v)
+    x = np.arange(12, dtype=np.float32).reshape(2, 6)
+    (a, na), (b, nb) = tmemory.zeropadding(x), jmemory.zeropadding(x)
+    np.testing.assert_array_equal(a, b)
+    assert na == nb
+    t, nt = tmemory.zeropadding(torch.from_numpy(x))
+    np.testing.assert_array_equal(t.numpy(), b)
+    assert nt == nb
+    (a, na), (b, nb) = tmemory.zeropadding_ex(x, 3), \
+        jmemory.zeropadding_ex(x, 3)
+    np.testing.assert_array_equal(a, b)
+    assert na == nb
+
+
+def test_precision_matches():
+    r = np.random.RandomState(59)
+    a = r.randn(5, 64, 48).astype(np.float32)
+    b = r.randn(32, 48).astype(np.float32)
+    prev = torch.get_float32_matmul_precision()
+    for p in ("highest", "high"):
+        got = tprx.p_einsum("...ba,ta->...bt", torch.from_numpy(a),
+                            torch.from_numpy(b), precision=p)
+        want = np.asarray(jprx.p_einsum("...ba,ta->...bt", a, b,
+                                        precision=p))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
+    got = tprx.p_matmul(torch.from_numpy(a), torch.from_numpy(b.T))
+    np.testing.assert_allclose(got.numpy(), a @ b.T, rtol=1e-5, atol=1e-5)
+    assert torch.get_float32_matmul_precision() == prev
+    with pytest.raises(ValueError, match="precision"):
+        tprx.p_einsum("ab,bc->ac", torch.ones(2, 2), torch.ones(2, 2),
+                      precision="bf16_comp")
+
+
+def test_fp32_bound():
+    flops, nbytes = tbench.conv_work(1, 1 << 20, 2047)
+    assert flops == 2.0 * (1 << 20) * 2047
+    ms, by = tbench.fp32_bound(flops, nbytes)
+    assert by == "operations" and abs(ms - 0.0641) < 1e-3
+    ms, by = tbench.fp32_bound(1e6, 3.35e9)
+    assert by == "bytes" and abs(ms - 1.0) < 1e-9

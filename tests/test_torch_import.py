@@ -1,0 +1,54 @@
+"""The PyTorch port imports without JAX and without the JAX package.
+
+Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``) is
+imported in a fresh interpreter where ``import jax`` fails; afterwards no
+``veles.simd_tpu`` module may be loaded.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "veles" / "simd_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_modules_listed():
+    mods = _port_modules()
+    for name in ("veles.simd_tpu_torch.ops.convolve",
+                 "veles.simd_tpu_torch.ops.correlate",
+                 "veles.simd_tpu_torch.ops.cuda_kernels",
+                 "veles.simd_tpu_torch.runtime.routing",
+                 "veles.simd_tpu_torch.obs"):
+        assert name in mods
+
+
+def test_port_imports_without_jax():
+    code = f"""
+import importlib, runpy, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+for name in {_port_modules()!r}:
+    importlib.import_module(name)
+runpy.run_path({str(REPO / "chip_smoke.py")!r}, run_name="chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+assert not bad, bad
+assert sys.modules["jax"] is None
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

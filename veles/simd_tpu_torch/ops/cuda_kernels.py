@@ -1,0 +1,361 @@
+"""Hand-written CUDA kernels for Hopper, their wrappers and plain
+versions (the port's counterpart of ``veles.simd_tpu.ops.
+pallas_kernels``).
+
+Two of the JAX package's five Pallas kernels are ported here:
+
+* :func:`overlap_save_cuda` (``csrc/overlap_save.cu``) replaces
+  ``overlap_save_pallas``: the full linear convolution of every batch
+  row with one filter, the overlap-save route of the convolve handles.
+* :func:`filter_bank_cuda` (``csrc/filter_bank.cu``) replaces
+  ``filter_bank_pallas``: the multi-channel shifted-MAC FIR bank
+  (``out[c][b, i] = sum_j f[c, j] x_ext[b, i*stride + j*dilation]``),
+  the direct route of the convolve and correlate entry points.
+
+Each source note says what bounds its kernel on the H100 and what the
+design does about it.
+
+Wrappers take float32 torch tensors.  On a CPU tensor a wrapper
+computes the kernel's plain PyTorch version (:func:`overlap_save_plain`,
+:func:`filter_bank_plain`) — the tests' path.  On a CUDA tensor it
+launches the kernel on the current stream, without synchronising, or
+raises; nothing falls back.  Every launch adds one to
+``LAUNCHES[<kernel>]``, and only a launch does.
+
+The kernels are built at first use: one ``nvcc`` per source, all
+started together, for ``sm_90a``, linked into one shared library with a
+plain C interface and loaded with ``ctypes``.  The build lands in
+``build/simd_tpu_torch/<hash of sources and flags>/`` under the
+checkout (listed in ``.gitignore``), so a changed source rebuilds and an
+unchanged one is reused within a checkout.  ``$CUDA_HOME`` (default
+``/usr/local/cuda``) or ``nvcc`` on ``$PATH`` names the compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "overlap_save_cuda", "overlap_save_plain",
+    "filter_bank_cuda", "filter_bank_plain",
+    "fb_smem_bytes", "fits_smem_fb", "fits_smem_os",
+    "LAUNCHES", "reset_launches", "load_library", "build_log",
+    "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "OS_TILE", "FB_TILE",
+    "SMEM_MAX_BYTES",
+]
+
+# ---- admission constants ---------------------------------------------------
+# The shape terms of the JAX gates stay as static priors, so routing
+# matches the reference; none has been measured on the H100 yet.
+# PALLAS_MIN_ROWS: below 8 batch rows the direct route stays on conv1d
+MIN_ROWS = 8
+# PALLAS_DIRECT_MAX_H: the direct kernel serves filters up to 256 taps
+DIRECT_MAX_H = 256
+# PALLAS_OS_MIN_H: the fused overlap-save kernel serves 256 taps and up
+OS_MIN_H = 256
+
+# Tile geometry of the kernels.  The loader checks these mirrors
+# against the built library (veles_os_tile / veles_fb_tile), so the
+# admission arithmetic below cannot drift from csrc/.
+_R = 13
+OS_TILE = 128 * _R
+_OS_KC = 20 * _R
+FB_TILE = 128 * _R
+# shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
+SMEM_MAX_BYTES = 232448
+_SMEM_STATIC_MAX = 48 * 1024
+
+
+def _os_smem_bytes() -> int:
+    """Static shared memory of the overlap-save kernel: one tap chunk
+    and its input window, whatever the filter length."""
+    return 4 * (_OS_KC + OS_TILE + _OS_KC - 1)
+
+
+def fits_smem_os(h_length: int) -> bool:
+    """Shared-memory admission of the overlap-save kernel: its
+    footprint is fixed (about 8.7 KB) and under the 48 KB static limit
+    for every filter length, so every ``h_length >= 1`` is admitted."""
+    return int(h_length) >= 1 and _os_smem_bytes() <= _SMEM_STATIC_MAX
+
+
+def fb_smem_bytes(channels: int, order: int, stride: int,
+                  dilation: int) -> int:
+    """Dynamic shared memory of one filter-bank block: the input span
+    of FB_TILE outputs, the [channels, order] taps (padded to a
+    multiple of 13 on the unit-stride path) and the output tile
+    (``smem_bytes`` in csrc/filter_bank.cu)."""
+    channels, order = int(channels), int(order)
+    stride, dilation = int(stride), int(dilation)
+    if stride == 1 and dilation == 1:
+        order_pad = -(-order // _R) * _R
+        span = FB_TILE + order_pad - 1
+    else:
+        order_pad = order
+        span = (FB_TILE - 1) * stride + (order - 1) * dilation + 1
+    return 4 * (span + channels * order_pad + FB_TILE)
+
+
+def fits_smem_fb(channels: int, order: int, stride: int,
+                 dilation: int) -> bool:
+    """Shared-memory admission of the filter-bank kernel."""
+    return fb_smem_bytes(channels, order, stride,
+                         dilation) <= SMEM_MAX_BYTES
+
+
+# ---- launch counters -------------------------------------------------------
+
+LAUNCHES = {"overlap_save": 0, "filter_bank": 0}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---- the built library -----------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("overlap_save.cu", "filter_bank.cu")
+_BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
+               / "simd_tpu_torch")
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LIB_NAME = "libveles_simd_torch.so"
+
+_lib = None
+_lib_lock = threading.Lock()
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found ($CUDA_HOME/bin or $PATH): the "
+                       "CUDA kernels are built on first use")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _build(out_dir: Path) -> Path:
+    """Compile every source in parallel, link one shared library."""
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    objs, procs = [], []
+    for name in _SOURCES:
+        obj = out_dir / f"{name}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *_NVCC_FLAGS, "-c", str(_CSRC / name), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, proc in zip(_SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {name} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = out_dir / f"{_LIB_NAME}.{tag}"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                           f"{link.stderr}")
+    for obj in objs:
+        obj.unlink()
+    (out_dir / "build.log").write_text(log)
+    lib = out_dir / _LIB_NAME
+    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
+    return lib
+
+
+def build_log() -> str:
+    """nvcc's output for the current sources (``-Xptxas -v``: each
+    kernel's registers, shared memory and spills); builds if needed."""
+    load_library()
+    return (_build_dir() / "build.log").read_text()
+
+
+def load_library():
+    """The kernels' shared library, built on first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        out_dir = _build_dir()
+        path = out_dir / _LIB_NAME
+        if not path.exists():
+            path = _build(out_dir)
+        lib = ctypes.CDLL(str(path))
+        lib.veles_os_tile.argtypes = []
+        lib.veles_os_tile.restype = _I
+        lib.veles_fb_tile.argtypes = []
+        lib.veles_fb_tile.restype = _I
+        lib.veles_fb_smem_bytes.argtypes = [_I, _I, _I, _I]
+        lib.veles_fb_smem_bytes.restype = _L
+        lib.veles_cuda_error_string.argtypes = [_I]
+        lib.veles_cuda_error_string.restype = ctypes.c_char_p
+        lib.veles_os_conv_f32.argtypes = [_P, _P, _P, _L, _L, _I, _P]
+        lib.veles_os_conv_f32.restype = _I
+        lib.veles_fb_f32.argtypes = [_P, _P, _P, _L, _L, _I, _I, _I, _I,
+                                     _L, _P]
+        lib.veles_fb_f32.restype = _I
+        if (lib.veles_os_tile() != OS_TILE
+                or lib.veles_fb_tile() != FB_TILE
+                or lib.veles_fb_smem_bytes(2, 8, 2, 1)
+                != fb_smem_bytes(2, 8, 2, 1)):
+            raise RuntimeError("csrc/ tile geometry differs from the "
+                               "admission constants in cuda_kernels.py")
+        _lib = lib
+        return lib
+
+
+def _check_err(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.veles_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _check_operands(*tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"float32 operands only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+# ---- K1: overlap-save convolution ------------------------------------------
+
+def overlap_save_plain(x, taps):
+    """Plain version of :func:`overlap_save_cuda`: ``y[..., t] =
+    sum_j taps[j] * x[..., t - j]``, one multiply-add pass over the
+    signal per tap."""
+    n, k = x.shape[-1], taps.shape[-1]
+    y = x.new_zeros(tuple(x.shape[:-1]) + (n + k - 1,))
+    for j in range(k):
+        y[..., j:j + n].addcmul_(x, taps[j])
+    return y
+
+
+def overlap_save_cuda(x, taps):
+    """Full linear convolution ``y[..., n+k-1] = x * taps`` (float32).
+
+    ``taps`` is 1D in CONVOLUTION orientation (callers flip for
+    correlation) with at least 2 taps, the contract of the JAX
+    package's ``overlap_save_pallas``; leading batch dims of ``x`` ride
+    along, each row with zero history.  A CPU tensor takes the plain
+    version; a CUDA tensor launches ``csrc/overlap_save.cu``."""
+    if taps.ndim != 1:
+        raise ValueError("taps must be 1D")
+    k = int(taps.shape[-1])
+    if k < 2:
+        raise ValueError("overlap-save needs >= 2 taps (no halo at "
+                         "k=1; use the direct path)")
+    _check_operands(x, taps)
+    if x.device.type == "cpu":
+        return overlap_save_plain(x, taps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n = int(x.shape[-1])
+    rows = x.numel() // n
+    y = torch.empty(tuple(x.shape[:-1]) + (n + k - 1,),
+                    dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return y
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.veles_os_conv_f32(x.data_ptr(), taps.data_ptr(),
+                                    y.data_ptr(), rows, n, k, stream)
+    _check_err(lib, err, "overlap_save kernel")
+    LAUNCHES["overlap_save"] += 1
+    return y
+
+
+# ---- K2: shifted-MAC filter bank -------------------------------------------
+
+def filter_bank_plain(x_ext, filters, stride, dilation, n_out):
+    """Plain version of :func:`filter_bank_cuda`: one multiply-add pass
+    per (channel, tap) over the strided input slice."""
+    outs = []
+    span = (n_out - 1) * stride + 1
+    for c in range(filters.shape[0]):
+        o = x_ext.new_zeros(tuple(x_ext.shape[:-1]) + (n_out,))
+        for j in range(filters.shape[1]):
+            s = j * dilation
+            o.addcmul_(x_ext[..., s:s + span:stride], filters[c, j])
+        outs.append(o)
+    return tuple(outs)
+
+
+def filter_bank_cuda(x_ext, filters, stride, dilation, n_out):
+    """Multi-channel FIR filter bank (float32): returns a tuple of C
+    tensors ``[..., n_out]`` with ``out[c][..., i] = sum_j filters[c,
+    j] * x_ext[..., i*stride + j*dilation]`` — the contract of the JAX
+    package's ``filter_bank_pallas``.  ``x_ext`` carries the caller's
+    boundary extension.  A CPU tensor takes the plain version; a CUDA
+    tensor launches ``csrc/filter_bank.cu``."""
+    if filters.ndim != 2:
+        raise ValueError("filters must be [channels, order]")
+    stride, dilation, n_out = int(stride), int(dilation), int(n_out)
+    if stride < 1 or dilation < 1 or n_out < 1:
+        raise ValueError("stride, dilation and n_out must be >= 1")
+    channels, order = int(filters.shape[0]), int(filters.shape[1])
+    need = (n_out - 1) * stride + (order - 1) * dilation + 1
+    if x_ext.shape[-1] < need:
+        raise ValueError(
+            f"x_ext too short: {x_ext.shape[-1]} < {need} for "
+            f"n_out={n_out}, stride={stride}, dilation={dilation}")
+    _check_operands(x_ext, filters)
+    if x_ext.device.type == "cpu":
+        return filter_bank_plain(x_ext, filters, stride, dilation, n_out)
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_ext.device}")
+    if not fits_smem_fb(channels, order, stride, dilation):
+        raise ValueError(
+            f"filter bank of {channels}x{order} taps at stride {stride}, "
+            f"dilation {dilation} needs "
+            f"{fb_smem_bytes(channels, order, stride, dilation)} bytes "
+            f"of shared memory per block (> {SMEM_MAX_BYTES})")
+    n_ext = int(x_ext.shape[-1])
+    rows = x_ext.numel() // n_ext
+    out = torch.empty((channels, rows, n_out), dtype=torch.float32,
+                      device=x_ext.device)
+    shape = tuple(x_ext.shape[:-1]) + (n_out,)
+    if rows == 0:
+        return tuple(o.reshape(shape) for o in out)
+    lib = load_library()
+    with torch.cuda.device(x_ext.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.veles_fb_f32(x_ext.data_ptr(), filters.data_ptr(),
+                               out.data_ptr(), rows, n_ext, channels,
+                               order, stride, dilation, n_out, stream)
+    _check_err(lib, err, "filter_bank kernel")
+    LAUNCHES["filter_bank"] += 1
+    return tuple(o.reshape(shape) for o in out)
