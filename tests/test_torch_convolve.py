@@ -213,8 +213,15 @@ def test_fftconvolve_rank_errors():
     x = np.ones((8, 8), np.float32)
     with pytest.raises(ValueError, match="rank 3"):
         tcv.fftconvolve(x, np.ones((2, 2, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="convolve2d"):
-        tcv.fftconvolve(x, np.ones((3, 3), np.float32))
+    # a 2D kernel takes the 2D fft path, as in the JAX package
+    r = np.random.RandomState(59)
+    x2 = r.randn(2, 30, 41).astype(np.float32)
+    h2 = r.randn(3, 5).astype(np.float32)
+    for mode in ("full", "same", "valid"):
+        assert _rel(tcv.fftconvolve(x2, h2, mode=mode),
+                    jcv.fftconvolve(x2, h2, mode=mode)) < REL_TOL
+        assert _rel(tcv.oaconvolve(x2, h2, mode=mode),
+                    jcv.oaconvolve(x2, h2, mode=mode)) < REL_TOL
 
 
 @pytest.mark.parametrize("k,reverse", [(33, False), (300, True), (1, False)])
@@ -328,4 +335,5 @@ def test_kernel_wrappers_not_called_on_cpu_routes():
     r = np.random.RandomState(53)
     tcv.convolve(r.randn(10000), r.randn(300))
     tcv.convolve_simd(r.randn(16, 400), r.randn(9))
-    assert tck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0}
+    assert tck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0,
+                            "cascade_bank": 0, "filter_2d": 0}

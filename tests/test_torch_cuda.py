@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from veles.simd_tpu_torch.ops import convolve as cv
+from veles.simd_tpu_torch.ops import convolve2d as cv2
 from veles.simd_tpu_torch.ops import correlate as cr
 from veles.simd_tpu_torch.ops import cuda_kernels as ck
+from veles.simd_tpu_torch.ops import wavelet as wv
 from veles.simd_tpu_torch.utils import config
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +151,143 @@ def test_fft_routes_and_streaming_on_the_card():
     ys.append(sc.flush())
     got = torch.cat(ys).cpu()
     assert _rel(got, _conv64(x[0, :16384], h[:300])) <= TOL
+
+
+def _conv2d64(x, h):
+    m = (x.shape[-2] + h.shape[0] - 1, x.shape[-1] + h.shape[1] - 1)
+    spec = (np.fft.rfft2(x.astype(np.float64), m)
+            * np.fft.rfft2(h.astype(np.float64), m))
+    return np.fft.irfft2(spec, m)
+
+
+@pytest.mark.parametrize("type,order,levels,n,rows", [
+    ("daub", 8, 3, 4096, 64), ("daub", 4, 4, 1024, 8),
+    ("coif", 12, 2, 512, 8), ("daub", 8, 3, 1000, 37),
+    ("sym", 16, 3, 2048, 3), ("daub", 2, 2, 4, 70000),
+])
+def test_cascade_bank_kernel_matches_plain_and_float64(type, order, levels,
+                                                       n, rows):
+    plans, taps, _, reach = wv._cascade_plan_for(wv.WaveletType(type),
+                                                 order, levels)
+    ns = 1 << levels
+    r = np.random.RandomState(order + levels + rows)
+    x = r.randn(rows, n).astype(np.float32)
+    x_ext = np.concatenate([x, np.take(x, np.arange(reach + ns) % n, -1)],
+                           -1)
+    n_out = n // ns
+    got = ck.cascade_bank_cuda(_t(x_ext), taps, plans, ns, n_out)
+    want = ck.cascade_bank_plain(_t(x_ext), taps, plans, ns, n_out)
+    x64 = x_ext.astype(np.float64)
+    for g, w, plan, t in zip(got, want, plans, taps):
+        assert _rel(g.cpu(), w.cpu()) <= TOL
+        ref = sum(float(tap) * x64[:, o * ns + p:o * ns + p
+                                   + (n_out - 1) * ns + 1:ns]
+                  for (p, o), tap in zip(plan, t))
+        assert _rel(g.cpu(), ref) <= TOL
+
+
+@pytest.mark.parametrize("imgs,n0,n1,k0,k1", [
+    (16, 64, 64, 7, 7), (1, 128, 128, 3, 3), (4, 100, 77, 16, 16),
+    (3, 64, 300, 1, 256), (2, 300, 20, 256, 1), (5, 5, 3, 5, 3),
+    (70000, 2, 3, 2, 2),
+])
+def test_filter_2d_kernel_matches_plain_and_float64(imgs, n0, n1, k0, k1):
+    r = np.random.RandomState(n0 + n1 + k0 * k1)
+    x = r.randn(imgs, n0 + 2 * (k0 - 1), n1 + 2 * (k1 - 1))
+    k = r.randn(k0, k1)
+    shape = (n0 + k0 - 1, n1 + k1 - 1)
+    got = ck.filter_2d_cuda(_t(x), _t(k), *shape)
+    want = ck.filter_2d_plain(_t(x), _t(k), *shape)
+    assert _rel(got.cpu(), want.cpu()) <= TOL
+    x32, k32 = x.astype(np.float32), k.astype(np.float32)
+    ref = _conv2d64(x32, k32[::-1, ::-1])[..., k0 - 1:k0 - 1 + shape[0],
+                                          k1 - 1:k1 - 1 + shape[1]]
+    assert _rel(got.cpu(), ref) <= TOL
+
+
+def test_filter_2d_kernel_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.filter_2d_cuda(_t(np.zeros((2100, 8))), _t(np.ones((2048, 1))),
+                          53, 8)
+
+
+def test_wavelet_routes_launch_the_filter_bank():
+    r = np.random.RandomState(6)
+    P = wv.ExtensionType.PERIODIC
+    for rows, launches in ((8, 1), (4, 0)):
+        x = r.randn(rows, 1024).astype(np.float32)
+        ck.reset_launches()
+        hi, lo = wv.wavelet_apply("daub", 8, P, x)
+        assert ck.LAUNCHES["filter_bank"] == launches
+        want = wv.wavelet_apply_na("daub", 8, P, x)
+        assert _rel(hi.cpu(), want[0]) <= TOL
+        assert _rel(lo.cpu(), want[1]) <= TOL
+        rec = wv.wavelet_reconstruct("daub", 8, hi, lo)
+        assert np.max(np.abs(rec.cpu().numpy() - x)) <= 2e-4
+    # non-periodic inverses: the boundary correction runs on the card
+    M = wv.ExtensionType.MIRROR
+    hi, lo = wv.wavelet_apply_na("daub", 8, M, x)
+    rec = wv.wavelet_reconstruct("daub", 8, hi, lo, ext=M)
+    want = wv.wavelet_reconstruct_na("daub", 8, hi, lo, ext=M)
+    assert np.max(np.abs(rec.cpu().numpy() - want)) <= 5e-5
+    hi, lo = wv.stationary_wavelet_apply_na("daub", 8, 2, M, x)
+    rec = wv.stationary_wavelet_reconstruct("daub", 8, 2, hi, lo, ext=M)
+    want = wv.stationary_wavelet_reconstruct_na("daub", 8, 2, hi, lo, ext=M)
+    assert np.max(np.abs(rec.cpu().numpy() - want)) <= 5e-5
+    # a deep SWT level's span does not fit shared memory: conv1d (the
+    # length is no divisor of the dilation, so the taps hit distinct
+    # samples)
+    x = r.randn(8, 1000).astype(np.float32)
+    ck.reset_launches()
+    shi, slo = wv.stationary_wavelet_apply("daub", 16, 14, P, x)
+    assert ck.LAUNCHES["filter_bank"] == 0
+    want = wv.stationary_wavelet_apply_na("daub", 16, 14, P, x)
+    assert _rel(shi.cpu(), want[0]) <= TOL
+    assert _rel(slo.cpu(), want[1]) <= TOL
+
+
+def test_fused_cascade_launches_the_cascade_bank(monkeypatch):
+    r = np.random.RandomState(7)
+    x = r.randn(64, 4096).astype(np.float32)
+    P = wv.ExtensionType.PERIODIC
+    ck.reset_launches()
+    loop = wv.wavelet_transform("daub", 8, P, x, 3)
+    assert ck.LAUNCHES["filter_bank"] == 3
+    assert ck.LAUNCHES["cascade_bank"] == 0
+    monkeypatch.setenv("VELES_SIMD_FORCE_FUSED_CASCADE", "1")
+    ck.reset_launches()
+    fused = wv.wavelet_transform("daub", 8, P, x, 3)
+    assert ck.LAUNCHES["cascade_bank"] == 1
+    assert ck.LAUNCHES["filter_bank"] == 0
+    for f, g in zip(fused, loop):
+        assert f.shape == g.shape
+        assert _rel(f.cpu(), g.cpu()) <= 5e-5
+
+
+def test_convolve2d_routes():
+    r = np.random.RandomState(8)
+    x = r.randn(3, 200, 150).astype(np.float32)
+    for k, launches in (((7, 7), 1), ((1, 256), 1), ((17, 17), 0)):
+        h = r.randn(*k).astype(np.float32)
+        ck.reset_launches()
+        y = cv2.convolve2d(x, h)
+        assert ck.LAUNCHES["filter_2d"] == launches
+        assert _rel(y.cpu(), _conv2d64(x, h)) <= TOL
+        # an explicit direct form the kernel refuses is cuDNN in fp32
+        y = cv2.convolve2d(x, h, algorithm="direct")
+        assert _rel(y.cpu(), _conv2d64(x, h)) <= TOL
+    h = r.randn(5, 5).astype(np.float32)
+    yc = cv2.cross_correlate2d(x, h, mode="valid")
+    want = _conv2d64(x, h[::-1, ::-1])[:, 4:200, 4:150]
+    assert _rel(yc.cpu(), want) <= TOL
+
+
+def test_convolve2d_kernel_route_opt_out(monkeypatch):
+    r = np.random.RandomState(9)
+    x, h = r.randn(2, 64, 64), r.randn(3, 3)
+    monkeypatch.setenv("VELES_SIMD_DISABLE_CUDA2D", "1")
+    ck.reset_launches()
+    y = cv2.convolve2d(x, h)
+    assert ck.LAUNCHES["filter_2d"] == 0
+    want = _conv2d64(x.astype(np.float32), h.astype(np.float32))
+    assert _rel(y.cpu(), want) <= TOL

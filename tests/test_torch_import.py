@@ -27,6 +27,9 @@ def _port_modules():
 def test_port_modules_listed():
     mods = _port_modules()
     for name in ("veles.simd_tpu_torch.ops.convolve",
+                 "veles.simd_tpu_torch.ops.convolve2d",
+                 "veles.simd_tpu_torch.ops.wavelet",
+                 "veles.simd_tpu_torch.ops.wavelet_coeffs",
                  "veles.simd_tpu_torch.ops.correlate",
                  "veles.simd_tpu_torch.ops.cuda_kernels",
                  "veles.simd_tpu_torch.runtime.routing",

@@ -2,8 +2,9 @@
 
 On the CPU the wrappers of ``veles.simd_tpu_torch.ops.cuda_kernels``
 compute their kernels' plain versions; here those are held against
-``overlap_save_pallas`` and ``filter_bank_pallas`` run in interpret
-mode, on the same NumPy inputs.  Both sides are float32 with different
+``overlap_save_pallas``, ``filter_bank_pallas``, ``cascade_bank_pallas``
+and ``filter_2d_pallas`` run in interpret mode, on the same NumPy
+inputs.  Both sides are float32 with different
 summation orders, so the tolerance is 1e-5 of max|y| (``test_pallas.py``
 holds the Pallas kernel itself to 1e-5 against float64).  The kernels
 themselves are compared with the plain versions on the card by
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from veles.simd_tpu.ops import pallas_kernels as pk
+from veles.simd_tpu.ops import wavelet as jw
 from veles.simd_tpu_torch.ops import cuda_kernels as ck
 
 torch.set_num_threads(1)
@@ -150,7 +152,11 @@ def test_cpu_path_launches_nothing():
     ck.reset_launches()
     ck.overlap_save_cuda(torch.ones(300), torch.ones(5))
     ck.filter_bank_cuda(torch.ones(4, 30), torch.ones(1, 5), 1, 1, 26)
-    assert ck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0}
+    ck.cascade_bank_cuda(torch.ones(2, 40), [np.ones(2)],
+                         (((0, 0), (1, 1)),), 4, 8)
+    ck.filter_2d_cuda(torch.ones(2, 9, 9), torch.ones(3, 2), 7, 8)
+    assert ck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0,
+                           "cascade_bank": 0, "filter_2d": 0}
 
 
 def test_shared_memory_admission():
@@ -162,3 +168,124 @@ def test_shared_memory_admission():
     assert ck.fb_smem_bytes(1, 129, 1, 1) == 4 * (1793 + 130 + 1664)
     # a span too long for one block is refused
     assert not ck.fits_smem_fb(2, 64, 1, 1024)
+    # cascade bank: slot table, channel starts, staged phases whose
+    # pitch puts a warp's deinterleaving stores on 32 banks
+    assert ck._cb_pitch(8, 6) == 548 and 548 % 32 == 4
+    assert ck._cb_pitch(4, 3) % 32 == 8 and ck._cb_pitch(3, 2) == 514
+    assert ck.cb_smem_bytes(8, 6, 176, 8) == 8 * 176 + 4 * 9 + 4 * 8 * 548
+    assert not ck.fits_smem_cb(64, 400, 512, 64)
+    # 2D: tile plus halo (kernel rows padded to 4) and the taps
+    assert ck.f2d_smem_bytes(7, 7) == 4 * ((32 + 8 - 1) * (64 + 6) + 49)
+    assert ck.fits_smem_f2d(256, 1) and not ck.fits_smem_f2d(2048, 1)
+
+
+def _cascade_case(type, order, levels, n, rows=8):
+    gs, g_lo = jw._composed_cascade_filters(type, order, levels)
+    plans, taps, _ = jw._cascade_plan(gs, g_lo, levels)
+    ns = 1 << levels
+    x = np.random.RandomState(n + levels).randn(rows, n).astype(np.float32)
+    x_ext = np.concatenate([x, x[:, :len(g_lo) - 1 + ns]], axis=-1)
+    return x_ext, taps, plans, ns, n // ns
+
+
+@pytest.mark.parametrize("type,order,levels,n", [
+    ("daub", 8, 2, 256), ("daub", 8, 3, 512), ("sym", 8, 2, 256),
+    ("daub", 4, 4, 1024), ("coif", 12, 2, 512)])
+def test_cascade_bank_matches_pallas(type, order, levels, n):
+    x_ext, taps, plans, ns, n_out = _cascade_case(type, order, levels, n)
+    want = pk.cascade_bank_pallas(x_ext, taps, plans, ns, n_out,
+                                  interpret=True)
+    got = ck.cascade_bank_cuda(torch.from_numpy(x_ext), taps, plans, ns,
+                               n_out)
+    assert len(got) == len(want) == len(plans)
+    for g, w in zip(got, want):
+        assert g.shape == (8, n_out)
+        assert _rel(g.numpy(), np.asarray(w)) < REL_TOL
+    # taps as tensors, plans as lists, leading batch dims: same result
+    got2 = ck.cascade_bank_cuda(
+        torch.from_numpy(x_ext).reshape(2, 4, -1),
+        [torch.from_numpy(t) for t in taps],
+        [list(plan) for plan in plans], ns, n_out)
+    for g, g2 in zip(got, got2):
+        np.testing.assert_array_equal(g.numpy(),
+                                      g2.reshape(8, n_out).numpy())
+
+
+@pytest.mark.parametrize("x_shape,k_shape,n_out", [
+    ((2, 12, 14), (3, 4), (10, 11)),
+    ((6, 8), (2, 2), (5, 7)),
+    ((20, 10, 12), (3, 3), (8, 10)),
+    ((2, 3, 9, 300), (1, 256), (9, 45)),
+    ((2, 260, 7), (256, 1), (5, 7)),
+    ((3, 21, 22), (6, 5), (16, 18)),
+])
+def test_filter_2d_matches_pallas(x_shape, k_shape, n_out):
+    r = np.random.RandomState(sum(x_shape) + sum(k_shape))
+    x_ext = r.randn(*x_shape).astype(np.float32)
+    k = r.randn(*k_shape).astype(np.float32)
+    want = np.asarray(pk.filter_2d_pallas(x_ext, k, *n_out,
+                                          interpret=True))
+    got = ck.filter_2d_cuda(torch.from_numpy(x_ext), torch.from_numpy(k),
+                            *n_out)
+    assert got.shape == want.shape == x_shape[:-2] + n_out
+    assert _rel(got.numpy(), want) < REL_TOL
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda m: m.cascade(np.ones((2, 64), np.float32),
+                         [np.ones(2), np.ones(1)], (((0, 0), (1, 0)),), 4,
+                         8), "one tap vector per plan channel"),
+    (lambda m: m.cascade(np.ones((2, 64), np.float32), [np.ones(0)],
+                         ((),), 4, 8), ">= 1 slot"),
+    (lambda m: m.cascade(np.ones((2, 64), np.float32), [np.ones(3)],
+                         (((0, 0), (1, 0)),), 4, 8), "slot count"),
+    (lambda m: m.cascade(np.ones((2, 64), np.float32), [np.ones(1)],
+                         (((4, 0),),), 4, 8), "outside"),
+    (lambda m: m.cascade(np.ones((2, 64), np.float32), [np.ones(1)],
+                         (((1, -1),),), 4, 8), "outside"),
+    (lambda m: m.cascade(np.ones((2, 33), np.float32), [np.ones(2)],
+                         (((0, 0), (3, 1)),), 4, 8), "too short"),
+    (lambda m: m.filter_2d(np.ones((4, 4), np.float32),
+                           np.ones(3, np.float32), 2, 2), "kernel2d"),
+    (lambda m: m.filter_2d(np.ones((4, 4), np.float32),
+                           np.ones((3, 3), np.float32), 4, 4), "too short"),
+    (lambda m: m.filter_2d(np.ones(9, np.float32),
+                           np.ones((3, 3), np.float32), 2, 2), "n0_ext"),
+])
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_cascade_and_2d_contract_errors_match(call, match, side):
+    class Jax:
+        @staticmethod
+        def cascade(x, taps, plans, ns, n_out):
+            return pk.cascade_bank_pallas(x, taps, plans, ns, n_out,
+                                          interpret=True)
+
+        @staticmethod
+        def filter_2d(x, k, n0, n1):
+            return pk.filter_2d_pallas(x, k, n0, n1, interpret=True)
+
+    class Torch:
+        @staticmethod
+        def cascade(x, taps, plans, ns, n_out):
+            return ck.cascade_bank_cuda(torch.from_numpy(x), taps, plans,
+                                        ns, n_out)
+
+        @staticmethod
+        def filter_2d(x, k, n0, n1):
+            return ck.filter_2d_cuda(torch.from_numpy(x),
+                                     torch.from_numpy(k), n0, n1)
+
+    with pytest.raises(ValueError, match=match):
+        call(Jax if side == "jax" else Torch)
+
+
+def test_new_wrappers_refuse_other_devices():
+    meta = torch.empty(2, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.cascade_bank_cuda(meta, [np.ones(1)], (((0, 0),),), 4, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.filter_2d_cuda(torch.empty(9, 9, device="meta"),
+                          torch.empty(2, 2, device="meta"), 8, 8)
+    with pytest.raises(ValueError, match="float32"):
+        ck.filter_2d_cuda(torch.ones(9, 9, dtype=torch.float64),
+                          torch.ones(2, 2, dtype=torch.float64), 8, 8)

@@ -4,6 +4,11 @@
   auto-select)
 * :mod:`.correlate`    — 1D cross-correlation (reversed-h reuse of
   convolve)
+* :mod:`.convolve2d`   — 2D convolution and cross-correlation (direct
+  kernel / FFT, auto-select)
+* :mod:`.wavelet`      — DWT, SWT, cascades, synthesis, packets and the
+  separable 2D transforms
+* :mod:`.wavelet_coeffs` — the wavelet filter tables
 * :mod:`.cuda_kernels` — the hand-written Hopper kernels, their
   wrappers, plain versions, gates and launch counters
 

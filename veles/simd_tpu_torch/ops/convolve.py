@@ -579,10 +579,10 @@ def convolve_finalize(handle):
 
 
 def fftconvolve(x, h, mode: str = "full", simd=None):
-    """scipy's ``fftconvolve`` by name, for 1D taps (leading batch dims
-    on ``x`` ride along).  A 2D kernel needs ``convolve2d``, which is
-    not ported yet; higher ranks are rejected as in the JAX
-    package."""
+    """scipy's ``fftconvolve`` by name: 1D taps (leading batch dims on
+    ``x`` ride along) take the padded-rfft handle; a 2D kernel routes
+    to :func:`veles.simd_tpu_torch.ops.convolve2d.convolve2d` with the
+    fft algorithm; higher ranks are rejected as in the JAX package."""
     ndim = len(h.shape) if hasattr(h, "shape") else np.ndim(h)
     if ndim > 2:
         raise ValueError(
@@ -590,9 +590,9 @@ def fftconvolve(x, h, mode: str = "full", simd=None):
             "or a 2D kernel; scipy's N-d fftconvolve has no equivalent "
             "here)")
     if ndim == 2:
-        raise NotImplementedError(
-            "2D kernels route to convolve2d, which the PyTorch port "
-            "does not have yet")
+        from veles.simd_tpu_torch.ops import convolve2d as cv2
+
+        return cv2.convolve2d(x, h, algorithm="fft", simd=simd, mode=mode)
     handle = convolve_fft_initialize(_length(x), _length(h))
     return convolve(handle, x, h, simd=simd, mode=mode)
 
@@ -600,7 +600,8 @@ def fftconvolve(x, h, mode: str = "full", simd=None):
 def oaconvolve(x, h, mode: str = "full", simd=None):
     """scipy's ``oaconvolve`` by name: the overlap-save handle, or
     :func:`fftconvolve` for sizes outside its contract (as scipy's
-    oaconvolve falls back internally)."""
+    oaconvolve falls back internally); a 2D kernel takes the 2D fft
+    path like :func:`fftconvolve`."""
     ndim = len(h.shape) if hasattr(h, "shape") else np.ndim(h)
     if ndim == 1:
         try:

@@ -2,7 +2,7 @@
 versions (the port's counterpart of ``veles.simd_tpu.ops.
 pallas_kernels``).
 
-Two of the JAX package's five Pallas kernels are ported here:
+Four of the JAX package's five Pallas kernels are ported here:
 
 * :func:`overlap_save_cuda` (``csrc/overlap_save.cu``) replaces
   ``overlap_save_pallas``: the full linear convolution of every batch
@@ -10,7 +10,15 @@ Two of the JAX package's five Pallas kernels are ported here:
 * :func:`filter_bank_cuda` (``csrc/filter_bank.cu``) replaces
   ``filter_bank_pallas``: the multi-channel shifted-MAC FIR bank
   (``out[c][b, i] = sum_j f[c, j] x_ext[b, i*stride + j*dilation]``),
-  the direct route of the convolve and correlate entry points.
+  the direct route of the convolve and correlate entry points and the
+  ``cuda`` route of the DWT and SWT.
+* :func:`cascade_bank_cuda` (``csrc/cascade_bank.cu``) replaces
+  ``cascade_bank_pallas``: FIR channels at stride ``n_split`` over a
+  runtime plan of (phase, offset) slots, the fused PERIODIC DWT
+  cascade.
+* :func:`filter_2d_cuda` (``csrc/filter_2d.cu``) replaces
+  ``filter_2d_pallas``: the 2D shifted-MAC correlation, the direct
+  route of ``convolve2d`` and ``cross_correlate2d``.
 
 Each source note says what bounds its kernel on the H100 and what the
 design does about it.
@@ -34,6 +42,7 @@ unchanged one is reused within a checkout.  ``$CUDA_HOME`` (default
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,15 +50,20 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 __all__ = [
     "overlap_save_cuda", "overlap_save_plain",
     "filter_bank_cuda", "filter_bank_plain",
+    "cascade_bank_cuda", "cascade_bank_plain",
+    "filter_2d_cuda", "filter_2d_plain",
     "fb_smem_bytes", "fits_smem_fb", "fits_smem_os",
+    "cb_smem_bytes", "fits_smem_cb", "f2d_smem_bytes", "fits_smem_f2d",
+    "should_route",
     "LAUNCHES", "reset_launches", "load_library", "build_log",
-    "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "OS_TILE", "FB_TILE",
-    "SMEM_MAX_BYTES",
+    "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_TILE",
+    "FB_TILE", "CB_TILE", "F2D_TILE", "SMEM_MAX_BYTES",
 ]
 
 # ---- admission constants ---------------------------------------------------
@@ -61,14 +75,19 @@ MIN_ROWS = 8
 DIRECT_MAX_H = 256
 # PALLAS_OS_MIN_H: the fused overlap-save kernel serves 256 taps and up
 OS_MIN_H = 256
+# PALLAS_2D_MAX_KERNEL_AREA: the 2D kernel serves kernels up to 16 x 16
+MAX_AREA_2D = 256
 
 # Tile geometry of the kernels.  The loader checks these mirrors
-# against the built library (veles_os_tile / veles_fb_tile), so the
+# against the built library (veles_*_tile, veles_*_smem_bytes), so the
 # admission arithmetic below cannot drift from csrc/.
 _R = 13
 OS_TILE = 128 * _R
 _OS_KC = 20 * _R
 FB_TILE = 128 * _R
+CB_TILE = 128 * 4
+_F2D_RY = 4
+F2D_TILE = (8 * _F2D_RY, 32 * 2)      # (rows, columns) of outputs
 # shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
 SMEM_MAX_BYTES = 232448
 _SMEM_STATIC_MAX = 48 * 1024
@@ -111,9 +130,62 @@ def fits_smem_fb(channels: int, order: int, stride: int,
                          dilation) <= SMEM_MAX_BYTES
 
 
+def _cb_pitch(n_split: int, max_off: int) -> int:
+    """Row pitch of the cascade bank's staged phases (``pitch_of`` in
+    csrc/cascade_bank.cu)."""
+    length = CB_TILE + max_off
+    if n_split > 32 or 32 % n_split:
+        return length
+    return length + ((32 // n_split) % 32 - length) % 32
+
+
+def cb_smem_bytes(n_split: int, max_off: int, n_slots: int,
+                  channels: int) -> int:
+    """Dynamic shared memory of one cascade-bank block: the slot table
+    (tap and staged offset, 8 bytes a slot), the channel starts and the
+    ``[n_split, pitch]`` staged input span (``smem_bytes`` in
+    csrc/cascade_bank.cu)."""
+    n_split, max_off = int(n_split), int(max_off)
+    return (8 * int(n_slots) + 4 * (int(channels) + 1)
+            + 4 * n_split * _cb_pitch(n_split, max_off))
+
+
+def fits_smem_cb(n_split: int, max_off: int, n_slots: int,
+                 channels: int) -> bool:
+    """Shared-memory admission of the cascade-bank kernel."""
+    return cb_smem_bytes(n_split, max_off, n_slots,
+                         channels) <= SMEM_MAX_BYTES
+
+
+def f2d_smem_bytes(k0: int, k1: int) -> int:
+    """Dynamic shared memory of one 2D block: the staged input tile with
+    its halo (kernel rows padded to a multiple of 4) and the taps
+    (``smem_bytes`` in csrc/filter_2d.cu)."""
+    k0, k1 = int(k0), int(k1)
+    rows = F2D_TILE[0] + -(-k0 // _F2D_RY) * _F2D_RY - 1
+    cols = F2D_TILE[1] + k1 - 1
+    return 4 * (rows * cols + k0 * k1)
+
+
+def fits_smem_f2d(k0: int, k1: int) -> bool:
+    """Shared-memory admission of the 2D kernel (every kernel of area
+    <= MAX_AREA_2D fits: 256 x 1 needs the most, 74,496 bytes)."""
+    return f2d_smem_bytes(k0, k1) <= SMEM_MAX_BYTES
+
+
+def should_route(rows: int, cuda: bool) -> bool:
+    """The device terms the 1D wavelet routes share: operands on a CUDA
+    card and at least MIN_ROWS batch rows (the JAX package's
+    ``should_route``, whose VMEM term becomes each route's own
+    shared-memory admission here).  Tests monkeypatch it to open the
+    gates on the CPU."""
+    return bool(cuda) and int(rows) >= MIN_ROWS
+
+
 # ---- launch counters -------------------------------------------------------
 
-LAUNCHES = {"overlap_save": 0, "filter_bank": 0}
+LAUNCHES = {"overlap_save": 0, "filter_bank": 0, "cascade_bank": 0,
+            "filter_2d": 0}
 
 
 def reset_launches() -> None:
@@ -125,7 +197,8 @@ def reset_launches() -> None:
 # ---- the built library -----------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("overlap_save.cu", "filter_bank.cu")
+_SOURCES = ("overlap_save.cu", "filter_bank.cu", "cascade_bank.cu",
+            "filter_2d.cu")
 _BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
                / "simd_tpu_torch")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -223,10 +296,32 @@ def load_library():
         lib.veles_fb_f32.argtypes = [_P, _P, _P, _L, _L, _I, _I, _I, _I,
                                      _L, _P]
         lib.veles_fb_f32.restype = _I
+        for name in ("veles_cb_tile", "veles_f2d_tile_x",
+                     "veles_f2d_tile_y"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = _I
+        lib.veles_cb_smem_bytes.argtypes = [_I, _I, _I, _I]
+        lib.veles_cb_smem_bytes.restype = _L
+        lib.veles_f2d_smem_bytes.argtypes = [_I, _I]
+        lib.veles_f2d_smem_bytes.restype = _L
+        lib.veles_cb_f32.argtypes = [_P, _P, _P, _P, _L, _L, _I, _I, _I,
+                                     _I, _L, _P]
+        lib.veles_cb_f32.restype = _I
+        lib.veles_f2d_f32.argtypes = [_P, _P, _P, _L, _L, _L, _I, _I, _L,
+                                      _L, _P]
+        lib.veles_f2d_f32.restype = _I
         if (lib.veles_os_tile() != OS_TILE
                 or lib.veles_fb_tile() != FB_TILE
                 or lib.veles_fb_smem_bytes(2, 8, 2, 1)
-                != fb_smem_bytes(2, 8, 2, 1)):
+                != fb_smem_bytes(2, 8, 2, 1)
+                or lib.veles_cb_tile() != CB_TILE
+                or any(lib.veles_cb_smem_bytes(*a) != cb_smem_bytes(*a)
+                       for a in ((8, 6, 176, 8), (4, 3, 100, 9),
+                                 (3, 2, 10, 2)))
+                or (lib.veles_f2d_tile_y(), lib.veles_f2d_tile_x())
+                != F2D_TILE
+                or any(lib.veles_f2d_smem_bytes(*a) != f2d_smem_bytes(*a)
+                       for a in ((7, 7), (1, 256), (256, 1), (5, 3)))):
             raise RuntimeError("csrc/ tile geometry differs from the "
                                "admission constants in cuda_kernels.py")
         _lib = lib
@@ -359,3 +454,217 @@ def filter_bank_cuda(x_ext, filters, stride, dilation, n_out):
     _check_err(lib, err, "filter_bank kernel")
     LAUNCHES["filter_bank"] += 1
     return tuple(o.reshape(shape) for o in out)
+
+
+# ---- K3: cascade bank ------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _plan_info(plans, n_split):
+    """What a plan tells the kernel, derived once per (plans, n_split):
+    ``(plans, need_extra, n_slots, max_off, meta)``.  ``x_ext`` must
+    hold ``(n_out - 1) * n_split + need_extra`` samples (the JAX
+    package's per-phase slice lengths: ``n_out`` plus the phase's
+    largest offset); ``meta = [channel starts | phases | offsets]``
+    (int32) is the layout ``veles_cb_f32`` reads.  Raises the plan
+    errors of the JAX package's ``cascade_bank_pallas``."""
+    plans = tuple(tuple((int(p), int(o)) for p, o in plan)
+                  for plan in plans)
+    phase_off = [0] * n_split
+    for plan in plans:
+        if len(plan) == 0:
+            raise ValueError("every plan channel needs >= 1 slot")
+        for p, o in plan:
+            if not 0 <= p < n_split or o < 0:
+                raise ValueError(
+                    f"plan slot (phase={p}, offset={o}) outside "
+                    f"[0, {n_split}) x [0, inf)")
+            phase_off[p] = max(phase_off[p], o)
+    need_extra = max(p + o * n_split + 1 for p, o in enumerate(phase_off))
+    slots = [ps for plan in plans for ps in plan]
+    starts = np.cumsum([0] + [len(plan) for plan in plans])
+    meta = np.concatenate([starts, [p for p, _ in slots],
+                           [o for _, o in slots]]).astype(np.int32)
+    return plans, need_extra, len(slots), max(phase_off), meta
+
+
+def _check_plan(taps_list, plans, n_split):
+    """The plan checks of ``cascade_bank_pallas``, with its messages;
+    returns :func:`_plan_info` of the plan."""
+    try:
+        info = _plan_info(plans, n_split)
+    except TypeError:                 # unhashable: lists, arrays
+        info = _plan_info(tuple(tuple((int(p), int(o)) for p, o in plan)
+                                for plan in plans), n_split)
+    if len(taps_list) != len(info[0]):
+        raise ValueError("one tap vector per plan channel")
+    for t, plan in zip(taps_list, info[0]):
+        if tuple(t.shape if isinstance(t, torch.Tensor)
+                 else np.shape(t)) != (len(plan),):
+            raise ValueError("tap vector length must equal its plan's "
+                             "slot count")
+    return info
+
+
+def _flat_taps(taps_list, device):
+    """The per-channel taps as one float32 vector on ``device``."""
+    if any(isinstance(t, torch.Tensor) for t in taps_list):
+        return torch.cat([torch.as_tensor(t, dtype=torch.float32,
+                                          device=device).reshape(-1)
+                          for t in taps_list])
+    flat = np.concatenate([np.asarray(t, np.float32).reshape(-1)
+                           for t in taps_list])
+    return torch.as_tensor(flat, device=device)
+
+
+def cascade_bank_plain(x_ext, taps_list, plans, n_split, n_out):
+    """Plain version of :func:`cascade_bank_cuda`: one multiply-add pass
+    per plan slot over the stride-``n_split`` input slice."""
+    taps = _flat_taps(taps_list, x_ext.device)
+    span = (n_out - 1) * n_split + 1
+    outs, s = [], 0
+    for plan in plans:
+        o = x_ext.new_zeros(tuple(x_ext.shape[:-1]) + (n_out,))
+        for p, off in plan:
+            start = off * n_split + p
+            o.addcmul_(x_ext[..., start:start + span:n_split], taps[s])
+            s += 1
+        outs.append(o)
+    return tuple(outs)
+
+
+# device copies of plans (and of host-side taps), so a repeated call
+# makes no host-to-device copy: plan key -> (taps or None, meta)
+_PLAN_CACHE: dict = {}
+_PLAN_CACHE_MAX = 64
+_plan_lock = threading.Lock()
+
+
+def _plan_arrays(taps_list, plans, meta, device):
+    """``(taps, meta)`` on ``device``: float32 taps in slot order and
+    the int32 ``meta``; cached per plan (and per tap values when they
+    come from the host)."""
+    host_taps = not any(isinstance(t, torch.Tensor) for t in taps_list)
+    key = (plans, str(device))
+    if host_taps:
+        key += (b"".join(np.asarray(t, np.float32).tobytes()
+                         for t in taps_list),)
+    with _plan_lock:
+        hit = _PLAN_CACHE.get(key)
+    if hit is None:
+        hit = (_flat_taps(taps_list, device) if host_taps else None,
+               torch.as_tensor(meta, device=device))
+        with _plan_lock:
+            if len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
+                _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+            _PLAN_CACHE[key] = hit
+    taps, meta = hit
+    if taps is None:
+        taps = _flat_taps(taps_list, device)
+    return taps, meta
+
+
+def cascade_bank_cuda(x_ext, taps_list, plans, n_split, n_out):
+    """FIR channels at stride ``n_split`` from one pass over the input
+    (float32): channel c returns ``out_c[..., i] = sum_slot
+    taps_c[slot] * x_ext[..., (i + off) * n_split + p]`` over its plan
+    of ``(p, off)`` slots — the contract of the JAX package's
+    ``cascade_bank_pallas``, plan checks and messages included.
+    ``taps_list`` holds one tap vector per channel in plan-slot order
+    (NumPy arrays or tensors).  A CPU tensor takes the plain version; a
+    CUDA tensor launches ``csrc/cascade_bank.cu``."""
+    n_split, n_out = int(n_split), int(n_out)
+    plans, need_extra, n_slots, max_off, meta = _check_plan(
+        taps_list, plans, n_split)
+    need = (n_out - 1) * n_split + need_extra
+    if x_ext.shape[-1] < need:
+        raise ValueError(f"x_ext too short: {x_ext.shape[-1]} < {need}")
+    _check_operands(x_ext)
+    if x_ext.device.type == "cpu":
+        return cascade_bank_plain(x_ext, taps_list, plans, n_split, n_out)
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_ext.device}")
+    channels = len(plans)
+    if not fits_smem_cb(n_split, max_off, n_slots, channels):
+        raise ValueError(
+            f"cascade bank of {channels} channels, {n_slots} slots at "
+            f"n_split {n_split} needs "
+            f"{cb_smem_bytes(n_split, max_off, n_slots, channels)} bytes "
+            f"of shared memory per block (> {SMEM_MAX_BYTES})")
+    n_ext = int(x_ext.shape[-1])
+    rows = x_ext.numel() // n_ext
+    out = torch.empty((channels, rows, n_out), dtype=torch.float32,
+                      device=x_ext.device)
+    shape = tuple(x_ext.shape[:-1]) + (n_out,)
+    if rows == 0:
+        return tuple(o.reshape(shape) for o in out)
+    taps, meta = _plan_arrays(taps_list, plans, meta, x_ext.device)
+    lib = load_library()
+    with torch.cuda.device(x_ext.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.veles_cb_f32(x_ext.data_ptr(), taps.data_ptr(),
+                               meta.data_ptr(), out.data_ptr(), rows,
+                               n_ext, n_split, channels, n_slots, max_off,
+                               n_out, stream)
+    _check_err(lib, err, "cascade_bank kernel")
+    LAUNCHES["cascade_bank"] += 1
+    return tuple(o.reshape(shape) for o in out)
+
+
+# ---- K5: 2D shifted-MAC ----------------------------------------------------
+
+def filter_2d_plain(x_ext, kernel2d, n_out0, n_out1):
+    """Plain version of :func:`filter_2d_cuda`: one multiply-add pass
+    per tap over the shifted input window, in the kernel's tap order
+    (groups of four kernel rows, then kernel columns, then the row
+    within the group)."""
+    k0, k1 = kernel2d.shape
+    o = x_ext.new_zeros(tuple(x_ext.shape[:-2]) + (n_out0, n_out1))
+    for g in range(0, k0, _F2D_RY):
+        for q in range(k1):
+            for p in range(g, min(g + _F2D_RY, k0)):
+                o.addcmul_(x_ext[..., p:p + n_out0, q:q + n_out1],
+                           kernel2d[p, q])
+    return o
+
+
+def filter_2d_cuda(x_ext, kernel2d, n_out0, n_out1):
+    """2D FIR correlation (float32): ``out[..., i, j] = sum_{p, q}
+    kernel2d[p, q] * x_ext[..., i + p, j + q]`` — the contract of the
+    JAX package's ``filter_2d_pallas``, argument checks included;
+    leading batch dims of ``x_ext`` ride along.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``csrc/filter_2d.cu``."""
+    if kernel2d.ndim != 2:
+        raise ValueError("kernel2d must be [k0, k1]")
+    k0, k1 = int(kernel2d.shape[0]), int(kernel2d.shape[1])
+    if x_ext.ndim < 2:
+        raise ValueError("x_ext must be [..., n0_ext, n1_ext]")
+    n_out0, n_out1 = int(n_out0), int(n_out1)
+    if (x_ext.shape[-2] < n_out0 + k0 - 1
+            or x_ext.shape[-1] < n_out1 + k1 - 1):
+        raise ValueError(
+            f"x_ext too short: {tuple(x_ext.shape[-2:])} < "
+            f"{(n_out0 + k0 - 1, n_out1 + k1 - 1)}")
+    _check_operands(x_ext, kernel2d)
+    if x_ext.device.type == "cpu":
+        return filter_2d_plain(x_ext, kernel2d, n_out0, n_out1)
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_ext.device}")
+    if not fits_smem_f2d(k0, k1):
+        raise ValueError(
+            f"2D kernel {k0}x{k1} needs {f2d_smem_bytes(k0, k1)} bytes of "
+            f"shared memory per block (> {SMEM_MAX_BYTES})")
+    n0e, n1e = int(x_ext.shape[-2]), int(x_ext.shape[-1])
+    imgs = x_ext.numel() // max(n0e * n1e, 1)
+    out = torch.empty(tuple(x_ext.shape[:-2]) + (n_out0, n_out1),
+                      dtype=torch.float32, device=x_ext.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(x_ext.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.veles_f2d_f32(x_ext.data_ptr(), kernel2d.data_ptr(),
+                                out.data_ptr(), imgs, n0e, n1e, k0, k1,
+                                n_out0, n_out1, stream)
+    _check_err(lib, err, "filter_2d kernel")
+    LAUNCHES["filter_2d"] += 1
+    return out

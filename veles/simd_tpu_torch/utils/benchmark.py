@@ -7,6 +7,9 @@
   host's enqueue cost overlaps the device work and the marginal per
   launch is device time.
 * :func:`host_time` — best-of-N wall time of a synchronous function.
+* :func:`device_busy_ms` — ``torch.profiler``'s device time per call,
+  summed over its kernels and copies: a kernel's time free of the
+  host's enqueue cost.
 * :func:`device_breakdown` — ``torch.profiler``'s device time per
   kernel and copy for one call, and the device's idle share.
 * :func:`fp32_bound` — the least time the card could take for a
@@ -25,7 +28,8 @@ import time
 
 import torch
 
-__all__ = ["device_time_ms", "host_time", "device_breakdown",
+__all__ = ["device_time_ms", "host_time", "device_busy_ms",
+           "device_breakdown",
            "fp32_bound", "conv_work", "H100_FP32_TFLOPS", "H100_HBM_TBPS"]
 
 H100_FP32_TFLOPS = 67.0
@@ -61,11 +65,11 @@ def host_time(fn, *, repeats: int = 3, warmup: int = 1) -> float:
     return best
 
 
-def device_breakdown(fn, *, calls: int = 5) -> str:
-    """Where the device time of ``fn`` goes: ``torch.profiler`` over
-    ``calls`` calls (after one profiled warm-up), device microseconds
-    per call by kernel or copy, the host-clock microseconds per call,
-    and the device's idle share of that wall time."""
+def _profile(fn, calls: int):
+    """``(rows, wall_us)``: ``torch.profiler``'s device microseconds per
+    call of ``fn`` by kernel or copy, largest first, and the host-clock
+    microseconds per call, over ``calls`` calls after one profiled
+    warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -88,6 +92,25 @@ def device_breakdown(fn, *, calls: int = 5) -> str:
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
+    return rows, wall_us
+
+
+def device_busy_ms(fn, *, calls: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: the sum of its kernels'
+    and copies' device time under ``torch.profiler``, free of the
+    host's enqueue cost (which sets the chained time of a call whose
+    kernels are shorter than its Python dispatch)."""
+    rows, _ = _profile(fn, calls)
+    if not rows:
+        raise RuntimeError("torch.profiler saw no device time")
+    return sum(us for us, _ in rows) / 1e3
+
+
+def device_breakdown(fn, *, calls: int = 5) -> str:
+    """Where the device time of ``fn`` goes: device microseconds per
+    call by kernel or copy, the host-clock microseconds per call, and
+    the device's idle share of that wall time."""
+    rows, wall_us = _profile(fn, calls)
     if not rows:
         return f"profiler saw no device time ({wall_us:.1f} us wall)"
     busy = sum(us for us, _ in rows)
