@@ -24,16 +24,25 @@ without printing a result):
             through the cascade-bank kernel, a DWT round trip); and
             ``convolve2d`` on 16 x 512 x 512 with 7 x 7 (the 2D
             kernel), ``cross_correlate2d`` and a 2D ``fftconvolve``;
+            the spectral slice: ``stft`` on 2^20 samples at 512/128
+            through the auto route (the fused STFT kernel) and the
+            forced ``rdft_matmul`` and ``xla_fft`` routes,
+            ``batched_stft`` (the STFT kernel), ``spectrogram``, the
+            ``istft(stft(x))`` round trip and ``welch`` on 64 x 16384,
+            ``hilbert``/``envelope`` at n = 1024 and 65536, and
+            ``morlet_cwt`` on 8 x 4096 with 32 scales (``ct_matmul``);
             each within 1e-4 of a float64 oracle;
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the DWT,
-            the fused cascade against the level loop, and convolve2d;
+            the fused cascade against the level loop, convolve2d, and
+            ``stft`` (auto and forced routes) and ``batched_stft``;
             then each kernel, its plain version and its library
-            yardstick (cuDNN ``conv1d``/``conv2d``, fp32) at the
-            main-path shapes, as device time per call from
-            ``torch.profiler`` (the kernel also as chained CUDA
-            events), beside the fp32 bound; printed as one
-            ``{"kernels": [...]}`` line.
+            yardstick (cuDNN ``conv1d``/``conv2d`` in fp32,
+            ``torch.stft``) at the main-path shapes, as device time
+            per call from ``torch.profiler`` (the kernel also as
+            chained CUDA events), beside the fp32 bound (the STFT's
+            counts the function's FFT-form work, not the kernel's DFT
+            form); printed as one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -53,6 +62,10 @@ N_HEAD, K_HEAD = 1 << 20, 2047          # the bench headline
 ROWS_FB, N_FB, K_FB = 512, 16384, 129   # batched direct convolution
 ROWS_WV, N_WV, LEVELS = 512, 4096, 3    # BASELINE config 5: daub8 DWT
 IMGS_2D, N_2D, K_2D = 16, 512, 7        # batched 2D convolution
+N_ST, L_ST, HOP_ST = 1 << 20, 512, 128  # STFT acceptance (bench.py:640)
+ROWS_BS, N_BS = 64, 16384               # bench configs 7-8 (bench.py:684)
+ROWS_CWT, N_CWT, SCALES_CWT = 8, 4096, 32
+STFT_TRIP_TOL = 1e-3     # istft(stft(x)) interior (bench.py:699-701)
 CASCADE_TOL = 5e-4       # fused vs level loop (tests/test_pallas.py)
 ROUND_TRIP_TOL = 2e-4    # DWT round trip (test_wavelet_synthesis.py)
 FORCE_FUSED = "VELES_SIMD_FORCE_FUSED_CASCADE"
@@ -73,6 +86,17 @@ def rel_err(got, want):
     check(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
     check(np.all(np.isfinite(got)), "non-finite output")
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def crel_err(got, want):
+    """Relative error of a complex (or real) result against its
+    float64 oracle, relative to max|want|."""
+    got = np.asarray(got)
+    want = np.asarray(want)
+    check(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
+    check(np.all(np.isfinite(got)), "non-finite output")
+    return float(np.max(np.abs(got.astype(np.complex128) - want))
+                 / np.max(np.abs(want)))
 
 
 def fft_conv64(x, h):
@@ -104,12 +128,15 @@ def main():
     from veles.simd_tpu_torch.ops import convolve as cv
     from veles.simd_tpu_torch.ops import convolve2d as cv2
     from veles.simd_tpu_torch.ops import correlate as cr
+    from veles.simd_tpu_torch.ops import batched as bt
     from veles.simd_tpu_torch.ops import cuda_kernels as ck
+    from veles.simd_tpu_torch.ops import spectral as sp
     from veles.simd_tpu_torch.ops import wavelet as wv
     from veles.simd_tpu_torch.utils import benchmark as bm
     from veles.simd_tpu_torch.utils.config import set_config
     from veles.simd_tpu_torch.utils.platform import smi_line
 
+    t_start = time.perf_counter()
     set_config(device="cuda")
     obs.enable()
     dev = torch.device("cuda")
@@ -199,6 +226,22 @@ def main():
     f2d_case("f2d 1x128x128 3x3", 1, 128, 128, 3, 3)
     f2d_case("f2d 4x100x77 16x16", 4, 100, 77, 16, 16)
     f2d_case("f2d 3x64x300 1x256", 3, 64, 300, 1, 256)
+
+    def stft_case(name, rows, n, L, hop):
+        x = cuda(rng.randn(rows, n))
+        b = cuda(ck.stft_basis(L, sp.hann_window(L)))
+        got = torch.view_as_real(ck.stft_cuda(x, b, L, hop))
+        want = torch.view_as_real(ck.stft_plain(x, b, L, hop))
+        torch.cuda.synchronize()
+        diff = (got - want).abs().max().item()
+        parity[name] = (diff, diff / want.abs().max().item())
+
+    stft_case("stft 1x1048576 512/128", 1, N_ST, L_ST, HOP_ST)
+    stft_case("stft 64x16384 512/128", ROWS_BS, N_BS, L_ST, HOP_ST)
+    stft_case("stft 3x5000 256/128", 3, 5000, 256, 128)
+    stft_case("stft 2x8192 1024/128", 2, 8192, 1024, 128)
+    stft_case("stft 4x4096 384/128", 4, 4096, 384, 128)
+    stft_case("stft 2x700 512/128", 2, 700, 512, 128)   # < one tile
     for name, (diff, rel) in parity.items():
         check(rel <= PARITY_TOL, f"{name}: rel err {rel:.3e} > "
               f"{PARITY_TOL}")
@@ -356,6 +399,93 @@ def main():
           f"cross_correlate2d same rel {err_xc:.2e} (f2d launches "
           f"{xc_launches}) | fftconvolve 2D rel {err_fc:.2e}")
 
+    # the spectral slice: stft on 2^20 samples at 512/128
+    x_st = rng.randn(N_ST).astype(np.float32)
+    want_st = sp.stft_na(x_st, L_ST, HOP_ST)
+    obs.reset()
+    ck.reset_launches()
+    y_st = sp.stft(x_st, L_ST, HOP_ST)
+    torch.cuda.synchronize()
+    launches["stft"] = ck.LAUNCHES["stft"]
+    st_routes = [e["decision"] for e in obs.events()
+                 if e["op"] == "stft_route"]
+    check(st_routes == ["cuda_fused"], f"stft routes {st_routes}")
+    check(launches["stft"] >= 1, "stft did not launch the STFT kernel")
+    err_st = crel_err(y_st.cpu().numpy(), want_st)
+    check(err_st <= ORACLE_TOL, f"stft rel err {err_st:.3e}")
+    forced_err = {}
+    for route in ("rdft_matmul", "xla_fft"):
+        ck.reset_launches()
+        y_r = sp.stft(x_st, L_ST, HOP_ST, route=route)
+        torch.cuda.synchronize()
+        check(ck.LAUNCHES["stft"] == 0, f"forced {route} launched K4")
+        forced_err[route] = crel_err(y_r.cpu().numpy(), want_st)
+        check(forced_err[route] <= ORACLE_TOL,
+              f"stft {route} rel err {forced_err[route]:.3e}")
+    x_bs = rng.randn(ROWS_BS, N_BS).astype(np.float32)
+    want_bs = sp.stft_na(x_bs, L_ST, HOP_ST)
+    ck.reset_launches()
+    y_bs = bt.batched_stft(x_bs, L_ST, HOP_ST)
+    torch.cuda.synchronize()
+    launches["stft_batched"] = ck.LAUNCHES["stft"]
+    check(launches["stft_batched"] >= 1,
+          "batched_stft did not launch the STFT kernel")
+    err_bs = crel_err(y_bs.cpu().numpy(), want_bs)
+    check(err_bs <= ORACLE_TOL, f"batched_stft rel err {err_bs:.3e}")
+    ck.reset_launches()
+    y_sg = sp.spectrogram(x_bs, L_ST, HOP_ST)
+    torch.cuda.synchronize()
+    sg_launches = ck.LAUNCHES["stft"]
+    err_sg = rel_err(y_sg.cpu().numpy(), np.abs(want_bs) ** 2)
+    check(sg_launches >= 1 and err_sg <= ORACLE_TOL,
+          f"spectrogram rel err {err_sg:.3e}, launches {sg_launches}")
+    rec = sp.istft(sp.stft(x_bs, L_ST, HOP_ST), N_BS, L_ST, HOP_ST)
+    core = slice(L_ST, N_BS - L_ST)
+    trip_st = float(np.max(np.abs(rec.cpu().numpy()[:, core]
+                                  - x_bs[:, core])))
+    check(trip_st <= STFT_TRIP_TOL, f"istft round trip {trip_st:.3e}")
+    f_w, p_w = sp.welch(x_bs, nperseg=L_ST)
+    err_w = rel_err(p_w.cpu().numpy(), sp.welch_na(x_bs, nperseg=L_ST)[1])
+    check(err_w <= ORACLE_TOL, f"welch rel err {err_w:.3e}")
+    print(f"main: stft {N_ST} {L_ST}/{HOP_ST} routes {st_routes} rel "
+          f"{err_st:.2e} (stft launches {launches['stft']}) | forced "
+          + " | ".join(f"{k} rel {v:.2e}" for k, v in forced_err.items())
+          + f" | batched_stft {ROWS_BS}x{N_BS} rel {err_bs:.2e} (stft "
+          f"launches {launches['stft_batched']}) | spectrogram rel "
+          f"{err_sg:.2e} (launches {sg_launches}) | istft round trip "
+          f"interior max abs {trip_st:.2e} | welch nperseg {L_ST} rel "
+          f"{err_w:.2e}")
+
+    an_parts = []
+    for rows, n, route in ((8, 1024, "matmul_dft"),
+                           (4, 65536, "xla_fft")):
+        x_h = rng.randn(rows, n).astype(np.float32)
+        obs.reset()
+        y_h = sp.hilbert(x_h)
+        env = sp.envelope(x_h)
+        torch.cuda.synchronize()
+        h_routes = {e["decision"] for e in obs.events()
+                    if e["op"] == "hilbert_route"}
+        check(h_routes == {route}, f"hilbert n={n} routes {h_routes}")
+        want_h = sp.hilbert_na(x_h)
+        err_h = max(crel_err(y_h.cpu().numpy(), want_h),
+                    rel_err(env.cpu().numpy(), np.abs(want_h)))
+        check(err_h <= ORACLE_TOL, f"hilbert n={n} rel err {err_h:.3e}")
+        an_parts.append(f"hilbert/envelope {rows}x{n} {route} rel "
+                        f"{err_h:.2e}")
+    x_cw = rng.randn(ROWS_CWT, N_CWT).astype(np.float32)
+    scales = np.geomspace(2.0, 512.0, SCALES_CWT)
+    obs.reset()
+    y_cw = sp.morlet_cwt(x_cw, scales)
+    torch.cuda.synchronize()
+    cw_routes = [e["decision"] for e in obs.events()
+                 if e["op"] == "morlet_cwt_route"]
+    check(cw_routes == ["ct_matmul"], f"morlet_cwt routes {cw_routes}")
+    err_cw = crel_err(y_cw.cpu().numpy(), sp.morlet_cwt_na(x_cw, scales))
+    check(err_cw <= ORACLE_TOL, f"morlet_cwt rel err {err_cw:.3e}")
+    print("main: " + " | ".join(an_parts) + f" | morlet_cwt {ROWS_CWT}x"
+          f"{N_CWT} {SCALES_CWT} scales {cw_routes[0]} rel {err_cw:.2e}")
+
     # 5. times at the main-path shapes
     obs.disable()
     F = torch.nn.functional
@@ -430,6 +560,44 @@ def main():
           + bm.device_breakdown(lambda: cv2.convolve2d(x2_t, h2_t),
                                 calls=5))
 
+    # the spectral slice, operands on the card
+    xst_t = cuda(x_st)
+    xbs_t = cuda(x_bs)
+
+    def stft_numpy():
+        sp.stft(x_st, L_ST, HOP_ST)
+        torch.cuda.synchronize()
+
+    def batched_numpy():
+        bt.batched_stft(x_bs, L_ST, HOP_ST)
+        torch.cuda.synchronize()
+
+    spectral_calls = [
+        ("stft auto", lambda: sp.stft(xst_t, L_ST, HOP_ST), stft_numpy,
+         N_ST),
+        ("stft rdft_matmul",
+         lambda: sp.stft(xst_t, L_ST, HOP_ST, route="rdft_matmul"), None,
+         N_ST),
+        ("stft xla_fft",
+         lambda: sp.stft(xst_t, L_ST, HOP_ST, route="xla_fft"), None,
+         N_ST),
+        ("batched_stft", lambda: bt.batched_stft(xbs_t, L_ST, HOP_ST),
+         batched_numpy, ROWS_BS * N_BS),
+    ]
+    for name, fn, from_np, samples in spectral_calls:
+        chained = bm.device_time_ms(fn)
+        busy = bm.device_busy_ms(fn)
+        line = (f"spectral: {name} {L_ST}/{HOP_ST} on {samples} samples, "
+                f"on the card {chained:.4f} ms chained = "
+                f"{samples / chained / 1e3:.1f} Msamples/s, device busy "
+                f"{busy:.4f} ms")
+        if from_np is not None:
+            line += (f" | from NumPy input, host clock "
+                     f"{bm.host_time(from_np, repeats=5) * 1e3:.3f} ms")
+        print(line)
+        print(f"breakdown {name} (device us per call): "
+              + bm.device_breakdown(fn, calls=5))
+
     xf = F.pad(cuda(x_fb), (K_FB - 1, K_FB - 1))
     ff = cuda(h_fb[::-1].copy()).reshape(1, K_FB)
     n_out_fb = N_FB + K_FB - 1
@@ -476,6 +644,13 @@ def main():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             return F.conv2d(x2_ext.unsqueeze(1), k2f.view(1, 1, K_2D, K_2D))
 
+    basis_st = sp._stft_cuda_basis(L_ST, sp.hann_window(L_ST), dev)
+    win_st = cuda(sp.hann_window(L_ST))
+
+    def torch_stft():
+        return torch.stft(xst_t, L_ST, HOP_ST, window=win_st, center=False,
+                          return_complex=True)
+
     # float64 references of the kernels' own functions
     xc64 = xc_ext.cpu().numpy().astype(np.float64)
     want_cb = np.zeros((len(plans), ROWS_WV, n_cb))
@@ -497,6 +672,7 @@ def main():
         "filter_bank": rel_err(
             conv1d_fb().view(ROWS_FB, -1).cpu().numpy(),
             fft_conv64(x_fb, h_fb)),
+        "stft": crel_err(torch_stft().T.cpu().numpy(), want_st),
     }
     work = {
         "filter_bank_dwt": (2.0 * 2 * 8 * ROWS_WV * n_dwt,
@@ -511,6 +687,8 @@ def main():
         "overlap_save": bm.conv_work(1, N_HEAD, K_HEAD),
         "filter_bank": (2.0 * K_FB * ROWS_FB * n_out_fb,
                         4.0 * (xf.numel() + K_FB + ROWS_FB * n_out_fb)),
+        # the function's least work (FFT form), not the kernel's DFT form
+        "stft": bm.stft_work(1, N_ST, L_ST, HOP_ST),
     }
     timed = {
         "filter_bank_dwt": (
@@ -532,6 +710,10 @@ def main():
             lambda: ck.filter_bank_cuda(xf, ff, 1, 1, n_out_fb),
             lambda: ck.filter_bank_plain(xf, ff, 1, 1, n_out_fb),
             conv1d_fb),
+        "stft": (
+            lambda: ck.stft_cuda(xst_t, basis_st, L_ST, HOP_ST),
+            lambda: ck.stft_plain(xst_t, basis_st, L_ST, HOP_ST),
+            torch_stft),
     }
     meta = {
         "filter_bank_dwt": (
@@ -556,6 +738,11 @@ def main():
             "veles/simd_tpu_torch/csrc/filter_bank.cu",
             "veles/simd_tpu/ops/pallas_kernels.py:326",
             f"{ROWS_FB}x{N_FB}x{K_FB}", parity["fb C1 512x16384x129"]),
+        "stft": (
+            "veles/simd_tpu_torch/csrc/stft.cu",
+            "veles/simd_tpu/ops/pallas_kernels.py:831",
+            f"{N_ST} samples, {L_ST}/{HOP_ST}",
+            parity["stft 1x1048576 512/128"]),
     }
     rows = []
     for name, (kern, plain, lib) in timed.items():
@@ -578,7 +765,8 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "library_rel_err_vs_f64": lib_err[name],
         })
-    print(f"times: card {smi}")
+    elapsed = time.perf_counter() - t_start
+    print(f"times: card {smi} | chip_smoke {elapsed:.1f} s so far")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

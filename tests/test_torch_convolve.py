@@ -336,4 +336,4 @@ def test_kernel_wrappers_not_called_on_cpu_routes():
     tcv.convolve(r.randn(10000), r.randn(300))
     tcv.convolve_simd(r.randn(16, 400), r.randn(9))
     assert tck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0,
-                            "cascade_bank": 0, "filter_2d": 0}
+                            "cascade_bank": 0, "filter_2d": 0, "stft": 0}

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from veles.simd_tpu_torch.ops import batched as bt
 from veles.simd_tpu_torch.ops import convolve as cv
 from veles.simd_tpu_torch.ops import convolve2d as cv2
 from veles.simd_tpu_torch.ops import correlate as cr
 from veles.simd_tpu_torch.ops import cuda_kernels as ck
+from veles.simd_tpu_torch.ops import spectral as sp
 from veles.simd_tpu_torch.ops import wavelet as wv
 from veles.simd_tpu_torch.utils import config
 
@@ -291,3 +293,88 @@ def test_convolve2d_kernel_route_opt_out(monkeypatch):
     assert ck.LAUNCHES["filter_2d"] == 0
     want = _conv2d64(x.astype(np.float32), h.astype(np.float32))
     assert _rel(y.cpu(), want) <= TOL
+
+
+def _crel(got, want):
+    got = np.asarray(got, np.complex128)
+    want = np.asarray(want, np.complex128)
+    assert got.shape == want.shape
+    assert np.all(np.isfinite(got))
+    return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30)
+
+
+def _stft64(x, L, hop):
+    return sp.stft_na(x.astype(np.float64), L, hop)
+
+
+@pytest.mark.parametrize("rows,n,L,hop", [
+    (1, 1 << 18, 512, 128), (64, 16384, 512, 128), (3, 5000, 256, 128),
+    (2, 8192, 1024, 128), (4, 4096, 384, 128), (2, 700, 512, 128),
+    (3, 2000, 255, 85), (70000, 600, 512, 128),
+])
+def test_stft_kernel_matches_plain_and_float64(rows, n, L, hop):
+    r = np.random.RandomState(rows + L)
+    x = r.randn(rows, n).astype(np.float32)
+    basis = _t(ck.stft_basis(L, sp.hann_window(L)))
+    ck.reset_launches()
+    got = ck.stft_cuda(_t(x), basis, L, hop)
+    # one launch per 65535 rows (the grid's z limit)
+    assert ck.LAUNCHES["stft"] == -(-rows // 65535)
+    want = ck.stft_plain(_t(x), basis, L, hop)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, 1 + (n - L) // hop, L // 2 + 1)
+    assert _rel(torch.view_as_real(got).cpu(),
+                torch.view_as_real(want).cpu()) <= TOL
+    if rows * n <= 1 << 20:
+        ref = _stft64(x, L, hop)
+        assert np.max(np.abs(got.cpu().numpy() - ref)) <= \
+            TOL * np.max(np.abs(ref))
+
+
+def test_stft_routes_launch_the_kernel(monkeypatch):
+    r = np.random.RandomState(10)
+    x = r.randn(4, 16384).astype(np.float32)
+    ref = _stft64(x, 512, 128)
+    scale = np.max(np.abs(ref))
+    for call, launches in (
+            (lambda: sp.stft(x, 512, 128), 1),
+            (lambda: bt.batched_stft(x, 512, 128), 1),
+            (lambda: sp.stft(x, 512, 128, route="rdft_matmul"), 0),
+            (lambda: sp.stft(x, 512, 128, route="xla_fft"), 0)):
+        ck.reset_launches()
+        y = call()
+        assert ck.LAUNCHES["stft"] == launches
+        assert y.device.type == "cuda"
+        assert np.max(np.abs(y.cpu().numpy() - ref)) <= TOL * scale
+    # hop 64 is no 128-lane multiple: the basis matmul
+    ck.reset_launches()
+    y = sp.stft(x, 512, 64)
+    assert ck.LAUNCHES["stft"] == 0
+    ref64 = _stft64(x, 512, 64)
+    assert np.max(np.abs(y.cpu().numpy() - ref64)) <= \
+        TOL * np.max(np.abs(ref64))
+    s = sp.spectrogram(x, 512, 128)
+    assert _rel(s.cpu(), np.abs(ref) ** 2) <= TOL
+    rec = sp.istft(sp.stft(x, 512, 128), 16384, 512, 128)
+    assert np.max(np.abs(rec.cpu().numpy() - x)[:, 512:-512]) <= 1e-4
+    monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_CUDA", "1")
+    ck.reset_launches()
+    sp.stft(x, 512, 128)
+    assert ck.LAUNCHES["stft"] == 0
+
+
+def test_analytic_and_psd_routes_on_the_card():
+    r = np.random.RandomState(11)
+    for n in (1024, 65536):
+        x = r.randn(2, n).astype(np.float32)
+        assert _crel(sp.hilbert(x).cpu(), sp.hilbert_na(x)) <= TOL
+    x = r.randn(3, 4096).astype(np.float32)
+    scales = np.geomspace(2.0, 256.0, 8)
+    want = sp.morlet_cwt_na(x, scales)
+    for route in ("ct_matmul", "xla_fft"):
+        got = sp.morlet_cwt(x, scales, route=route)
+        assert _crel(got.cpu(), want) <= 1e-4
+    f, p = sp.welch(x, nperseg=512)
+    assert _rel(p.cpu(), sp.welch_na(x, nperseg=512)[1]) <= TOL
+    assert _crel(sp.czt(x[0]).cpu(),
+                 np.fft.fft(x[0].astype(np.float64))) <= 1e-4

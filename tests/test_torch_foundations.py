@@ -265,3 +265,13 @@ def test_fp32_bound():
     assert by == "operations" and abs(ms - 0.0641) < 1e-3
     ms, by = tbench.fp32_bound(1e6, 3.35e9)
     assert by == "bytes" and abs(ms - 1.0) < 1e-9
+
+
+def test_stft_bound_is_the_bytes():
+    # 2^20 samples at 512/128: 8189 frames of an FFT-form STFT are
+    # ~0.1 GFLOP, far under the 22.1 MB of signal, basis and spectrum
+    flops, nbytes = tbench.stft_work(1, 1 << 20, 512, 128)
+    assert flops == 8189 * (512 + 2.5 * 512 * 9)
+    assert nbytes == 4.0 * ((1 << 20) + 512 * 514 + 8189 * 514)
+    ms, by = tbench.fp32_bound(flops, nbytes)
+    assert by == "bytes" and abs(ms - 0.0066) < 1e-4

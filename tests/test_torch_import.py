@@ -26,7 +26,10 @@ def _port_modules():
 
 def test_port_modules_listed():
     mods = _port_modules()
-    for name in ("veles.simd_tpu_torch.ops.convolve",
+    for name in ("veles.simd_tpu_torch.ops.spectral",
+                 "veles.simd_tpu_torch.ops.batched",
+                 "veles.simd_tpu_torch.ops.waveforms",
+                 "veles.simd_tpu_torch.ops.convolve",
                  "veles.simd_tpu_torch.ops.convolve2d",
                  "veles.simd_tpu_torch.ops.wavelet",
                  "veles.simd_tpu_torch.ops.wavelet_coeffs",

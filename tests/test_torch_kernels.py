@@ -2,9 +2,9 @@
 
 On the CPU the wrappers of ``veles.simd_tpu_torch.ops.cuda_kernels``
 compute their kernels' plain versions; here those are held against
-``overlap_save_pallas``, ``filter_bank_pallas``, ``cascade_bank_pallas``
-and ``filter_2d_pallas`` run in interpret mode, on the same NumPy
-inputs.  Both sides are float32 with different
+``overlap_save_pallas``, ``filter_bank_pallas``, ``cascade_bank_pallas``,
+``filter_2d_pallas`` and ``stft_pallas`` run in interpret mode, on the
+same NumPy inputs.  Both sides are float32 with different
 summation orders, so the tolerance is 1e-5 of max|y| (``test_pallas.py``
 holds the Pallas kernel itself to 1e-5 against float64).  The kernels
 themselves are compared with the plain versions on the card by
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from veles.simd_tpu.ops import pallas_kernels as pk
+from veles.simd_tpu.ops import spectral as jsp
 from veles.simd_tpu.ops import wavelet as jw
 from veles.simd_tpu_torch.ops import cuda_kernels as ck
 
@@ -155,8 +156,16 @@ def test_cpu_path_launches_nothing():
     ck.cascade_bank_cuda(torch.ones(2, 40), [np.ones(2)],
                          (((0, 0), (1, 1)),), 4, 8)
     ck.filter_2d_cuda(torch.ones(2, 9, 9), torch.ones(3, 2), 7, 8)
+    ck.stft_cuda(torch.ones(2, 600), torch.ones(256, 258), 256, 128)
     assert ck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0,
-                           "cascade_bank": 0, "filter_2d": 0}
+                           "cascade_bank": 0, "filter_2d": 0, "stft": 0}
+
+
+@pytest.mark.parametrize("rows,launches", [
+    (1, 1), (65535, 1), (65536, 2), (70000, 2), (3 * 65535 + 1, 4)])
+def test_launch_count_follows_the_grid_row_limit(rows, launches):
+    # the C entry points split rows into launches of at most 65535
+    assert ck._launches(rows) == launches
 
 
 def test_shared_memory_admission():
@@ -289,3 +298,85 @@ def test_new_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="float32"):
         ck.filter_2d_cuda(torch.ones(9, 9, dtype=torch.float64),
                           torch.ones(2, 2, dtype=torch.float64), 8, 8)
+
+
+def _stft_basis(L):
+    return torch.from_numpy(ck.stft_basis(L, jsp.hann_window(L)))
+
+
+@pytest.mark.parametrize("L,hop", [(256, 128), (512, 128), (1024, 128),
+                                   (384, 128)])
+@pytest.mark.parametrize("rows,n", [(1, 3000), (3, 2100)])
+def test_stft_matches_pallas(L, hop, rows, n):
+    # n is no multiple of hop in the 3-row case (the trailing samples
+    # short of a frame are dropped)
+    x = np.random.RandomState(L + rows).randn(rows, n).astype(np.float32)
+    want = np.asarray(pk.stft_pallas(x, L, hop, interpret=True))
+    got = ck.stft_cuda(torch.from_numpy(x), _stft_basis(L), L, hop)
+    assert got.dtype == torch.complex64
+    assert got.shape == want.shape == (rows, 1 + (n - L) // hop,
+                                       L // 2 + 1)
+    assert np.max(np.abs(got.numpy() - want)) < \
+        REL_TOL * np.max(np.abs(want))
+
+
+def test_stft_leading_dims_and_plain():
+    x = np.random.RandomState(8).randn(2, 3, 1000).astype(np.float32)
+    got = ck.stft_cuda(torch.from_numpy(x), _stft_basis(256), 256, 128)
+    assert got.shape == (2, 3, 6, 129)
+    want = jsp.stft_na(x, 256, 128)
+    assert np.max(np.abs(got.numpy() - want)) < \
+        REL_TOL * np.max(np.abs(want))
+    # the plain version is what the CPU wrapper returns
+    plain = ck.stft_plain(torch.from_numpy(x), _stft_basis(256), 256, 128)
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+def test_stft_basis_is_the_pallas_basis():
+    # the JAX kernel's blocks, padding columns dropped, columns
+    # re-interleaved as (re, im) pairs: bit-equal
+    for L, hop in ((256, 128), (384, 128), (1024, 128), (255, 85)):
+        w = jsp.hann_window(L)
+        blocks = pk._stft_basis_blocks(L, hop, w).reshape(L, -1)
+        bins, half = L // 2 + 1, blocks.shape[1] // 2
+        want = np.stack([blocks[:, :bins], blocks[:, half:half + bins]],
+                        axis=-1).reshape(L, 2 * bins)
+        np.testing.assert_array_equal(ck.stft_basis(L, w), want)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1000, 256, 96), "hop [|] frame_length"),
+    ((1000, 256, 256), "frame_length > hop"),
+    ((200, 256, 128), "signal length 200 < frame_length 256"),
+])
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_stft_contract_errors_match(args, match, side):
+    n, L, hop = args
+    x = np.ones((2, n), np.float32)
+    with pytest.raises(ValueError, match=match):
+        if side == "jax":
+            pk.stft_pallas(x, L, hop, interpret=True)
+        else:
+            ck.stft_cuda(torch.from_numpy(x), _stft_basis(L), L, hop)
+
+
+def test_stft_wrapper_checks():
+    # the 128-lane hop term is the route gate's, not the kernel's
+    x = torch.ones(2, 600)
+    assert ck.stft_cuda(x, _stft_basis(128), 128, 64).shape == (2, 8, 65)
+    with pytest.raises(ValueError, match="basis shape"):
+        ck.stft_cuda(x, torch.ones(256, 256), 256, 128)
+    with pytest.raises(ValueError, match="float32"):
+        ck.stft_cuda(x.double(), _stft_basis(256).double(), 256, 128)
+    meta = torch.empty(2, 600, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.stft_cuda(meta, torch.empty(256, 258, device="meta"), 256, 128)
+
+
+def test_stft_shared_memory_admission():
+    # fixed 16.5 KB: a 64-sample chunk at a 68-float pitch and 64
+    # basis columns, under the static 48 KB for every geometry
+    assert ck.stft_smem_bytes() == 4 * 32 * (68 + 64) == 16896
+    assert all(ck.fits_smem_stft(L, hop) for L, hop in
+               ((256, 128), (4096, 128), (16384, 128), (3, 1)))
+    assert not ck.fits_smem_stft(0, 128)

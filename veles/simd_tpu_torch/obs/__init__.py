@@ -4,9 +4,10 @@ The port's slim counterpart of ``veles.simd_tpu.obs``: the counters,
 timing histograms, bounded decision-event log and host-side spans that
 the dispatch layer reports into, over copies of the JAX package's
 framework-free storage modules (:mod:`.registry`, :mod:`.events`,
-:mod:`.spans`, :mod:`.lru`).  The resource, compile, flight-recorder,
-request, journal, time-series, incident and HTTP axes are not ported
-yet.
+:mod:`.spans`, :mod:`.lru`), and the cache introspection of its
+resource axis (:func:`register_cache`, :func:`caches`).  The rest of
+the resource axis and the compile, flight-recorder, request, journal,
+time-series, incident and HTTP axes are not ported yet.
 
 Contract with the compute layer: ops modules touch telemetry only
 through :func:`record_decision`, :func:`count` and :func:`span`, and
@@ -25,6 +26,7 @@ Usage::
 from __future__ import annotations
 
 import os
+import threading
 
 from veles.simd_tpu_torch.obs import spans as _spans_mod
 from veles.simd_tpu_torch.obs.events import EventLog
@@ -35,6 +37,7 @@ from veles.simd_tpu_torch.obs.spans import SpanTracer
 __all__ = [
     "enable", "disable", "enabled", "count", "record_decision", "span",
     "counter_value", "events", "snapshot", "report", "reset",
+    "register_cache", "caches",
     "MetricsRegistry", "EventLog", "SpanTracer", "LRUSet",
 ]
 
@@ -139,6 +142,51 @@ def report(snap: dict | None = None, max_events: int = 20) -> str:
     if len(lines) == 1:
         lines.append("(no telemetry recorded)")
     return "\n".join(lines)
+
+
+_cache_lock = threading.Lock()
+_cache_providers: dict = {}
+
+
+def _jsonify(value):
+    """Deep-convert ``value`` to JSON-native structures (tuples become
+    lists, dict keys strings, other leaves their ``repr``)."""
+    if isinstance(value, (str, int, float, bool)) or value is None:
+        return value
+    if isinstance(value, dict):
+        return {str(k): _jsonify(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple, set, frozenset)):
+        seq = sorted(value, key=repr) if isinstance(
+            value, (set, frozenset)) else value
+        return [_jsonify(v) for v in seq]
+    return repr(value)
+
+
+def register_cache(name: str, provider) -> None:
+    """Register (or replace) a cache snapshot provider: a zero-arg
+    callable returning ``{size, capacity, hits, misses, evictions}``
+    (extra keys ride along), so :func:`caches` is the one place to see
+    every memoized cache of the library."""
+    with _cache_lock:
+        _cache_providers[str(name)] = provider
+
+
+def caches() -> dict:
+    """``{name: stats}`` for every registered cache, JSON-native.  A
+    provider that raises reports its error instead of failing the
+    snapshot; a ``maxsize`` key also shows as ``capacity``."""
+    with _cache_lock:
+        providers = dict(_cache_providers)
+    out = {}
+    for name, provider in sorted(providers.items()):
+        try:
+            stats = dict(provider())
+        except Exception as e:  # noqa: BLE001
+            stats = {"error": repr(e)}
+        if "capacity" not in stats and "maxsize" in stats:
+            stats["capacity"] = stats["maxsize"]
+        out[name] = _jsonify(stats)
+    return out
 
 
 def reset() -> None:

@@ -9,6 +9,13 @@
 * :mod:`.wavelet`      — DWT, SWT, cascades, synthesis, packets and the
   separable 2D transforms
 * :mod:`.wavelet_coeffs` — the wavelet filter tables
+* :mod:`.spectral`     — STFT / ISTFT, spectrogram, Hilbert envelope,
+  Morlet CWT, PSD estimation (welch, periodogram, csd, coherence,
+  detrend), chirp-Z / zoom FFT and Lomb-Scargle
+* :mod:`.batched`      — many short signals in one dispatch
+  (``batched_stft``), route handles in a bounded LRU
+* :mod:`.waveforms`    — chirps, square/sawtooth waves, pulses,
+  maximum-length sequences and analysis windows
 * :mod:`.cuda_kernels` — the hand-written Hopper kernels, their
   wrappers, plain versions, gates and launch counters
 

@@ -1,0 +1,226 @@
+"""Batched-throughput layer: many short signals, one dispatch.
+
+The port of ``veles.simd_tpu.ops.batched``.  The throughput form of a
+short-signal workload is the batched one: stack the signals on a
+leading axis and run one route call for the whole ``(batch, length)``
+geometry.  The JAX package compiles one executable per geometry and
+keeps it in an explicit LRU; PyTorch runs eagerly and has no
+executable to cache, so here the handle is the route closure, built
+once per geometry.  The key, the hit/miss/eviction stats, the
+``batched_handle_cache`` counter and the per-build ``batched``
+decision event are the JAX package's, so a shape-churning caller shows
+up the same way in ``obs``.
+
+Ported: :func:`batched_stft`.  ``batched_resample_poly``,
+``batched_sosfilt`` and ``batched_lfilter`` come with the resample and
+IIR slice.  No ``donate=``: PyTorch frees an input when its last
+reference goes, so donation has no counterpart.
+
+Usage::
+
+    from veles.simd_tpu_torch.ops import batched
+
+    spec = batched.batched_stft(xs, 512, 128)   # xs: [B, n]
+
+The ``simd=`` flag works as everywhere else (falsy runs the NumPy
+oracle twin, batched trivially).
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import threading
+
+import numpy as np
+
+from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.utils.config import resolve_simd
+from veles.simd_tpu_torch.utils.platform import as_f32
+
+__all__ = [
+    "BatchedHandle", "batched_stft", "handle_cache_info",
+    "clear_handle_cache", "BATCHED_CACHE_MAXSIZE",
+]
+
+# live handle bound: 64 distinct (op, batch, length, params)
+# geometries cover a service's steady state while keeping eviction
+# observable in tests
+BATCHED_CACHE_MAXSIZE = 64
+
+_cache: "collections.OrderedDict[tuple, BatchedHandle]" = \
+    collections.OrderedDict()
+_cache_lock = threading.Lock()
+# per-key construction locks: concurrent misses on the SAME key build
+# once; entries are dropped once the build finishes
+_build_locks: dict = {}
+_cache_stats = {"hits": 0, "misses": 0, "evictions": 0}
+obs.register_cache("batched_handle_lru",
+                   lambda: handle_cache_info())
+
+
+class BatchedHandle:
+    """One route closure pinned to a batched-op geometry.
+
+    ``key`` is the full cache key (op name + batch rows + length +
+    op-static parameters); ``fn`` the callable.  Handles are created by
+    :func:`_get_handle` and shared — treat as immutable.
+    """
+
+    __slots__ = ("key", "fn")
+
+    def __init__(self, key, fn):
+        self.key = key
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+    def __repr__(self):  # pragma: no cover - debugging nicety
+        return f"BatchedHandle{self.key!r}"
+
+
+def _get_handle(key, builder) -> BatchedHandle:
+    """LRU lookup of the handle for ``key``; ``builder()`` makes the
+    callable on a miss.  Hits/misses/evictions are counted under
+    ``batched_handle_cache`` and a decision event is recorded per
+    build.
+
+    Construction is race-free: concurrent callers of the same key
+    serialize on a per-key build lock (builds of DIFFERENT keys still
+    overlap — the global map lock is never held across ``builder()``),
+    exactly one thread builds, and the others return its handle as a
+    hit.
+    """
+    with _cache_lock:
+        handle = _cache.get(key)
+        if handle is not None:
+            _cache.move_to_end(key)
+            _cache_stats["hits"] += 1
+            obs.count("batched_handle_cache", op=key[0], event="hit")
+            return handle
+        build_lock = _build_locks.setdefault(key, threading.Lock())
+    with build_lock:
+        with _cache_lock:
+            handle = _cache.get(key)
+            if handle is not None:
+                # another caller finished the build while we waited
+                _cache.move_to_end(key)
+                _cache_stats["hits"] += 1
+                obs.count("batched_handle_cache", op=key[0],
+                          event="hit")
+                return handle
+            _cache_stats["misses"] += 1
+        try:
+            fn = builder()
+        except BaseException:
+            # a failed build must not leave the key locked: the next
+            # caller gets a fresh try
+            with _cache_lock:
+                _build_locks.pop(key, None)
+            raise
+        handle = BatchedHandle(key, fn)
+        obs.count("batched_handle_cache", op=key[0], event="miss")
+        obs.record_decision("batched", key[0], key=repr(key[1:]))
+        with _cache_lock:
+            _cache[key] = handle
+            # drop the build-lock entry atomically with the insert, so
+            # no fresh caller mints a new lock and builds again
+            _build_locks.pop(key, None)
+            while len(_cache) > BATCHED_CACHE_MAXSIZE:
+                _cache.popitem(last=False)
+                _cache_stats["evictions"] += 1
+                obs.count("batched_handle_cache", op=key[0],
+                          event="eviction")
+    return handle
+
+
+def handle_cache_info() -> dict:
+    """Snapshot of the handle cache: size, capacity, hits/misses/
+    evictions, and the resident keys oldest-first."""
+    with _cache_lock:
+        return {"size": len(_cache), "maxsize": BATCHED_CACHE_MAXSIZE,
+                **_cache_stats, "keys": list(_cache)}
+
+
+def clear_handle_cache() -> None:
+    """Drop every cached handle and zero the stats."""
+    with _cache_lock:
+        _cache.clear()
+        _build_locks.clear()
+        for k in _cache_stats:
+            _cache_stats[k] = 0
+
+
+def _as_batch2d(x):
+    """Validate a leading-batch-dim signal array; returns
+    ``(batch_shape, n)``."""
+    shape = tuple(np.shape(x))
+    if len(shape) < 2:
+        raise ValueError(
+            f"batched ops take [..., batch, n] signals, got shape "
+            f"{shape} — use the single-signal op for 1D input")
+    n = shape[-1]
+    if n == 0:
+        raise ValueError("empty signal")
+    if 0 in shape[:-1]:
+        # a zero-row batch must fail loudly here, not deep in a route
+        raise ValueError(
+            f"empty batch (B=0): batched ops need at least one "
+            f"signal, got shape {shape}")
+    return shape[:-1], n
+
+
+# ---------------------------------------------------------------------------
+# spectral
+# ---------------------------------------------------------------------------
+
+
+def batched_stft(x, frame_length: int, hop: int, window=None,
+                 simd=None):
+    """STFT of a BATCH of equal-length signals in one dispatch:
+    ``x[..., batch, n] -> complex64 [..., batch, frames, bins]``.
+
+    Same numerics and route family as
+    :func:`~veles.simd_tpu_torch.ops.spectral.stft`: the route comes
+    from ``spectral._stft_route_for`` (the same selection ``stft``
+    uses), and the ``rdft_matmul`` / ``xla_fft`` routes run through the
+    handle LRU keyed ``(rows, n, frame_length, hop, route)`` — the
+    basis and the window are runtime operands, so switching windows
+    builds nothing new, only a new geometry does.  A ``cuda_fused``
+    selection delegates to ``spectral.stft``: the fused kernel is
+    already one launch per batch.
+    """
+    from veles.simd_tpu_torch.ops import spectral as sp
+
+    frame_length, hop = int(frame_length), int(hop)
+    batch_shape, n = _as_batch2d(x)
+    sp._check_stft_args(n, frame_length, hop)
+    window = sp._resolve_window(window, frame_length)
+    if not resolve_simd(simd, op="batched_stft"):
+        return sp.stft_na(x, frame_length, hop,
+                          window).astype(np.complex64)
+    xt = as_f32(x)
+    rows = int(np.prod(batch_shape))
+    frames = sp.frame_count(n, frame_length, hop)
+    route = sp._stft_route_for(frame_length, hop, frames, rows,
+                               cuda=xt.is_cuda)
+    if route == "cuda_fused":
+        return sp.stft(xt, frame_length, hop, window=window, simd=True)
+    bins = frame_length // 2 + 1
+    key = ("stft", rows, n, frame_length, hop, route)
+
+    def build():
+        core = sp._stft_rdft if route == "rdft_matmul" else sp._stft_xla
+        return functools.partial(core, frame_length=frame_length,
+                                 hop=hop)
+
+    with obs.span("batched.stft.dispatch"):
+        handle = _get_handle(key, build)
+        operand = (sp._device_basis(
+            "rdft_fwd", frame_length, window,
+            lambda: sp._rdft_basis(frame_length, window), xt.device)
+            if route == "rdft_matmul"
+            else sp._device_window(window, xt.device))
+        out = handle(xt.reshape(rows, n), operand)
+    return out.reshape(tuple(batch_shape) + (frames, bins))

@@ -2,7 +2,7 @@
 versions (the port's counterpart of ``veles.simd_tpu.ops.
 pallas_kernels``).
 
-Four of the JAX package's five Pallas kernels are ported here:
+All five of the JAX package's Pallas kernels are ported here:
 
 * :func:`overlap_save_cuda` (``csrc/overlap_save.cu``) replaces
   ``overlap_save_pallas``: the full linear convolution of every batch
@@ -19,13 +19,17 @@ Four of the JAX package's five Pallas kernels are ported here:
 * :func:`filter_2d_cuda` (``csrc/filter_2d.cu``) replaces
   ``filter_2d_pallas``: the 2D shifted-MAC correlation, the direct
   route of ``convolve2d`` and ``cross_correlate2d``.
+* :func:`stft_cuda` (``csrc/stft.cu``) replaces ``stft_pallas``: the
+  windowed real-DFT STFT as an implicit GEMM against the window-folded
+  basis (:func:`stft_basis`), the ``cuda_fused`` route of
+  ``spectral.stft`` and ``batched.batched_stft``.
 
 Each source note says what bounds its kernel on the H100 and what the
 design does about it.
 
 Wrappers take float32 torch tensors.  On a CPU tensor a wrapper
 computes the kernel's plain PyTorch version (:func:`overlap_save_plain`,
-:func:`filter_bank_plain`) — the tests' path.  On a CUDA tensor it
+:func:`filter_bank_plain`, ...) — the tests' path.  On a CUDA tensor it
 launches the kernel on the current stream, without synchronising, or
 raises; nothing falls back.  Every launch adds one to
 ``LAUNCHES[<kernel>]``, and only a launch does.
@@ -58,12 +62,15 @@ __all__ = [
     "filter_bank_cuda", "filter_bank_plain",
     "cascade_bank_cuda", "cascade_bank_plain",
     "filter_2d_cuda", "filter_2d_plain",
+    "stft_cuda", "stft_plain", "stft_basis",
     "fb_smem_bytes", "fits_smem_fb", "fits_smem_os",
     "cb_smem_bytes", "fits_smem_cb", "f2d_smem_bytes", "fits_smem_f2d",
-    "should_route",
+    "stft_smem_bytes", "fits_smem_stft",
+    "should_route", "on_card",
     "LAUNCHES", "reset_launches", "load_library", "build_log",
     "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_TILE",
-    "FB_TILE", "CB_TILE", "F2D_TILE", "SMEM_MAX_BYTES",
+    "FB_TILE", "CB_TILE", "F2D_TILE", "STFT_TILE", "STFT_MIN_FRAMES",
+    "STFT_DISABLE_ENV", "SMEM_MAX_BYTES",
 ]
 
 # ---- admission constants ---------------------------------------------------
@@ -77,6 +84,11 @@ DIRECT_MAX_H = 256
 OS_MIN_H = 256
 # PALLAS_2D_MAX_KERNEL_AREA: the 2D kernel serves kernels up to 16 x 16
 MAX_AREA_2D = 256
+# PALLAS_STFT_MIN_FRAMES: below 64 frames the STFT stays on the basis
+# matmul, where the frames tensor is small traffic anyway
+STFT_MIN_FRAMES = 64
+# the fused STFT route's opt-out (VELES_SIMD_DISABLE_STFT_PALLAS there)
+STFT_DISABLE_ENV = "VELES_SIMD_DISABLE_STFT_CUDA"
 
 # Tile geometry of the kernels.  The loader checks these mirrors
 # against the built library (veles_*_tile, veles_*_smem_bytes), so the
@@ -88,6 +100,8 @@ FB_TILE = 128 * _R
 CB_TILE = 128 * 4
 _F2D_RY = 4
 F2D_TILE = (8 * _F2D_RY, 32 * 2)      # (rows, columns) of outputs
+STFT_TILE = (64, 64)                  # (frames, basis columns)
+_STFT_KC = 32
 # shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
 SMEM_MAX_BYTES = 232448
 _SMEM_STATIC_MAX = 48 * 1024
@@ -173,6 +187,28 @@ def fits_smem_f2d(k0: int, k1: int) -> bool:
     return f2d_smem_bytes(k0, k1) <= SMEM_MAX_BYTES
 
 
+def stft_smem_bytes() -> int:
+    """Static shared memory of one STFT block: a chunk of the frames'
+    samples at a pitch of 68 floats and a chunk of basis rows
+    (``veles_stft_smem_bytes`` in csrc/stft.cu)."""
+    return 4 * _STFT_KC * (STFT_TILE[0] + 4 + STFT_TILE[1])
+
+
+def fits_smem_stft(frame_length: int, hop: int) -> bool:
+    """Shared-memory admission of the STFT kernel: its footprint is
+    fixed (16.5 KB) and under the 48 KB static limit whatever the frame
+    length and hop, so every geometry is admitted."""
+    return (int(frame_length) >= 1 and int(hop) >= 1
+            and stft_smem_bytes() <= _SMEM_STATIC_MAX)
+
+
+def on_card(cuda: bool) -> bool:
+    """The device term of the fused STFT route: the operand lies on a
+    CUDA card (the JAX package's ``pallas_available``).  Tests
+    monkeypatch it to open the gate on the CPU."""
+    return bool(cuda)
+
+
 def should_route(rows: int, cuda: bool) -> bool:
     """The device terms the 1D wavelet routes share: operands on a CUDA
     card and at least MIN_ROWS batch rows (the JAX package's
@@ -185,7 +221,16 @@ def should_route(rows: int, cuda: bool) -> bool:
 # ---- launch counters -------------------------------------------------------
 
 LAUNCHES = {"overlap_save": 0, "filter_bank": 0, "cascade_bank": 0,
-            "filter_2d": 0}
+            "filter_2d": 0, "stft": 0}
+
+# the y and z grid dimensions stop at 65535, so each kernel's C entry
+# point launches once per 65535 rows (images for the 2D kernel)
+_MAX_GRID_ROWS = 65535
+
+
+def _launches(rows: int) -> int:
+    """Kernel launches one C entry-point call makes for ``rows`` rows."""
+    return -(-int(rows) // _MAX_GRID_ROWS)
 
 
 def reset_launches() -> None:
@@ -198,7 +243,7 @@ def reset_launches() -> None:
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("overlap_save.cu", "filter_bank.cu", "cascade_bank.cu",
-            "filter_2d.cu")
+            "filter_2d.cu", "stft.cu")
 _BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
                / "simd_tpu_torch")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -310,6 +355,14 @@ def load_library():
         lib.veles_f2d_f32.argtypes = [_P, _P, _P, _L, _L, _L, _I, _I, _L,
                                       _L, _P]
         lib.veles_f2d_f32.restype = _I
+        for name in ("veles_stft_tile_frames", "veles_stft_tile_cols"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = _I
+        lib.veles_stft_smem_bytes.argtypes = []
+        lib.veles_stft_smem_bytes.restype = _L
+        lib.veles_stft_f32.argtypes = [_P, _P, _P, _L, _L, _I, _I, _L, _I,
+                                       _P]
+        lib.veles_stft_f32.restype = _I
         if (lib.veles_os_tile() != OS_TILE
                 or lib.veles_fb_tile() != FB_TILE
                 or lib.veles_fb_smem_bytes(2, 8, 2, 1)
@@ -321,7 +374,10 @@ def load_library():
                 or (lib.veles_f2d_tile_y(), lib.veles_f2d_tile_x())
                 != F2D_TILE
                 or any(lib.veles_f2d_smem_bytes(*a) != f2d_smem_bytes(*a)
-                       for a in ((7, 7), (1, 256), (256, 1), (5, 3)))):
+                       for a in ((7, 7), (1, 256), (256, 1), (5, 3)))
+                or (lib.veles_stft_tile_frames(), lib.veles_stft_tile_cols())
+                != STFT_TILE
+                or lib.veles_stft_smem_bytes() != stft_smem_bytes()):
             raise RuntimeError("csrc/ tile geometry differs from the "
                                "admission constants in cuda_kernels.py")
         _lib = lib
@@ -389,7 +445,7 @@ def overlap_save_cuda(x, taps):
         err = lib.veles_os_conv_f32(x.data_ptr(), taps.data_ptr(),
                                     y.data_ptr(), rows, n, k, stream)
     _check_err(lib, err, "overlap_save kernel")
-    LAUNCHES["overlap_save"] += 1
+    LAUNCHES["overlap_save"] += _launches(rows)
     return y
 
 
@@ -452,7 +508,7 @@ def filter_bank_cuda(x_ext, filters, stride, dilation, n_out):
                                out.data_ptr(), rows, n_ext, channels,
                                order, stride, dilation, n_out, stream)
     _check_err(lib, err, "filter_bank kernel")
-    LAUNCHES["filter_bank"] += 1
+    LAUNCHES["filter_bank"] += _launches(rows)
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -606,7 +662,7 @@ def cascade_bank_cuda(x_ext, taps_list, plans, n_split, n_out):
                                n_ext, n_split, channels, n_slots, max_off,
                                n_out, stream)
     _check_err(lib, err, "cascade_bank kernel")
-    LAUNCHES["cascade_bank"] += 1
+    LAUNCHES["cascade_bank"] += _launches(rows)
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -666,5 +722,101 @@ def filter_2d_cuda(x_ext, kernel2d, n_out0, n_out1):
                                 out.data_ptr(), imgs, n0e, n1e, k0, k1,
                                 n_out0, n_out1, stream)
     _check_err(lib, err, "filter_2d kernel")
-    LAUNCHES["filter_2d"] += 1
+    LAUNCHES["filter_2d"] += _launches(imgs)
     return out
+
+
+# ---- K4: fused STFT --------------------------------------------------------
+
+def stft_basis(frame_length: int, window) -> np.ndarray:
+    """``[L, 2*bins]`` float32 window-folded real-DFT basis with
+    interleaved columns: ``B[n, 2k] = w[n] cos(2 pi n k / L)`` and
+    ``B[n, 2k+1] = -w[n] sin(2 pi n k / L)`` (``bins = L // 2 + 1``),
+    built in float64.  The values of the JAX package's
+    ``_stft_basis_blocks`` without its 128-lane padding columns, so a
+    row of ``frames @ B`` is one frame's complex64 spectrum."""
+    L = int(frame_length)
+    bins = L // 2 + 1
+    n = np.arange(L)[:, None]
+    k = np.arange(bins)[None, :]
+    ang = 2.0 * np.pi * n * k / L
+    w = np.asarray(window, np.float64)[:, None]
+    out = np.empty((L, bins, 2), np.float32)
+    out[..., 0] = (w * np.cos(ang)).astype(np.float32)
+    out[..., 1] = (-w * np.sin(ang)).astype(np.float32)
+    return out.reshape(L, 2 * bins)
+
+
+def _check_stft(x, basis, frame_length, hop):
+    """The contract of ``stft_pallas``, with its messages (its 128-lane
+    hop term belongs to the route gate here); returns the frame
+    count."""
+    L, s = int(frame_length), int(hop)
+    if L < 1 or s < 1:
+        raise ValueError(f"frame_length and hop must be positive, got "
+                         f"{L} and {s}")
+    if L % s != 0:
+        raise ValueError(
+            f"fused STFT needs hop | frame_length, got {s}, {L} "
+            "(use the rdft_matmul route for non-dividing hops)")
+    if L // s < 2:
+        raise ValueError("fused STFT needs frame_length > hop (no "
+                         "overlap to carry; use the rdft_matmul route)")
+    n = int(x.shape[-1])
+    if n < L:
+        raise ValueError(f"signal length {n} < frame_length {L}")
+    if tuple(basis.shape) != (L, 2 * (L // 2 + 1)):
+        raise ValueError(f"basis shape {tuple(basis.shape)} != "
+                         f"{(L, 2 * (L // 2 + 1))}")
+    return 1 + (n - L) // s
+
+
+def _as_spectrum(out, lead):
+    """``[rows, frames, 2*bins]`` float32 -> complex64 ``[*lead,
+    frames, bins]``, a view."""
+    return torch.view_as_complex(
+        out.view(*lead, out.shape[-2], out.shape[-1] // 2, 2))
+
+
+def stft_plain(x, basis, frame_length, hop):
+    """Plain version of :func:`stft_cuda`: the ``unfold`` frames, then
+    one multiply-add pass per sample index n, in the kernel's order."""
+    frames = x.unfold(-1, int(frame_length), int(hop))
+    out = x.new_zeros(tuple(frames.shape[:-1]) + (basis.shape[1],))
+    for j in range(int(frame_length)):
+        out.addcmul_(frames[..., j:j + 1], basis[j])
+    return _as_spectrum(out, tuple(x.shape[:-1]))
+
+
+def stft_cuda(x, basis, frame_length, hop):
+    """Short-time Fourier transform ``x[..., n] -> complex64 [...,
+    frames, L // 2 + 1]`` with ``frames = 1 + (n - L) // hop``, against
+    the interleaved window-folded basis of :func:`stft_basis` — the
+    contract of the JAX package's ``stft_pallas`` (hop divides L, L >
+    hop, n >= L; its 128-lane hop term is the route's, not the
+    kernel's).  Leading batch dims ride along.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``csrc/stft.cu``."""
+    frames = _check_stft(x, basis, frame_length, hop)
+    _check_operands(x, basis)
+    if x.device.type == "cpu":
+        return stft_plain(x, basis, frame_length, hop)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n = int(x.shape[-1])
+    rows = x.numel() // n
+    cols = int(basis.shape[1])
+    out = torch.empty((rows, frames, cols), dtype=torch.float32,
+                      device=x.device)
+    lead = tuple(x.shape[:-1])
+    if rows == 0:
+        return _as_spectrum(out, lead)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.veles_stft_f32(x.data_ptr(), basis.data_ptr(),
+                                 out.data_ptr(), rows, n,
+                                 int(frame_length), int(hop), frames, cols,
+                                 stream)
+    _check_err(lib, err, "stft kernel")
+    LAUNCHES["stft"] += _launches(rows)
+    return _as_spectrum(out, lead)

@@ -24,13 +24,14 @@ every bound.
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
 
 __all__ = ["device_time_ms", "host_time", "device_busy_ms",
-           "device_breakdown",
-           "fp32_bound", "conv_work", "H100_FP32_TFLOPS", "H100_HBM_TBPS"]
+           "device_breakdown", "fp32_bound", "conv_work", "stft_work",
+           "H100_FP32_TFLOPS", "H100_HBM_TBPS"]
 
 H100_FP32_TFLOPS = 67.0
 H100_HBM_TBPS = 3.35
@@ -139,4 +140,21 @@ def conv_work(rows: int, n: int, k: int) -> tuple[float, float]:
     rows, n, k = int(rows), int(n), int(k)
     flops = 2.0 * rows * n * k
     nbytes = 4.0 * (rows * n + k + rows * (n + k - 1))
+    return flops, nbytes
+
+
+def stft_work(rows: int, n: int, frame_length: int,
+              hop: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of a float32 STFT of ``rows`` signals of ``n``
+    samples against a window-folded ``[L, 2 * (L // 2 + 1)]`` basis.
+    The operations are the function's least, not the DFT form's: per
+    frame, ``L`` window multiplies and a real FFT's ``2.5 L log2 L``
+    (half the usual ``5 N log2 N`` of a complex one).  The bytes read
+    the signal and the basis once and write the complex64 spectrum
+    once."""
+    rows, n, L, hop = int(rows), int(n), int(frame_length), int(hop)
+    frames = 1 + (n - L) // hop
+    cols = 2 * (L // 2 + 1)
+    flops = rows * frames * (L + 2.5 * L * math.log2(L))
+    nbytes = 4.0 * (rows * n + L * cols + rows * frames * cols)
     return flops, nbytes

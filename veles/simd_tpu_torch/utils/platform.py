@@ -19,7 +19,7 @@ import torch
 
 from veles.simd_tpu_torch.utils.config import get_config
 
-__all__ = ["device", "on_cuda", "as_f32", "smi_line"]
+__all__ = ["device", "on_cuda", "as_f32", "as_c64", "smi_line"]
 
 
 def device() -> torch.device:
@@ -48,6 +48,19 @@ def as_f32(x) -> torch.Tensor:
         return x.to(torch.float32)
     arr = np.asarray(x, np.float32)
     if not arr.flags.writeable:     # torch cannot share read-only memory
+        arr = arr.copy()
+    return torch.as_tensor(arr, device=device())
+
+
+def as_c64(x) -> torch.Tensor:
+    """``x`` as a complex64 tensor, real input included: a tensor keeps
+    its device, anything else goes to :func:`device` (the port's
+    counterpart of the JAX package's ``to_device(x, complex64)``; the
+    card takes complex buffers directly)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.complex64)
+    arr = np.asarray(x, np.complex64)
+    if not arr.flags.writeable:
         arr = arr.copy()
     return torch.as_tensor(arr, device=device())
 
