@@ -10,7 +10,8 @@ without printing a result):
             failure (the port is never smoke-run on the CPU);
 2. build  — builds the CUDA kernels from csrc/ with nvcc (sm_90a);
 3. parity — each kernel against its plain PyTorch version on the card,
-            at the main path's shapes and at the edge cases;
+            at the main path's shapes and at the edge cases (the FFT
+            kernels against the plain version run in float64);
 4. main   — the main path through the user entry points, launch
             counters reset just before each call and read just after:
             ``convolve_initialize(1<<20, 2047)`` + ``convolve`` (the
@@ -33,16 +34,18 @@ without printing a result):
             ``morlet_cwt`` on 8 x 4096 with 32 scales (``ct_matmul``);
             each within 1e-4 of a float64 oracle;
 5. times  — the headline convolve call (CUDA events, device-resident
-            operands; and host clock from NumPy operands), the DWT,
+            operands; and host clock from NumPy operands), the
+            handle's own cuFFT overlap-save route beside it, the DWT,
             the fused cascade against the level loop, convolve2d, and
             ``stft`` (auto and forced routes) and ``batched_stft``;
             then each kernel, its plain version and its library
             yardstick (cuDNN ``conv1d``/``conv2d`` in fp32,
             ``torch.stft``) at the main-path shapes, as device time
             per call from ``torch.profiler`` (the kernel also as
-            chained CUDA events), beside the fp32 bound (the STFT's
-            counts the function's FFT-form work, not the kernel's DFT
-            form); printed as one ``{"kernels": [...]}`` line.
+            chained CUDA events), beside the fp32 bound (the
+            convolutions' and the STFT's count the function's least
+            work, the FFT form where it is less, so the bytes set
+            them); printed as one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -164,11 +167,14 @@ def main():
     # 3. parity: kernel vs plain version, same inputs on the card
     parity = {}
 
+    # the FFT kernels (K1, K4) against their plain versions run in
+    # float64: a float32 direct sum of 16384 terms drifts by about 5e-6
+    # of its max on its own, half the tolerance
     def os_case(name, rows, n, k):
         x = cuda(rng.randn(rows, n) if rows > 1 else rng.randn(n))
         t = cuda(rng.randn(k))
         got = ck.overlap_save_cuda(x, t)
-        want = ck.overlap_save_plain(x, t)
+        want = ck.overlap_save_plain(x.double(), t.double())
         torch.cuda.synchronize()
         diff = (got - want).abs().max().item()
         parity[name] = (diff, diff / want.abs().max().item())
@@ -187,6 +193,10 @@ def main():
     os_case("os 3x200000x2047", 3, 200000, K_HEAD)
     os_case("os 100000x2", 1, 100000, 2)
     os_case("os 100000x257", 1, 100000, 257)
+    os_case("os 3x50000x256", 3, 50000, 256)
+    os_case("os 3x50000x16384", 3, 50000, 16384)
+    os_case("os 512x4096x300", 512, 4096, 300)      # one segment a row
+    os_case("os 64x1000x300", 64, 1000, 300)        # N = 4096
     fb_case("fb C1 512x16384x129", ROWS_FB, N_FB + 2 * (K_FB - 1),
             rng.randn(1, K_FB), 1, 1, N_FB + K_FB - 1)
     daub = np.stack([DAUB8_LO[::-1] * (-1.0) ** np.arange(8), DAUB8_LO])
@@ -229,9 +239,9 @@ def main():
 
     def stft_case(name, rows, n, L, hop):
         x = cuda(rng.randn(rows, n))
-        b = cuda(ck.stft_basis(L, sp.hann_window(L)))
-        got = torch.view_as_real(ck.stft_cuda(x, b, L, hop))
-        want = torch.view_as_real(ck.stft_plain(x, b, L, hop))
+        w = sp.hann_window(L)
+        got = torch.view_as_real(ck.stft_cuda(x, cuda(w), L, hop))
+        want = torch.view_as_real(ck.stft_plain(x.double(), w, L, hop))
         torch.cuda.synchronize()
         diff = (got - want).abs().max().item()
         parity[name] = (diff, diff / want.abs().max().item())
@@ -241,7 +251,11 @@ def main():
     stft_case("stft 3x5000 256/128", 3, 5000, 256, 128)
     stft_case("stft 2x8192 1024/128", 2, 8192, 1024, 128)
     stft_case("stft 4x4096 384/128", 4, 4096, 384, 128)
-    stft_case("stft 2x700 512/128", 2, 700, 512, 128)   # < one tile
+    stft_case("stft 2x700 512/128", 2, 700, 512, 128)   # < one block
+    stft_case("stft 3x2000 255/85", 3, 2000, 255, 85)   # odd: complex FFT
+    stft_case("stft 2x5000 640/128", 2, 5000, 640, 128)
+    stft_case("stft 2x20000 4096/128", 2, 20000, 4096, 128)
+    stft_case("stft 2x40000 16384/128", 2, 40000, 16384, 128)
     for name, (diff, rel) in parity.items():
         check(rel <= PARITY_TOL, f"{name}: rel err {rel:.3e} > "
               f"{PARITY_TOL}")
@@ -502,6 +516,22 @@ def main():
           f"from NumPy input, host clock {host_ms:.3f} ms")
     print("breakdown convolve (from NumPy input, device us per call): "
           + bm.device_breakdown(from_numpy, calls=5))
+    # the handle's own cuFFT overlap-save route (the os_fft path) at the
+    # same shape, K1's yardstick for the convolve.os route prior
+    y_osf = cv._conv_overlap_save(xh, th, handle.block_length)
+    err_osf = rel_err(y_osf.cpu().numpy(), fft_conv64(x_head, h_head))
+    check(err_osf <= ORACLE_TOL, f"cuFFT overlap-save rel err "
+          f"{err_osf:.3e}")
+
+    def os_fft():
+        return cv._conv_overlap_save(xh, th, handle.block_length)
+
+    print(f"os_fft: convolve._conv_overlap_save {N_HEAD}x{K_HEAD} (cuFFT, "
+          f"block {handle.block_length}) on the card "
+          f"{bm.device_time_ms(os_fft):.4f} ms chained, device busy "
+          f"{bm.device_busy_ms(os_fft):.4f} ms, rel {err_osf:.2e} | "
+          "breakdown (device us per call): "
+          + bm.device_breakdown(os_fft, calls=5))
     xs_t, hs_t = cuda(x_fb), cuda(h_fb)
     simd_ms = bm.device_time_ms(lambda: cv.convolve_simd(xs_t, hs_t))
 
@@ -644,7 +674,6 @@ def main():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             return F.conv2d(x2_ext.unsqueeze(1), k2f.view(1, 1, K_2D, K_2D))
 
-    basis_st = sp._stft_cuda_basis(L_ST, sp.hann_window(L_ST), dev)
     win_st = cuda(sp.hann_window(L_ST))
 
     def torch_stft():
@@ -685,9 +714,8 @@ def main():
                       4.0 * (x2_ext.numel() + K_2D * K_2D
                              + IMGS_2D * n_2d * n_2d)),
         "overlap_save": bm.conv_work(1, N_HEAD, K_HEAD),
-        "filter_bank": (2.0 * K_FB * ROWS_FB * n_out_fb,
-                        4.0 * (xf.numel() + K_FB + ROWS_FB * n_out_fb)),
-        # the function's least work (FFT form), not the kernel's DFT form
+        # the functions' least work (FFT form where it is less)
+        "filter_bank": bm.conv_work(ROWS_FB, N_FB, K_FB),
         "stft": bm.stft_work(1, N_ST, L_ST, HOP_ST),
     }
     timed = {
@@ -711,8 +739,9 @@ def main():
             lambda: ck.filter_bank_plain(xf, ff, 1, 1, n_out_fb),
             conv1d_fb),
         "stft": (
-            lambda: ck.stft_cuda(xst_t, basis_st, L_ST, HOP_ST),
-            lambda: ck.stft_plain(xst_t, basis_st, L_ST, HOP_ST),
+            lambda: ck.stft_cuda(xst_t, win_st, L_ST, HOP_ST),
+            lambda: ck.stft_plain(xst_t, sp.hann_window(L_ST), L_ST,
+                                  HOP_ST),
             torch_stft),
     }
     meta = {

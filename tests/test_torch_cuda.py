@@ -64,9 +64,35 @@ def test_overlap_save_kernel_matches_plain(shape, k):
     r = np.random.RandomState(k + shape[-1])
     x, t = _t(r.randn(*shape)), _t(r.randn(k))
     got = ck.overlap_save_cuda(x, t)
-    want = ck.overlap_save_plain(x, t)
+    # the plain version in float64 (a float32 sum of k terms drifts)
+    want = ck.overlap_save_plain(x.double(), t.double())
     torch.cuda.synchronize()
     assert _rel(got.cpu(), want.cpu()) <= TOL
+
+
+@pytest.mark.parametrize("k", [256, 2047, 16384])
+def test_overlap_save_kernel_long_filters(k):
+    # segments of 8192 to 32768 samples, three rows each restarting
+    r = np.random.RandomState(k)
+    x, t = _t(r.randn(3, 50000)), _t(r.randn(k))
+    ck.reset_launches()
+    got = ck.overlap_save_cuda(x, t)
+    # the taps' spectrum, then one launch of segments
+    assert ck.LAUNCHES["overlap_save"] == 2
+    want = ck.overlap_save_plain(x.double(), t.double())
+    torch.cuda.synchronize()
+    assert _rel(got.cpu(), want.cpu()) <= TOL
+    assert _rel(got[1].cpu(), _conv64(x[1].cpu().numpy(),
+                                      t.cpu().numpy())) <= TOL
+
+
+def test_kernels_refuse_what_they_do_not_admit():
+    # no fallback on a card: the wrappers raise, the routes go elsewhere
+    with pytest.raises(ValueError, match="2..16384 taps"):
+        ck.overlap_save_cuda(_t(np.ones(40000)), _t(np.ones(16385)))
+    with pytest.raises(ValueError, match="refuses"):
+        ck.stft_cuda(_t(np.ones(40000)), _t(np.ones(32768)), 32768, 128)
+    assert sp._select_stft_route(32768, 128, 500, cuda=True) == "xla_fft"
 
 
 def test_overlap_save_kernel_many_rows():
@@ -74,7 +100,8 @@ def test_overlap_save_kernel_many_rows():
     r = np.random.RandomState(1)
     x, t = _t(r.randn(70000, 8)), _t(r.randn(3))
     got = ck.overlap_save_cuda(x, t)
-    assert _rel(got.cpu(), ck.overlap_save_plain(x, t).cpu()) <= TOL
+    want = ck.overlap_save_plain(x.double(), t.double())
+    assert _rel(got.cpu(), want.cpu()) <= TOL
 
 
 @pytest.mark.parametrize("channels,order,stride,dilation", [
@@ -114,7 +141,8 @@ def test_overlap_save_route_launches_the_kernel(monkeypatch):
         ck.reset_launches()
         hd = cv.convolve_initialize(100000, 300, reverse=reverse)
         y = cv.convolve(hd, x, h)
-        assert ck.LAUNCHES["overlap_save"] == 1
+        # the taps' spectrum and the segments
+        assert ck.LAUNCHES["overlap_save"] == 2
         want = _conv64(x, h[::-1] if reverse else h)
         assert y.device.type == "cuda" and _rel(y.cpu(), want) <= TOL
     ck.reset_launches()
@@ -310,17 +338,19 @@ def _stft64(x, L, hop):
 @pytest.mark.parametrize("rows,n,L,hop", [
     (1, 1 << 18, 512, 128), (64, 16384, 512, 128), (3, 5000, 256, 128),
     (2, 8192, 1024, 128), (4, 4096, 384, 128), (2, 700, 512, 128),
-    (3, 2000, 255, 85), (70000, 600, 512, 128),
+    (3, 2000, 255, 85), (70000, 600, 512, 128), (2, 5000, 640, 128),
+    (2, 20000, 4096, 128), (2, 40000, 16384, 128),
 ])
 def test_stft_kernel_matches_plain_and_float64(rows, n, L, hop):
     r = np.random.RandomState(rows + L)
     x = r.randn(rows, n).astype(np.float32)
-    basis = _t(ck.stft_basis(L, sp.hann_window(L)))
+    window = _t(sp.hann_window(L))
     ck.reset_launches()
-    got = ck.stft_cuda(_t(x), basis, L, hop)
-    # one launch per 65535 rows (the grid's z limit)
+    got = ck.stft_cuda(_t(x), window, L, hop)
+    # one launch per 65535 rows (the grid's y limit)
     assert ck.LAUNCHES["stft"] == -(-rows // 65535)
-    want = ck.stft_plain(_t(x), basis, L, hop)
+    # the plain version in float64 (a float32 sum of L terms drifts)
+    want = ck.stft_plain(_t(x).double(), sp.hann_window(L), L, hop)
     torch.cuda.synchronize()
     assert got.shape == (rows, 1 + (n - L) // hop, L // 2 + 1)
     assert _rel(torch.view_as_real(got).cpu(),

@@ -28,6 +28,7 @@ from veles.simd_tpu_torch.obs import spans as tspans
 from veles.simd_tpu_torch.runtime import precision as tprx
 from veles.simd_tpu_torch.runtime import routing as trouting
 from veles.simd_tpu_torch.utils import benchmark as tbench
+from veles.simd_tpu_torch.utils import cache as tcache
 from veles.simd_tpu_torch.utils import config as tconfig
 from veles.simd_tpu_torch.utils import memory as tmemory
 
@@ -259,19 +260,65 @@ def test_precision_matches():
 
 
 def test_fp32_bound():
+    # the headline convolution's least work is an FFT overlap-save (N =
+    # 16384: 74 segments), under its 8.4 MB of signal in and out
     flops, nbytes = tbench.conv_work(1, 1 << 20, 2047)
-    assert flops == 2.0 * (1 << 20) * 2047
+    direct = 2.0 * (1 << 20) * 2047
+    assert flops < direct / 40
+    assert nbytes == 4.0 * ((1 << 20) + 2047 + (1 << 20) + 2046)
     ms, by = tbench.fp32_bound(flops, nbytes)
+    assert by == "bytes" and abs(ms - 0.0025) < 1e-4
+    # the direct form's 4.29 GFLOP stays the ceiling of a direct kernel
+    ms, by = tbench.fp32_bound(direct, nbytes)
     assert by == "operations" and abs(ms - 0.0641) < 1e-3
+    # a 2-tap filter: the direct form is the least
+    assert tbench.conv_work(3, 1000, 2)[0] == 2.0 * 3 * 1000 * 2
+    # the batched direct shape: bound by its bytes too
+    ms, by = tbench.fp32_bound(*tbench.conv_work(512, 16384, 129))
+    assert by == "bytes" and abs(ms - 0.0201) < 1e-4
     ms, by = tbench.fp32_bound(1e6, 3.35e9)
     assert by == "bytes" and abs(ms - 1.0) < 1e-9
 
 
 def test_stft_bound_is_the_bytes():
     # 2^20 samples at 512/128: 8189 frames of an FFT-form STFT are
-    # ~0.1 GFLOP, far under the 22.1 MB of signal, basis and spectrum
+    # ~0.1 GFLOP, far under the 21.0 MB of signal, window and spectrum
     flops, nbytes = tbench.stft_work(1, 1 << 20, 512, 128)
     assert flops == 8189 * (512 + 2.5 * 512 * 9)
-    assert nbytes == 4.0 * ((1 << 20) + 512 * 514 + 8189 * 514)
+    assert nbytes == 4.0 * ((1 << 20) + 512 + 8189 * 514)
     ms, by = tbench.fp32_bound(flops, nbytes)
-    assert by == "bytes" and abs(ms - 0.0066) < 1e-4
+    assert by == "bytes" and abs(ms - 0.0063) < 1e-4
+
+
+def test_constant_cache_bounds_entries_and_bytes():
+    cache = tcache.ConstantCache(3, max_bytes=1000)
+    builds = []
+
+    def build(n):
+        def make():
+            builds.append(n)
+            return np.zeros(n, np.float32)
+        return make
+
+    a = cache.get(("a", 1), build(100))
+    assert cache.get(("a", 1), build(100)) is a and builds == [100]
+    # a value above the byte bound is returned but never kept
+    big = cache.get(("big",), build(300))
+    assert big.nbytes == 1200 and cache.get(("big",), build(300)) \
+        is not big
+    cache.get(("b",), build(100))
+    # 400 + 400 + 200 bytes fit; another 200 evicts the oldest entry
+    cache.get(("c",), build(50))
+    cache.get(("d",), build(50))
+    info = cache.info()
+    assert info["keys"] == ["b", "c", "d"] and info["bytes"] == 800
+    assert (info["hits"], info["misses"], info["evictions"],
+            info["uncached"]) == (1, 6, 1, 2)
+    # an entry bound too: a fourth small value evicts the oldest
+    cache.get(("e",), lambda: (torch.zeros(2), np.zeros(2)))
+    assert cache.info()["keys"] == ["c", "d", "e"]
+    assert tcache.nbytes((torch.zeros(2), np.zeros(2))) == 8 + 16
+    # the port's constant caches all report through obs.caches()
+    importlib.import_module("veles.simd_tpu_torch.ops.spectral")
+    assert {"spectral_host_lru", "spectral_device_lru",
+            "cuda_kernels_device_lru"} <= set(tobs.caches())

@@ -39,6 +39,7 @@ def _rel(got, want):
     (1000, 129, 128),
     (1537, 513, 512),
     (900, 2, 256),
+    (6000, 2047, 512),
 ])
 def test_overlap_save_matches_pallas(n, k, step):
     r = np.random.RandomState(n + k)
@@ -156,7 +157,7 @@ def test_cpu_path_launches_nothing():
     ck.cascade_bank_cuda(torch.ones(2, 40), [np.ones(2)],
                          (((0, 0), (1, 1)),), 4, 8)
     ck.filter_2d_cuda(torch.ones(2, 9, 9), torch.ones(3, 2), 7, 8)
-    ck.stft_cuda(torch.ones(2, 600), torch.ones(256, 258), 256, 128)
+    ck.stft_cuda(torch.ones(2, 600), torch.ones(256), 256, 128)
     assert ck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0,
                            "cascade_bank": 0, "filter_2d": 0, "stft": 0}
 
@@ -169,7 +170,7 @@ def test_launch_count_follows_the_grid_row_limit(rows, launches):
 
 
 def test_shared_memory_admission():
-    # the overlap-save kernel's footprint does not grow with k
+    # the overlap-save kernel admits the route's filters
     assert all(ck.fits_smem_os(k) for k in (2, 256, 2047, 16384))
     # direct path: every filter the route admits fits
     assert all(ck.fits_smem_fb(1, k, 1, 1)
@@ -300,19 +301,19 @@ def test_new_wrappers_refuse_other_devices():
                           torch.ones(2, 2, dtype=torch.float64), 8, 8)
 
 
-def _stft_basis(L):
-    return torch.from_numpy(ck.stft_basis(L, jsp.hann_window(L)))
+def _window(L):
+    return torch.from_numpy(jsp.hann_window(L).astype(np.float32))
 
 
 @pytest.mark.parametrize("L,hop", [(256, 128), (512, 128), (1024, 128),
-                                   (384, 128)])
+                                   (384, 128), (640, 128)])
 @pytest.mark.parametrize("rows,n", [(1, 3000), (3, 2100)])
 def test_stft_matches_pallas(L, hop, rows, n):
     # n is no multiple of hop in the 3-row case (the trailing samples
     # short of a frame are dropped)
     x = np.random.RandomState(L + rows).randn(rows, n).astype(np.float32)
     want = np.asarray(pk.stft_pallas(x, L, hop, interpret=True))
-    got = ck.stft_cuda(torch.from_numpy(x), _stft_basis(L), L, hop)
+    got = ck.stft_cuda(torch.from_numpy(x), _window(L), L, hop)
     assert got.dtype == torch.complex64
     assert got.shape == want.shape == (rows, 1 + (n - L) // hop,
                                        L // 2 + 1)
@@ -322,13 +323,13 @@ def test_stft_matches_pallas(L, hop, rows, n):
 
 def test_stft_leading_dims_and_plain():
     x = np.random.RandomState(8).randn(2, 3, 1000).astype(np.float32)
-    got = ck.stft_cuda(torch.from_numpy(x), _stft_basis(256), 256, 128)
+    got = ck.stft_cuda(torch.from_numpy(x), _window(256), 256, 128)
     assert got.shape == (2, 3, 6, 129)
     want = jsp.stft_na(x, 256, 128)
     assert np.max(np.abs(got.numpy() - want)) < \
         REL_TOL * np.max(np.abs(want))
     # the plain version is what the CPU wrapper returns
-    plain = ck.stft_plain(torch.from_numpy(x), _stft_basis(256), 256, 128)
+    plain = ck.stft_plain(torch.from_numpy(x), _window(256), 256, 128)
     np.testing.assert_array_equal(plain.numpy(), got.numpy())
 
 
@@ -344,6 +345,43 @@ def test_stft_basis_is_the_pallas_basis():
         np.testing.assert_array_equal(ck.stft_basis(L, w), want)
 
 
+def test_stft_basis_built_in_row_blocks():
+    # above 2^22 / bins rows the float64 build runs in blocks of rows:
+    # the same values as the one-piece build
+    L = 3000
+    w = jsp.hann_window(L).astype(np.float64)[:, None]
+    ang = 2.0 * np.pi * np.arange(L)[:, None] * np.arange(1501) / L
+    want = np.stack([(w * np.cos(ang)).astype(np.float32),
+                     (-w * np.sin(ang)).astype(np.float32)], axis=-1)
+    np.testing.assert_array_equal(ck.stft_basis(L, w[:, 0]),
+                                  want.reshape(L, 3002))
+
+
+def test_stft_plain_window_forms_and_float64():
+    x = np.random.RandomState(12).randn(2, 1500).astype(np.float32)
+    w = jsp.hann_window(256)
+    plain = ck.stft_plain(torch.from_numpy(x), torch.from_numpy(w), 256,
+                          128)
+    # a host window gives the same result, with no copy from a card
+    np.testing.assert_array_equal(
+        ck.stft_plain(torch.from_numpy(x), w, 256, 128).numpy(),
+        plain.numpy())
+    # float64 operands accumulate in float64: the float64 oracle up to
+    # the float32 rounding of the basis
+    p64 = ck.stft_plain(torch.from_numpy(x).double(), w, 256, 128)
+    assert p64.dtype == torch.complex128
+    ref = jsp.stft_na(x.astype(np.float64), 256, 128)
+    assert np.max(np.abs(p64.numpy() - ref)) < 1e-6 * np.max(np.abs(ref))
+    assert np.max(np.abs(plain.numpy() - ref)) < \
+        REL_TOL * np.max(np.abs(ref))
+    y64 = ck.overlap_save_plain(torch.from_numpy(x).double(),
+                                torch.ones(5, dtype=torch.float64))
+    assert y64.dtype == torch.float64
+    np.testing.assert_allclose(
+        y64.numpy(), np.stack([np.convolve(r, np.ones(5)) for r in x]),
+        rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("args,match", [
     ((1000, 256, 96), "hop [|] frame_length"),
     ((1000, 256, 256), "frame_length > hop"),
@@ -357,26 +395,84 @@ def test_stft_contract_errors_match(args, match, side):
         if side == "jax":
             pk.stft_pallas(x, L, hop, interpret=True)
         else:
-            ck.stft_cuda(torch.from_numpy(x), _stft_basis(L), L, hop)
+            ck.stft_cuda(torch.from_numpy(x), _window(L), L, hop)
 
 
 def test_stft_wrapper_checks():
     # the 128-lane hop term is the route gate's, not the kernel's
     x = torch.ones(2, 600)
-    assert ck.stft_cuda(x, _stft_basis(128), 128, 64).shape == (2, 8, 65)
-    with pytest.raises(ValueError, match="basis shape"):
-        ck.stft_cuda(x, torch.ones(256, 256), 256, 128)
+    assert ck.stft_cuda(x, _window(128), 128, 64).shape == (2, 8, 65)
+    with pytest.raises(ValueError, match="window shape"):
+        ck.stft_cuda(x, torch.ones(255), 256, 128)
     with pytest.raises(ValueError, match="float32"):
-        ck.stft_cuda(x.double(), _stft_basis(256).double(), 256, 128)
+        ck.stft_cuda(x.double(), _window(256).double(), 256, 128)
     meta = torch.empty(2, 600, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        ck.stft_cuda(meta, torch.empty(256, 258, device="meta"), 256, 128)
+        ck.stft_cuda(meta, torch.empty(256, device="meta"), 256, 128)
 
 
 def test_stft_shared_memory_admission():
-    # fixed 16.5 KB: a 64-sample chunk at a 68-float pitch and 64
-    # basis columns, under the static 48 KB for every geometry
-    assert ck.stft_smem_bytes() == 4 * 32 * (68 + 64) == 16896
+    # a span of F frames and F padded FFT buffers: 16 frames of 256
+    # complex values at 512/128, one frame of 8192 at 16384/128
+    assert ck.stft_frames_per_block(512) == 16
+    assert ck.stft_smem_bytes(512, 128) == \
+        4 * (15 * 128 + 512) + 8 * 16 * (256 + 16 + 1) == 44672
+    assert ck.stft_frames_per_block(16384) == 1
+    assert ck.stft_smem_bytes(16384, 128) == \
+        4 * 16384 + 8 * (8192 + 512 + 1) == 135176
+    assert ck.stft_fft_length(512) == 256 and ck.stft_fft_length(255) == 255
     assert all(ck.fits_smem_stft(L, hop) for L, hop in
                ((256, 128), (4096, 128), (16384, 128), (3, 1)))
     assert not ck.fits_smem_stft(0, 128)
+    # outside the contract, or too large for one block: refused
+    assert not ck.fits_smem_stft(256, 96) and not ck.fits_smem_stft(256, 256)
+    assert not ck.fits_smem_stft(32768, 128)
+
+
+def test_stft_admission_covers_every_frame_up_to_16384():
+    # every L <= 16384 with hop | L and L > hop: the largest hop needs
+    # the most shared memory, hop 1 the longest span per frame count
+    for L in range(2, 16385):
+        p = next(f for f in range(2, L + 1) if L % f == 0)
+        assert ck.fits_smem_stft(L, L // p), L
+        assert ck.fits_smem_stft(L, 1), L
+        assert ck.stft_frames_per_block(L) * ck.stft_fft_length(L) <= \
+            512 * 32
+
+
+@pytest.mark.parametrize("k,n,n_fft,step", [
+    (2, 1 << 20, 8192, 8191), (256, 1 << 20, 8192, 7937),
+    (2047, 1 << 20, 8192, 6146), (16384, 50000, 32768, 16385),
+    # a short row takes the least segment that holds its whole output
+    (2, 1, 4096, 4095), (256, 1000, 4096, 3841), (256, 4096, 8192, 7937),
+    (2047, 2050, 4096, 2050), (2047, 2051, 8192, 6146),
+    (16384, 1, 32768, 16385)])
+def test_overlap_save_segment_choice(k, n, n_fft, step):
+    # the least power of two >= 4096 and >= 2k that holds 8192 samples
+    # or the row's output n + k - 1; step = N - k + 1
+    assert ck.os_fft_length(k, n) == n_fft
+    assert ck.os_step(k, n) == step
+    assert ck.os_smem_bytes(n_fft) == 8 * (n_fft // 2 + n_fft // 32 + 1)
+    assert ck.fits_smem_os(k)
+
+
+def test_overlap_save_admission_covers_the_route():
+    # every k in 2..16384 (OS_MIN_H..AUTO_OS_MATMUL_MAX_H on the route,
+    # and the kernel's whole contract below it) fits one block at any
+    # row length
+    assert all(ck.fits_smem_os(k) for k in range(2, 16385))
+    assert max(ck.os_smem_bytes(ck.os_fft_length(k, n))
+               for k in range(2, 16385) for n in (1, 5000, 1 << 20)) \
+        == 139272
+    assert not ck.fits_smem_os(1) and not ck.fits_smem_os(16385)
+
+
+@pytest.mark.parametrize("n", [4, 255, 512, 4096, 32768])
+def test_fft_twiddles_match_numpy(n):
+    # built in float64, rounded once to float32
+    got = ck.fft_twiddles(n)
+    assert got.dtype == np.float32 and got.shape == (n, 2)
+    want = np.exp(-2j * np.pi * np.arange(n) / n)
+    np.testing.assert_array_equal(got[:, 0], want.real.astype(np.float32))
+    np.testing.assert_array_equal(got[:, 1], want.imag.astype(np.float32))
+    assert np.max(np.abs(got[:, 0] + 1j * got[:, 1] - want)) < 1e-7

@@ -2,164 +2,229 @@
 //
 // Replaces the fused STFT Pallas kernel of the JAX package
 // (veles/simd_tpu/ops/pallas_kernels.py: stft_pallas, _stft_call,
-// _stft_kernel, _stft_basis_blocks).  It computes the same function, the
-// windowed real DFT of every frame, as an implicit GEMM against the
-// window-folded real-DFT basis:
+// _stft_kernel).  It computes the same function, the windowed real DFT
+// of every frame,
 //
-//     out[b, f, c] = sum_{n < L} x[b, f*hop + n] * B[n, c]
+//     out[b, f, k] = sum_{n < L} w[n] x[b, f*hop + n] e^{-2 pi i n k / L},
 //
-// B is [L, 2*bins] (bins = L/2 + 1) with interleaved columns,
-// B[n, 2k] = w[n] cos(2 pi n k / L) and B[n, 2k+1] = -w[n] sin(...), so
-// each output row of 2*bins floats is one frame's complex64 spectrum
-// and the wrapper views it as complex with no copy.  The [frames, L]
-// frames matrix never exists: each block reads its frames' samples
-// straight from x.
+// k < L/2 + 1, stored as interleaved (re, im) float32, so each output
+// row is one frame's complex64 spectrum and the wrapper views it as
+// complex with no copy.
 //
-// Bound on the H100: the bytes.  At 2^20 samples, L = 512, hop = 128
-// the function moves 22.1 MB of signal, basis and spectrum (6.6 us at
-// 3.35 TB/s) and needs about 0.1 GFLOP in FFT form.  This kernel's DFT
-// form does 2*frames*L*2*bins = 4.31 GFLOP of fp32 FFMA instead (64 us
-// at 67 TFLOP/s), so it cannot come within 10x of the bound; an
-// O(L log L) form, or the tensor cores, are later work.  The Pallas
-// kernel runs its dots at "highest", and fp32 FFMA keeps that accuracy.
+// Bound on the H100: the bytes.  At 2^20 samples, L = 512, hop = 128 the
+// function reads 4.2 MB of signal and writes 16.8 MB of spectrum (6.3
+// us at 3.35 TB/s); an FFT needs about 0.1 GFLOP (1.5 us at 67 TFLOP/s).
+// The DFT form, an implicit GEMM against an [L, 2*bins] basis, does 4.31
+// GFLOP of FFMA, 64 us at the fp32 peak, so it cannot come within 10x of
+// the bound: hence an FFT per frame.
 //
 // Design.  The TPU kernel walks each row's hop-blocks in grid order and
-// carries the L - hop sample overlap in VMEM; Hopper runs blocks in
-// parallel, so nothing is carried: each block re-reads its frames'
-// samples from global memory (the signal stays in L2; each sample is
-// read L/hop times).  The 128-lane padding of the bins and the r =
-// L/hop shift-dot split are TPU layout and are not carried over.
+// carries the L - hop sample overlap in VMEM.  Hopper runs blocks in
+// parallel, so each block takes F consecutive frames of one row and
+// loads the samples they share, (F-1)*hop + L of them, into shared
+// memory once, with 16-byte loads where the span is 16-byte aligned:
+// the block's frames read device memory once, where the DFT-form
+// kernel read each sample L/hop times.  The block's 512 threads form F
+// groups of G = 512 / F, one frame each (smem_fft.cuh): G is the least
+// power of two >= M/8 (M = L/2, the FFT length) from a warp up, so at
+// L = 512 a warp transforms a frame of 256 complex values with 8 values
+// a thread and synchronises with __syncwarp alone (radix 8, 8, 4).  A
+// group windows and real-packs its frame (z[m] = w[2m] x[2m] + i
+// w[2m+1] x[2m+1]) from the staged span, transforms it, unpacks its
+// L/2 + 1 bins and writes them once, coalesced, as one contiguous run
+// of float2.  An odd L (255/85) goes through the complex path: L points
+// with a zero imaginary part.  From L = 8192 on a frame takes the whole
+// block (F = 1), with up to 32 values a thread.  Shared memory, the
+// span and F padded FFT buffers, grows with L: 44.7 KB at 512/128,
+// 135 KB at 16384/128, 204 KB at 16383/43, so every L up to 16384 with
+// hop | L, L > hop fits.  Twiddles come from the wrapper's
+// float64-built table of e^{-2 pi i t / L}, t < L.
 //
-// A block computes ST_TF frames x ST_TC basis columns with ST_THREADS
-// threads, 4 x 4 outputs a thread.  The K loop runs over the frame's
-// samples in chunks of ST_KC.  Per chunk the block stages the frames'
-// samples, transposed to [sample][frame], and the basis rows in shared
-// memory.  A warp stages 8 samples of 4 frames per step: 32-byte
-// sectors from global memory, and with the row pitch of 68 floats its
-// 32 stores hit 32 banks.  Each thread then reads one float4 of
-// samples and one of basis per sample index and does 16 FFMAs.  Each
-// output accumulates over n in increasing order, the order of the
-// plain version (stft_plain in ops/cuda_kernels.py).  Shared memory is
-// fixed (16.5 KB) whatever L and hop are, so every geometry is
-// admitted.  The grid is (frame tiles, column tiles, rows).
+// Accuracy: fp32 throughout, within 1e-5 of max|X| of the plain version
+// (ops/cuda_kernels.py: stft_plain, the basis sum), not bit-equal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_fft.cuh"
+
 namespace {
 
-constexpr int ST_THREADS = 256;
-constexpr int ST_TF = 64;              // frames per block
-constexpr int ST_TC = 64;              // basis columns per block
-constexpr int ST_KC = 32;              // samples per K chunk
-constexpr int ST_APITCH = ST_TF + 4;   // staged-sample row pitch
-constexpr long long MAX_GRID_Z = 65535;
+using veles_fft::Plan;
+using veles_fft::padded;
+using veles_fft::pad;
 
-__global__ void __launch_bounds__(ST_THREADS)
-stft_kernel(const float* __restrict__ x, const float* __restrict__ basis,
-            float* __restrict__ out, long long n, int L, int hop,
-            long long frames, int cols)
+constexpr int ST_THREADS = 512;
+constexpr long long MAX_GRID_Y = 65535;
+
+int fft_len(int L) { return L % 2 == 0 ? L / 2 : L; }
+
+// threads that share one frame's FFT: a power of two >= M / 8, from a
+// warp to the whole block
+int group_size(int L)
 {
-    __shared__ __align__(16) float s_a[ST_KC][ST_APITCH];
-    __shared__ __align__(16) float s_b[ST_KC][ST_TC];
-    const long long f0 = (long long)blockIdx.x * ST_TF;
-    const int c0 = blockIdx.y * ST_TC;
-    const float* xr = x + (long long)blockIdx.z * n;
-    float* orow = out + (long long)blockIdx.z * frames * cols;
+    const int M = fft_len(L);
+    int g = 32;
+    while (g < ST_THREADS && 8 * g < M) g *= 2;
+    return g;
+}
+
+int frames_per_block(int L) { return ST_THREADS / group_size(L); }
+
+// floats of the staged span, rounded up to 16 bytes
+long long span_floats(int L, int hop, int F)
+{
+    const long long span = (long long)(F - 1) * hop + L;
+    return (span + 3) / 4 * 4;
+}
+
+long long smem_bytes(int L, int hop)
+{
+    const int F = frames_per_block(L);
+    return 4 * span_floats(L, hop, F)
+        + 8LL * F * padded(fft_len(L));
+}
+
+template <int G, int VPT>
+__global__ void __launch_bounds__(ST_THREADS)
+stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
+            const float2* __restrict__ tw, float2* __restrict__ out,
+            long long n, int L, int hop, long long frames, int span_alloc,
+            Plan plan)
+{
+    constexpr int F = ST_THREADS / G;
+    extern __shared__ __align__(16) float smem[];
+    float* s_x = smem;
+    const int M = plan.M;
+    const bool real = (L % 2) == 0;
     const int tid = threadIdx.x;
-    const int tx = tid % 16;           // 4 columns each
-    const int ty = tid / 16;           // 4 frames each
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int an = lane % 8;           // staging: sample within 8
-    const int af = lane / 8;           // staging: frame within 4
+    const int grp = tid / G;
+    const int lane = tid & (G - 1);
+    const long long f0 = (long long)blockIdx.x * F;
+    const int nf = (int)(frames - f0 < F ? frames - f0 : F);
+    const float* xr = x + (long long)blockIdx.y * n + f0 * hop;
+    // the span of the block's nf frames lies in [0, n): the last frame
+    // ends at (frames - 1) * hop + L <= n, so nothing past the row is
+    // read; the groups past nf transform zeros and store nothing
+    const int span = (nf - 1) * hop + L;
 
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
+        const int n4 = span >> 2;
+        const float4* x4 = reinterpret_cast<const float4*>(xr);
+        float4* s4 = reinterpret_cast<float4*>(s_x);
+        for (int i = tid; i < n4; i += ST_THREADS) s4[i] = __ldg(x4 + i);
+        for (int i = 4 * n4 + tid; i < span; i += ST_THREADS)
+            s_x[i] = __ldg(xr + i);
+    } else {
+        for (int i = tid; i < span; i += ST_THREADS) s_x[i] = __ldg(xr + i);
+    }
+    __syncthreads();
 
-    for (int k0 = 0; k0 < L; k0 += ST_KC) {
-        __syncthreads();
-        // samples: 64 steps of 8 samples x 4 frames, 8 per warp
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int id = warp + 8 * i;
-            const int nn = (id % 4) * 8 + an;
-            const int ff = (id / 4) * 4 + af;
-            const long long f = f0 + ff;
-            const int s = k0 + nn;
-            s_a[nn][ff] = (f < frames && s < L) ? xr[f * hop + s] : 0.f;
-        }
-        // basis rows k0 .. k0 + ST_KC, columns c0 .. c0 + ST_TC
-#pragma unroll
-        for (int i = 0; i < (ST_KC * ST_TC) / ST_THREADS; ++i) {
-            const int e = tid + ST_THREADS * i;
-            const int kk = e / ST_TC;
-            const int cc = e % ST_TC;
-            const int s = k0 + kk;
-            const int c = c0 + cc;
-            s_b[kk][cc] = (s < L && c < cols)
-                ? basis[(long long)s * cols + c] : 0.f;
-        }
-        __syncthreads();
-        const int kmax = L - k0 < ST_KC ? L - k0 : ST_KC;
-#pragma unroll 8
-        for (int kk = 0; kk < kmax; ++kk) {
-            const float4 a =
-                *reinterpret_cast<const float4*>(&s_a[kk][ty * 4]);
-            const float4 b =
-                *reinterpret_cast<const float4*>(&s_b[kk][tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
+    // window and pack this group's frame: z[m] at z[pad(m)]
+    const bool live = grp < nf;
+    float2* z = reinterpret_cast<float2*>(smem + span_alloc)
+        + grp * padded(M);
+    const float* s = s_x + grp * hop;
+    for (int m = lane; m < M; m += G) {
+        float2 v = make_float2(0.f, 0.f);
+        if (live && real)
+            v = make_float2(__ldg(win + 2 * m) * s[2 * m],
+                            __ldg(win + 2 * m + 1) * s[2 * m + 1]);
+        else if (live)
+            v.x = __ldg(win + m) * s[m];
+        z[pad(m)] = v;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const long long f = f0 + ty * 4 + i;
-        if (f >= frames) break;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int c = c0 + tx * 4 + j;
-            if (c < cols) orow[f * cols + c] = acc[i][j];
+    veles_fft::group_sync<G>();
+    veles_fft::group_fft<G, VPT>(z, lane, plan, tw, real ? 2 : 1, 1.f);
+    if (!live) return;
+
+    // unpack and store: the frame's bins are one contiguous run
+    const int bins = L / 2 + 1;
+    float2* orow = out + ((long long)blockIdx.y * frames + f0 + grp) * bins;
+    for (int k = lane; k < bins; k += G) {
+        float2 X;
+        if (real) {
+            X = veles_fft::unpack_real(z, M, k, __ldg(tw + k));
+            X.x *= 0.5f;
+            X.y *= 0.5f;
+        } else {
+            X = z[pad(k)];
         }
+        __stcs(orow + k, X);
     }
+}
+
+template <int G, int VPT>
+int launch(const float* x, const float* win, const float2* tw, float2* out,
+           long long rows, long long n, int L, int hop, long long frames,
+           cudaStream_t stream)
+{
+    constexpr int F = ST_THREADS / G;
+    const Plan plan = veles_fft::make_plan(fft_len(L));
+    const int span_alloc = (int)span_floats(L, hop, F);
+    const long long bytes = smem_bytes(L, hop);
+    cudaError_t err = cudaFuncSetAttribute(
+        stft_kernel<G, VPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)((frames + F - 1) / F);
+    const int bins = L / 2 + 1;
+    for (long long r0 = 0; r0 < rows; r0 += MAX_GRID_Y) {
+        const long long nr = rows - r0 < MAX_GRID_Y ? rows - r0 : MAX_GRID_Y;
+        dim3 grid(blocks, (unsigned)nr);
+        stft_kernel<G, VPT><<<grid, ST_THREADS, bytes, stream>>>(
+            x + r0 * n, win, tw, out + r0 * frames * bins, n, L, hop,
+            frames, span_alloc, plan);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int veles_stft_tile_frames(void) { return ST_TF; }
-extern "C" int veles_stft_tile_cols(void) { return ST_TC; }
-extern "C" long long veles_stft_smem_bytes(void)
+extern "C" int veles_stft_frames_per_block(int L)
 {
-    return (long long)sizeof(float) * ST_KC * (ST_APITCH + ST_TC);
+    return frames_per_block(L);
 }
 
-// x [rows, n], basis [L, cols], out [rows, frames, cols]; all float32,
-// contiguous, on the device; frames = 1 + (n - L) / hop >= 1.  Launches
-// on `stream` and returns cudaGetLastError().
-extern "C" int veles_stft_f32(const float* x, const float* basis,
-                              float* out, long long rows, long long n,
-                              int L, int hop, long long frames, int cols,
+extern "C" long long veles_stft_smem_bytes(int L, int hop)
+{
+    return smem_bytes(L, hop);
+}
+
+// x [rows, n], win [L], tw [L] complex (e^{-2 pi i t / L}), out [rows,
+// frames, L/2 + 1] complex; all on the device, contiguous; frames = 1 +
+// (n - L) / hop >= 1, hop | L, L > hop.  Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a geometry the kernel
+// does not admit: the wrapper checks first).
+extern "C" int veles_stft_f32(const float* x, const float* win,
+                              const float* tw, float* out, long long rows,
+                              long long n, int L, int hop, long long frames,
                               void* stream)
 {
-    const unsigned ftiles = (unsigned)((frames + ST_TF - 1) / ST_TF);
-    const unsigned ctiles = (unsigned)((cols + ST_TC - 1) / ST_TC);
-    for (long long r0 = 0; r0 < rows; r0 += MAX_GRID_Z) {
-        const long long nr =
-            rows - r0 < MAX_GRID_Z ? rows - r0 : MAX_GRID_Z;
-        dim3 grid(ftiles, ctiles, (unsigned)nr);
-        stft_kernel<<<grid, ST_THREADS, 0, (cudaStream_t)stream>>>(
-            x + r0 * n, basis, out + r0 * frames * cols, n, L, hop,
-            frames, cols);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
+    if (L < 2 || hop < 1 || L % hop != 0 || L <= hop || frames < 1
+            || smem_bytes(L, hop) > 232448)
+        return (int)cudaErrorInvalidValue;
+    const float2* tw2 = reinterpret_cast<const float2*>(tw);
+    float2* out2 = reinterpret_cast<float2*>(out);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int M = fft_len(L);
+    switch (group_size(L)) {
+    case 32:
+        return launch<32, 8>(x, win, tw2, out2, rows, n, L, hop, frames, s);
+    case 64:
+        return launch<64, 8>(x, win, tw2, out2, rows, n, L, hop, frames, s);
+    case 128:
+        return launch<128, 8>(x, win, tw2, out2, rows, n, L, hop, frames, s);
+    case 256:
+        return launch<256, 8>(x, win, tw2, out2, rows, n, L, hop, frames, s);
     }
-    return (int)cudaGetLastError();
+    if (M <= 8 * ST_THREADS)
+        return launch<512, 8>(x, win, tw2, out2, rows, n, L, hop, frames, s);
+    if (M <= 16 * ST_THREADS)
+        return launch<512, 16>(x, win, tw2, out2, rows, n, L, hop, frames, s);
+    if (M <= 32 * ST_THREADS)
+        return launch<512, 32>(x, win, tw2, out2, rows, n, L, hop, frames, s);
+    return (int)cudaErrorInvalidValue;
 }

@@ -247,8 +247,9 @@ _OS_FAMILY = routing.family("convolve.os", (
             cuda and h_length >= _ck.OS_MIN_H
             and _ck.fits_smem_os(h_length)),
         disable_env="VELES_SIMD_DISABLE_CUDA_OS",
-        doc="overlap-save kernel: per-tile halo reload, fp32 FFMA "
-            "(VELES_SIMD_DISABLE_CUDA_OS opts out)"),
+        doc="overlap-save kernel: an FFT segment per block in shared "
+            "memory, halo reloaded (VELES_SIMD_DISABLE_CUDA_OS opts "
+            "out)"),
     routing.Route(
         "xla_matmul",
         doc="fp32 block matmul over gather-free shifted frames"),
@@ -476,7 +477,8 @@ def _run_torch(handle: ConvolutionHandle, x, h):
         obs.record_decision(
             "convolve_os_route", route, x_length=handle.x_length,
             h_length=handle.h_length,
-            step=_ck.OS_TILE if route == "cuda_fused" else handle.step)
+            step=(_ck.os_step(handle.h_length, handle.x_length)
+                  if route == "cuda_fused" else handle.step))
         with obs.span("convolve.os_route", route=route):
             return _OS_RUNNERS[route](x, h, handle)
     return _conv_overlap_save(x, h, handle.block_length,

@@ -6,7 +6,9 @@ All five of the JAX package's Pallas kernels are ported here:
 
 * :func:`overlap_save_cuda` (``csrc/overlap_save.cu``) replaces
   ``overlap_save_pallas``: the full linear convolution of every batch
-  row with one filter, the overlap-save route of the convolve handles.
+  row with one filter, the overlap-save route of the convolve handles,
+  as an FFT overlap-save (one block a segment of :func:`os_fft_length`
+  samples, forward and inverse transform in shared memory).
 * :func:`filter_bank_cuda` (``csrc/filter_bank.cu``) replaces
   ``filter_bank_pallas``: the multi-channel shifted-MAC FIR bank
   (``out[c][b, i] = sum_j f[c, j] x_ext[b, i*stride + j*dilation]``),
@@ -20,12 +22,15 @@ All five of the JAX package's Pallas kernels are ported here:
   ``filter_2d_pallas``: the 2D shifted-MAC correlation, the direct
   route of ``convolve2d`` and ``cross_correlate2d``.
 * :func:`stft_cuda` (``csrc/stft.cu``) replaces ``stft_pallas``: the
-  windowed real-DFT STFT as an implicit GEMM against the window-folded
-  basis (:func:`stft_basis`), the ``cuda_fused`` route of
-  ``spectral.stft`` and ``batched.batched_stft``.
+  windowed real-DFT STFT, a shared-memory FFT per frame over a span of
+  frames staged once, the ``cuda_fused`` route of ``spectral.stft`` and
+  ``batched.batched_stft``.
 
-Each source note says what bounds its kernel on the H100 and what the
-design does about it.
+K1 and K4 share the block-level FFT of ``csrc/smem_fft.cuh``, with
+twiddles from :func:`fft_twiddles`.  Each source note says what bounds
+its kernel on the H100 and what the design does about it: K1 and K4
+are bound by their bytes, K2, K3 and K5 by their bytes or their fp32
+FFMA.
 
 Wrappers take float32 torch tensors.  On a CPU tensor a wrapper
 computes the kernel's plain PyTorch version (:func:`overlap_save_plain`,
@@ -57,19 +62,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.utils.cache import ConstantCache
+
 __all__ = [
     "overlap_save_cuda", "overlap_save_plain",
     "filter_bank_cuda", "filter_bank_plain",
     "cascade_bank_cuda", "cascade_bank_plain",
     "filter_2d_cuda", "filter_2d_plain",
-    "stft_cuda", "stft_plain", "stft_basis",
-    "fb_smem_bytes", "fits_smem_fb", "fits_smem_os",
+    "stft_cuda", "stft_plain", "stft_basis", "fft_twiddles",
+    "fb_smem_bytes", "fits_smem_fb",
+    "os_fft_length", "os_step", "os_smem_bytes", "fits_smem_os",
     "cb_smem_bytes", "fits_smem_cb", "f2d_smem_bytes", "fits_smem_f2d",
-    "stft_smem_bytes", "fits_smem_stft",
+    "stft_fft_length", "stft_frames_per_block", "stft_smem_bytes",
+    "fits_smem_stft",
     "should_route", "on_card",
     "LAUNCHES", "reset_launches", "load_library", "build_log",
-    "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_TILE",
-    "FB_TILE", "CB_TILE", "F2D_TILE", "STFT_TILE", "STFT_MIN_FRAMES",
+    "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_MAX_FFT",
+    "FB_TILE", "CB_TILE", "F2D_TILE", "STFT_MIN_FRAMES",
     "STFT_DISABLE_ENV", "SMEM_MAX_BYTES",
 ]
 
@@ -91,33 +101,72 @@ STFT_MIN_FRAMES = 64
 STFT_DISABLE_ENV = "VELES_SIMD_DISABLE_STFT_CUDA"
 
 # Tile geometry of the kernels.  The loader checks these mirrors
-# against the built library (veles_*_tile, veles_*_smem_bytes), so the
-# admission arithmetic below cannot drift from csrc/.
+# against the built library (veles_*_tile, veles_*_smem_bytes, ...), so
+# the admission arithmetic below cannot drift from csrc/.
 _R = 13
-OS_TILE = 128 * _R
-_OS_KC = 20 * _R
 FB_TILE = 128 * _R
 CB_TILE = 128 * 4
 _F2D_RY = 4
 F2D_TILE = (8 * _F2D_RY, 32 * 2)      # (rows, columns) of outputs
-STFT_TILE = (64, 64)                  # (frames, basis columns)
-_STFT_KC = 32
 # shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
 SMEM_MAX_BYTES = 232448
-_SMEM_STATIC_MAX = 48 * 1024
+# the block-level FFT (csrc/smem_fft.cuh): 512 threads, at most 32
+# values a thread per stage, transforms padded by one float2 in 16
+_FFT_THREADS = 512
+_FFT_VPT_MAX = 32
 
 
-def _os_smem_bytes() -> int:
-    """Static shared memory of the overlap-save kernel: one tap chunk
-    and its input window, whatever the filter length."""
-    return 4 * (_OS_KC + OS_TILE + _OS_KC - 1)
+def _fft_padded(m: int) -> int:
+    """float2 slots of one padded transform of ``m`` values
+    (``padded`` in csrc/smem_fft.cuh)."""
+    return m + (m >> 4) + 1
+
+
+# overlap-save segments: powers of two from 4096 (the shortest the
+# block FFT takes) to 32768 samples; a long row takes 8192 and up
+_OS_MIN_FFT = 4096
+_OS_LONG_FFT = 8192
+OS_MAX_FFT = 32768
+
+
+def os_fft_length(h_length: int, n: int) -> int:
+    """Segment length N of the overlap-save kernel for a ``h_length``-tap
+    filter over rows of ``n`` samples (``fft_length`` in
+    csrc/overlap_save.cu): the least power of two >= 4096 and >= 2
+    h_length that also holds 8192 samples or, if shorter, the row's
+    whole output of n + h_length - 1, so a short row pays one short
+    transform.  A segment gives :func:`os_step` outputs.  Above 16384
+    taps N exceeds OS_MAX_FFT and :func:`fits_smem_os` refuses the
+    filter."""
+    k = int(h_length)
+    want = min(_OS_LONG_FFT, int(n) + k - 1)
+    N = _OS_MIN_FFT
+    while N < 2 * k or N < want:
+        N *= 2
+    return N
+
+
+def os_step(h_length: int, n: int) -> int:
+    """Outputs of one overlap-save segment: N - h_length + 1."""
+    return os_fft_length(h_length, n) - int(h_length) + 1
+
+
+def os_smem_bytes(fft_length: int) -> int:
+    """Dynamic shared memory of one overlap-save block: N/2 packed
+    complex values, padded (``smem_bytes`` in csrc/overlap_save.cu)."""
+    return 8 * _fft_padded(int(fft_length) // 2)
 
 
 def fits_smem_os(h_length: int) -> bool:
-    """Shared-memory admission of the overlap-save kernel: its
-    footprint is fixed (about 8.7 KB) and under the 48 KB static limit
-    for every filter length, so every ``h_length >= 1`` is admitted."""
-    return int(h_length) >= 1 and _os_smem_bytes() <= _SMEM_STATIC_MAX
+    """Admission of the overlap-save kernel: 2 <= h_length and its
+    longest segment (the one of a long row) fits one block (N <=
+    32768, 139 KB at the most), which holds for every filter of
+    2..16384 taps."""
+    k = int(h_length)
+    if k < 2:
+        return False
+    N = os_fft_length(k, _OS_LONG_FFT)
+    return N <= OS_MAX_FFT and os_smem_bytes(N) <= SMEM_MAX_BYTES
 
 
 def fb_smem_bytes(channels: int, order: int, stride: int,
@@ -187,19 +236,45 @@ def fits_smem_f2d(k0: int, k1: int) -> bool:
     return f2d_smem_bytes(k0, k1) <= SMEM_MAX_BYTES
 
 
-def stft_smem_bytes() -> int:
-    """Static shared memory of one STFT block: a chunk of the frames'
-    samples at a pitch of 68 floats and a chunk of basis rows
-    (``veles_stft_smem_bytes`` in csrc/stft.cu)."""
-    return 4 * _STFT_KC * (STFT_TILE[0] + 4 + STFT_TILE[1])
+def stft_fft_length(frame_length: int) -> int:
+    """FFT length of one STFT frame: L/2 for an even L (real-packed),
+    L for an odd L (the complex path)."""
+    L = int(frame_length)
+    return L // 2 if L % 2 == 0 else L
+
+
+def stft_frames_per_block(frame_length: int) -> int:
+    """Frames one STFT block transforms, one per group of threads: a
+    group is the least power of two >= M / 8 threads, from a warp to
+    the whole block (``frames_per_block`` in csrc/stft.cu), so 16
+    frames at L = 512 and one from L = 8192 on."""
+    m, g = stft_fft_length(frame_length), 32
+    while g < _FFT_THREADS and 8 * g < m:
+        g *= 2
+    return _FFT_THREADS // g
+
+
+def stft_smem_bytes(frame_length: int, hop: int) -> int:
+    """Dynamic shared memory of one STFT block: the staged span of its
+    frames, ``(F - 1) * hop + L`` floats rounded up to 16 bytes, and F
+    padded FFT buffers (``smem_bytes`` in csrc/stft.cu)."""
+    L, hop = int(frame_length), int(hop)
+    f = stft_frames_per_block(L)
+    span = -(-((f - 1) * hop + L) // 4) * 4
+    return 4 * span + 8 * f * _fft_padded(stft_fft_length(L))
 
 
 def fits_smem_stft(frame_length: int, hop: int) -> bool:
-    """Shared-memory admission of the STFT kernel: its footprint is
-    fixed (16.5 KB) and under the 48 KB static limit whatever the frame
-    length and hop, so every geometry is admitted."""
-    return (int(frame_length) >= 1 and int(hop) >= 1
-            and stft_smem_bytes() <= _SMEM_STATIC_MAX)
+    """Admission of the STFT kernel: a geometry of its contract (hop |
+    L, L > hop) whose block fits the block-level FFT (F * M <= 512 *
+    32 values) and shared memory.  Every L <= 16384 fits (135 KB at
+    16384/128, 204 KB at 16383/43)."""
+    L, hop = int(frame_length), int(hop)
+    if L < 2 or hop < 1 or L % hop or L <= hop:
+        return False
+    vals = stft_frames_per_block(L) * stft_fft_length(L)
+    return (vals <= _FFT_THREADS * _FFT_VPT_MAX
+            and stft_smem_bytes(L, hop) <= SMEM_MAX_BYTES)
 
 
 def on_card(cuda: bool) -> bool:
@@ -244,6 +319,7 @@ def reset_launches() -> None:
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("overlap_save.cu", "filter_bank.cu", "cascade_bank.cu",
             "filter_2d.cu", "stft.cu")
+_HEADERS = ("smem_fft.cuh",)
 _BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
                / "simd_tpu_torch")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -268,7 +344,7 @@ def _nvcc() -> str:
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return _BUILD_ROOT / h.hexdigest()[:16]
@@ -328,15 +404,18 @@ def load_library():
         if not path.exists():
             path = _build(out_dir)
         lib = ctypes.CDLL(str(path))
-        lib.veles_os_tile.argtypes = []
-        lib.veles_os_tile.restype = _I
+        lib.veles_os_fft_length.argtypes = [_I, _L]
+        lib.veles_os_fft_length.restype = _I
+        lib.veles_os_smem_bytes.argtypes = [_I]
+        lib.veles_os_smem_bytes.restype = _L
         lib.veles_fb_tile.argtypes = []
         lib.veles_fb_tile.restype = _I
         lib.veles_fb_smem_bytes.argtypes = [_I, _I, _I, _I]
         lib.veles_fb_smem_bytes.restype = _L
         lib.veles_cuda_error_string.argtypes = [_I]
         lib.veles_cuda_error_string.restype = ctypes.c_char_p
-        lib.veles_os_conv_f32.argtypes = [_P, _P, _P, _L, _L, _I, _P]
+        lib.veles_os_conv_f32.argtypes = [_P, _P, _P, _P, _P, _L, _L, _I,
+                                          _P]
         lib.veles_os_conv_f32.restype = _I
         lib.veles_fb_f32.argtypes = [_P, _P, _P, _L, _L, _I, _I, _I, _I,
                                      _L, _P]
@@ -355,15 +434,18 @@ def load_library():
         lib.veles_f2d_f32.argtypes = [_P, _P, _P, _L, _L, _L, _I, _I, _L,
                                       _L, _P]
         lib.veles_f2d_f32.restype = _I
-        for name in ("veles_stft_tile_frames", "veles_stft_tile_cols"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = _I
-        lib.veles_stft_smem_bytes.argtypes = []
+        lib.veles_stft_frames_per_block.argtypes = [_I]
+        lib.veles_stft_frames_per_block.restype = _I
+        lib.veles_stft_smem_bytes.argtypes = [_I, _I]
         lib.veles_stft_smem_bytes.restype = _L
-        lib.veles_stft_f32.argtypes = [_P, _P, _P, _L, _L, _I, _I, _L, _I,
+        lib.veles_stft_f32.argtypes = [_P, _P, _P, _P, _L, _L, _I, _I, _L,
                                        _P]
         lib.veles_stft_f32.restype = _I
-        if (lib.veles_os_tile() != OS_TILE
+        if (any(lib.veles_os_fft_length(k, n) != os_fft_length(k, n)
+                or lib.veles_os_smem_bytes(os_fft_length(k, n))
+                != os_smem_bytes(os_fft_length(k, n))
+                for k, n in ((2, 1), (256, 1000), (256, 1 << 20),
+                             (2047, 2050), (2049, 5), (16384, 50000)))
                 or lib.veles_fb_tile() != FB_TILE
                 or lib.veles_fb_smem_bytes(2, 8, 2, 1)
                 != fb_smem_bytes(2, 8, 2, 1)
@@ -375,9 +457,11 @@ def load_library():
                 != F2D_TILE
                 or any(lib.veles_f2d_smem_bytes(*a) != f2d_smem_bytes(*a)
                        for a in ((7, 7), (1, 256), (256, 1), (5, 3)))
-                or (lib.veles_stft_tile_frames(), lib.veles_stft_tile_cols())
-                != STFT_TILE
-                or lib.veles_stft_smem_bytes() != stft_smem_bytes()):
+                or any(lib.veles_stft_frames_per_block(a[0])
+                       != stft_frames_per_block(a[0])
+                       or lib.veles_stft_smem_bytes(*a) != stft_smem_bytes(*a)
+                       for a in ((512, 128), (255, 85), (384, 128),
+                                 (16384, 128), (4096, 2048)))):
             raise RuntimeError("csrc/ tile geometry differs from the "
                                "admission constants in cuda_kernels.py")
         _lib = lib
@@ -406,7 +490,9 @@ def _check_operands(*tensors) -> None:
 def overlap_save_plain(x, taps):
     """Plain version of :func:`overlap_save_cuda`: ``y[..., t] =
     sum_j taps[j] * x[..., t - j]``, one multiply-add pass over the
-    signal per tap."""
+    signal per tap (the direct form; the kernel's FFT agrees within
+    1e-5 of max|y|).  Float64 operands accumulate in float64: the
+    reference that holds the kernel at long filters."""
     n, k = x.shape[-1], taps.shape[-1]
     y = x.new_zeros(tuple(x.shape[:-1]) + (n + k - 1,))
     for j in range(k):
@@ -421,7 +507,9 @@ def overlap_save_cuda(x, taps):
     correlation) with at least 2 taps, the contract of the JAX
     package's ``overlap_save_pallas``; leading batch dims of ``x`` ride
     along, each row with zero history.  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``csrc/overlap_save.cu``."""
+    version; a CUDA tensor launches ``csrc/overlap_save.cu`` with
+    segments of :func:`os_fft_length` samples: the taps' spectrum, then
+    the segments (``LAUNCHES["overlap_save"]`` counts both)."""
     if taps.ndim != 1:
         raise ValueError("taps must be 1D")
     k = int(taps.shape[-1])
@@ -433,19 +521,26 @@ def overlap_save_cuda(x, taps):
         return overlap_save_plain(x, taps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if not fits_smem_os(k):
+        raise ValueError(f"overlap-save kernel takes 2..{OS_MAX_FFT // 2} "
+                         f"taps, got {k}")
     n = int(x.shape[-1])
     rows = x.numel() // n
     y = torch.empty(tuple(x.shape[:-1]) + (n + k - 1,),
                     dtype=torch.float32, device=x.device)
     if rows == 0:
         return y
+    N = os_fft_length(k, n)
+    spec = torch.empty(N + 2, dtype=torch.float32, device=x.device)
+    tw = _device_twiddles(N, x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.veles_os_conv_f32(x.data_ptr(), taps.data_ptr(),
+                                    spec.data_ptr(), tw.data_ptr(),
                                     y.data_ptr(), rows, n, k, stream)
     _check_err(lib, err, "overlap_save kernel")
-    LAUNCHES["overlap_save"] += _launches(rows)
+    LAUNCHES["overlap_save"] += 1 + _launches(rows)
     return y
 
 
@@ -734,20 +829,49 @@ def stft_basis(frame_length: int, window) -> np.ndarray:
     ``B[n, 2k+1] = -w[n] sin(2 pi n k / L)`` (``bins = L // 2 + 1``),
     built in float64.  The values of the JAX package's
     ``_stft_basis_blocks`` without its 128-lane padding columns, so a
-    row of ``frames @ B`` is one frame's complex64 spectrum."""
+    row of ``frames @ B`` is one frame's complex64 spectrum: the plain
+    version's operand."""
     L = int(frame_length)
     bins = L // 2 + 1
-    n = np.arange(L)[:, None]
     k = np.arange(bins)[None, :]
-    ang = 2.0 * np.pi * n * k / L
     w = np.asarray(window, np.float64)[:, None]
     out = np.empty((L, bins, 2), np.float32)
-    out[..., 0] = (w * np.cos(ang)).astype(np.float32)
-    out[..., 1] = (-w * np.sin(ang)).astype(np.float32)
+    # blocks of rows, so the float64 temporaries stay near 32 MB
+    step = max(1, (1 << 22) // bins)
+    for s in range(0, L, step):
+        n = np.arange(s, min(s + step, L))[:, None]
+        ang = 2.0 * np.pi * n * k / L
+        out[s:s + step, :, 0] = w[s:s + step] * np.cos(ang)
+        out[s:s + step, :, 1] = -w[s:s + step] * np.sin(ang)
     return out.reshape(L, 2 * bins)
 
 
-def _check_stft(x, basis, frame_length, hop):
+def fft_twiddles(n: int) -> np.ndarray:
+    """``[n, 2]`` float32 table of ``e^{-2 pi i t / n}``, t < n, as
+    (re, im) pairs, built in float64: the twiddles of the block-level
+    FFT (csrc/smem_fft.cuh) for a real transform of n samples or a
+    complex one of n values."""
+    ang = -2.0 * np.pi * np.arange(int(n), dtype=np.float64) / int(n)
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
+# device copies of twiddle tables and plain-version bases, so a repeated
+# call makes no host-to-device copy; 256 MB at the most (a basis holds
+# 4 L^2 bytes: 67 MB at L = 4096, and one of 1.07 GB at L = 16384 is
+# built for its call and not kept)
+_tables = ConstantCache(32, max_bytes=256 << 20)
+obs.register_cache("cuda_kernels_device_lru", _tables.info)
+
+
+def _device_twiddles(n: int, device):
+    """:func:`fft_twiddles` of ``n`` on ``device``, cached per (n,
+    device)."""
+    return _tables.get(("twiddles", int(n), str(device)),
+                       lambda: torch.as_tensor(fft_twiddles(n),
+                                               device=device))
+
+
+def _check_stft(x, window, frame_length, hop):
     """The contract of ``stft_pallas``, with its messages (its 128-lane
     hop term belongs to the route gate here); returns the frame
     count."""
@@ -765,9 +889,8 @@ def _check_stft(x, basis, frame_length, hop):
     n = int(x.shape[-1])
     if n < L:
         raise ValueError(f"signal length {n} < frame_length {L}")
-    if tuple(basis.shape) != (L, 2 * (L // 2 + 1)):
-        raise ValueError(f"basis shape {tuple(basis.shape)} != "
-                         f"{(L, 2 * (L // 2 + 1))}")
+    if tuple(window.shape) != (L,):
+        raise ValueError(f"window shape {tuple(window.shape)} != {(L,)}")
     return 1 + (n - L) // s
 
 
@@ -778,45 +901,67 @@ def _as_spectrum(out, lead):
         out.view(*lead, out.shape[-2], out.shape[-1] // 2, 2))
 
 
-def stft_plain(x, basis, frame_length, hop):
+def stft_plain(x, window, frame_length, hop):
     """Plain version of :func:`stft_cuda`: the ``unfold`` frames, then
-    one multiply-add pass per sample index n, in the kernel's order."""
-    frames = x.unfold(-1, int(frame_length), int(hop))
+    one multiply-add pass per sample index n against the window-folded
+    basis of :func:`stft_basis` (built here, its device copy cached),
+    the DFT form of the same function (the kernel's FFT agrees within
+    1e-5 of max|X|).  ``window`` is a tensor or, so that no call copies
+    it from the card, a NumPy array.  A float64 ``x`` accumulates in
+    float64 (a complex128 result): the reference that holds the kernel
+    at long frames, where a float32 sum of L terms drifts by about
+    sqrt(L) roundings."""
+    L = int(frame_length)
+    if isinstance(window, torch.Tensor):
+        window = window.detach().cpu().numpy()
+    window = np.asarray(window, np.float32)
+    basis = _tables.get(
+        ("stft_basis", L, window.tobytes(), str(x.device)),
+        lambda: torch.as_tensor(stft_basis(L, window), device=x.device))
+    basis = basis.to(x.dtype)
+    frames = x.unfold(-1, L, int(hop))
     out = x.new_zeros(tuple(frames.shape[:-1]) + (basis.shape[1],))
-    for j in range(int(frame_length)):
+    for j in range(L):
         out.addcmul_(frames[..., j:j + 1], basis[j])
     return _as_spectrum(out, tuple(x.shape[:-1]))
 
 
-def stft_cuda(x, basis, frame_length, hop):
+def stft_cuda(x, window, frame_length, hop):
     """Short-time Fourier transform ``x[..., n] -> complex64 [...,
-    frames, L // 2 + 1]`` with ``frames = 1 + (n - L) // hop``, against
-    the interleaved window-folded basis of :func:`stft_basis` — the
-    contract of the JAX package's ``stft_pallas`` (hop divides L, L >
-    hop, n >= L; its 128-lane hop term is the route's, not the
-    kernel's).  Leading batch dims ride along.  A CPU tensor takes the
-    plain version; a CUDA tensor launches ``csrc/stft.cu``."""
-    frames = _check_stft(x, basis, frame_length, hop)
-    _check_operands(x, basis)
+    frames, L // 2 + 1]`` with ``frames = 1 + (n - L) // hop`` of the
+    frames windowed by ``window`` ([L] float32), sign ``e^{-2 pi i n k
+    / L}`` — the contract of the JAX package's ``stft_pallas`` (hop
+    divides L, L > hop, n >= L; its 128-lane hop term is the route's,
+    not the kernel's).  Leading batch dims ride along.  A CPU tensor
+    takes the plain version; a CUDA tensor launches ``csrc/stft.cu``,
+    or raises for a geometry :func:`fits_smem_stft` refuses."""
+    frames = _check_stft(x, window, frame_length, hop)
+    _check_operands(x, window)
     if x.device.type == "cpu":
-        return stft_plain(x, basis, frame_length, hop)
+        return stft_plain(x, window, frame_length, hop)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    L, hop = int(frame_length), int(hop)
+    if not fits_smem_stft(L, hop):
+        raise ValueError(
+            f"STFT kernel refuses frame_length {L}, hop {hop}: "
+            f"{stft_smem_bytes(L, hop)} bytes of shared memory per block "
+            f"(> {SMEM_MAX_BYTES}) or more than "
+            f"{_FFT_THREADS * _FFT_VPT_MAX} FFT values a block")
     n = int(x.shape[-1])
     rows = x.numel() // n
-    cols = int(basis.shape[1])
-    out = torch.empty((rows, frames, cols), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((rows, frames, 2 * (L // 2 + 1)),
+                      dtype=torch.float32, device=x.device)
     lead = tuple(x.shape[:-1])
     if rows == 0:
         return _as_spectrum(out, lead)
+    tw = _device_twiddles(L, x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.veles_stft_f32(x.data_ptr(), basis.data_ptr(),
-                                 out.data_ptr(), rows, n,
-                                 int(frame_length), int(hop), frames, cols,
-                                 stream)
+        err = lib.veles_stft_f32(x.data_ptr(), window.data_ptr(),
+                                 tw.data_ptr(), out.data_ptr(), rows, n, L,
+                                 hop, frames, stream)
     _check_err(lib, err, "stft kernel")
     LAUNCHES["stft"] += _launches(rows)
     return _as_spectrum(out, lead)

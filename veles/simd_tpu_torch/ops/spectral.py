@@ -9,8 +9,8 @@ Routes, JAX name → port name where they differ:
 
 * ``stft``: ``pallas_fused`` → ``cuda_fused``, the fused STFT kernel
   (``csrc/stft.cu``, :func:`~veles.simd_tpu_torch.ops.cuda_kernels.
-  stft_cuda`): windowed real DFT as an implicit GEMM against the
-  window-folded basis, the frames tensor never built; ``rdft_matmul``,
+  stft_cuda`): windowed real DFT as a shared-memory FFT per frame,
+  the frames tensor never built; ``rdft_matmul``,
   the ``[frames, L] @ [L, 2*bins]`` basis matmul in fp32 (TF32 off);
   ``xla_fft``, ``torch.fft.rfft`` of the windowed frames (cuFFT on the
   card).  ``VELES_SIMD_DISABLE_STFT_CUDA`` closes the kernel route,
@@ -37,8 +37,9 @@ framing decision events keep the JAX names (``reshape_interleave`` /
 class of the call.
 
 Host-side constants (DFT bases, analytic multipliers, wavelet banks)
-live in one bounded LRU, their device copies in a second, keyed by
-device too; both report through ``obs.caches()``.  Not ported: the
+live in one bounded LRU (``utils.cache.ConstantCache``), their device
+copies in a second, keyed by device too; both report through
+``obs.caches()``.  Not ported: the
 ``*_bf16_comp`` precision routes, the fault and breaker wrapping (a
 failed kernel launch raises; it never changes route), and the measured
 autotuner.
@@ -51,9 +52,6 @@ does.
 
 from __future__ import annotations
 
-import collections
-import threading
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -62,6 +60,7 @@ from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import cuda_kernels as _ck
 from veles.simd_tpu_torch.runtime import precision as prx
 from veles.simd_tpu_torch.runtime import routing
+from veles.simd_tpu_torch.utils.cache import ConstantCache
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import (as_c64, as_f32, device,
                                                  on_cuda)
@@ -120,87 +119,28 @@ def dft_matmul_allowed() -> bool:
 # (kind, geometry, window bytes), multipliers and banks by (kind,
 # geometry).  64 entries cover a steady state while keeping eviction
 # observable.
-_HOST_CACHE_MAXSIZE = 64
-_host_cache: "collections.OrderedDict[tuple, object]" = \
-    collections.OrderedDict()
-_host_lock = threading.Lock()
-_host_stats = {"hits": 0, "misses": 0, "evictions": 0}
+_host_cache = ConstantCache(64)
+obs.register_cache("spectral_host_lru", _host_cache.info)
 
 
 def _cached_host(key, build):
     """LRU lookup of a host-side constant; ``build()`` makes it on a
-    miss (outside the lock — basis construction can take milliseconds;
-    two threads racing one key keep the first value)."""
-    with _host_lock:
-        hit = _host_cache.get(key)
-        if hit is not None:
-            _host_cache.move_to_end(key)
-            _host_stats["hits"] += 1
-            return hit
-        _host_stats["misses"] += 1
-    value = build()
-    with _host_lock:
-        existing = _host_cache.get(key)
-        if existing is not None:
-            return existing
-        _host_cache[key] = value
-        while len(_host_cache) > _HOST_CACHE_MAXSIZE:
-            _host_cache.popitem(last=False)
-            _host_stats["evictions"] += 1
-    return value
+    miss."""
+    return _host_cache.get(key, build)
 
-
-def _host_cache_info() -> dict:
-    with _host_lock:
-        return {"size": len(_host_cache),
-                "capacity": _HOST_CACHE_MAXSIZE, **_host_stats,
-                "keys": [k[0] for k in _host_cache]}
-
-
-obs.register_cache("spectral_host_lru", _host_cache_info)
 
 # Device-resident twin: the host LRU dedupes the construction of a
 # constant, this one its copy to the device (67 MB per stft at
 # L = 4096).  A smaller bound, because entries pin device memory.
-_DEVICE_CACHE_MAXSIZE = 16
-_device_cache: "collections.OrderedDict[tuple, object]" = \
-    collections.OrderedDict()
-_device_lock = threading.Lock()
-_device_stats = {"hits": 0, "misses": 0, "evictions": 0}
+_device_cache = ConstantCache(16)
+obs.register_cache("spectral_device_lru", _device_cache.info)
 
 
 def _cached_device(key, dev, build_device):
     """LRU lookup of a constant on device ``dev`` (the device joins the
-    key); ``build_device()`` copies it there on a miss.  Same race
-    discipline as the host cache."""
-    key = tuple(key) + (str(torch.device(dev)),)
-    with _device_lock:
-        hit = _device_cache.get(key)
-        if hit is not None:
-            _device_cache.move_to_end(key)
-            _device_stats["hits"] += 1
-            return hit
-        _device_stats["misses"] += 1
-    value = build_device()
-    with _device_lock:
-        existing = _device_cache.get(key)
-        if existing is not None:
-            return existing
-        _device_cache[key] = value
-        while len(_device_cache) > _DEVICE_CACHE_MAXSIZE:
-            _device_cache.popitem(last=False)
-            _device_stats["evictions"] += 1
-    return value
-
-
-def _device_cache_info() -> dict:
-    with _device_lock:
-        return {"size": len(_device_cache),
-                "capacity": _DEVICE_CACHE_MAXSIZE, **_device_stats,
-                "keys": [k[0] for k in _device_cache]}
-
-
-obs.register_cache("spectral_device_lru", _device_cache_info)
+    key); ``build_device()`` copies it there on a miss."""
+    return _device_cache.get(tuple(key) + (str(torch.device(dev)),),
+                             build_device)
 
 
 def _to_device(host, dev):
@@ -532,8 +472,9 @@ _STFT_FAMILY = routing.family("stft", (
             and frames >= _ck.STFT_MIN_FRAMES
             and _ck.fits_smem_stft(frame_length, hop)),
         disable_env=_ck.STFT_DISABLE_ENV,
-        doc="fused STFT kernel (csrc/stft.cu): implicit GEMM against "
-            "the window-folded basis, the frames tensor never built"),
+        doc="fused STFT kernel (csrc/stft.cu): a shared-memory FFT per "
+            "frame over a span of frames staged once, the frames "
+            "tensor never built"),
     routing.Route(
         "rdft_matmul",
         predicate=lambda frame_length, **_:
@@ -658,19 +599,11 @@ def _run_stft_rdft(x, window, frame_length, hop):
     return _stft_rdft(x, basis, frame_length, hop)
 
 
-def _stft_cuda_basis(frame_length, window, dev):
-    """The fused kernel's interleaved basis on ``dev``."""
-    window = np.asarray(window, np.float32)
-    key = ("stft_cuda", int(frame_length), window.tobytes())
-    return _cached_device(key, dev, lambda: _to_device(_cached_host(
-        key, lambda: _ck.stft_basis(frame_length, window)), dev))
-
-
 def _run_stft_cuda(x, window, frame_length, hop):
     """The fused-kernel route.  A failed launch raises: there is no
     demotion to another route."""
-    basis = _stft_cuda_basis(frame_length, window, x.device)
-    return _ck.stft_cuda(x.contiguous(), basis, frame_length, hop)
+    return _ck.stft_cuda(x.contiguous(), _device_window(window, x.device),
+                         frame_length, hop)
 
 
 _STFT_ROUTES = {"xla_fft": _run_stft_xla,

@@ -132,29 +132,45 @@ def fp32_bound(flops: float, nbytes: float) -> tuple[float, str]:
     return t_bytes, "bytes"
 
 
+def _rfft_flops(n: int) -> float:
+    """Operations of a real FFT of ``n`` samples: half the usual
+    ``5 n log2 n`` of a complex one."""
+    return 2.5 * n * math.log2(n)
+
+
 def conv_work(rows: int, n: int, k: int) -> tuple[float, float]:
     """``(flops, bytes)`` of a full float32 linear convolution of
-    ``rows`` signals of ``n`` samples with one ``k``-tap filter: one
-    multiply-add per (sample, tap) pair, the signal and taps read
-    once, the ``n + k - 1`` outputs written once."""
+    ``rows`` signals of ``n`` samples with one ``k``-tap filter.  The
+    operations are the function's least: the smaller of the direct
+    form (one multiply-add per (sample, tap) pair) and an FFT
+    overlap-save (segments of N, a power of two >= 2k, each a forward
+    and an inverse real FFT and a complex product per bin, plus the
+    taps' FFT), the least over N up to 2^20.  The bytes read the
+    signal and taps once and write the ``n + k - 1`` outputs once."""
     rows, n, k = int(rows), int(n), int(k)
+    out_len = n + k - 1
     flops = 2.0 * rows * n * k
-    nbytes = 4.0 * (rows * n + k + rows * (n + k - 1))
+    N = 1 << max(1, (2 * k - 1).bit_length())
+    while N <= 1 << 20:
+        segs = -(-out_len // (N - k + 1))
+        fft_form = (rows * segs * (2 * _rfft_flops(N) + 6 * (N // 2 + 1))
+                    + _rfft_flops(N))
+        flops = min(flops, fft_form)
+        N *= 2
+    nbytes = 4.0 * (rows * n + k + rows * out_len)
     return flops, nbytes
 
 
 def stft_work(rows: int, n: int, frame_length: int,
               hop: int) -> tuple[float, float]:
     """``(flops, bytes)`` of a float32 STFT of ``rows`` signals of ``n``
-    samples against a window-folded ``[L, 2 * (L // 2 + 1)]`` basis.
-    The operations are the function's least, not the DFT form's: per
-    frame, ``L`` window multiplies and a real FFT's ``2.5 L log2 L``
-    (half the usual ``5 N log2 N`` of a complex one).  The bytes read
-    the signal and the basis once and write the complex64 spectrum
-    once."""
+    samples.  The operations are the function's least, not the DFT
+    form's: per frame, ``L`` window multiplies and a real FFT's
+    ``2.5 L log2 L``.  The bytes read the signal and the window once
+    and write the complex64 spectrum once."""
     rows, n, L, hop = int(rows), int(n), int(frame_length), int(hop)
     frames = 1 + (n - L) // hop
     cols = 2 * (L // 2 + 1)
-    flops = rows * frames * (L + 2.5 * L * math.log2(L))
-    nbytes = 4.0 * (rows * n + L * cols + rows * frames * cols)
+    flops = rows * frames * (L + _rfft_flops(L))
+    nbytes = 4.0 * (rows * n + L + rows * frames * cols)
     return flops, nbytes
