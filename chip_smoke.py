@@ -10,8 +10,10 @@ without printing a result):
             failure (the port is never smoke-run on the CPU);
 2. build  — builds the CUDA kernels from csrc/ with nvcc (sm_90a);
 3. parity — each kernel against its plain PyTorch version on the card,
-            at the main path's shapes and at the edge cases (the FFT
-            kernels against the plain version run in float64);
+            at the main path's shapes and at the edge cases (K1, K2, K4
+            and K5 against the plain version run in float64; K2 and K5
+            also through their padded entries, the halo read in the
+            kernel, as the direct routes call them);
 4. main   — the main path through the user entry points, launch
             counters reset just before each call and read just after:
             ``convolve_initialize(1<<20, 2047)`` + ``convolve`` (the
@@ -24,7 +26,8 @@ without printing a result):
             as the level loop and, with VELES_SIMD_FORCE_FUSED_CASCADE,
             through the cascade-bank kernel, a DWT round trip); and
             ``convolve2d`` on 16 x 512 x 512 with 7 x 7 (the 2D
-            kernel), ``cross_correlate2d`` and a 2D ``fftconvolve``;
+            kernel; also ``mode='same'`` and ``boundary='wrap'``),
+            ``cross_correlate2d`` and a 2D ``fftconvolve``;
             the spectral slice: ``stft`` on 2^20 samples at 512/128
             through the auto route (the fused STFT kernel) and the
             forced ``rdft_matmul`` and ``xla_fft`` routes,
@@ -38,14 +41,17 @@ without printing a result):
             handle's own cuFFT overlap-save route beside it, the DWT,
             the fused cascade against the level loop, convolve2d, and
             ``stft`` (auto and forced routes) and ``batched_stft``;
-            then each kernel, its plain version and its library
-            yardstick (cuDNN ``conv1d``/``conv2d`` in fp32,
-            ``torch.stft``) at the main-path shapes, as device time
-            per call from ``torch.profiler`` (the kernel also as
-            chained CUDA events), beside the fp32 bound (the
-            convolutions' and the STFT's count the function's least
-            work, the FFT form where it is less, so the bytes set
-            them); printed as one ``{"kernels": [...]}`` line.
+            the breakdowns (``convolve_simd`` and ``convolve2d`` must
+            run no pad or flip kernel); the ``k-sweep`` line, K2's two
+            variants at 512 x 16384 for 4..256 taps in turns; then each
+            kernel, its plain version and its library yardstick (cuDNN
+            ``conv1d``/``conv2d`` in fp32, ``torch.stft``) at the
+            main-path shapes, as device time per call from
+            ``torch.profiler`` (the kernel also as chained CUDA events),
+            beside the fp32 bound (each counts the function's least
+            work, ``utils.benchmark.conv_work``/``conv2d_work``/
+            ``stft_work``, so the bytes set them); printed as one
+            ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -63,6 +69,8 @@ PARITY_TOL = 1e-5        # kernel vs plain, relative to max|plain|
 ORACLE_TOL = 1e-4        # vs float64 oracle (tools/tpu_smoke.py's bound)
 N_HEAD, K_HEAD = 1 << 20, 2047          # the bench headline
 ROWS_FB, N_FB, K_FB = 512, 16384, 129   # batched direct convolution
+K_PARITY = (1, 2, 3, 8, 16, 33, 129, 255, 256)   # K2 parity taps
+K_SWEEP = (4, 8, 16, 33, 64, 129, 160, 192, 256)  # K2 variant sweep
 ROWS_WV, N_WV, LEVELS = 512, 4096, 3    # BASELINE config 5: daub8 DWT
 IMGS_2D, N_2D, K_2D = 16, 512, 7        # batched 2D convolution
 N_ST, L_ST, HOP_ST = 1 << 20, 512, 128  # STFT acceptance (bench.py:640)
@@ -163,6 +171,10 @@ def main():
     ptxas = [ln.strip() for ln in ck.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"build: {build_s:.1f} s | " + " | ".join(ptxas))
+    lib = ck.load_library()
+    print("persistent kernels, blocks resident per SM: filter_bank mma "
+          f"(1 x {K_FB} taps) {lib.veles_fb_mma_resident(1, K_FB)}, "
+          f"filter_2d ({K_2D} x {K_2D}) {lib.veles_f2d_resident(K_2D, K_2D)}")
 
     # 3. parity: kernel vs plain version, same inputs on the card
     parity = {}
@@ -179,11 +191,18 @@ def main():
         diff = (got - want).abs().max().item()
         parity[name] = (diff, diff / want.abs().max().item())
 
-    def fb_case(name, rows, n_ext, filt, stride, dilation, n_out):
-        x = cuda(rng.randn(rows, n_ext))
+    # K2 and K5 against their plain versions run in float64 too: the
+    # mma variant's split TF32 drops the lo.lo terms, and both read
+    # the zero halo (pad_left=, pad=) that the plain versions F.pad
+    def fb_case(name, rows, n, filt, stride, dilation, n_out, pad_left=0,
+                reverse=False, variant=None):
+        x = cuda(rng.randn(rows, n))
         f = cuda(filt)
-        got = ck.filter_bank_cuda(x, f, stride, dilation, n_out)
-        want = ck.filter_bank_plain(x, f, stride, dilation, n_out)
+        got = ck.filter_bank_cuda(x, f, stride, dilation, n_out,
+                                  pad_left=pad_left, reverse_taps=reverse,
+                                  variant=variant)
+        want = ck.filter_bank_plain(x.double(), f.double(), stride,
+                                    dilation, n_out, pad_left, reverse)
         torch.cuda.synchronize()
         diff = max((g - w).abs().max().item() for g, w in zip(got, want))
         scale = max(w.abs().max().item() for w in want)
@@ -197,8 +216,27 @@ def main():
     os_case("os 3x50000x16384", 3, 50000, 16384)
     os_case("os 512x4096x300", 512, 4096, 300)      # one segment a row
     os_case("os 64x1000x300", 64, 1000, 300)        # N = 4096
-    fb_case("fb C1 512x16384x129", ROWS_FB, N_FB + 2 * (K_FB - 1),
-            rng.randn(1, K_FB), 1, 1, N_FB + K_FB - 1)
+    fb_case("fb C1 512x16384x129", ROWS_FB, N_FB, rng.randn(1, K_FB), 1,
+            1, N_FB + K_FB - 1, K_FB - 1, True)
+    # both variants at the main shape, whichever FB_MMA_MIN_K picks
+    for v in ("ffma", "mma"):
+        fb_case(f"fb C1 512x16384x129 {v}", ROWS_FB, N_FB,
+                rng.randn(1, K_FB), 1, 1, N_FB + K_FB - 1, K_FB - 1, True, v)
+    # unit stride, C = 1: the padded entry on the unpadded rows at every
+    # k of the sweep's range, and an explicit x_ext
+    for k in K_PARITY:
+        for rows, n in ((1, 1), (8, 1663), (512, 16384)):
+            if (rows, n, k) != (ROWS_FB, N_FB, K_FB):
+                fb_case(f"fb C1 {rows}x{n}x{k} pad", rows, n,
+                        rng.randn(1, k), 1, 1, n + k - 1, k - 1)
+        fb_case(f"fb C1 8x{1663 + 2 * (k - 1)}x{k} ext", 8,
+                1663 + 2 * (k - 1), rng.randn(1, k), 1, 1, 1663 + k - 1)
+    for k in (3, 16, 129):      # rows beyond a grid dimension (65535)
+        fb_case(f"fb C1 70000x20x{k} pad", 70000, 20, rng.randn(1, k), 1,
+                1, 20 + k - 1, k - 1, True)
+    for c, k in ((2, 8), (2, 40), (3, 5), (3, 100)):   # C = 2: SWT level 1
+        fb_case(f"fb C{c} 64x4096x{k} ext", 64, 4096 + k - 1,
+                rng.randn(c, k), 1, 1, 4096)
     daub = np.stack([DAUB8_LO[::-1] * (-1.0) ** np.arange(8), DAUB8_LO])
     fb_case("fb C2 s2 512x4096 daub8", 512, 4096 + 6, daub, 2, 1, 2048)
     fb_case("fb C2 d4 512x4096 daub8", 512, 4096 + 7 * 4, daub, 1, 4,
@@ -218,12 +256,17 @@ def main():
         scale = max(w.abs().max().item() for w in want)
         parity[name] = (diff, diff / scale)
 
-    def f2d_case(name, imgs, n0, n1, k0, k1):
-        x = cuda(rng.randn(imgs, n0 + 2 * (k0 - 1), n1 + 2 * (k1 - 1)))
+    def f2d_case(name, imgs, n0, n1, k0, k1, padded=False):
+        # padded: the direct route's call (unpadded images, the halo and
+        # the flip read in the kernel); else an explicit x_ext
+        p = (k0 - 1, k1 - 1) if padded else (0, 0)
+        x = cuda(rng.randn(imgs, n0 + 2 * (k0 - 1 - p[0]),
+                           n1 + 2 * (k1 - 1 - p[1])))
         k = cuda(rng.randn(k0, k1))
         shape = (n0 + k0 - 1, n1 + k1 - 1)
-        got = ck.filter_2d_cuda(x, k, *shape)
-        want = ck.filter_2d_plain(x, k, *shape)
+        got = ck.filter_2d_cuda(x, k, *shape, pad=p, reverse_taps=padded)
+        want = ck.filter_2d_plain(x.double(), k.double(), *shape, p,
+                                  padded)
         torch.cuda.synchronize()
         diff = (got - want).abs().max().item()
         parity[name] = (diff, diff / want.abs().max().item())
@@ -232,10 +275,14 @@ def main():
     cb_case("cb daub4 L4 8x1024", 8, 1024, "daub", 4, 4)
     cb_case("cb coif12 L2 8x512", 8, 512, "coif", 12, 2)
     cb_case("cb daub8 L3 37x1000", 37, 1000, "daub", 8, 3)
-    f2d_case("f2d 16x512x512 7x7", IMGS_2D, N_2D, N_2D, K_2D, K_2D)
+    f2d_case("f2d 16x512x512 7x7", IMGS_2D, N_2D, N_2D, K_2D, K_2D, True)
+    f2d_case("f2d 16x512x512 7x7 ext", IMGS_2D, N_2D, N_2D, K_2D, K_2D)
     f2d_case("f2d 1x128x128 3x3", 1, 128, 128, 3, 3)
     f2d_case("f2d 4x100x77 16x16", 4, 100, 77, 16, 16)
     f2d_case("f2d 3x64x300 1x256", 3, 64, 300, 1, 256)
+    f2d_case("f2d 4x100x77 16x16 pad", 4, 100, 77, 16, 16, True)
+    f2d_case("f2d 3x64x300 1x256 pad", 3, 64, 300, 1, 256, True)
+    f2d_case("f2d 2x300x20 256x1 pad", 2, 300, 20, 256, 1, True)
 
     def stft_case(name, rows, n, L, hop):
         x = cuda(rng.randn(rows, n))
@@ -408,10 +455,34 @@ def main():
     y_fc = cv.fftconvolve(x_2d[:2], h_2d)
     err_fc = rel_err(y_fc.cpu().numpy(), conv2d64(x_2d[:2], h_2d))
     check(err_fc <= ORACLE_TOL, f"2D fftconvolve rel err {err_fc:.3e}")
+    # 'same' reads the halo in the kernel; 'wrap' extends first and the
+    # kernel computes only the kept part of the full output
+    s1 = (K_2D - 1) // 2
+    x_wrap = np.pad(x_2d, ((0, 0), (K_2D - 1,) * 2, (K_2D - 1,) * 2),
+                    mode="wrap")
+    mb_err, mb_launches = {}, {}
+    for label, kw, want in (
+            ("same", {"mode": "same"},
+             lambda: conv2d64(x_2d, h_2d)[:, s1:s1 + N_2D, s1:s1 + N_2D]),
+            ("wrap", {"boundary": "wrap"},
+             lambda: conv2d64(x_wrap, h_2d)[
+                 :, K_2D - 1:K_2D - 1 + N_2D + K_2D - 1,
+                 K_2D - 1:K_2D - 1 + N_2D + K_2D - 1])):
+        ck.reset_launches()
+        y_mb = cv2.convolve2d(x_2d, h_2d, **kw)
+        torch.cuda.synchronize()
+        mb_launches[label] = ck.LAUNCHES["filter_2d"]
+        check(mb_launches[label] == 1, f"convolve2d {label} launches "
+              f"{mb_launches[label]}")
+        mb_err[label] = rel_err(y_mb.cpu().numpy(), want())
+        check(mb_err[label] <= ORACLE_TOL, f"convolve2d {label} rel err "
+              f"{mb_err[label]:.3e}")
     print(f"main: convolve2d {IMGS_2D}x{N_2D}x{N_2D} k {K_2D}x{K_2D} rel "
           f"{err_2d:.2e} (f2d launches {launches['filter_2d']}) | "
           f"cross_correlate2d same rel {err_xc:.2e} (f2d launches "
-          f"{xc_launches}) | fftconvolve 2D rel {err_fc:.2e}")
+          f"{xc_launches}) | fftconvolve 2D rel {err_fc:.2e} | "
+          + " | ".join(f"convolve2d {k} rel {v:.2e} (f2d launches "
+                       f"{mb_launches[k]})" for k, v in mb_err.items()))
 
     # the spectral slice: stft on 2^20 samples at 512/128
     x_st = rng.randn(N_ST).astype(np.float32)
@@ -542,8 +613,13 @@ def main():
     print(f"direct: convolve_simd {ROWS_FB}x{N_FB}x{K_FB} on the card "
           f"{simd_ms:.4f} ms = "
           f"{ROWS_FB * N_FB / simd_ms / 1e3:.1f} Msamples/s")
+    bd_simd = bm.device_breakdown(simd_from_numpy, calls=5)
     print("breakdown convolve_simd (from NumPy input, device us per "
-          "call): " + bm.device_breakdown(simd_from_numpy, calls=5))
+          "call): " + bd_simd)
+    # the halo and the reversal are read in the kernel: no pad (an
+    # elementwise copy and fill) and no flip (an index kernel) runs
+    check("elementwise" not in bd_simd,
+          f"convolve_simd runs a pad or flip kernel: {bd_simd}")
 
     # the wavelet slice and 2D convolution, operands on the card
     xw_t = cuda(x_wv)
@@ -586,9 +662,11 @@ def main():
     print(f"conv2d: convolve2d {IMGS_2D}x{N_2D}x{N_2D} k {K_2D}x{K_2D} on "
           f"the card {c2d_ms:.4f} ms = "
           f"{IMGS_2D * N_2D * N_2D / c2d_ms / 1e3:.1f} Msamples/s")
-    print("breakdown convolve2d (device us per call): "
-          + bm.device_breakdown(lambda: cv2.convolve2d(x2_t, h2_t),
-                                calls=5))
+    bd_2d = bm.device_breakdown(lambda: cv2.convolve2d(x2_t, h2_t),
+                                calls=5)
+    print("breakdown convolve2d (device us per call): " + bd_2d)
+    check("elementwise" not in bd_2d,
+          f"convolve2d runs a pad or flip kernel: {bd_2d}")
 
     # the spectral slice, operands on the card
     xst_t = cuda(x_st)
@@ -628,9 +706,36 @@ def main():
         print(f"breakdown {name} (device us per call): "
               + bm.device_breakdown(fn, calls=5))
 
-    xf = F.pad(cuda(x_fb), (K_FB - 1, K_FB - 1))
-    ff = cuda(h_fb[::-1].copy()).reshape(1, K_FB)
+    # K2 and K5 through the direct routes' own calls: the unpadded
+    # input, the halo and (for convolution) the reversed taps read in
+    # the kernel
+    xf = cuda(x_fb)
+    ff = cuda(h_fb).reshape(1, K_FB)
+    ff_flip = cuda(h_fb[::-1].copy()).view(1, 1, K_FB)
     n_out_fb = N_FB + K_FB - 1
+
+    # the K2 variants at 512 x 16384 across k, in turns (ffma, mma, mma,
+    # ffma): the data for FB_MMA_MIN_K and the convolve.direct gate
+    sweep = []
+    for k in K_SWEEP:
+        fk = cuda(rng.randn(1, k))
+
+        def sweep_call(v, fk=fk, k=k):
+            return lambda: ck.filter_bank_cuda(
+                xf, fk, 1, 1, N_FB + k - 1, pad_left=k - 1, variant=v)
+
+        turns = [(v, bm.device_busy_ms(sweep_call(v), calls=10))
+                 for v in ("ffma", "mma", "mma", "ffma")]
+        bound = bm.fp32_bound(*bm.conv_work(ROWS_FB, N_FB, k))[0]
+        sweep.append((k, turns, bound))
+    # each variant's mean at the main shape, for the kernels line
+    fb_variant_ms = {v: float(np.mean([ms for v_, ms in turns if v_ == v]))
+                     for k, turns, _ in sweep if k == K_FB
+                     for v in ("ffma", "mma")}
+    print(f"k-sweep: K2 at {ROWS_FB}x{N_FB}, profiled ms per call in turns "
+          "(picked by FB_MMA_MIN_K = " f"{ck.FB_MMA_MIN_K}): " + " | ".join(
+              f"k {k} " + " ".join(f"{v} {ms:.4f}" for v, ms in turns)
+              + f" bound {bound:.4f}" for k, turns, bound in sweep))
     # K2 at the DWT shape, K3 at the cascade shape, K5 at the 2D shape
     xw_ext = wv._extend(xw_t, P, 8).contiguous()
     fw = wv._filter_tensor(wv.WaveletType("daub"), 8, dev)
@@ -647,7 +752,6 @@ def main():
         for (p_, o_), tap in zip(plan, t):
             w_cb[c, o_ * ns + p_] += tap
     w_cb_t = cuda(w_cb).unsqueeze(1)
-    x2_ext = F.pad(x2_t, (K_2D - 1,) * 4)
     k2f = x2_t.new_tensor(h_2d[::-1, ::-1].copy())
     n_2d = N_2D + K_2D - 1
 
@@ -658,7 +762,8 @@ def main():
 
     def conv1d_fb():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            return F.conv1d(xf.view(ROWS_FB, 1, -1), ff.view(1, 1, -1))
+            return F.conv1d(xf.view(ROWS_FB, 1, -1), ff_flip,
+                            padding=K_FB - 1)
 
     def conv1d_dwt():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -672,7 +777,8 @@ def main():
 
     def conv2d_2d():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            return F.conv2d(x2_ext.unsqueeze(1), k2f.view(1, 1, K_2D, K_2D))
+            return F.conv2d(x2_t.unsqueeze(1), k2f.view(1, 1, K_2D, K_2D),
+                            padding=K_2D - 1)
 
     win_st = cuda(sp.hann_window(L_ST))
 
@@ -710,9 +816,7 @@ def main():
         "cascade_bank": (2.0 * n_slots * ROWS_WV * n_cb,
                          4.0 * (xc_ext.numel() + n_slots
                                 + len(plans) * ROWS_WV * n_cb)),
-        "filter_2d": (2.0 * K_2D * K_2D * IMGS_2D * n_2d * n_2d,
-                      4.0 * (x2_ext.numel() + K_2D * K_2D
-                             + IMGS_2D * n_2d * n_2d)),
+        "filter_2d": bm.conv2d_work(IMGS_2D, N_2D, N_2D, K_2D, K_2D),
         "overlap_save": bm.conv_work(1, N_HEAD, K_HEAD),
         # the functions' least work (FFT form where it is less)
         "filter_bank": bm.conv_work(ROWS_FB, N_FB, K_FB),
@@ -728,15 +832,21 @@ def main():
             lambda: ck.cascade_bank_plain(xc_ext, taps, plans, ns, n_cb),
             conv1d_cb),
         "filter_2d": (
-            lambda: ck.filter_2d_cuda(x2_ext, k2f, n_2d, n_2d),
-            lambda: ck.filter_2d_plain(x2_ext, k2f, n_2d, n_2d),
+            lambda: ck.filter_2d_cuda(x2_t, h2_t, n_2d, n_2d,
+                                      pad=(K_2D - 1,) * 2,
+                                      reverse_taps=True),
+            lambda: ck.filter_2d_plain(x2_t, h2_t, n_2d, n_2d,
+                                       (K_2D - 1,) * 2, True),
             conv2d_2d),
         "overlap_save": (
             lambda: ck.overlap_save_cuda(xh, th),
             lambda: ck.overlap_save_plain(xh, th), conv1d_head),
         "filter_bank": (
-            lambda: ck.filter_bank_cuda(xf, ff, 1, 1, n_out_fb),
-            lambda: ck.filter_bank_plain(xf, ff, 1, 1, n_out_fb),
+            lambda: ck.filter_bank_cuda(xf, ff, 1, 1, n_out_fb,
+                                        pad_left=K_FB - 1,
+                                        reverse_taps=True),
+            lambda: ck.filter_bank_plain(xf, ff, 1, 1, n_out_fb,
+                                         K_FB - 1, True),
             conv1d_fb),
         "stft": (
             lambda: ck.stft_cuda(xst_t, win_st, L_ST, HOP_ST),
@@ -784,6 +894,8 @@ def main():
         lib_ms = bm.device_busy_ms(lib, calls=20)
         bound_ms, bound_by = bm.fp32_bound(*work[name])
         source, replaces, shape, (diff, rel) = meta[name]
+        variant = {"filter_bank": ck.fb_variant(K_FB, 1, 1),
+                   "filter_bank_dwt": ck.fb_variant(8, 2, 1)}.get(name)
         rows.append({
             "name": name.replace("_dwt", ""), "route": "cuda",
             "source": source,
@@ -794,6 +906,11 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "library_rel_err_vs_f64": lib_err[name],
         })
+        if variant is not None:
+            rows[-1]["variant"] = variant
+        if name == "filter_bank":
+            # both variants at this shape (k-sweep, profiled, in turns)
+            rows[-1]["variant_ms"] = fb_variant_ms
     elapsed = time.perf_counter() - t_start
     print(f"times: card {smi} | chip_smoke {elapsed:.1f} s so far")
     print(json.dumps({"kernels": rows}))

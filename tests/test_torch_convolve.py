@@ -194,6 +194,22 @@ def test_kernel_routes_agree(monkeypatch):
                 jcr.cross_correlate_simd(x, hs)) < REL_TOL
 
 
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 129, 256])
+def test_direct_kernel_route_agrees(monkeypatch, k):
+    # convolve_simd and cross_correlate_simd on the kernel route (gates
+    # open): the port passes the unpadded rows with pad_left = k - 1
+    # and the taps' reversal to the filter bank, the JAX package pads
+    # and flips before its Pallas kernel (interpret mode)
+    monkeypatch.setattr(jcv, "_use_pallas_direct", lambda *a: True)
+    monkeypatch.setattr(tcv, "_use_cuda_direct", lambda *a: True)
+    r = np.random.RandomState(k + 50)
+    x = r.randn(2, 4, 400).astype(np.float32)
+    h = r.randn(k).astype(np.float32)
+    assert _rel(tcv.convolve_simd(x, h), jcv.convolve_simd(x, h)) < REL_TOL
+    assert _rel(tcr.cross_correlate_simd(x, h),
+                jcr.cross_correlate_simd(x, h)) < REL_TOL
+
+
 @pytest.mark.parametrize("mode", ["full", "same", "valid"])
 def test_fftconvolve_and_oaconvolve_agree(mode):
     r = np.random.RandomState(31)

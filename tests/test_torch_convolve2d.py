@@ -73,7 +73,8 @@ def test_modes_and_boundaries_agree(monkeypatch, op, mode, boundary):
     assert _rel(getattr(t2, op)(x, h, "direct", **kw), want) < REL_TOL
 
 
-@pytest.mark.parametrize("k_shape", [(3, 3), (1, 9), (9, 1), (6, 2)])
+@pytest.mark.parametrize("k_shape", [(3, 3), (1, 9), (9, 1), (6, 2),
+                                     (16, 16), (2, 7)])
 def test_kernel_route_agrees_with_pallas(monkeypatch, k_shape):
     monkeypatch.setattr(j2, "_use_pallas_direct2d", lambda *a: True)
     monkeypatch.setattr(t2, "_use_cuda_direct2d", lambda *a: True)

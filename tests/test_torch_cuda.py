@@ -105,21 +105,63 @@ def test_overlap_save_kernel_many_rows():
 
 
 @pytest.mark.parametrize("channels,order,stride,dilation", [
-    (1, 1, 1, 1), (1, 13, 1, 1), (1, 14, 1, 1), (1, 256, 1, 1),
+    (1, 1, 1, 1), (1, 2, 1, 1), (1, 3, 1, 1), (1, 8, 1, 1), (1, 13, 1, 1),
+    (1, 14, 1, 1), (1, 16, 1, 1), (1, 33, 1, 1), (1, 129, 1, 1),
+    (1, 255, 1, 1), (1, 256, 1, 1), (2, 8, 1, 1), (2, 40, 1, 1),
+    (3, 5, 1, 1), (3, 100, 1, 1),
     (2, 8, 2, 1), (3, 5, 3, 1), (2, 8, 1, 4), (2, 7, 2, 3),
     (2, 64, 1, 200),      # > 48 KB of shared memory: the opt-in path
 ])
 def test_filter_bank_kernel_matches_plain(channels, order, stride,
                                           dilation):
-    r = np.random.RandomState(order * stride + dilation)
+    # both variants at unit stride, against the plain version run in
+    # float64 (the mma variant's split TF32 is not bit-equal to a
+    # float32 sum); an explicit x_ext, then the padded entry on the
+    # unpadded rows with the taps reversed
+    r = np.random.RandomState(order * stride + dilation + channels)
     n_out = 3001
     need = (n_out - 1) * stride + (order - 1) * dilation + 1
     x = _t(r.randn(5, need + 2))
     f = _t(r.randn(channels, order))
-    got = ck.filter_bank_cuda(x, f, stride, dilation, n_out)
-    want = ck.filter_bank_plain(x, f, stride, dilation, n_out)
+    unit = stride == 1 and dilation == 1
+    for variant in ((None, "ffma", "mma") if unit else (None,)):
+        got = ck.filter_bank_cuda(x, f, stride, dilation, n_out,
+                                  variant=variant)
+        want = ck.filter_bank_plain(x.double(), f.double(), stride,
+                                    dilation, n_out)
+        for g, w in zip(got, want):
+            assert _rel(g.cpu(), w.cpu()) <= TOL
+    pad = (order - 1) * dilation
+    xs = _t(r.randn(5, n_out))
+    n_full = n_out + pad
+    got = ck.filter_bank_cuda(xs, f, 1, dilation, n_full, pad_left=pad,
+                              reverse_taps=True)
+    want = ck.filter_bank_plain(xs.double(), f.double(), 1, dilation,
+                                n_full, pad_left=pad, reverse_taps=True)
     for g, w in zip(got, want):
         assert _rel(g.cpu(), w.cpu()) <= TOL
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16, 33, 129, 255, 256])
+@pytest.mark.parametrize("rows,n", [(1, 1), (8, 1663), (512, 16384),
+                                    (70000, 20)])
+def test_filter_bank_padded_entry_matches_float64(rows, n, k):
+    # the direct route's call: unpadded rows, pad_left = k - 1, the full
+    # output; one launch for the mma variant whatever the row count
+    r = np.random.RandomState(rows + n + k)
+    x, f = _t(r.randn(rows, n)), _t(r.randn(1, k))
+    ck.reset_launches()
+    (got,) = ck.filter_bank_cuda(x, f, 1, 1, n + k - 1, pad_left=k - 1)
+    variant = ck.fb_variant(k, 1, 1)
+    assert ck.LAUNCHES["filter_bank"] == \
+        (1 if variant == "mma" else -(-rows // 65535))
+    (want,) = ck.filter_bank_plain(x.double(), f.double(), 1, 1,
+                                   n + k - 1, pad_left=k - 1)
+    assert _rel(got.cpu(), want.cpu()) <= TOL
+    if rows <= 8:
+        (ext,) = ck.filter_bank_cuda(
+            torch.nn.functional.pad(x, (k - 1, k - 1)), f, 1, 1, n + k - 1)
+        assert _rel(ext.cpu(), want.cpu()) <= TOL
 
 
 def test_filter_bank_kernel_many_rows_and_refusal():
@@ -219,20 +261,34 @@ def test_cascade_bank_kernel_matches_plain_and_float64(type, order, levels,
 @pytest.mark.parametrize("imgs,n0,n1,k0,k1", [
     (16, 64, 64, 7, 7), (1, 128, 128, 3, 3), (4, 100, 77, 16, 16),
     (3, 64, 300, 1, 256), (2, 300, 20, 256, 1), (5, 5, 3, 5, 3),
-    (70000, 2, 3, 2, 2),
+    (70000, 2, 3, 2, 2), (16, 512, 512, 7, 7), (2, 65, 130, 4, 9),
 ])
 def test_filter_2d_kernel_matches_plain_and_float64(imgs, n0, n1, k0, k1):
+    # an explicit x_ext, then the padded entry on the unpadded images
+    # with the taps flipped (the full convolution): each against the
+    # plain version run in float64 and the float64 oracle; one launch
     r = np.random.RandomState(n0 + n1 + k0 * k1)
     x = r.randn(imgs, n0 + 2 * (k0 - 1), n1 + 2 * (k1 - 1))
     k = r.randn(k0, k1)
     shape = (n0 + k0 - 1, n1 + k1 - 1)
+    ck.reset_launches()
     got = ck.filter_2d_cuda(_t(x), _t(k), *shape)
-    want = ck.filter_2d_plain(_t(x), _t(k), *shape)
+    assert ck.LAUNCHES["filter_2d"] == 1
+    want = ck.filter_2d_plain(_t(x).double(), _t(k).double(), *shape)
     assert _rel(got.cpu(), want.cpu()) <= TOL
     x32, k32 = x.astype(np.float32), k.astype(np.float32)
-    ref = _conv2d64(x32, k32[::-1, ::-1])[..., k0 - 1:k0 - 1 + shape[0],
-                                          k1 - 1:k1 - 1 + shape[1]]
-    assert _rel(got.cpu(), ref) <= TOL
+    if imgs * x.shape[1] * x.shape[2] <= 1 << 20:
+        ref = _conv2d64(x32, k32[::-1, ::-1])[
+            ..., k0 - 1:k0 - 1 + shape[0], k1 - 1:k1 - 1 + shape[1]]
+        assert _rel(got.cpu(), ref) <= TOL
+    xs = _t(x[:, k0 - 1:k0 - 1 + n0, k1 - 1:k1 - 1 + n1])
+    got = ck.filter_2d_cuda(xs, _t(k), *shape, pad=(k0 - 1, k1 - 1),
+                            reverse_taps=True)
+    want = ck.filter_2d_plain(xs.double(), _t(k).double(), *shape,
+                              pad=(k0 - 1, k1 - 1), reverse_taps=True)
+    assert _rel(got.cpu(), want.cpu()) <= TOL
+    if imgs * n0 * n1 <= 1 << 20:
+        assert _rel(got.cpu(), _conv2d64(xs.cpu().numpy(), k32)) <= TOL
 
 
 def test_filter_2d_kernel_refuses_what_does_not_fit():
@@ -310,6 +366,35 @@ def test_convolve2d_routes():
     yc = cv2.cross_correlate2d(x, h, mode="valid")
     want = _conv2d64(x, h[::-1, ::-1])[:, 4:200, 4:150]
     assert _rel(yc.cpu(), want) <= TOL
+    # 'same' reads the zero halo in the kernel; 'wrap' extends through
+    # _pad2d first and calls it with pad = (0, 0): one launch each
+    for kw, xe in (({"mode": "same"}, x),
+                   ({"boundary": "wrap"},
+                    np.pad(x, ((0, 0), (4, 4), (4, 4)), mode="wrap"))):
+        ck.reset_launches()
+        y = cv2.convolve2d(x, h, **kw)
+        assert ck.LAUNCHES["filter_2d"] == 1
+        full = _conv2d64(xe, h)
+        want = (full[:, 2:202, 2:152] if "mode" in kw
+                else full[:, 4:4 + 204, 4:4 + 154])
+        assert _rel(y.cpu(), want) <= TOL
+
+
+def test_direct_routes_launch_their_kernel_once():
+    # one launch a call: the ffma variant below the grid's row limit,
+    # the persistent mma variant and K5 beyond it
+    r = np.random.RandomState(12)
+    for rows, n, k in ((512, 3000, 33), (70000, 20, 200)):
+        x, h = r.randn(rows, n).astype(np.float32), r.randn(k)
+        ck.reset_launches()
+        y = cv.convolve_simd(x, h)
+        assert ck.LAUNCHES["filter_bank"] == 1
+        assert _rel(y.cpu(), _conv64(x, h)) <= TOL
+    x2, h2 = r.randn(70000, 3, 4).astype(np.float32), r.randn(2, 2)
+    ck.reset_launches()
+    y2 = cv2.convolve2d(x2, h2)
+    assert ck.LAUNCHES["filter_2d"] == 1
+    assert _rel(y2.cpu(), _conv2d64(x2, h2)) <= TOL
 
 
 def test_convolve2d_kernel_route_opt_out(monkeypatch):

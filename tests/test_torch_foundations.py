@@ -290,6 +290,23 @@ def test_stft_bound_is_the_bytes():
     assert by == "bytes" and abs(ms - 0.0063) < 1e-4
 
 
+@pytest.mark.parametrize("imgs,n0,n1,k0,k1", [
+    (16, 512, 512, 7, 7), (4, 100, 77, 16, 16), (3, 64, 300, 1, 256),
+    (1, 1, 1, 1, 1)])
+def test_conv2d_bound_reads_the_unpadded_input(imgs, n0, n1, k0, k1):
+    # bytes: the unpadded images and the kernel in, the full output out
+    flops, nbytes = tbench.conv2d_work(imgs, n0, n1, k0, k1)
+    m0, m1 = n0 + k0 - 1, n1 + k1 - 1
+    assert nbytes == 4.0 * (imgs * n0 * n1 + k0 * k1 + imgs * m0 * m1)
+    assert 0 < flops <= 2.0 * imgs * n0 * n1 * k0 * k1
+    if (imgs, n0, k0) == (16, 512, 7):
+        # the main 2D shape: the direct form's 0.41 GFLOP is the least,
+        # and its 34.0 MB set the bound
+        assert flops == 2.0 * 16 * 512 * 512 * 49
+        ms, by = tbench.fp32_bound(flops, nbytes)
+        assert by == "bytes" and abs(ms - 0.010134) < 1e-5
+
+
 def test_constant_cache_bounds_entries_and_bytes():
     cache = tcache.ConstantCache(3, max_bytes=1000)
     builds = []

@@ -87,6 +87,29 @@ def test_filter_bank_matches_pallas(channels, stride, dilation, order,
         assert _rel(g.numpy(), np.asarray(w)) < REL_TOL
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("k", [2, 8, 129, 256])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_filter_bank_padded_matches_pallas(channels, k, reverse):
+    # the zero halo read by the wrapper (pad_left = k - 1 on each side)
+    # and the reversed taps: the Pallas kernel on np.pad(x) with the
+    # taps flipped by hand, leading batch dims riding along
+    r = np.random.RandomState(k + channels)
+    n = 300
+    x = r.randn(2, 3, n).astype(np.float32)
+    f = r.randn(channels, k).astype(np.float32)
+    x_ext = np.pad(x, ((0, 0), (0, 0), (k - 1, k - 1)))
+    want = pk.filter_bank_pallas(x_ext, f[:, ::-1] if reverse else f, 1,
+                                 1, n + k - 1, interpret=True)
+    got = ck.filter_bank_cuda(torch.from_numpy(x), torch.from_numpy(f), 1,
+                              1, n + k - 1, pad_left=k - 1,
+                              reverse_taps=reverse)
+    assert len(got) == len(want) == channels
+    for g, w in zip(got, want):
+        assert g.shape == (2, 3, n + k - 1)
+        assert _rel(g.numpy(), np.asarray(w)) < REL_TOL
+
+
 def test_filter_bank_leading_batch_dims():
     r = np.random.RandomState(5)
     x_ext = r.randn(2, 3, 40).astype(np.float32)
@@ -175,7 +198,17 @@ def test_shared_memory_admission():
     # direct path: every filter the route admits fits
     assert all(ck.fits_smem_fb(1, k, 1, 1)
                for k in range(1, ck.DIRECT_MAX_H + 1))
-    assert ck.fb_smem_bytes(1, 129, 1, 1) == 4 * (1793 + 130 + 1664)
+    # mma at 129 taps: hi and lo B blocks for 20 k-steps and 3 zero
+    # steps, two raw spans of 2048 - 32 + 8 * 20 samples and the hi and
+    # lo parts of one, the output tile; ffma: span, taps padded to 13,
+    # output tile
+    assert ck.fb_smem_bytes(1, 129, 1, 1, "mma") == \
+        4 * 2 * 23 * 64 + 16 * 2176 + 4 * 2048
+    assert ck.fb_smem_bytes(1, 129, 1, 1, "ffma") == \
+        4 * (1793 + 130 + 1664)
+    # no variant: the one fb_variant picks
+    assert ck.fb_smem_bytes(1, 129, 1, 1) == ck.fb_smem_bytes(
+        1, 129, 1, 1, ck.fb_variant(129, 1, 1))
     # a span too long for one block is refused
     assert not ck.fits_smem_fb(2, 64, 1, 1024)
     # cascade bank: slot table, channel starts, staged phases whose
@@ -184,8 +217,9 @@ def test_shared_memory_admission():
     assert ck._cb_pitch(4, 3) % 32 == 8 and ck._cb_pitch(3, 2) == 514
     assert ck.cb_smem_bytes(8, 6, 176, 8) == 8 * 176 + 4 * 9 + 4 * 8 * 548
     assert not ck.fits_smem_cb(64, 400, 512, 64)
-    # 2D: tile plus halo (kernel rows padded to 4) and the taps
-    assert ck.f2d_smem_bytes(7, 7) == 4 * ((32 + 8 - 1) * (64 + 6) + 49)
+    # 2D: the taps (rows padded to 4) and two stages of the tile plus
+    # its halo (columns padded to 4)
+    assert ck.f2d_smem_bytes(7, 7) == 4 * (7 * 8 + 2 * (64 + 6) * (64 + 8))
     assert ck.fits_smem_f2d(256, 1) and not ck.fits_smem_f2d(2048, 1)
 
 
@@ -239,6 +273,98 @@ def test_filter_2d_matches_pallas(x_shape, k_shape, n_out):
                             *n_out)
     assert got.shape == want.shape == x_shape[:-2] + n_out
     assert _rel(got.numpy(), want) < REL_TOL
+
+
+@pytest.mark.parametrize("x_shape,k_shape", [
+    ((2, 12, 14), (3, 4)), ((6, 8), (2, 2)), ((2, 3, 9, 30), (1, 16)),
+    ((2, 20, 7), (16, 1)), ((3, 10, 11), (5, 5)), ((4, 5, 77), (16, 16)),
+])
+def test_filter_2d_padded_matches_pallas(x_shape, k_shape):
+    # pad = (k0 - 1, k1 - 1) and reverse_taps: the full convolution,
+    # against the Pallas kernel on the padded input with the flipped
+    # kernel
+    r = np.random.RandomState(sum(x_shape) * 3 + sum(k_shape))
+    x = r.randn(*x_shape).astype(np.float32)
+    k = r.randn(*k_shape).astype(np.float32)
+    k0, k1 = k_shape
+    pad = [(0, 0)] * (x.ndim - 2) + [(k0 - 1, k0 - 1), (k1 - 1, k1 - 1)]
+    n_out = (x_shape[-2] + k0 - 1, x_shape[-1] + k1 - 1)
+    want = np.asarray(pk.filter_2d_pallas(
+        np.pad(x, pad), np.ascontiguousarray(k[::-1, ::-1]), *n_out,
+        interpret=True))
+    got = ck.filter_2d_cuda(torch.from_numpy(x), torch.from_numpy(k),
+                            *n_out, pad=(k0 - 1, k1 - 1), reverse_taps=True)
+    assert got.shape == want.shape == x_shape[:-2] + n_out
+    assert _rel(got.numpy(), want) < REL_TOL
+    # no flip: the correlation of the padded input
+    want = np.asarray(pk.filter_2d_pallas(np.pad(x, pad), k, *n_out,
+                                          interpret=True))
+    got = ck.filter_2d_cuda(torch.from_numpy(x), torch.from_numpy(k),
+                            *n_out, pad=(k0 - 1, k1 - 1))
+    assert _rel(got.numpy(), want) < REL_TOL
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: ck.filter_bank_cuda(torch.ones(2, 50), torch.ones(1, 5), 1, 1,
+                                 54, pad_left=-1), "pad_left must be >= 0"),
+    # 50 + 2 * 2 = 54 samples, the full output of 5 taps needs 58
+    (lambda: ck.filter_bank_cuda(torch.ones(2, 50), torch.ones(1, 5), 1, 1,
+                                 54, pad_left=2), "x_ext too short"),
+    (lambda: ck.filter_bank_cuda(torch.ones(2, 50), torch.ones(2, 5), 2, 1,
+                                 20, variant="mma"), "stride 1, dilation 1"),
+    (lambda: ck.filter_bank_cuda(torch.ones(2, 50), torch.ones(1, 5), 1, 1,
+                                 20, variant="wgmma"), "variant"),
+    (lambda: ck.filter_2d_cuda(torch.ones(9, 9), torch.ones(3, 3), 11, 11,
+                               pad=(-1, 1)), "pad must be >= 0"),
+    # (9 + 2, 9 + 2) padded against the (13, 13) a full 3 x 3 output needs
+    (lambda: ck.filter_2d_cuda(torch.ones(9, 9), torch.ones(3, 3), 11, 11,
+                               pad=(1, 1)), "x_ext too short"),
+])
+def test_padding_argument_errors(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_fb_variant_threshold_and_admission():
+    # unit stride picks mma from FB_MMA_MIN_K taps on, ffma below it;
+    # strided and dilated forms always ffma; every k <= DIRECT_MAX_H
+    # fits either variant for up to three channels, every area <= 256
+    # fits the 2D kernel
+    for k in range(1, ck.DIRECT_MAX_H + 1):
+        assert ck.fb_variant(k, 1, 1) == \
+            ("mma" if k >= ck.FB_MMA_MIN_K else "ffma")
+        assert ck.fb_variant(k, 2, 1) == ck.fb_variant(k, 1, 2) == "ffma"
+        for c in (1, 2, 3):
+            assert ck.fits_smem_fb(c, k, 1, 1)
+            assert ck.fits_smem_fb(c, k, 1, 1, "mma")
+            assert ck.fits_smem_fb(c, k, 1, 1, "ffma")
+    assert all(ck.fits_smem_f2d(k0, k1)
+               for k0 in range(1, ck.MAX_AREA_2D + 1)
+               for k1 in range(1, ck.MAX_AREA_2D // k0 + 1))
+    assert ck.f2d_smem_bytes(256, 1) == max(
+        ck.f2d_smem_bytes(k0, ck.MAX_AREA_2D // k0)
+        for k0 in range(1, ck.MAX_AREA_2D + 1))
+
+
+def test_padded_plain_versions_in_float64():
+    # the plain versions take float64 operands (the card's reference)
+    r = np.random.RandomState(40)
+    x = torch.from_numpy(r.randn(3, 40))
+    f = torch.from_numpy(r.randn(1, 6))
+    (y,) = ck.filter_bank_plain(x, f, 1, 1, 45, pad_left=5,
+                                reverse_taps=True)
+    assert y.dtype == torch.float64
+    want = np.stack([np.convolve(row, f[0].numpy()) for row in x.numpy()])
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-12, atol=1e-12)
+    x2 = torch.from_numpy(r.randn(2, 9, 8))
+    k2 = torch.from_numpy(r.randn(3, 2))
+    y2 = ck.filter_2d_plain(x2, k2, 11, 9, pad=(2, 1), reverse_taps=True)
+    assert y2.dtype == torch.float64 and y2.shape == (2, 11, 9)
+    want2 = np.zeros((2, 11, 9))
+    for p in range(3):
+        for q in range(2):
+            want2[:, p:p + 9, q:q + 8] += k2[p, q].item() * x2.numpy()
+    np.testing.assert_allclose(y2.numpy(), want2, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("call,match", [

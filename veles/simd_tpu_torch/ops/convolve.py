@@ -188,12 +188,12 @@ def _use_cuda_direct(x, k: int) -> bool:
 
 def _conv_direct_cuda(x, h, reverse=False):
     """Direct-form full convolution as the filter-bank kernel (its
-    C=1 instance): pad, flip for convolution, correlate."""
+    C=1 instance): the kernel reads the k-1 zero halo on each side and,
+    for convolution, the taps reversed, so nothing is padded or flipped
+    here."""
     n, k = x.shape[-1], h.shape[-1]
-    kernel = h if reverse else h.flip(-1)
-    x_ext = F.pad(x, (k - 1, k - 1))
-    (y,) = _ck.filter_bank_cuda(x_ext, kernel.reshape(1, k).contiguous(),
-                                1, 1, n + k - 1)
+    (y,) = _ck.filter_bank_cuda(x, h.reshape(1, k), 1, 1, n + k - 1,
+                                pad_left=k - 1, reverse_taps=not reverse)
     return y
 
 

@@ -92,18 +92,32 @@ def _images(x_shape) -> int:
     return int(np.prod(x_shape[:-2])) if len(x_shape) > 2 else 1
 
 
-def _conv2d_direct_cuda(x, h, reverse=False):
-    """Direct form as the 2D kernel: pad by k-1 per side, flip for
-    convolution, correlate."""
+def _crop(full, crop):
+    """``full[..., c0:c0 + m0, c1:c1 + m1]``, the full output of an
+    input extended by ``crop`` per side cut back to the unextended
+    input's full size."""
+    c0, c1 = crop
+    if not (c0 or c1):
+        return full
+    m0, m1 = full.shape[-2] - 2 * c0, full.shape[-1] - 2 * c1
+    return full[..., c0:c0 + m0, c1:c1 + m1]
+
+
+def _conv2d_direct_cuda(x, h, reverse=False, crop=(0, 0)):
+    """Direct form as the 2D kernel: it reads the zero halo (k-1 on
+    each side, less the ``crop`` of an already extended input) and, for
+    convolution, the taps flipped, so nothing is padded, flipped or
+    sliced here."""
     n0, n1 = x.shape[-2:]
     k0, k1 = h.shape[-2:]
-    kernel = h if reverse else h.flip((-2, -1))
-    x_ext = F.pad(x, (k1 - 1, k1 - 1, k0 - 1, k0 - 1))
-    return _ck.filter_2d_cuda(x_ext, kernel.contiguous(), n0 + k0 - 1,
-                              n1 + k1 - 1)
+    c0, c1 = crop
+    return _ck.filter_2d_cuda(x, h, n0 - 2 * c0 + k0 - 1,
+                              n1 - 2 * c1 + k1 - 1,
+                              pad=(k0 - 1 - c0, k1 - 1 - c1),
+                              reverse_taps=not reverse)
 
 
-def _conv2d_direct(x, h, reverse=False):
+def _conv2d_direct(x, h, reverse=False, crop=(0, 0)):
     """Direct form as ``conv2d`` (which correlates), cuDNN pinned to
     fp32."""
     n0, n1 = x.shape[-2:]
@@ -113,10 +127,11 @@ def _conv2d_direct(x, h, reverse=False):
         out = F.conv2d(x.reshape(-1, 1, n0, n1),
                        kernel.reshape(1, 1, k0, k1),
                        padding=(k0 - 1, k1 - 1))
-    return out.reshape(tuple(x.shape[:-2]) + (n0 + k0 - 1, n1 + k1 - 1))
+    return _crop(out.reshape(tuple(x.shape[:-2])
+                             + (n0 + k0 - 1, n1 + k1 - 1)), crop)
 
 
-def _conv2d_fft(x, h, reverse=False):
+def _conv2d_fft(x, h, reverse=False, crop=(0, 0)):
     """Both axes padded to powers of two >= n+k-1, one batched
     ``rfft2 · multiply · irfft2``."""
     n0, n1 = x.shape[-2:]
@@ -125,7 +140,8 @@ def _conv2d_fft(x, h, reverse=False):
          next_highest_power_of_2(n1 + k1 - 1))
     kernel = h.flip((-2, -1)) if reverse else h
     spec = torch.fft.rfft2(x, s=m) * torch.fft.rfft2(kernel, s=m)
-    return torch.fft.irfft2(spec, s=m)[..., :n0 + k0 - 1, :n1 + k1 - 1]
+    return _crop(torch.fft.irfft2(spec, s=m)[..., :n0 + k0 - 1,
+                                             :n1 + k1 - 1], crop)
 
 
 _RUNNERS = {"direct_cuda": _conv2d_direct_cuda,
@@ -140,16 +156,18 @@ def _check2d(x, h):
             f"{tuple(np.shape(x))} and {tuple(np.shape(h))}")
 
 
-def _run2d(x, h, reverse, algorithm, simd):
+def _run2d(x, h, reverse, algorithm, simd, crop=(0, 0)):
     """Full convolution (or correlation) with ``algorithm`` None (auto),
-    ``'direct'`` or ``'fft'``."""
+    ``'direct'`` or ``'fft'``; of an input extended by ``crop`` per side,
+    the part that is the unextended input's full output."""
     _check2d(x, h)
     if algorithm not in (None, "direct", "fft"):
         raise ValueError(f"algorithm must be 'direct' or 'fft', "
                          f"got {algorithm!r}")
     if not resolve_simd(simd, op="convolve2d"):
         h = np.asarray(h, np.float32)
-        return convolve2d_na(x, h[::-1, ::-1] if reverse else h)
+        return _crop(convolve2d_na(x, h[::-1, ::-1] if reverse else h),
+                     crop)
     x, h = _operands(x, h)
     k0, k1 = h.shape
     auto = algorithm is None
@@ -162,7 +180,7 @@ def _run2d(x, h, reverse, algorithm, simd):
                         images=_images(x.shape), n0=int(x.shape[-2]),
                         n1=int(x.shape[-1]), k0=int(k0), k1=int(k1))
     with obs.span("convolve2d.dispatch", algo=algorithm, auto=auto):
-        return _RUNNERS[route](x, h, reverse=reverse)
+        return _RUNNERS[route](x, h, reverse=reverse, crop=crop)
 
 
 def _sym_index(n, p, mode):
@@ -241,9 +259,10 @@ def _mode_boundary_2d(x, h, reverse, algorithm, simd, mode, boundary,
         else:
             x = np.asarray(x)
         x = _pad2d(x, p0, p1, boundary, fillvalue)
-    out = _run2d(x, h, reverse, algorithm, simd)
-    if not plain:
-        out = out[..., p0:p0 + n0 + k0 - 1, p1:p1 + n1 + k1 - 1]
+    # an extended input's full output, cut to the unextended one's: the
+    # kernel route computes only that part
+    out = _run2d(x, h, reverse, algorithm, simd,
+                 crop=(0, 0) if plain else (p0, p1))
     if mode == "full":
         return out
 

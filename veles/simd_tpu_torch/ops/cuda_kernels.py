@@ -13,24 +13,29 @@ All five of the JAX package's Pallas kernels are ported here:
   ``filter_bank_pallas``: the multi-channel shifted-MAC FIR bank
   (``out[c][b, i] = sum_j f[c, j] x_ext[b, i*stride + j*dilation]``),
   the direct route of the convolve and correlate entry points and the
-  ``cuda`` route of the DWT and SWT.
+  ``cuda`` route of the DWT and SWT.  Unit stride and dilation from
+  :data:`FB_MMA_MIN_K` taps on is a Toeplitz product on the tensor cores
+  in split TF32 (the ``mma`` variant); the strided and dilated forms and
+  shorter filters run an FFMA loop (``ffma``).
 * :func:`cascade_bank_cuda` (``csrc/cascade_bank.cu``) replaces
   ``cascade_bank_pallas``: FIR channels at stride ``n_split`` over a
   runtime plan of (phase, offset) slots, the fused PERIODIC DWT
   cascade.
 * :func:`filter_2d_cuda` (``csrc/filter_2d.cu``) replaces
   ``filter_2d_pallas``: the 2D shifted-MAC correlation, the direct
-  route of ``convolve2d`` and ``cross_correlate2d``.
+  route of ``convolve2d`` and ``cross_correlate2d``, a persistent
+  streaming kernel.
 * :func:`stft_cuda` (``csrc/stft.cu``) replaces ``stft_pallas``: the
   windowed real-DFT STFT, a shared-memory FFT per frame over a span of
   frames staged once, the ``cuda_fused`` route of ``spectral.stft`` and
   ``batched.batched_stft``.
 
 K1 and K4 share the block-level FFT of ``csrc/smem_fft.cuh``, with
-twiddles from :func:`fft_twiddles`.  Each source note says what bounds
-its kernel on the H100 and what the design does about it: K1 and K4
-are bound by their bytes, K2, K3 and K5 by their bytes or their fp32
-FFMA.
+twiddles from :func:`fft_twiddles`; K2 and K5 share the asynchronous
+staging of ``csrc/async_copy.cuh`` and read their zero halo in the
+kernel (``pad_left=``, ``pad=``), so their callers pad nothing.  Each
+source note says what bounds its kernel on the H100 and what the design
+does about it: every one is bound by its bytes.
 
 Wrappers take float32 torch tensors.  On a CPU tensor a wrapper
 computes the kernel's plain PyTorch version (:func:`overlap_save_plain`,
@@ -71,7 +76,7 @@ __all__ = [
     "cascade_bank_cuda", "cascade_bank_plain",
     "filter_2d_cuda", "filter_2d_plain",
     "stft_cuda", "stft_plain", "stft_basis", "fft_twiddles",
-    "fb_smem_bytes", "fits_smem_fb",
+    "fb_smem_bytes", "fits_smem_fb", "fb_variant",
     "os_fft_length", "os_step", "os_smem_bytes", "fits_smem_os",
     "cb_smem_bytes", "fits_smem_cb", "f2d_smem_bytes", "fits_smem_f2d",
     "stft_fft_length", "stft_frames_per_block", "stft_smem_bytes",
@@ -79,7 +84,8 @@ __all__ = [
     "should_route", "on_card",
     "LAUNCHES", "reset_launches", "load_library", "build_log",
     "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_MAX_FFT",
-    "FB_TILE", "CB_TILE", "F2D_TILE", "STFT_MIN_FRAMES",
+    "FB_TILE", "FB_MMA_TILE", "FB_MMA_MIN_K", "CB_TILE", "F2D_TILE",
+    "STFT_MIN_FRAMES",
     "STFT_DISABLE_ENV", "SMEM_MAX_BYTES",
 ]
 
@@ -104,10 +110,15 @@ STFT_DISABLE_ENV = "VELES_SIMD_DISABLE_STFT_CUDA"
 # against the built library (veles_*_tile, veles_*_smem_bytes, ...), so
 # the admission arithmetic below cannot drift from csrc/.
 _R = 13
-FB_TILE = 128 * _R
+FB_TILE = 128 * _R                    # outputs of an ffma block
+FB_MMA_TILE = 64 * 32                 # outputs of an mma block tile
+# unit-stride filters of at least this many taps take the mma variant
+# (MMA_MIN_K in csrc/filter_bank.cu): the least tap count of
+# chip_smoke.py's k-sweep at which it ran ahead of the ffma loop at 512 x
+# 16,384 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, 2026-10-17)
+FB_MMA_MIN_K = 160
 CB_TILE = 128 * 4
-_F2D_RY = 4
-F2D_TILE = (8 * _F2D_RY, 32 * 2)      # (rows, columns) of outputs
+F2D_TILE = (8 * 8, 16 * 4)            # (rows, columns) of outputs
 # shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
 SMEM_MAX_BYTES = 232448
 # the block-level FFT (csrc/smem_fft.cuh): 512 threads, at most 32
@@ -169,15 +180,43 @@ def fits_smem_os(h_length: int) -> bool:
     return N <= OS_MAX_FFT and os_smem_bytes(N) <= SMEM_MAX_BYTES
 
 
+def fb_variant(order: int, stride: int, dilation: int) -> str:
+    """The filter-bank variant ``veles_fb_f32`` picks: ``"mma"`` (the
+    tensor-core Toeplitz product) for unit stride and dilation with at
+    least FB_MMA_MIN_K taps, else ``"ffma"``."""
+    if int(stride) == 1 and int(dilation) == 1 \
+            and int(order) >= FB_MMA_MIN_K:
+        return "mma"
+    return "ffma"
+
+
+def _mma_steps(order: int) -> int:
+    """k-steps of the mma variant's wgmma.m64n32k8 product: ceil((order
+    + 31) / 8)."""
+    return (int(order) + 31 + 7) // 8
+
+
 def fb_smem_bytes(channels: int, order: int, stride: int,
-                  dilation: int) -> int:
-    """Dynamic shared memory of one filter-bank block: the input span
-    of FB_TILE outputs, the [channels, order] taps (padded to a
-    multiple of 13 on the unit-stride path) and the output tile
-    (``smem_bytes`` in csrc/filter_bank.cu)."""
+                  dilation: int, variant: str | None = None) -> int:
+    """Dynamic shared memory of one filter-bank block (``smem_bytes`` in
+    csrc/filter_bank.cu).  ``mma``: per channel the hi and lo B blocks
+    (steps + 3 of 64 floats each), then two raw spans and the hi and lo
+    parts of one (FB_MMA_TILE - 32 + 8 steps samples, rounded up to 32),
+    and the output tile.  ``ffma``: the input span of FB_TILE outputs, the
+    [channels, order] taps (padded to a multiple of 13 on the
+    unit-stride path) and the output tile.  ``variant`` None is the one
+    :func:`fb_variant` picks."""
     channels, order = int(channels), int(order)
     stride, dilation = int(stride), int(dilation)
-    if stride == 1 and dilation == 1:
+    unit = stride == 1 and dilation == 1
+    if variant is None:
+        variant = fb_variant(order, stride, dilation)
+    if variant == "mma" and unit:
+        steps = _mma_steps(order)
+        span = -(-(FB_MMA_TILE - 32 + 8 * steps) // 32) * 32
+        return (4 * channels * 2 * (steps + 3) * 64 + 16 * span
+                + 4 * FB_MMA_TILE)
+    if unit:
         order_pad = -(-order // _R) * _R
         span = FB_TILE + order_pad - 1
     else:
@@ -187,10 +226,10 @@ def fb_smem_bytes(channels: int, order: int, stride: int,
 
 
 def fits_smem_fb(channels: int, order: int, stride: int,
-                 dilation: int) -> bool:
+                 dilation: int, variant: str | None = None) -> bool:
     """Shared-memory admission of the filter-bank kernel."""
-    return fb_smem_bytes(channels, order, stride,
-                         dilation) <= SMEM_MAX_BYTES
+    return fb_smem_bytes(channels, order, stride, dilation,
+                         variant) <= SMEM_MAX_BYTES
 
 
 def _cb_pitch(n_split: int, max_off: int) -> int:
@@ -221,18 +260,20 @@ def fits_smem_cb(n_split: int, max_off: int, n_slots: int,
 
 
 def f2d_smem_bytes(k0: int, k1: int) -> int:
-    """Dynamic shared memory of one 2D block: the staged input tile with
-    its halo (kernel rows padded to a multiple of 4) and the taps
+    """Dynamic shared memory of one 2D block: the taps (rows padded to
+    a multiple of 4) and two staged input tiles with their halo,
+    ``(F2D_TILE[0] + k0 - 1) x (F2D_TILE[1] + k1 rounded up to 4)``
     (``smem_bytes`` in csrc/filter_2d.cu)."""
     k0, k1 = int(k0), int(k1)
-    rows = F2D_TILE[0] + -(-k0 // _F2D_RY) * _F2D_RY - 1
-    cols = F2D_TILE[1] + k1 - 1
-    return 4 * (rows * cols + k0 * k1)
+    k1_pad = -(-k1 // 4) * 4
+    rows = F2D_TILE[0] + k0 - 1
+    cols = F2D_TILE[1] + k1_pad
+    return 4 * (k0 * k1_pad + 2 * rows * cols)
 
 
 def fits_smem_f2d(k0: int, k1: int) -> bool:
     """Shared-memory admission of the 2D kernel (every kernel of area
-    <= MAX_AREA_2D fits: 256 x 1 needs the most, 74,496 bytes)."""
+    <= MAX_AREA_2D fits: 256 x 1 needs the most, 177,632 bytes)."""
     return f2d_smem_bytes(k0, k1) <= SMEM_MAX_BYTES
 
 
@@ -319,7 +360,7 @@ def reset_launches() -> None:
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("overlap_save.cu", "filter_bank.cu", "cascade_bank.cu",
             "filter_2d.cu", "stft.cu")
-_HEADERS = ("smem_fft.cuh",)
+_HEADERS = ("smem_fft.cuh", "async_copy.cuh")
 _BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
                / "simd_tpu_torch")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -408,9 +449,13 @@ def load_library():
         lib.veles_os_fft_length.restype = _I
         lib.veles_os_smem_bytes.argtypes = [_I]
         lib.veles_os_smem_bytes.restype = _L
-        lib.veles_fb_tile.argtypes = []
-        lib.veles_fb_tile.restype = _I
-        lib.veles_fb_smem_bytes.argtypes = [_I, _I, _I, _I]
+        for name in ("veles_fb_tile", "veles_fb_mma_tile",
+                     "veles_fb_mma_min_k"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = _I
+        lib.veles_fb_variant.argtypes = [_I, _I, _I]
+        lib.veles_fb_variant.restype = _I
+        lib.veles_fb_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
         lib.veles_fb_smem_bytes.restype = _L
         lib.veles_cuda_error_string.argtypes = [_I]
         lib.veles_cuda_error_string.restype = ctypes.c_char_p
@@ -418,7 +463,7 @@ def load_library():
                                           _P]
         lib.veles_os_conv_f32.restype = _I
         lib.veles_fb_f32.argtypes = [_P, _P, _P, _L, _L, _I, _I, _I, _I,
-                                     _L, _P]
+                                     _L, _L, _I, _I, _P]
         lib.veles_fb_f32.restype = _I
         for name in ("veles_cb_tile", "veles_f2d_tile_x",
                      "veles_f2d_tile_y"):
@@ -428,11 +473,15 @@ def load_library():
         lib.veles_cb_smem_bytes.restype = _L
         lib.veles_f2d_smem_bytes.argtypes = [_I, _I]
         lib.veles_f2d_smem_bytes.restype = _L
+        # blocks a persistent kernel keeps resident on one SM (needs a card)
+        for name in ("veles_fb_mma_resident", "veles_f2d_resident"):
+            getattr(lib, name).argtypes = [_I, _I]
+            getattr(lib, name).restype = _I
         lib.veles_cb_f32.argtypes = [_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                      _I, _L, _P]
         lib.veles_cb_f32.restype = _I
         lib.veles_f2d_f32.argtypes = [_P, _P, _P, _L, _L, _L, _I, _I, _L,
-                                      _L, _P]
+                                      _L, _L, _L, _I, _P]
         lib.veles_f2d_f32.restype = _I
         lib.veles_stft_frames_per_block.argtypes = [_I]
         lib.veles_stft_frames_per_block.restype = _I
@@ -446,9 +495,18 @@ def load_library():
                 != os_smem_bytes(os_fft_length(k, n))
                 for k, n in ((2, 1), (256, 1000), (256, 1 << 20),
                              (2047, 2050), (2049, 5), (16384, 50000)))
-                or lib.veles_fb_tile() != FB_TILE
-                or lib.veles_fb_smem_bytes(2, 8, 2, 1)
-                != fb_smem_bytes(2, 8, 2, 1)
+                or (lib.veles_fb_tile(), lib.veles_fb_mma_tile(),
+                    lib.veles_fb_mma_min_k())
+                != (FB_TILE, FB_MMA_TILE, FB_MMA_MIN_K)
+                or any(_VARIANT_CODE[fb_variant(*a[1:])]
+                       != lib.veles_fb_variant(*a[1:])
+                       or any(lib.veles_fb_smem_bytes(*a, _VARIANT_CODE[v])
+                              != fb_smem_bytes(*a, v)
+                              for v in ("ffma", "mma"))
+                       for a in ((2, 8, 2, 1), (2, 8, 1, 4), (1, 1, 1, 1),
+                                 (1, 15, 1, 1), (1, 16, 1, 1),
+                                 (1, 129, 1, 1), (3, 256, 1, 1),
+                                 (2, 33, 1, 1)))
                 or lib.veles_cb_tile() != CB_TILE
                 or any(lib.veles_cb_smem_bytes(*a) != cb_smem_bytes(*a)
                        for a in ((8, 6, 176, 8), (4, 3, 100, 9),
@@ -466,6 +524,10 @@ def load_library():
                                "admission constants in cuda_kernels.py")
         _lib = lib
         return lib
+
+
+# variant names and their codes in veles_fb_f32 (0 picks by FB_MMA_MIN_K)
+_VARIANT_CODE = {None: 0, "ffma": 1, "mma": 2}
 
 
 def _check_err(lib, err: int, what: str) -> None:
@@ -546,9 +608,16 @@ def overlap_save_cuda(x, taps):
 
 # ---- K2: shifted-MAC filter bank -------------------------------------------
 
-def filter_bank_plain(x_ext, filters, stride, dilation, n_out):
-    """Plain version of :func:`filter_bank_cuda`: one multiply-add pass
-    per (channel, tap) over the strided input slice."""
+def filter_bank_plain(x_ext, filters, stride, dilation, n_out,
+                      pad_left=0, reverse_taps=False):
+    """Plain version of :func:`filter_bank_cuda`: ``F.pad`` and ``flip``
+    for the padding and the reversal, then one multiply-add pass per
+    (channel, tap) over the strided input slice.  Float64 operands
+    accumulate in float64: the reference that holds the mma variant."""
+    if pad_left:
+        x_ext = torch.nn.functional.pad(x_ext, (pad_left, pad_left))
+    if reverse_taps:
+        filters = filters.flip(-1)
     outs = []
     span = (n_out - 1) * stride + 1
     for c in range(filters.shape[0]):
@@ -560,50 +629,70 @@ def filter_bank_plain(x_ext, filters, stride, dilation, n_out):
     return tuple(outs)
 
 
-def filter_bank_cuda(x_ext, filters, stride, dilation, n_out):
+def filter_bank_cuda(x, filters, stride, dilation, n_out, *, pad_left=0,
+                     reverse_taps=False, variant=None):
     """Multi-channel FIR filter bank (float32): returns a tuple of C
     tensors ``[..., n_out]`` with ``out[c][..., i] = sum_j filters[c,
     j] * x_ext[..., i*stride + j*dilation]`` — the contract of the JAX
-    package's ``filter_bank_pallas``.  ``x_ext`` carries the caller's
-    boundary extension.  A CPU tensor takes the plain version; a CUDA
-    tensor launches ``csrc/filter_bank.cu``."""
+    package's ``filter_bank_pallas`` — where ``x_ext`` is ``x``
+    zero-padded by ``pad_left`` samples on each side (the kernel reads
+    the halo as zeros; ``pad_left=0`` passes an extended ``x_ext`` as
+    it is) and the taps are read reversed if ``reverse_taps``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches
+    ``csrc/filter_bank.cu``, whose variant :func:`fb_variant` picks, or
+    ``variant`` (``"mma"``, unit stride and dilation only, or
+    ``"ffma"``) when the caller measures one against the other."""
     if filters.ndim != 2:
         raise ValueError("filters must be [channels, order]")
     stride, dilation, n_out = int(stride), int(dilation), int(n_out)
+    pad_left = int(pad_left)
     if stride < 1 or dilation < 1 or n_out < 1:
         raise ValueError("stride, dilation and n_out must be >= 1")
+    if pad_left < 0:
+        raise ValueError(f"pad_left must be >= 0, got {pad_left}")
+    if variant not in (None, "ffma", "mma"):
+        raise ValueError(f"variant must be 'ffma' or 'mma', got "
+                         f"{variant!r}")
+    unit = stride == 1 and dilation == 1
+    if variant == "mma" and not unit:
+        raise ValueError("the mma variant takes stride 1, dilation 1")
     channels, order = int(filters.shape[0]), int(filters.shape[1])
     need = (n_out - 1) * stride + (order - 1) * dilation + 1
-    if x_ext.shape[-1] < need:
+    if x.shape[-1] + 2 * pad_left < need:
         raise ValueError(
-            f"x_ext too short: {x_ext.shape[-1]} < {need} for "
-            f"n_out={n_out}, stride={stride}, dilation={dilation}")
-    _check_operands(x_ext, filters)
-    if x_ext.device.type == "cpu":
-        return filter_bank_plain(x_ext, filters, stride, dilation, n_out)
-    if x_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x_ext.device}")
-    if not fits_smem_fb(channels, order, stride, dilation):
+            f"x_ext too short: {x.shape[-1]} + 2 * {pad_left} < {need} "
+            f"for n_out={n_out}, stride={stride}, dilation={dilation}")
+    _check_operands(x, filters)
+    if x.device.type == "cpu":
+        return filter_bank_plain(x, filters, stride, dilation, n_out,
+                                 pad_left, reverse_taps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    variant = variant or fb_variant(order, stride, dilation)
+    if not fits_smem_fb(channels, order, stride, dilation, variant):
         raise ValueError(
             f"filter bank of {channels}x{order} taps at stride {stride}, "
             f"dilation {dilation} needs "
-            f"{fb_smem_bytes(channels, order, stride, dilation)} bytes "
-            f"of shared memory per block (> {SMEM_MAX_BYTES})")
-    n_ext = int(x_ext.shape[-1])
-    rows = x_ext.numel() // n_ext
+            f"{fb_smem_bytes(channels, order, stride, dilation, variant)} "
+            f"bytes of shared memory per block (> {SMEM_MAX_BYTES})")
+    n = int(x.shape[-1])
+    rows = x.numel() // max(n, 1)
     out = torch.empty((channels, rows, n_out), dtype=torch.float32,
-                      device=x_ext.device)
-    shape = tuple(x_ext.shape[:-1]) + (n_out,)
+                      device=x.device)
+    shape = tuple(x.shape[:-1]) + (n_out,)
     if rows == 0:
         return tuple(o.reshape(shape) for o in out)
     lib = load_library()
-    with torch.cuda.device(x_ext.device):
+    with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.veles_fb_f32(x_ext.data_ptr(), filters.data_ptr(),
-                               out.data_ptr(), rows, n_ext, channels,
-                               order, stride, dilation, n_out, stream)
+        err = lib.veles_fb_f32(x.data_ptr(), filters.data_ptr(),
+                               out.data_ptr(), rows, n, channels, order,
+                               stride, dilation, n_out, pad_left,
+                               int(bool(reverse_taps)),
+                               _VARIANT_CODE[variant], stream)
     _check_err(lib, err, "filter_bank kernel")
-    LAUNCHES["filter_bank"] += _launches(rows)
+    # the mma variant is one persistent grid; ffma splits rows by 65535
+    LAUNCHES["filter_bank"] += 1 if variant == "mma" else _launches(rows)
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -763,61 +852,76 @@ def cascade_bank_cuda(x_ext, taps_list, plans, n_split, n_out):
 
 # ---- K5: 2D shifted-MAC ----------------------------------------------------
 
-def filter_2d_plain(x_ext, kernel2d, n_out0, n_out1):
-    """Plain version of :func:`filter_2d_cuda`: one multiply-add pass
-    per tap over the shifted input window, in the kernel's tap order
-    (groups of four kernel rows, then kernel columns, then the row
-    within the group)."""
+def filter_2d_plain(x_ext, kernel2d, n_out0, n_out1, pad=(0, 0),
+                    reverse_taps=False):
+    """Plain version of :func:`filter_2d_cuda`: ``F.pad`` and ``flip``
+    for the padding and the flip, then one multiply-add pass per tap
+    over the shifted input window, in the kernel's tap order (row-major:
+    kernel row, then kernel column).  Float64 operands accumulate in
+    float64."""
+    p0, p1 = int(pad[0]), int(pad[1])
+    if p0 or p1:
+        x_ext = torch.nn.functional.pad(x_ext, (p1, p1, p0, p0))
+    if reverse_taps:
+        kernel2d = kernel2d.flip((0, 1))
     k0, k1 = kernel2d.shape
     o = x_ext.new_zeros(tuple(x_ext.shape[:-2]) + (n_out0, n_out1))
-    for g in range(0, k0, _F2D_RY):
+    for p in range(k0):
         for q in range(k1):
-            for p in range(g, min(g + _F2D_RY, k0)):
-                o.addcmul_(x_ext[..., p:p + n_out0, q:q + n_out1],
-                           kernel2d[p, q])
+            o.addcmul_(x_ext[..., p:p + n_out0, q:q + n_out1],
+                       kernel2d[p, q])
     return o
 
 
-def filter_2d_cuda(x_ext, kernel2d, n_out0, n_out1):
+def filter_2d_cuda(x, kernel2d, n_out0, n_out1, *, pad=(0, 0),
+                   reverse_taps=False):
     """2D FIR correlation (float32): ``out[..., i, j] = sum_{p, q}
     kernel2d[p, q] * x_ext[..., i + p, j + q]`` — the contract of the
-    JAX package's ``filter_2d_pallas``, argument checks included;
-    leading batch dims of ``x_ext`` ride along.  A CPU tensor takes the
-    plain version; a CUDA tensor launches ``csrc/filter_2d.cu``."""
+    JAX package's ``filter_2d_pallas``, argument checks included — where
+    ``x_ext`` is ``x`` zero-padded by ``pad = (rows, columns)`` on each
+    side (the kernel reads the halo as zeros) and the taps are read
+    flipped on both axes if ``reverse_taps``; leading batch dims of
+    ``x`` ride along.  A CPU tensor takes the plain version; a CUDA
+    tensor launches ``csrc/filter_2d.cu`` (one launch)."""
     if kernel2d.ndim != 2:
         raise ValueError("kernel2d must be [k0, k1]")
     k0, k1 = int(kernel2d.shape[0]), int(kernel2d.shape[1])
-    if x_ext.ndim < 2:
+    if x.ndim < 2:
         raise ValueError("x_ext must be [..., n0_ext, n1_ext]")
+    p0, p1 = int(pad[0]), int(pad[1])
+    if p0 < 0 or p1 < 0:
+        raise ValueError(f"pad must be >= 0, got {(p0, p1)}")
     n_out0, n_out1 = int(n_out0), int(n_out1)
-    if (x_ext.shape[-2] < n_out0 + k0 - 1
-            or x_ext.shape[-1] < n_out1 + k1 - 1):
+    ext = (x.shape[-2] + 2 * p0, x.shape[-1] + 2 * p1)
+    if ext[0] < n_out0 + k0 - 1 or ext[1] < n_out1 + k1 - 1:
         raise ValueError(
-            f"x_ext too short: {tuple(x_ext.shape[-2:])} < "
+            f"x_ext too short: {ext} < "
             f"{(n_out0 + k0 - 1, n_out1 + k1 - 1)}")
-    _check_operands(x_ext, kernel2d)
-    if x_ext.device.type == "cpu":
-        return filter_2d_plain(x_ext, kernel2d, n_out0, n_out1)
-    if x_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x_ext.device}")
+    _check_operands(x, kernel2d)
+    if x.device.type == "cpu":
+        return filter_2d_plain(x, kernel2d, n_out0, n_out1, (p0, p1),
+                               reverse_taps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
     if not fits_smem_f2d(k0, k1):
         raise ValueError(
             f"2D kernel {k0}x{k1} needs {f2d_smem_bytes(k0, k1)} bytes of "
             f"shared memory per block (> {SMEM_MAX_BYTES})")
-    n0e, n1e = int(x_ext.shape[-2]), int(x_ext.shape[-1])
-    imgs = x_ext.numel() // max(n0e * n1e, 1)
-    out = torch.empty(tuple(x_ext.shape[:-2]) + (n_out0, n_out1),
-                      dtype=torch.float32, device=x_ext.device)
+    n0, n1 = int(x.shape[-2]), int(x.shape[-1])
+    imgs = x.numel() // max(n0 * n1, 1)
+    out = torch.empty(tuple(x.shape[:-2]) + (n_out0, n_out1),
+                      dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     lib = load_library()
-    with torch.cuda.device(x_ext.device):
+    with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.veles_f2d_f32(x_ext.data_ptr(), kernel2d.data_ptr(),
-                                out.data_ptr(), imgs, n0e, n1e, k0, k1,
-                                n_out0, n_out1, stream)
+        err = lib.veles_f2d_f32(x.data_ptr(), kernel2d.data_ptr(),
+                                out.data_ptr(), imgs, n0, n1, k0, k1,
+                                n_out0, n_out1, p0, p1,
+                                int(bool(reverse_taps)), stream)
     _check_err(lib, err, "filter_2d kernel")
-    LAUNCHES["filter_2d"] += _launches(imgs)
+    LAUNCHES["filter_2d"] += 1      # one persistent grid for all images
     return out
 
 
