@@ -9,11 +9,13 @@ without printing a result):
 1. card   — the card's name, power limit and count; no CUDA card is a
             failure (the port is never smoke-run on the CPU);
 2. build  — builds the CUDA kernels from csrc/ with nvcc (sm_90a);
-3. parity — each kernel against its plain PyTorch version on the card,
-            at the main path's shapes and at the edge cases (K1, K2, K4
-            and K5 against the plain version run in float64; K2 and K5
-            also through their padded entries, the halo read in the
-            kernel, as the direct routes call them);
+3. parity — each kernel against its plain PyTorch version run in
+            float64 on the card, at the main path's shapes and at the
+            edge cases (K2 and K5 also through their padded entries, the
+            halo read in the kernel, as the direct routes call them; K3
+            in both forms: the contract on an extended input, and the
+            periodic form that reads the wrap and writes natural order,
+            as the fused cascade calls it);
 4. main   — the main path through the user entry points, launch
             counters reset just before each call and read just after:
             ``convolve_initialize(1<<20, 2047)`` + ``convolve`` (the
@@ -42,7 +44,8 @@ without printing a result):
             the fused cascade against the level loop, convolve2d, and
             ``stft`` (auto and forced routes) and ``batched_stft``;
             the breakdowns (``convolve_simd`` and ``convolve2d`` must
-            run no pad or flip kernel); the ``k-sweep`` line, K2's two
+            run no pad or flip kernel, the fused cascade nothing but
+            K3); the ``k-sweep`` line, K2's two
             variants at 512 x 16384 for 4..256 taps in turns; then each
             kernel, its plain version and its library yardstick (cuDNN
             ``conv1d``/``conv2d`` in fp32, ``torch.stft``) at the
@@ -243,18 +246,30 @@ def main():
             4096)
     P = wv.ExtensionType.PERIODIC
 
+    # K3 in both call forms against its plain versions run in float64:
+    # the contract form on the periodically extended input, the
+    # periodic form (wrap read in place, natural-order levels) on the
+    # signal itself
     def cb_case(name, rows, n, type, order, levels):
-        plans, taps, _, reach = wv._cascade_plan_for(
+        plans, taps, reach = wv._cascade_plan_for(
             wv.WaveletType(type), order, levels)
         ns = 1 << levels
-        x = wv._extend(cuda(rng.randn(rows, n)), P, reach + ns)
-        x = x.contiguous()
-        got = ck.cascade_bank_cuda(x, taps, plans, ns, n // ns)
-        want = ck.cascade_bank_plain(x, taps, plans, ns, n // ns)
+        x = cuda(rng.randn(rows, n))
+        x_ext = x[:, np.arange(n + reach + ns) % n].contiguous()
+        got = ck.cascade_bank_cuda(x_ext, taps, plans, ns, n // ns)
+        want = ck.cascade_bank_plain(x_ext.double(), taps, plans, ns,
+                                     n // ns)
         torch.cuda.synchronize()
         diff = max((g - w).abs().max().item() for g, w in zip(got, want))
         scale = max(w.abs().max().item() for w in want)
-        parity[name] = (diff, diff / scale)
+        parity[f"{name} contract"] = (diff, diff / scale)
+        got = ck.cascade_bank_periodic_cuda(x, taps, plans, levels)
+        want = ck.cascade_bank_periodic_plain(x.double(), taps, plans,
+                                              levels)
+        torch.cuda.synchronize()
+        diff = max((g - w).abs().max().item() for g, w in zip(got, want))
+        scale = max(w.abs().max().item() for w in want)
+        parity[f"{name} periodic"] = (diff, diff / scale)
 
     def f2d_case(name, imgs, n0, n1, k0, k1, padded=False):
         # padded: the direct route's call (unpadded images, the halo and
@@ -275,6 +290,20 @@ def main():
     cb_case("cb daub4 L4 8x1024", 8, 1024, "daub", 4, 4)
     cb_case("cb coif12 L2 8x512", 8, 512, "coif", 12, 2)
     cb_case("cb daub8 L3 37x1000", 37, 1000, "daub", 8, 3)
+    cb_case("cb sym16 L3 3x2048", 3, 2048, "sym", 16, 3)
+    cb_case("cb daub2 L2 70000x4", 70000, 4, "daub", 2, 2)  # wrap > n
+    # the contract form on a plan of its own: 3 phases, odd rows off
+    # 16-byte alignment (4-byte staging), more channels than a pass
+    cb_plans = tuple(tuple((int(rng.randint(3)), int(rng.randint(3)))
+                           for _ in range(5)) for _ in range(6))
+    cb_taps = [rng.randn(5) for _ in cb_plans]
+    x_odd = cuda(rng.randn(7 * 1001 + 1))[1:].view(7, 1001)
+    got = ck.cascade_bank_cuda(x_odd, cb_taps, cb_plans, 3, 331)
+    want = ck.cascade_bank_plain(x_odd.double(), cb_taps, cb_plans, 3, 331)
+    torch.cuda.synchronize()
+    diff = max((g - w).abs().max().item() for g, w in zip(got, want))
+    parity["cb 3-phase 7x1001 contract"] = (
+        diff, diff / max(w.abs().max().item() for w in want))
     f2d_case("f2d 16x512x512 7x7", IMGS_2D, N_2D, N_2D, K_2D, K_2D, True)
     f2d_case("f2d 16x512x512 7x7 ext", IMGS_2D, N_2D, N_2D, K_2D, K_2D)
     f2d_case("f2d 1x128x128 3x3", 1, 128, 128, 3, 3)
@@ -404,11 +433,14 @@ def main():
         ck.reset_launches()
         fused = wv.wavelet_transform("daub", 8, P, x_wv, LEVELS)
         torch.cuda.synchronize()
+        fused_launches = dict(ck.LAUNCHES)
         launches["cascade_bank"] = ck.LAUNCHES["cascade_bank"]
     finally:
         del os.environ[FORCE_FUSED]
-    check(launches["cascade_bank"] >= 1,
-          "the forced fused cascade did not launch the cascade kernel")
+    # one launch of the periodic form and nothing else of the port's
+    check(launches["cascade_bank"] == 1
+          and sum(fused_launches.values()) == 1,
+          f"the forced fused cascade launched {fused_launches}")
     fused_gap = max(
         float((f - g).abs().max().item())
         / max(1.0, float(g.abs().max().item()))
@@ -655,8 +687,13 @@ def main():
               f"Msamples/s / {busy:.4f}" for name, ms, busy in casc_ms))
     print("breakdown cascade level loop (device us per call): "
           + bm.device_breakdown(cascade, calls=5))
-    print("breakdown cascade fused (device us per call): "
-          + bm.device_breakdown(fused_cascade, calls=5))
+    bd_fused = bm.device_breakdown(fused_cascade, calls=5)
+    print("breakdown cascade fused (device us per call): " + bd_fused)
+    # the route's device work is the one cascade-bank launch: no
+    # extension copy (cat), no interleaving stack
+    fused_kernels = bm.device_kernels(fused_cascade, calls=5)
+    check(fused_kernels and all("cb_frames" in k for k in fused_kernels),
+          f"the fused cascade runs more than K3: {fused_kernels}")
     x2_t, h2_t = cuda(x_2d), cuda(h_2d)
     c2d_ms = bm.device_time_ms(lambda: cv2.convolve2d(x2_t, h2_t))
     print(f"conv2d: convolve2d {IMGS_2D}x{N_2D}x{N_2D} k {K_2D}x{K_2D} on "
@@ -740,7 +777,7 @@ def main():
     xw_ext = wv._extend(xw_t, P, 8).contiguous()
     fw = wv._filter_tensor(wv.WaveletType("daub"), 8, dev)
     n_dwt = N_WV // 2
-    plans, taps, _, reach = wv._cascade_plan_for(
+    plans, taps, reach = wv._cascade_plan_for(
         wv.WaveletType("daub"), 8, LEVELS)
     ns = 1 << LEVELS
     n_cb = N_WV // ns
@@ -813,9 +850,10 @@ def main():
         "filter_bank_dwt": (2.0 * 2 * 8 * ROWS_WV * n_dwt,
                             4.0 * (xw_ext.numel() + 16
                                    + 2 * ROWS_WV * n_dwt)),
+        # the unextended signal read once, its n coefficients a row
+        # written once: the periodic form's own traffic
         "cascade_bank": (2.0 * n_slots * ROWS_WV * n_cb,
-                         4.0 * (xc_ext.numel() + n_slots
-                                + len(plans) * ROWS_WV * n_cb)),
+                         4.0 * (xw_t.numel() + n_slots + ROWS_WV * N_WV)),
         "filter_2d": bm.conv2d_work(IMGS_2D, N_2D, N_2D, K_2D, K_2D),
         "overlap_save": bm.conv_work(1, N_HEAD, K_HEAD),
         # the functions' least work (FFT form where it is less)
@@ -827,9 +865,12 @@ def main():
             lambda: ck.filter_bank_cuda(xw_ext, fw, 2, 1, n_dwt),
             lambda: ck.filter_bank_plain(xw_ext, fw, 2, 1, n_dwt),
             conv1d_dwt),
+        # the periodic form, as the fused route calls it
         "cascade_bank": (
-            lambda: ck.cascade_bank_cuda(xc_ext, taps, plans, ns, n_cb),
-            lambda: ck.cascade_bank_plain(xc_ext, taps, plans, ns, n_cb),
+            lambda: ck.cascade_bank_periodic_cuda(xw_t, taps, plans,
+                                                  LEVELS),
+            lambda: ck.cascade_bank_periodic_plain(xw_t, taps, plans,
+                                                   LEVELS),
             conv1d_cb),
         "filter_2d": (
             lambda: ck.filter_2d_cuda(x2_t, h2_t, n_2d, n_2d,
@@ -863,7 +904,7 @@ def main():
             "veles/simd_tpu_torch/csrc/cascade_bank.cu",
             "veles/simd_tpu/ops/pallas_kernels.py:387",
             f"{ROWS_WV}x{N_WV} daub8 L{LEVELS}",
-            parity["cb daub8 L3 512x4096"]),
+            parity["cb daub8 L3 512x4096 periodic"]),
         "filter_2d": (
             "veles/simd_tpu_torch/csrc/filter_2d.cu",
             "veles/simd_tpu/ops/pallas_kernels.py:515",
@@ -911,6 +952,13 @@ def main():
         if name == "filter_bank":
             # both variants at this shape (k-sweep, profiled, in turns)
             rows[-1]["variant_ms"] = fb_variant_ms
+        if name == "cascade_bank":
+            # the contract form on the extended input, as the parity
+            # and the library yardstick read it
+            rows[-1]["form"] = "periodic"
+            rows[-1]["contract_ms"] = bm.device_busy_ms(
+                lambda: ck.cascade_bank_cuda(xc_ext, taps, plans, ns, n_cb),
+                calls=20)
     elapsed = time.perf_counter() - t_start
     print(f"times: card {smi} | chip_smoke {elapsed:.1f} s so far")
     print(json.dumps({"kernels": rows}))

@@ -20,6 +20,7 @@ from veles.simd_tpu_torch.ops import correlate as cr
 from veles.simd_tpu_torch.ops import cuda_kernels as ck
 from veles.simd_tpu_torch.ops import spectral as sp
 from veles.simd_tpu_torch.ops import wavelet as wv
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils import config
 
 pytestmark = pytest.mark.cuda
@@ -232,14 +233,26 @@ def _conv2d64(x, h):
     return np.fft.irfft2(spec, m)
 
 
+def _plan64(x64, plan, taps, ns, n_out):
+    """float64 sum of one channel's slots over an extended input."""
+    return sum(float(tap) * x64[:, o * ns + p:o * ns + p
+                                + (n_out - 1) * ns + 1:ns]
+               for (p, o), tap in zip(plan, taps))
+
+
 @pytest.mark.parametrize("type,order,levels,n,rows", [
     ("daub", 8, 3, 4096, 64), ("daub", 4, 4, 1024, 8),
     ("coif", 12, 2, 512, 8), ("daub", 8, 3, 1000, 37),
     ("sym", 16, 3, 2048, 3), ("daub", 2, 2, 4, 70000),
+    ("daub", 8, 3, 4096, 1), ("daub", 16, 4, 2048, 5),
 ])
 def test_cascade_bank_kernel_matches_plain_and_float64(type, order, levels,
                                                        n, rows):
-    plans, taps, _, reach = wv._cascade_plan_for(wv.WaveletType(type),
+    # both call forms, one launch each: the contract form on the
+    # periodically extended input, the periodic form on the signal
+    # itself (its wrap exceeds n in the daub2 case, reach + 4 = 7 > 4);
+    # each against the plain version run in float64
+    plans, taps, reach = wv._cascade_plan_for(wv.WaveletType(type),
                                                  order, levels)
     ns = 1 << levels
     r = np.random.RandomState(order + levels + rows)
@@ -247,15 +260,77 @@ def test_cascade_bank_kernel_matches_plain_and_float64(type, order, levels,
     x_ext = np.concatenate([x, np.take(x, np.arange(reach + ns) % n, -1)],
                            -1)
     n_out = n // ns
+    ck.reset_launches()
     got = ck.cascade_bank_cuda(_t(x_ext), taps, plans, ns, n_out)
-    want = ck.cascade_bank_plain(_t(x_ext), taps, plans, ns, n_out)
+    assert ck.LAUNCHES["cascade_bank"] == 1
+    want = ck.cascade_bank_plain(_t(x_ext).double(), taps, plans, ns, n_out)
     x64 = x_ext.astype(np.float64)
     for g, w, plan, t in zip(got, want, plans, taps):
         assert _rel(g.cpu(), w.cpu()) <= TOL
-        ref = sum(float(tap) * x64[:, o * ns + p:o * ns + p
-                                   + (n_out - 1) * ns + 1:ns]
-                  for (p, o), tap in zip(plan, t))
-        assert _rel(g.cpu(), ref) <= TOL
+        assert _rel(g.cpu(), _plan64(x64, plan, t, ns, n_out)) <= TOL
+    ck.reset_launches()
+    coeffs = ck.cascade_bank_periodic_cuda(_t(x), taps, plans, levels)
+    assert ck.LAUNCHES["cascade_bank"] == 1
+    want = ck.cascade_bank_periodic_plain(_t(x).double(), taps, plans,
+                                          levels)
+    assert len(coeffs) == levels + 1
+    for lvl, (g, w) in enumerate(zip(coeffs, want), start=1):
+        assert g.is_contiguous()
+        assert g.shape == (rows, n >> min(lvl, levels))
+        assert _rel(g.cpu(), w.cpu()) <= TOL
+
+
+@pytest.mark.parametrize("n_split,channels,max_off,n_ext,rows", [
+    (3, 5, 2, 1001, 7), (1, 2, 9, 333, 2), (2, 9, 4, 517, 70000),
+    (5, 3, 1, 64, 1), (8, 20, 3, 2053, 4), (12, 4, 6, 999, 3),
+    (16, 17, 0, 4096, 2), (32, 33, 2, 4131, 3), (4, 1, 679, 8192, 2),
+])
+def test_cascade_bank_contract_form_on_any_plan(n_split, channels, max_off,
+                                                n_ext, rows):
+    # random plans (repeated slots included) at every phase width, more
+    # channels than a pass holds, odd rows and a view off 16-byte
+    # alignment: 4-byte staging; against the plain version in float64
+    r = np.random.RandomState(n_split * 100 + channels)
+    plans, taps = [], []
+    for _ in range(channels):
+        k = r.randint(1, 12)
+        plans.append(tuple((int(r.randint(n_split)),
+                            int(r.randint(max_off + 1))) for _ in range(k)))
+        taps.append(r.randn(k))
+    plans[0] += ((n_split - 1, max_off),)
+    taps[0] = np.append(taps[0], 0.5)
+    n_out = (n_ext - n_split * (max_off + 1)) // n_split + 1
+    # a contiguous view 4 bytes into its storage, and an aligned copy
+    x = _t(r.randn(rows * n_ext + 1))[1:].view(rows, n_ext)
+    for x_in in (x, x.clone()):
+        ck.reset_launches()
+        got = ck.cascade_bank_cuda(x_in, taps, plans, n_split, n_out)
+        assert ck.LAUNCHES["cascade_bank"] == 1
+        want = ck.cascade_bank_plain(x_in.double(), taps, plans, n_split,
+                                     n_out)
+        for g, w in zip(got, want):
+            assert g.shape == (x_in.shape[0], n_out)
+            assert _rel(g.cpu(), w.cpu()) <= TOL
+    # taps as tensors on the card: the table is scattered there
+    got2 = ck.cascade_bank_cuda(x_in, [_t(t) for t in taps], plans,
+                                n_split, n_out)
+    for g, w in zip(got2, want):
+        assert _rel(g.cpu(), w.cpu()) <= TOL
+
+
+def test_cascade_bank_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.cascade_bank_cuda(_t(np.ones((2, 400))), [np.ones(1)],
+                             (((0, 0),),), 33, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.cascade_bank_cuda(_t(np.ones((2, 8000))), [np.ones(1)],
+                             (((0, 680),),), 8, 10)
+    plans, taps, _ = wv._cascade_plan_for(wv.WaveletType("daub"), 8, 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ck.cascade_bank_periodic_cuda(_t(np.ones((2, 100))), taps, plans, 3)
+    with pytest.raises(ValueError, match="8 channels"):
+        ck.cascade_bank_periodic_cuda(_t(np.ones((2, 64))), taps[1:],
+                                      plans[1:], 3)
 
 
 @pytest.mark.parametrize("imgs,n0,n1,k0,k1", [
@@ -348,6 +423,12 @@ def test_fused_cascade_launches_the_cascade_bank(monkeypatch):
     for f, g in zip(fused, loop):
         assert f.shape == g.shape
         assert _rel(f.cpu(), g.cpu()) <= 5e-5
+    # the route's device work is the one cascade-bank launch: no
+    # extension copy, no interleaving stack
+    xt = _t(x)
+    kernels = bm.device_kernels(
+        lambda: wv.wavelet_transform("daub", 8, P, xt, 3), calls=3)
+    assert kernels and all("cb_frames" in k for k in kernels), kernels
 
 
 def test_convolve2d_routes():

@@ -2,7 +2,8 @@
 
 Covers the copied telemetry storage (registry, event log, spans,
 LRUSet), the slim obs facade, the static routing engine, the config
-layer, the memory helpers, the fp32 precision layer and the roofline
+layer (its fields too), the memory helpers (all the JAX package's
+names), the fp32 precision layer and the roofline
 helper.
 """
 
@@ -237,6 +238,69 @@ def test_memory_helpers_match():
         jmemory.zeropadding_ex(x, 3)
     np.testing.assert_array_equal(a, b)
     assert na == nb
+
+
+@pytest.mark.parametrize("name", ["rmemcpyf", "crmemcpyf"])
+@pytest.mark.parametrize("shape", [(8,), (3, 10)])
+def test_reversed_copies_match(name, shape):
+    x = np.random.RandomState(61).randn(*shape).astype(np.float32)
+    want = getattr(jmemory, name)(x)
+    got = getattr(tmemory, name)(x)
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, want)
+    t = getattr(tmemory, name)(torch.from_numpy(x))
+    assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
+    np.testing.assert_array_equal(t.numpy(), want)
+
+
+def test_crmemcpyf_odd_length_raises():
+    x = np.arange(7, dtype=np.float32)
+    for mod, arg in ((jmemory, x), (tmemory, x),
+                     (tmemory, torch.from_numpy(x))):
+        with pytest.raises(ValueError, match="even length"):
+            mod.crmemcpyf(arg)
+
+
+def test_memory_stubs_match():
+    for a, b in ((tmemory.memsetf((2, 3), 1.5), jmemory.memsetf((2, 3), 1.5)),
+                 (tmemory.memsetf(4, 2, np.float64),
+                  jmemory.memsetf(4, 2, np.float64)),
+                 (tmemory.malloc_aligned(10), jmemory.malloc_aligned(10)),
+                 (tmemory.malloc_aligned_offset(10, 3),
+                  jmemory.malloc_aligned_offset(10, 3)),
+                 (tmemory.mallocf(5), jmemory.mallocf(5))):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    x = np.zeros(4, np.float32)
+    for arg in (x, torch.from_numpy(x), 12345):
+        assert tmemory.align_complement(arg) == \
+            jmemory.align_complement(arg) == 0
+
+
+def test_memory_exports_the_jax_names():
+    public = {name for name, obj in vars(jmemory).items()
+              if callable(obj) and not name.startswith("_")
+              and getattr(obj, "__module__", None) == jmemory.__name__}
+    assert public <= set(tmemory.__all__)
+    for name in tmemory.__all__:
+        assert callable(getattr(tmemory, name))
+
+
+def test_config_dtype_and_complex_layout_round_trip():
+    prev = tconfig.get_config()
+    try:
+        cfg = tconfig.set_config(dtype="float32",
+                                 interleaved_complex=False)
+        assert cfg.dtype == "float32" and cfg.interleaved_complex is False
+        assert tconfig.get_config() is cfg
+        assert cfg.device == prev.device
+    finally:
+        tconfig.set_config(**dataclasses.asdict(prev))
+    assert tconfig.get_config() == prev
+    fields = {f.name: f.default for f in dataclasses.fields(tconfig.Config)}
+    jfields = {f.name: f.default for f in dataclasses.fields(jconfig.Config)}
+    for name in ("dtype", "interleaved_complex"):
+        assert fields[name] == jfields[name]
 
 
 def test_precision_matches():

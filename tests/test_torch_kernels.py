@@ -211,12 +211,22 @@ def test_shared_memory_admission():
         1, 129, 1, 1, ck.fb_variant(129, 1, 1))
     # a span too long for one block is refused
     assert not ck.fits_smem_fb(2, 64, 1, 1024)
-    # cascade bank: slot table, channel starts, staged phases whose
-    # pitch puts a warp's deinterleaving stores on 32 banks
-    assert ck._cb_pitch(8, 6) == 548 and 548 % 32 == 4
-    assert ck._cb_pitch(4, 3) % 32 == 8 and ck._cb_pitch(3, 2) == 514
-    assert ck.cb_smem_bytes(8, 6, 176, 8) == 8 * 176 + 4 * 9 + 4 * 8 * 548
-    assert not ck.fits_smem_cb(64, 400, 512, 64)
+    # cascade bank: frames of 4, 8, 16 or 32 phases, min(4, 32 / that)
+    # outputs a lane; the dense tap table (NSP x NSP a pass and offset)
+    # and a word of channel bits a pass and offset (rounded to 4), then
+    # two staged spans a warp, four warps, each span the tile's frames,
+    # max_off more and one prefetched, rounded to 4 floats, padded 4 in
+    # 32
+    assert [ck.cb_phase_pad(n) for n in (1, 3, 4, 5, 8, 9, 16, 32, 33)] \
+        == [4, 4, 4, 8, 8, 16, 16, 32, 0]
+    assert [ck.cb_tile(n) for n in (2, 8, 16, 32, 64)] == [128, 128, 64,
+                                                            32, 0]
+    assert ck.cb_smem_bytes(8, 6, 8) == 4 * (7 * 64 + 8
+                                             + 4 * 2 * (1080 + 4 * 34))
+    assert ck.cb_smem_bytes(3, 2, 2) == 4 * (3 * 16 + 4
+                                             + 4 * 2 * (396 + 4 * 13))
+    assert ck.fits_smem_cb(8, 355, 8) and not ck.fits_smem_cb(8, 356, 8)
+    assert not ck.fits_smem_cb(64, 400, 1) and not ck.fits_smem_cb(33, 0, 1)
     # 2D: the taps (rows padded to 4) and two stages of the tile plus
     # its halo (columns padded to 4)
     assert ck.f2d_smem_bytes(7, 7) == 4 * (7 * 8 + 2 * (64 + 6) * (64 + 8))
@@ -253,6 +263,67 @@ def test_cascade_bank_matches_pallas(type, order, levels, n):
     for g, g2 in zip(got, got2):
         np.testing.assert_array_equal(g.numpy(),
                                       g2.reshape(8, n_out).numpy())
+
+
+def _pallas_fused(x, type, order, levels):
+    """The JAX package's fused cascade by hand: ``cascade_bank_pallas``
+    in interpret mode on the ``np.take``-extended input, each level's
+    phases then interleaved as ``_fused_cascade`` does."""
+    gs, g_lo = jw._composed_cascade_filters(type, order, levels)
+    plans, taps, chans = jw._cascade_plan(gs, g_lo, levels)
+    ns, n = 1 << levels, x.shape[-1]
+    x_ext = np.take(x, np.arange(n + len(g_lo) - 1 + ns) % n, axis=-1)
+    outs = pk.cascade_bank_pallas(x_ext, taps, plans, ns, n // ns,
+                                  interpret=True)
+    want = []
+    for lvl in range(1, levels + 1):
+        phases = [np.asarray(o) for o, (lv, _) in zip(outs, chans)
+                  if lv == lvl]
+        want.append(np.stack(phases, -1).reshape(
+            x.shape[:-1] + (n >> lvl,)))
+    want.append(np.asarray(outs[-1]))
+    return plans, taps, want
+
+
+@pytest.mark.parametrize("type,order,levels,n", [
+    ("daub", 8, 2, 256), ("daub", 8, 3, 512), ("sym", 8, 2, 256),
+    ("daub", 4, 4, 1024), ("coif", 12, 2, 512),
+    # the wrap exceeds n: reach + 2^L samples past the end of 56 and 4
+    ("daub", 8, 3, 56), ("daub", 2, 2, 4)])
+def test_cascade_bank_periodic_matches_pallas(type, order, levels, n):
+    # the periodic form (wrap read in place, natural-order levels)
+    # against the JAX package's extend, kernel, interleave
+    x = np.random.RandomState(n + levels).randn(8, n).astype(np.float32)
+    plans, taps, want = _pallas_fused(x, type, order, levels)
+    got = ck.cascade_bank_periodic_cuda(torch.from_numpy(x), taps, plans,
+                                        levels)
+    assert len(got) == len(want) == levels + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert _rel(g.numpy(), w) < REL_TOL
+    # leading batch dims, taps as tensors, plans as lists: same result
+    got2 = ck.cascade_bank_periodic_cuda(
+        torch.from_numpy(x).reshape(2, 4, n),
+        [torch.from_numpy(np.asarray(t)) for t in taps],
+        [list(plan) for plan in plans], levels)
+    for g, g2 in zip(got, got2):
+        np.testing.assert_array_equal(g.numpy(),
+                                      g2.reshape(g.shape).numpy())
+
+
+@pytest.mark.parametrize("args,match", [
+    ((np.ones((2, 64)), 1), "2..4 levels"),
+    ((np.ones((2, 64)), 5), "2..4 levels"),
+    ((np.ones((2, 60)), 3), "multiple of 8"),
+    ((np.ones((2, 64)), 3, 1), "8 channels"),
+])
+def test_cascade_bank_periodic_errors(args, match):
+    x, levels = torch.as_tensor(args[0], dtype=torch.float32), args[1]
+    gs, g_lo = jw._composed_cascade_filters("daub", 4, 3)
+    plans, taps, _ = jw._cascade_plan(gs, g_lo, 3)
+    drop = args[2] if len(args) > 2 else 0
+    with pytest.raises(ValueError, match=match):
+        ck.cascade_bank_periodic_cuda(x, taps[drop:], plans[drop:], levels)
 
 
 @pytest.mark.parametrize("x_shape,k_shape,n_out", [

@@ -1,6 +1,7 @@
 // Asynchronous staging helpers shared by the shifted-MAC kernels
-// (filter_bank.cu, filter_2d.cu): 4-byte cp.async with its zero-fill
-// form, group commit and wait, and the size of a persistent grid.
+// (filter_bank.cu, filter_2d.cu) and the cascade bank (cascade_bank.cu):
+// 4- and 16-byte cp.async with their zero-fill form, group commit and
+// wait, and the size of a persistent grid.
 //
 // A 4-byte cp.async works at any alignment, so rows of any width stage
 // the same way; with a source size of 0 it writes a zero and reads
@@ -22,6 +23,17 @@ __device__ __forceinline__ void copy4(float* dst, const float* src,
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     const int bytes = ok ? 4 : 0;
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// dst[0..4) = ok ? src[0..4) : 0.f, asynchronously, both 16-byte
+// aligned; bypasses L1 (every staged sample is read once)
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool ok)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const int bytes = ok ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(d), "l"(src), "r"(bytes) : "memory");
 }
 

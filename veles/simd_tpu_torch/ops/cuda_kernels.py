@@ -19,8 +19,10 @@ All five of the JAX package's Pallas kernels are ported here:
   shorter filters run an FFMA loop (``ffma``).
 * :func:`cascade_bank_cuda` (``csrc/cascade_bank.cu``) replaces
   ``cascade_bank_pallas``: FIR channels at stride ``n_split`` over a
-  runtime plan of (phase, offset) slots, the fused PERIODIC DWT
-  cascade.
+  runtime plan of (phase, offset) slots.  Its periodic form,
+  :func:`cascade_bank_periodic_cuda`, is the fused PERIODIC DWT
+  cascade: it reads the wrap of the unextended signal and writes each
+  level's coefficients in natural order, so the route makes no copy.
 * :func:`filter_2d_cuda` (``csrc/filter_2d.cu``) replaces
   ``filter_2d_pallas``: the 2D shifted-MAC correlation, the direct
   route of ``convolve2d`` and ``cross_correlate2d``, a persistent
@@ -74,17 +76,19 @@ __all__ = [
     "overlap_save_cuda", "overlap_save_plain",
     "filter_bank_cuda", "filter_bank_plain",
     "cascade_bank_cuda", "cascade_bank_plain",
+    "cascade_bank_periodic_cuda", "cascade_bank_periodic_plain",
     "filter_2d_cuda", "filter_2d_plain",
     "stft_cuda", "stft_plain", "stft_basis", "fft_twiddles",
     "fb_smem_bytes", "fits_smem_fb", "fb_variant",
     "os_fft_length", "os_step", "os_smem_bytes", "fits_smem_os",
-    "cb_smem_bytes", "fits_smem_cb", "f2d_smem_bytes", "fits_smem_f2d",
+    "cb_phase_pad", "cb_tile", "cb_smem_bytes", "fits_smem_cb",
+    "f2d_smem_bytes", "fits_smem_f2d",
     "stft_fft_length", "stft_frames_per_block", "stft_smem_bytes",
     "fits_smem_stft",
     "should_route", "on_card",
     "LAUNCHES", "reset_launches", "load_library", "build_log",
     "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_MAX_FFT",
-    "FB_TILE", "FB_MMA_TILE", "FB_MMA_MIN_K", "CB_TILE", "F2D_TILE",
+    "FB_TILE", "FB_MMA_TILE", "FB_MMA_MIN_K", "CB_MAX_SPLIT", "F2D_TILE",
     "STFT_MIN_FRAMES",
     "STFT_DISABLE_ENV", "SMEM_MAX_BYTES",
 ]
@@ -117,7 +121,10 @@ FB_MMA_TILE = 64 * 32                 # outputs of an mma block tile
 # chip_smoke.py's k-sweep at which it ran ahead of the ffma loop at 512 x
 # 16,384 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, 2026-10-17)
 FB_MMA_MIN_K = 160
-CB_TILE = 128 * 4
+# the cascade bank's phases a frame: n_split up to 32
+CB_MAX_SPLIT = 32
+_CB_WARPS, _CB_STAGES = 4, 2           # warps a block, staged spans a warp
+_CB_R = 4                              # output indices a lane owns (at most)
 F2D_TILE = (8 * 8, 16 * 4)            # (rows, columns) of outputs
 # shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
 SMEM_MAX_BYTES = 232448
@@ -232,31 +239,53 @@ def fits_smem_fb(channels: int, order: int, stride: int,
                          variant) <= SMEM_MAX_BYTES
 
 
-def _cb_pitch(n_split: int, max_off: int) -> int:
-    """Row pitch of the cascade bank's staged phases (``pitch_of`` in
-    csrc/cascade_bank.cu)."""
-    length = CB_TILE + max_off
-    if n_split > 32 or 32 % n_split:
-        return length
-    return length + ((32 // n_split) % 32 - length) % 32
+def cb_phase_pad(n_split: int) -> int:
+    """Phases a cascade-bank frame holds in registers: the least of 4,
+    8, 16, 32 that is >= ``n_split``, 0 above CB_MAX_SPLIT
+    (``phase_pad`` in csrc/cascade_bank.cu).  A pass of the kernel
+    computes this many channels."""
+    n_split = int(n_split)
+    if not 1 <= n_split <= CB_MAX_SPLIT:
+        return 0
+    p = 4
+    while p < n_split:
+        p *= 2
+    return p
 
 
-def cb_smem_bytes(n_split: int, max_off: int, n_slots: int,
-                  channels: int) -> int:
-    """Dynamic shared memory of one cascade-bank block: the slot table
-    (tap and staged offset, 8 bytes a slot), the channel starts and the
-    ``[n_split, pitch]`` staged input span (``smem_bytes`` in
-    csrc/cascade_bank.cu)."""
-    n_split, max_off = int(n_split), int(max_off)
-    return (8 * int(n_slots) + 4 * (int(channels) + 1)
-            + 4 * n_split * _cb_pitch(n_split, max_off))
+def cb_tile(n_split: int) -> int:
+    """Output indices of a cascade-bank warp tile: 32 lanes of
+    ``min(4, 32 / NSP)`` consecutive indices, NSP = :func:`cb_phase_pad`
+    (``tile_of``)."""
+    nsp = cb_phase_pad(n_split)
+    return 32 * min(_CB_R, 32 // nsp) if nsp else 0
 
 
-def fits_smem_cb(n_split: int, max_off: int, n_slots: int,
-                 channels: int) -> bool:
-    """Shared-memory admission of the cascade-bank kernel."""
-    return cb_smem_bytes(n_split, max_off, n_slots,
-                         channels) <= SMEM_MAX_BYTES
+def cb_smem_bytes(n_split: int, max_off: int, channels: int) -> int:
+    """Dynamic shared memory of one cascade-bank block (``smem_bytes``
+    in csrc/cascade_bank.cu): the dense tap table, NSP =
+    :func:`cb_phase_pad` channels by NSP phases a pass and offset, and
+    one word of channel bits a pass and offset (rounded up to 4), then
+    two staged spans a warp, each the tile's frames and ``max_off``
+    more and the one prefetched, rounded up to 4 floats, with 4 floats
+    of padding after every 32; beyond SMEM_MAX_BYTES where the kernel
+    takes no such ``n_split``."""
+    n_split, max_off, channels = int(n_split), int(max_off), int(channels)
+    nsp = cb_phase_pad(n_split)
+    if not nsp or max_off < 0 or channels < 1:
+        return SMEM_MAX_BYTES + 1
+    cells = -(-channels // nsp) * (max_off + 1)
+    table = cells * nsp * nsp + -(-cells // 4) * 4
+    span = -(-(cb_tile(n_split) + max_off + 1) * n_split // 4) * 4
+    return 4 * (table + _CB_WARPS * _CB_STAGES
+                * (span + 4 * (-(-span // 32))))
+
+
+def fits_smem_cb(n_split: int, max_off: int, channels: int) -> bool:
+    """Admission of the cascade-bank kernel: ``n_split`` <= 32 and a
+    block's tap table and staged spans fit shared memory (the fused
+    cascade's 2^L channels fit at every offset its gate admits)."""
+    return cb_smem_bytes(n_split, max_off, channels) <= SMEM_MAX_BYTES
 
 
 def f2d_smem_bytes(k0: int, k1: int) -> int:
@@ -465,11 +494,13 @@ def load_library():
         lib.veles_fb_f32.argtypes = [_P, _P, _P, _L, _L, _I, _I, _I, _I,
                                      _L, _L, _I, _I, _P]
         lib.veles_fb_f32.restype = _I
-        for name in ("veles_cb_tile", "veles_f2d_tile_x",
-                     "veles_f2d_tile_y"):
+        for name in ("veles_f2d_tile_x", "veles_f2d_tile_y"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _I
-        lib.veles_cb_smem_bytes.argtypes = [_I, _I, _I, _I]
+        for name in ("veles_cb_phase_pad", "veles_cb_tile"):
+            getattr(lib, name).argtypes = [_I]
+            getattr(lib, name).restype = _I
+        lib.veles_cb_smem_bytes.argtypes = [_I, _I, _I]
         lib.veles_cb_smem_bytes.restype = _L
         lib.veles_f2d_smem_bytes.argtypes = [_I, _I]
         lib.veles_f2d_smem_bytes.restype = _L
@@ -478,7 +509,7 @@ def load_library():
             getattr(lib, name).argtypes = [_I, _I]
             getattr(lib, name).restype = _I
         lib.veles_cb_f32.argtypes = [_P, _P, _P, _P, _L, _L, _I, _I, _I,
-                                     _I, _L, _P]
+                                     _L, _I, _P]
         lib.veles_cb_f32.restype = _I
         lib.veles_f2d_f32.argtypes = [_P, _P, _P, _L, _L, _L, _I, _I, _L,
                                       _L, _L, _L, _I, _P]
@@ -507,10 +538,13 @@ def load_library():
                                  (1, 15, 1, 1), (1, 16, 1, 1),
                                  (1, 129, 1, 1), (3, 256, 1, 1),
                                  (2, 33, 1, 1)))
-                or lib.veles_cb_tile() != CB_TILE
+                or any(lib.veles_cb_phase_pad(ns) != cb_phase_pad(ns)
+                       or lib.veles_cb_tile(ns) != cb_tile(ns)
+                       for ns in (0, 1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33))
                 or any(lib.veles_cb_smem_bytes(*a) != cb_smem_bytes(*a)
-                       for a in ((8, 6, 176, 8), (4, 3, 100, 9),
-                                 (3, 2, 10, 2)))
+                       for a in ((8, 6, 8), (4, 3, 9), (3, 2, 2),
+                                 (16, 14, 16), (32, 0, 33), (1, 700, 1),
+                                 (33, 1, 1), (8, 2000, 8), (8, 6, 0)))
                 or (lib.veles_f2d_tile_y(), lib.veles_f2d_tile_x())
                 != F2D_TILE
                 or any(lib.veles_f2d_smem_bytes(*a) != f2d_smem_bytes(*a)
@@ -701,12 +735,16 @@ def filter_bank_cuda(x, filters, stride, dilation, n_out, *, pad_left=0,
 @functools.lru_cache(maxsize=64)
 def _plan_info(plans, n_split):
     """What a plan tells the kernel, derived once per (plans, n_split):
-    ``(plans, need_extra, n_slots, max_off, meta)``.  ``x_ext`` must
-    hold ``(n_out - 1) * n_split + need_extra`` samples (the JAX
-    package's per-phase slice lengths: ``n_out`` plus the phase's
-    largest offset); ``meta = [channel starts | phases | offsets]``
-    (int32) is the layout ``veles_cb_f32`` reads.  Raises the plan
-    errors of the JAX package's ``cascade_bank_pallas``."""
+    ``(plans, need_extra, max_off, index, bits)``.  ``x_ext`` must hold
+    ``(n_out - 1) * n_split + need_extra`` samples (the JAX package's
+    per-phase slice lengths: ``n_out`` plus the phase's largest offset).
+    ``index`` places each slot's tap in the dense table
+    ``W[pass, offset, channel of the pass, phase]`` of NSP =
+    :func:`cb_phase_pad` channels and phases, and ``bits`` (uint32
+    ``[passes, max_off + 1]``) has bit c set where channel c of the
+    pass has a slot at that offset: the layout ``veles_cb_f32`` reads.
+    Raises the plan errors of the JAX package's
+    ``cascade_bank_pallas``."""
     plans = tuple(tuple((int(p), int(o)) for p, o in plan)
                   for plan in plans)
     phase_off = [0] * n_split
@@ -720,11 +758,18 @@ def _plan_info(plans, n_split):
                     f"[0, {n_split}) x [0, inf)")
             phase_off[p] = max(phase_off[p], o)
     need_extra = max(p + o * n_split + 1 for p, o in enumerate(phase_off))
-    slots = [ps for plan in plans for ps in plan]
-    starts = np.cumsum([0] + [len(plan) for plan in plans])
-    meta = np.concatenate([starts, [p for p, _ in slots],
-                           [o for _, o in slots]]).astype(np.int32)
-    return plans, need_extra, len(slots), max(phase_off), meta
+    max_off = max(phase_off)
+    # the table of a plan the kernel does not take is never built
+    nsp = cb_phase_pad(n_split) or 4
+    passes = -(-len(plans) // nsp)
+    index = []
+    bits = np.zeros((passes, max_off + 1), np.uint32)
+    for c, plan in enumerate(plans):
+        k, cl = divmod(c, nsp)
+        for p, o in plan:
+            index.append(((k * (max_off + 1) + o) * nsp + cl) * nsp + p)
+            bits[k, o] |= np.uint32(1 << cl)
+    return plans, need_extra, max_off, np.asarray(index, np.int64), bits
 
 
 def _check_plan(taps_list, plans, n_split):
@@ -758,8 +803,10 @@ def _flat_taps(taps_list, device):
 
 def cascade_bank_plain(x_ext, taps_list, plans, n_split, n_out):
     """Plain version of :func:`cascade_bank_cuda`: one multiply-add pass
-    per plan slot over the stride-``n_split`` input slice."""
-    taps = _flat_taps(taps_list, x_ext.device)
+    per plan slot over the stride-``n_split`` input slice.  Float64
+    operands accumulate in float64: the reference that holds the
+    kernel."""
+    taps = _flat_taps(taps_list, x_ext.device).to(x_ext.dtype)
     span = (n_out - 1) * n_split + 1
     outs, s = [], 0
     for plan in plans:
@@ -772,35 +819,110 @@ def cascade_bank_plain(x_ext, taps_list, plans, n_split, n_out):
     return tuple(outs)
 
 
-# device copies of plans (and of host-side taps), so a repeated call
-# makes no host-to-device copy: plan key -> (taps or None, meta)
+def _periodic_args(x, taps_list, plans, levels):
+    """The checks of the periodic form; returns ``(n_split, n_out,
+    info)``."""
+    levels = int(levels)
+    if not 2 <= levels <= 4:
+        raise ValueError(f"the periodic cascade bank takes 2..4 levels, "
+                         f"got {levels}")
+    n_split = 1 << levels
+    info = _check_plan(taps_list, plans, n_split)
+    if len(info[0]) != n_split:
+        raise ValueError(f"the periodic cascade bank takes the cascade's "
+                         f"{n_split} channels, got {len(info[0])}")
+    n = int(x.shape[-1])
+    if n < n_split or n % n_split:
+        raise ValueError(f"signal length {n} is no positive multiple of "
+                         f"{n_split}")
+    return n_split, n // n_split, info
+
+
+def cascade_bank_periodic_plain(x, taps_list, plans, levels):
+    """Plain version of :func:`cascade_bank_periodic_cuda`: the wrap as
+    an index gather, :func:`cascade_bank_plain`, then each level's
+    phase channels interleaved back to natural order."""
+    n_split, n_out, info = _periodic_args(x, taps_list, plans, levels)
+    n = int(x.shape[-1])
+    need = (n_out - 1) * n_split + info[1]
+    idx = torch.arange(need, device=x.device) % n
+    outs = cascade_bank_plain(x.index_select(-1, idx), taps_list, info[0],
+                              n_split, n_out)
+    coeffs, c = [], 0
+    for lvl in range(1, int(levels) + 1):
+        phases = outs[c:c + (n_split >> lvl)]
+        c += n_split >> lvl
+        coeffs.append(torch.stack(phases, -1).reshape(
+            tuple(x.shape[:-1]) + (n >> lvl,)))
+    coeffs.append(outs[-1])
+    return tuple(coeffs)
+
+
+# device copies of the plans' tap tables and bits (the table also per
+# tap values when they come from the host), so a repeated call makes no
+# host-to-device copy: key -> (table or None, bits, index)
 _PLAN_CACHE: dict = {}
 _PLAN_CACHE_MAX = 64
 _plan_lock = threading.Lock()
 
 
-def _plan_arrays(taps_list, plans, meta, device):
-    """``(taps, meta)`` on ``device``: float32 taps in slot order and
-    the int32 ``meta``; cached per plan (and per tap values when they
-    come from the host)."""
+def _plan_arrays(taps_list, info, n_split, device):
+    """``(table, bits)`` on ``device``: the float32 dense tap table and
+    the uint32 slot bits of :func:`_plan_info`; cached per plan (and
+    per tap values when they come from the host, else the table is
+    scattered from the taps on the device)."""
+    plans, _, max_off, index, bits = info
     host_taps = not any(isinstance(t, torch.Tensor) for t in taps_list)
-    key = (plans, str(device))
+    key = (plans, n_split, str(device))
     if host_taps:
         key += (b"".join(np.asarray(t, np.float32).tobytes()
                          for t in taps_list),)
     with _plan_lock:
         hit = _PLAN_CACHE.get(key)
     if hit is None:
-        hit = (_flat_taps(taps_list, device) if host_taps else None,
-               torch.as_tensor(meta, device=device))
+        table = None
+        if host_taps:
+            flat = np.concatenate([np.asarray(t, np.float32).reshape(-1)
+                                   for t in taps_list])
+            table = np.zeros(bits.shape[0] * (max_off + 1)
+                             * cb_phase_pad(n_split) ** 2, np.float32)
+            np.add.at(table, index, flat)
+            table = torch.as_tensor(table, device=device)
+        hit = (table, torch.as_tensor(bits.view(np.int32), device=device),
+               torch.as_tensor(index, device=device))
         with _plan_lock:
             if len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
                 _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
             _PLAN_CACHE[key] = hit
-    taps, meta = hit
-    if taps is None:
-        taps = _flat_taps(taps_list, device)
-    return taps, meta
+    table, bits_t, index_t = hit
+    if table is None:
+        table = torch.zeros(bits.shape[0] * (max_off + 1)
+                            * cb_phase_pad(n_split) ** 2,
+                            dtype=torch.float32, device=device)
+        table.index_add_(0, index_t, _flat_taps(taps_list, device))
+    return table, bits_t
+
+
+def _cb_launch(x, taps_list, info, n_split, n_out, out, rows, periodic):
+    """Launch ``veles_cb_f32`` on ``x``'s current stream and count it."""
+    max_off, channels = info[2], len(info[0])
+    if not fits_smem_cb(n_split, max_off, channels):
+        raise ValueError(
+            f"cascade bank of {channels} channels at n_split {n_split} "
+            f"with offsets up to {max_off} needs "
+            f"{cb_smem_bytes(n_split, max_off, channels)} bytes of shared "
+            f"memory per block (> {SMEM_MAX_BYTES}; n_split <= "
+            f"{CB_MAX_SPLIT})")
+    table, bits = _plan_arrays(taps_list, info, n_split, x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.veles_cb_f32(x.data_ptr(), table.data_ptr(),
+                               bits.data_ptr(), out.data_ptr(), rows,
+                               int(x.shape[-1]), n_split, len(info[0]),
+                               max_off, n_out, int(periodic), stream)
+    _check_err(lib, err, "cascade_bank kernel")
+    LAUNCHES["cascade_bank"] += 1
 
 
 def cascade_bank_cuda(x_ext, taps_list, plans, n_split, n_out):
@@ -811,43 +933,58 @@ def cascade_bank_cuda(x_ext, taps_list, plans, n_split, n_out):
     ``cascade_bank_pallas``, plan checks and messages included.
     ``taps_list`` holds one tap vector per channel in plan-slot order
     (NumPy arrays or tensors).  A CPU tensor takes the plain version; a
-    CUDA tensor launches ``csrc/cascade_bank.cu``."""
+    CUDA tensor launches ``csrc/cascade_bank.cu`` once (``n_split`` up
+    to CB_MAX_SPLIT)."""
     n_split, n_out = int(n_split), int(n_out)
-    plans, need_extra, n_slots, max_off, meta = _check_plan(
-        taps_list, plans, n_split)
-    need = (n_out - 1) * n_split + need_extra
+    info = _check_plan(taps_list, plans, n_split)
+    need = (n_out - 1) * n_split + info[1]
     if x_ext.shape[-1] < need:
         raise ValueError(f"x_ext too short: {x_ext.shape[-1]} < {need}")
     _check_operands(x_ext)
     if x_ext.device.type == "cpu":
-        return cascade_bank_plain(x_ext, taps_list, plans, n_split, n_out)
+        return cascade_bank_plain(x_ext, taps_list, info[0], n_split,
+                                  n_out)
     if x_ext.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_ext.device}")
-    channels = len(plans)
-    if not fits_smem_cb(n_split, max_off, n_slots, channels):
-        raise ValueError(
-            f"cascade bank of {channels} channels, {n_slots} slots at "
-            f"n_split {n_split} needs "
-            f"{cb_smem_bytes(n_split, max_off, n_slots, channels)} bytes "
-            f"of shared memory per block (> {SMEM_MAX_BYTES})")
-    n_ext = int(x_ext.shape[-1])
-    rows = x_ext.numel() // n_ext
+    channels = len(info[0])
+    rows = x_ext.numel() // max(int(x_ext.shape[-1]), 1)
     out = torch.empty((channels, rows, n_out), dtype=torch.float32,
                       device=x_ext.device)
     shape = tuple(x_ext.shape[:-1]) + (n_out,)
-    if rows == 0:
-        return tuple(o.reshape(shape) for o in out)
-    taps, meta = _plan_arrays(taps_list, plans, meta, x_ext.device)
-    lib = load_library()
-    with torch.cuda.device(x_ext.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.veles_cb_f32(x_ext.data_ptr(), taps.data_ptr(),
-                               meta.data_ptr(), out.data_ptr(), rows,
-                               n_ext, n_split, channels, n_slots, max_off,
-                               n_out, stream)
-    _check_err(lib, err, "cascade_bank kernel")
-    LAUNCHES["cascade_bank"] += _launches(rows)
+    if rows and n_out > 0:
+        _cb_launch(x_ext, taps_list, info, n_split, n_out, out, rows, False)
     return tuple(o.reshape(shape) for o in out)
+
+
+def cascade_bank_periodic_cuda(x, taps_list, plans, levels):
+    """The PERIODIC DWT cascade of ``levels`` (2..4) levels in one
+    launch (float32): ``plans``/``taps_list`` are the cascade's 2^L
+    channels in the order of ``wavelet._cascade_plan`` (the 2^(L-l)
+    output phases of level l for l = 1..L, then the lowpass), over the
+    UNEXTENDED signal ``x[..., n]`` (n a multiple of 2^L) read
+    periodically: the same sums as :func:`cascade_bank_cuda` on ``x``
+    extended by its own head, written in natural order.  Returns
+    ``(hi_1, ..., hi_L, lo_L)``, ``hi_l`` of ``n / 2^l`` samples and
+    ``lo_L`` of ``n / 2^L``, contiguous.  A CPU tensor takes the plain
+    version; a CUDA tensor launches ``csrc/cascade_bank.cu`` once and
+    runs nothing else."""
+    n_split, n_out, info = _periodic_args(x, taps_list, plans, levels)
+    _check_operands(x)
+    if x.device.type == "cpu":
+        return cascade_bank_periodic_plain(x, taps_list, info[0], levels)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n = int(x.shape[-1])
+    rows = x.numel() // n
+    out = torch.empty(rows * n, dtype=torch.float32, device=x.device)
+    if rows:
+        _cb_launch(x, taps_list, info, n_split, n_out, out, rows, True)
+    coeffs, start = [], 0
+    for width in [n >> lvl for lvl in range(1, int(levels) + 1)] + [n_out]:
+        coeffs.append(out[start:start + rows * width].view(
+            tuple(x.shape[:-1]) + (width,)))
+        start += rows * width
+    return tuple(coeffs)
 
 
 # ---- K5: 2D shifted-MAC ----------------------------------------------------

@@ -24,8 +24,9 @@ Routes, JAX name → port name where they differ:
   channels, cuDNN pinned to fp32.  ``VELES_SIMD_DISABLE_CUDA_WAVELET``
   closes the kernel route.
 * ``wavelet.cascade`` (:func:`wavelet_transform`): ``fused_cascade``,
-  the whole PERIODIC cascade in one pass of the cascade-bank kernel
-  (``csrc/cascade_bank.cu``), opt-in through
+  the whole PERIODIC cascade in one launch of the cascade-bank kernel
+  (``csrc/cascade_bank.cu``), which reads the signal's wrap and writes
+  every level in natural order, so nothing is copied; opt-in through
   ``VELES_SIMD_FORCE_FUSED_CASCADE`` as in the JAX package;
   ``level_loop``, one filter-bank pass per level, the default.
 
@@ -401,13 +402,15 @@ def _composed_cascade_filters(type, order, levels):
 
 
 def _cascade_plan(gs, g_lo, levels):
-    """``(plans, taps, chans)`` for :func:`_ck.cascade_bank_cuda`: one
-    channel per output phase of each level's highpass (phase r of
-    ``hi_l`` is a bank over the 2^L input phases: sample ``2^l j + m``
-    lands on phase ``(2^l r + m) % 2^L`` at offset ``(2^l r + m) //
-    2^L``), plus the final composed lowpass."""
+    """``(plans, taps)`` for :func:`_ck.cascade_bank_cuda` and
+    :func:`_ck.cascade_bank_periodic_cuda`, whose natural-order stores
+    read the channels in this order: one channel per output phase r of
+    each level l's highpass, for l = 1..L (phase r of ``hi_l`` is a
+    bank over the 2^L input phases: sample ``2^l j + m`` lands on phase
+    ``(2^l r + m) % 2^L`` at offset ``(2^l r + m) // 2^L``), then the
+    final composed lowpass."""
     n_split = 1 << levels
-    plans, taps, chans = [], [], []
+    plans, taps = [], []
     for lvl, g in enumerate(gs, start=1):
         for r in range(1 << (levels - lvl)):
             base = (1 << lvl) * r
@@ -415,17 +418,16 @@ def _cascade_plan(gs, g_lo, levels):
                                 (base + m) // n_split)
                                for m in range(len(g))))
             taps.append(np.asarray(g, np.float32))
-            chans.append((lvl, r))
     plans.append(tuple((m % n_split, m // n_split)
                        for m in range(len(g_lo))))
     taps.append(np.asarray(g_lo, np.float32))
-    chans.append((levels + 1, 0))
-    return tuple(plans), taps, chans
+    return tuple(plans), taps
 
 
 @functools.lru_cache(maxsize=64)
 def _cascade_plan_for(type, order, levels):
-    """The cascade-bank plan of one (type, order, levels), built once."""
+    """``(plans, taps, reach)`` of one (type, order, levels), built
+    once; ``reach`` is the composed lowpass's last tap index."""
     gs, g_lo = _composed_cascade_filters(type, order, levels)
     return _cascade_plan(gs, g_lo, levels) + (len(g_lo) - 1,)
 
@@ -449,9 +451,9 @@ def _fused_cascade_gate(rows, n, order, ext, levels, cuda=False, **_):
     if n_macs > _FUSED_MAX_MACS:
         return False
     # every slot's offset is at most reach // 2^L (the final lowpass's
-    # last tap); one channel per output phase plus the lowpass
+    # last tap)
     return (_ck.should_route(rows, cuda)
-            and _ck.fits_smem_cb(1 << levels, reach >> levels, n_macs,
+            and _ck.fits_smem_cb(1 << levels, reach >> levels,
                                  1 << levels))
 
 
@@ -476,27 +478,12 @@ def _use_fused_cascade(src_shape, order, ext, levels, cuda=False) -> bool:
 
 
 def _fused_cascade(src, type, order, levels):
-    """The whole PERIODIC DWT cascade in one cascade-bank pass (see the
-    note above): returns ``(hi_1, ..., hi_L, lo_L)``."""
-    plans, taps, chans, reach = _cascade_plan_for(WaveletType(type),
-                                                  int(order), int(levels))
-    n = src.shape[-1]
-    n_split = 1 << levels
-    x_ext = _extend(src, ExtensionType.PERIODIC, reach + n_split)
-    outs = _ck.cascade_bank_cuda(x_ext.contiguous(), taps, plans, n_split,
-                                 n // n_split)
-    # re-interleave each level's output phases back to natural order
-    coeffs = []
-    for lvl in range(1, levels + 1):
-        phases = [o for o, (lv, _) in zip(outs, chans) if lv == lvl]
-        if len(phases) == 1:
-            coeffs.append(phases[0])
-        else:
-            stacked = torch.stack(phases, -1)
-            coeffs.append(stacked.reshape(
-                tuple(stacked.shape[:-2]) + (n >> lvl,)))
-    coeffs.append(outs[-1])
-    return tuple(coeffs)
+    """The whole PERIODIC DWT cascade in one cascade-bank launch (see
+    the note above), which reads the wrap and writes each level in
+    natural order: returns ``(hi_1, ..., hi_L, lo_L)``."""
+    plans, taps, _ = _cascade_plan_for(WaveletType(type), int(order),
+                                       int(levels))
+    return _ck.cascade_bank_periodic_cuda(src, taps, plans, int(levels))
 
 
 def wavelet_transform(type, order, ext, src, levels, simd=None):

@@ -11,7 +11,8 @@
   summed over its kernels and copies: a kernel's time free of the
   host's enqueue cost.
 * :func:`device_breakdown` — ``torch.profiler``'s device time per
-  kernel and copy for one call, and the device's idle share.
+  kernel and copy for one call, and the device's idle share;
+  :func:`device_kernels` — the names of those kernels and copies.
 * :func:`fp32_bound` — the least time the card could take for a
   float32 function: the larger of its operations over the fp32 peak
   outside the tensor cores and its bytes over the memory rate.
@@ -30,8 +31,8 @@ import time
 import torch
 
 __all__ = ["device_time_ms", "host_time", "device_busy_ms",
-           "device_breakdown", "fp32_bound", "conv_work", "conv2d_work",
-           "stft_work",
+           "device_breakdown", "device_kernels", "fp32_bound", "conv_work",
+           "conv2d_work", "stft_work",
            "H100_FP32_TFLOPS", "H100_HBM_TBPS"]
 
 H100_FP32_TFLOPS = 67.0
@@ -123,6 +124,12 @@ def device_breakdown(fn, *, calls: int = 5) -> str:
     return (" | ".join(parts) + f" | device busy {busy:.1f} of "
             f"{wall_us:.1f} wall (profiled), idle share "
             f"{max(0.0, 1 - busy / wall_us):.3f}")
+
+
+def device_kernels(fn, *, calls: int = 5) -> list[str]:
+    """Names of the kernels and copies ``fn`` runs on the device
+    (``torch.profiler``), largest device time first."""
+    return [name for _, name in _profile(fn, calls)[0]]
 
 
 def fp32_bound(flops: float, nbytes: float) -> tuple[float, str]:

@@ -68,9 +68,16 @@ def resolve_simd(simd, op: str | None = None) -> bool:
 class Config:
     """Typed run-time configuration."""
 
+    # Interpret complex arrays as interleaved re/im float pairs (the
+    # reference's FFTF layout); nothing reads it yet, as in the JAX
+    # package.
+    interleaved_complex: bool = True
     # Validate op arguments eagerly (the reference library's assert()
     # contract, src/matrix.c:257-261).
     check_arguments: bool = True
+    # Default float dtype for compute; nothing reads it yet, as in the
+    # JAX package.
+    dtype: str = "float32"
     # Precision of the overlap-save block matmul.  Both values compute
     # in full fp32 in this port: TF32 is held off for the product, and
     # the kernels accumulate with fp32 FFMA.  "high" is accepted so

@@ -7,6 +7,12 @@ arithmetic the rest of the library builds on:
 * ``next_highest_power_of_2``   (``inc/simd/arithmetic.h:1227-1235``)
 * ``zeropadding`` / ``zeropadding_ex`` — pad to 2 × next-pow-2, the
   FFT-size helper (``src/memory.c:126-146``).
+* ``rmemcpyf`` / ``crmemcpyf`` — reversed (complex-pairwise) copies,
+  correlation's flip-h trick (``src/memory.c:148-183``).
+
+The reference's aligned allocators (``src/memory.c:71-91``) and
+alignment-complement queries (``src/memory.c:41-69``) are kept as the
+JAX package keeps them: host stubs, and a complement that is always 0.
 
 The helpers accept NumPy arrays or torch tensors and stay in that
 domain (NumPy in, NumPy out; tensor in, tensor out on its device).
@@ -17,7 +23,9 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["next_highest_power_of_2", "zeropadding_length",
-           "zeropadding", "zeropadding_ex"]
+           "zeropadding", "zeropadding_ex", "rmemcpyf", "crmemcpyf",
+           "memsetf", "malloc_aligned", "malloc_aligned_offset",
+           "mallocf", "align_complement"]
 
 
 def next_highest_power_of_2(value: int) -> int:
@@ -66,3 +74,53 @@ def zeropadding_ex(data, additional_length: int):
     nl = zeropadding_length(n)
     return _pad_tail(data, nl + int(additional_length) - n), nl
 
+
+
+def rmemcpyf(data):
+    """Reversed copy: ``out[i] = in[n-1-i]`` (``src/memory.c:148-176``);
+    a tensor is flipped (torch has no negative strides)."""
+    if isinstance(data, np.ndarray):
+        return data[..., ::-1]
+    return data.flip(-1)
+
+
+def crmemcpyf(data):
+    """Complex-pairwise reversed copy of an interleaved re/im array:
+    reverses the complex samples but keeps each (re, im) pair in order
+    (``src/memory.c:178-183``)."""
+    n = data.shape[-1]
+    if n % 2:
+        raise ValueError("interleaved complex array must have even length")
+    pairs = data.reshape(tuple(data.shape[:-1]) + (n // 2, 2))
+    if isinstance(data, np.ndarray):
+        return np.flip(pairs, axis=-2).reshape(data.shape)
+    return pairs.flip(-2).reshape(data.shape)
+
+
+def memsetf(shape, value, dtype=np.float32):
+    """Filled host array (``src/memory.c:93-124``)."""
+    return np.full(shape, value, dtype=dtype)
+
+
+def malloc_aligned(size: int) -> np.ndarray:
+    """Compatibility stub for ``src/memory.c:77-87``: a zeroed host byte
+    buffer; device buffers belong to PyTorch's allocator."""
+    return np.zeros(int(size), dtype=np.uint8)
+
+
+def malloc_aligned_offset(size: int, offset: int) -> np.ndarray:
+    """Compatibility stub for ``inc/simd/memory.h:100`` (an allocation
+    whose ``ptr + offset`` is aligned): a view at ``offset`` into a
+    fresh buffer, so only the length contract holds."""
+    return np.zeros(int(size) + int(offset), dtype=np.uint8)[int(offset):]
+
+
+def mallocf(length: int) -> np.ndarray:
+    """Compatibility stub for ``src/memory.c:89-91``."""
+    return np.zeros(int(length), dtype=np.float32)
+
+
+def align_complement(ptr_or_array, dtype=np.float32) -> int:
+    """Alignment-complement stub (``src/memory.c:41-69``): the allocator
+    owns layout, so the complement is always 0."""
+    return 0
