@@ -38,6 +38,22 @@ without printing a result):
             ``hilbert``/``envelope`` at n = 1024 and 65536, and
             ``morlet_cwt`` on 8 x 4096 with 32 scales (``ct_matmul``);
             each within 1e-4 of a float64 oracle;
+4b. reference — the reference-header surface through its entry
+            points, each op against a float64 NumPy oracle, then timed
+            (chained CUDA events; host clock where a call ends on the
+            host): BASELINE config 1 (bench.py's 4096 x 4096
+            int16_to_float / real_multiply / add_to_all /
+            float_to_int16 step, exact; complex_multiply(_conjugate) on
+            2^23 pairs; sum_elements; float_to_int32 saturation),
+            config 2 (sin/cos/log/exp/pow/sqrt on 1M floats, max ulp;
+            log_psv's ulp on U[0.1, 5] and its special values),
+            config 3 (sgemm and gemv at 512; matrix_multiply 2048^3 on
+            every precision route, each within its ERROR_BUDGETS entry,
+            with its device kernels, the fp32 route's free of TF32),
+            normalize2D on 64 x 1024^2 u8, detect_peaks /
+            detect_peaks_fixed / find_peaks on 2^20 samples (exact vs
+            the oracles), medfilt / savgol_filter / wiener on
+            64 x 16384 and medfilt2d 3 x 3 on 16 x 512^2;
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -83,6 +99,13 @@ STFT_TRIP_TOL = 1e-3     # istft(stft(x)) interior (bench.py:699-701)
 CASCADE_TOL = 5e-4       # fused vs level loop (tests/test_pallas.py)
 ROUND_TRIP_TOL = 2e-4    # DWT round trip (test_wavelet_synthesis.py)
 FORCE_FUSED = "VELES_SIMD_FORCE_FUSED_CASCADE"
+# the reference phase: BASELINE configs 1-3 (bench.py:107-177, 380-400)
+N_EL = 4096                              # config 1: 4096 x 4096 step
+N_CPX, ROWS_SUM, N_SUM = 1 << 23, 64, 1 << 18
+N_MF = 1 << 20                           # config 2: 1M floats
+N_GEMM, N_GEMM2 = 512, 2048              # config 3, and the route GEMM
+N_PLANES, N_PLANE, N_MINMAX = 64, 1024, 1 << 24
+N_PEAKS = 1 << 20
 DAUB8_LO = np.array([-0.010597401784997278, 0.032883011666982945,
                      0.030841381835986965, -0.18703481171888114,
                      -0.02798376941698385, 0.6308807679295904,
@@ -128,6 +151,341 @@ def conv2d64(x, h):
     spec = (np.fft.rfft2(x.astype(np.float64), m)
             * np.fft.rfft2(h.astype(np.float64), m))
     return np.fft.irfft2(spec, m)
+
+
+def ulp_err(got, want64):
+    """Largest error of a float32 result in units in the last place of
+    the float32 rounding of its float64 reference."""
+    want32 = want64.astype(np.float32)
+    return float(np.max(np.abs(got.astype(np.float64) - want64)
+                        / np.spacing(np.abs(want32))))
+
+
+def reference(torch, rng, bm, obs, ck, smi):
+    """The reference-header surface on the card through its entry
+    points (BASELINE configs 1-3, then normalize, peaks and filters):
+    each op held to a float64 NumPy oracle, then timed.  None of these
+    ops reaches a kernel of csrc/: the launch counters stay 0."""
+    from veles.simd_tpu_torch.ops import arithmetic as ar
+    from veles.simd_tpu_torch.ops import detect_peaks as dp
+    from veles.simd_tpu_torch.ops import filters as fl
+    from veles.simd_tpu_torch.ops import mathfun as mf
+    from veles.simd_tpu_torch.ops import matrix as mx
+    from veles.simd_tpu_torch.ops import normalize as nz
+    from veles.simd_tpu_torch.runtime import precision as prx
+
+    dev = torch.device("cuda")
+    hbm_gbps = bm.H100_HBM_TBPS * 1e3
+    ck.reset_launches()
+
+    def rates(ms, elems, nbytes):
+        return (f"{ms:.4f} ms = {elems / ms / 1e3:.1f} Melem/s, "
+                f"{nbytes / ms / 1e6:.1f} GB/s "
+                f"({nbytes / ms / 1e6 / hbm_gbps:.3f} of {hbm_gbps:.0f})")
+
+    def timed(fn, elems, nbytes):
+        # chained CUDA events: the call's device time
+        return rates(bm.device_time_ms(fn, iters=20), elems, nbytes)
+
+    def host_timed(fn, elems, nbytes):
+        # the call ends on the host (NumPy results): host clock
+        return rates(bm.host_time(fn, repeats=3) * 1e3, elems, nbytes)
+
+    # arithmetic (BASELINE config 1): bench.py's 4096 x 4096 step
+    i16 = rng.randint(-3000, 3000, (N_EL, N_EL)).astype(np.int16)
+    b_el = rng.randn(N_EL, N_EL).astype(np.float32)
+    i16_t = torch.as_tensor(i16, device=dev)
+    b_t = torch.as_tensor(b_el, device=dev)
+
+    def step():
+        f = ar.int16_to_float(i16_t)
+        return ar.float_to_int16(ar.add_to_all(ar.real_multiply(f, b_t),
+                                               0.5))
+
+    want_step = ar.float_to_int16_na(ar.add_to_all_na(
+        ar.real_multiply_array_na(ar.int16_to_float_na(i16), b_el), 0.5))
+    check(np.array_equal(step().cpu().numpy(), want_step),
+          "config 1 step differs from its oracle")
+    za = rng.randn(2 * N_CPX).astype(np.float32)
+    zb = rng.randn(2 * N_CPX).astype(np.float32)
+    za_t, zb_t = torch.as_tensor(za, device=dev), torch.as_tensor(
+        zb, device=dev)
+    cm = {}
+    for name, fn in (("complex_multiply", ar.complex_multiply),
+                     ("complex_multiply_conjugate",
+                      ar.complex_multiply_conjugate)):
+        z64 = za[0::2] + 1j * za[1::2].astype(np.float64)
+        w64 = zb[0::2] + 1j * zb[1::2].astype(np.float64)
+        if name.endswith("conjugate"):
+            w64 = np.conj(w64)
+        want = (z64 * w64).view(np.float64)
+        cm[name] = rel_err(fn(za_t, zb_t).cpu().numpy(), want)
+        check(cm[name] <= 1e-6, f"{name} rel err {cm[name]:.3e}")
+    s_el = rng.rand(ROWS_SUM, N_SUM).astype(np.float32)
+    s_t = torch.as_tensor(s_el, device=dev)
+    err_sum = rel_err(ar.sum_elements(s_t).cpu().numpy(),
+                      s_el.astype(np.float64).sum(-1))
+    check(err_sum <= 1e-5, f"sum_elements rel err {err_sum:.3e}")
+    sat = np.array([3e9, -3e9, np.nan, 0.9, -0.9, 2.0 ** 31], np.float32)
+    got_sat = ar.float_to_int32(sat).cpu().numpy()
+    check(np.array_equal(got_sat, [2 ** 31 - 1, -2 ** 31, 0, 0, 0,
+                                   2 ** 31 - 1]),
+          f"float_to_int32 {got_sat}")
+    el = N_EL * N_EL
+    print(f"reference arithmetic: config 1 step {N_EL}x{N_EL} "
+          f"(int16_to_float, real_multiply, add_to_all, float_to_int16) "
+          f"exact, " + timed(step, el, 8.0 * el)
+          + f" | complex_multiply {N_CPX} pairs rel "
+          f"{cm['complex_multiply']:.2e}, "
+          + timed(lambda: ar.complex_multiply(za_t, zb_t), N_CPX,
+                  24.0 * N_CPX)
+          + f" | conjugate rel {cm['complex_multiply_conjugate']:.2e}, "
+          + timed(lambda: ar.complex_multiply_conjugate(za_t, zb_t),
+                  N_CPX, 24.0 * N_CPX)
+          + f" | sum_elements {ROWS_SUM}x{N_SUM} rel {err_sum:.2e}, "
+          + timed(lambda: ar.sum_elements(s_t), ROWS_SUM * N_SUM,
+                  4.0 * ROWS_SUM * (N_SUM + 1))
+          + f" | float_to_int32 [3e9, -3e9, nan, 0.9, -0.9, 2^31] -> "
+          f"{got_sat.tolist()} | GB/s count each input read once and "
+          f"each output written once | card {smi}")
+
+    # mathfun (BASELINE config 2): 1M floats drawn as bench.py draws them
+    x_mf = np.abs(rng.randn(N_MF).astype(np.float32)) + 0.1
+    e_mf = ((rng.rand(N_MF) - 0.5) * 4.0).astype(np.float32)
+    x_t = torch.as_tensor(x_mf, device=dev)
+    e_t = torch.as_tensor(e_mf, device=dev)
+    x64 = x_mf.astype(np.float64)
+    funcs = (
+        ("sin", lambda: mf.sin_psv(x_t), np.sin(x64), 1e-5, 1e-6),
+        ("cos", lambda: mf.cos_psv(x_t), np.cos(x64), 1e-5, 1e-6),
+        ("log", lambda: mf.log_psv(x_t), np.log(x64), 1e-4, 1e-4),
+        ("exp", lambda: mf.exp_psv(x_t), np.exp(x64), 1e-5, 1e-6),
+        ("pow", lambda: mf.pow_psv(x_t, e_t), np.power(x64, e_mf), 2e-5,
+         0.0),
+        ("sqrt", lambda: mf.sqrt_psv(x_t), np.sqrt(x64), 1e-6, 0.0))
+    parts = []
+    for name, fn, want, rtol, atol in funcs:
+        got = fn().cpu().numpy().astype(np.float64)
+        bad = np.abs(got - want) > atol + rtol * np.abs(want)
+        check(not bad.any(), f"{name}_psv outside rtol {rtol} atol {atol}")
+        nbytes = 4.0 * N_MF * (3 if name == "pow" else 2)
+        parts.append(f"{name} {ulp_err(got, want):.2f} ulp, "
+                     + timed(fn, N_MF, nbytes))
+    u = rng.uniform(0.1, 5.0, N_MF).astype(np.float32)
+    log_ulp = ulp_err(mf.log_psv(torch.as_tensor(u, device=dev))
+                      .cpu().numpy(), np.log(u.astype(np.float64)))
+    special = np.array([1e-40, -1e-40, 0.0, -0.0, -1.0, np.nan, np.inf],
+                       np.float32)
+    got_sp = mf.log_psv(special).cpu().numpy()
+    want_sp = np.array([-np.inf] * 4 + [np.nan, np.nan, np.inf],
+                       np.float32)
+    check(np.array_equal(got_sp, want_sp, equal_nan=True),
+          f"log_psv special values {got_sp}")
+    print(f"reference mathfun: config 2, {N_MF} floats |x|+0.1 (max ulp "
+          "vs float64): " + " | ".join(parts)
+          + f" | log_psv on U[0.1, 5] max {log_ulp:.2f} ulp | log_psv "
+          f"[1e-40, -1e-40, 0, -0, -1, nan, inf] -> {got_sp.tolist()}")
+
+    # matrix (BASELINE config 3): sgemm 512 + gemv, then 2048 by route
+    a5 = rng.randn(N_GEMM, N_GEMM).astype(np.float32)
+    b5 = rng.randn(N_GEMM, N_GEMM).astype(np.float32)
+    v5 = rng.randn(N_GEMM).astype(np.float32)
+    a5_t, b5_t, v5_t = (torch.as_tensor(a, device=dev)
+                        for a in (a5, b5, v5))
+    a64, b64 = a5.astype(np.float64), b5.astype(np.float64)
+    calls = (
+        ("matrix_multiply", lambda: mx.matrix_multiply(a5_t, b5_t),
+         a64 @ b64, bm.gemm_work(N_GEMM, N_GEMM, N_GEMM)),
+        ("matrix_multiply_transposed",
+         lambda: mx.matrix_multiply_transposed(a5_t, b5_t),
+         a64 @ b64.T, bm.gemm_work(N_GEMM, N_GEMM, N_GEMM)),
+        ("matrix_vector_multiply",
+         lambda: mx.matrix_vector_multiply(a5_t, v5_t),
+         a64 @ v5.astype(np.float64), bm.gemm_work(N_GEMM, N_GEMM, 1)))
+    parts = []
+    for name, fn, want, (flops, nbytes) in calls:
+        err = rel_err(fn().cpu().numpy(), want)
+        check(err <= PARITY_TOL, f"{name} rel err {err:.3e}")
+        ms = bm.device_busy_ms(fn, calls=20)
+        bound_ms, by = bm.gemm_bound(flops, nbytes, "highest")
+        parts.append(f"{name} {N_GEMM} rel {err:.2e} {ms:.4f} ms "
+                     f"{flops / ms / 1e6:.1f} GFLOP/s, {bound_ms / ms:.3f} "
+                     f"of its bound ({by})")
+    obs.reset()
+    mx.matrix_multiply(a5_t, b5_t)
+    engine = [e for e in obs.events()
+              if e["op"] == "matrix_precision_route"]
+    check(len(engine) == 1 and engine[0]["decision"] == "fp32"
+          and not engine[0]["forced"], f"engine default {engine}")
+    print("reference matrix: config 3, device time per call (profiled): "
+          + " | ".join(parts) + " | engine default route fp32")
+
+    a2 = rng.randn(N_GEMM2, N_GEMM2).astype(np.float32)
+    b2 = rng.randn(N_GEMM2, N_GEMM2).astype(np.float32)
+    a2_t, b2_t = (torch.as_tensor(a, device=dev) for a in (a2, b2))
+    want2 = a2.astype(np.float64) @ b2.astype(np.float64)
+    flops2, bytes2 = bm.gemm_work(N_GEMM2, N_GEMM2, N_GEMM2)
+    routes = (("fp32", "highest"), ("bf16_comp", "bf16_comp"),
+              ("int8", "int8"), ("bf16", "bf16"), ("default", "default"))
+    os.environ[prx.INT8_ENV] = "1"
+    try:
+        obs.reset()
+        mx.matrix_multiply(a2_t, b2_t)
+        picked = [e["decision"] for e in obs.events()
+                  if e["op"] == "matrix_precision_route"]
+        check(picked == ["fp32"], f"engine pick under {prx.INT8_ENV}: "
+              f"{picked}")
+        rows, errs = [], {}
+        for route, precision in routes:
+            if route == "default":
+                # not a matrix.gemm route: the layer's TF32 knob
+                def fn(p=precision):
+                    return prx.p_matmul(a2_t, b2_t, p)
+            else:
+                def fn(r=route):
+                    return mx.matrix_multiply(a2_t, b2_t, precision=r)
+            errs[route] = rel_err(fn().cpu().numpy(), want2)
+            busy = bm.device_busy_ms(fn, calls=10)
+            chained = bm.device_time_ms(fn, iters=10)
+            names = [n[:64] for n in bm.device_kernels(fn, calls=2)]
+            bound_ms, by = bm.gemm_bound(flops2, bytes2, precision)
+            rows.append((route, precision, busy, chained, bound_ms, by,
+                         names))
+    finally:
+        del os.environ[prx.INT8_ENV]
+    print(f"reference matrix routes: matrix_multiply {N_GEMM2}^3, rel err "
+          "vs float64 (budget), device ms per call profiled / chained, "
+          "GFLOP/s, share of the route's bound: " + " | ".join(
+              f"{route} rel {errs[route]:.2e} "
+              f"({prx.ERROR_BUDGETS[precision]:.0e}) {busy:.4f} / "
+              f"{chained:.4f} ms {flops2 / busy / 1e6:.1f} GFLOP/s "
+              f"{bound_ms / busy:.3f} of {bound_ms:.4f} ms ({by}) "
+              f"kernels {names}"
+              for route, precision, busy, chained, bound_ms, by, names
+              in rows) + f" | card {smi}")
+    print(f"breakdown gemm {N_GEMM2} bf16_comp (device us per call): "
+          + bm.device_breakdown(lambda: mx.matrix_multiply(
+              a2_t, b2_t, precision="bf16_comp"), calls=5))
+    for route, precision, *_ in rows:
+        check(errs[route] <= prx.ERROR_BUDGETS[precision],
+              f"{route} rel err {errs[route]:.3e} over its budget "
+              f"{prx.ERROR_BUDGETS[precision]}")
+    fp32_names = rows[0][-1]
+    check(fp32_names and not any("tf32" in n.lower() for n in fp32_names),
+          f"the fp32 route ran a TF32 kernel: {fp32_names}")
+
+    # normalize: 64 u8 planes of 1024 x 1024, one constant
+    planes = rng.randint(0, 256, (N_PLANES, N_PLANE, N_PLANE))
+    planes = planes.astype(np.uint8)
+    planes[5] = 77
+    p_t = torch.as_tensor(planes, device=dev)
+    got_n = nz.normalize2D(p_t).cpu().numpy()
+    mn = planes.min(axis=(1, 2)).astype(np.float64)[:, None, None]
+    mxv = planes.max(axis=(1, 2)).astype(np.float64)[:, None, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want_n = np.where(mxv == mn, 0.0,
+                          (planes - mn) / ((mxv - mn) / 2.0) - 1.0)
+    err_n = float(np.max(np.abs(got_n - want_n)))
+    check(err_n <= 1e-6 and not got_n[5].any(),
+          f"normalize2D max abs err {err_n:.3e}")
+    f1 = rng.randn(N_MINMAX).astype(np.float32)
+    f1_t = torch.as_tensor(f1, device=dev)
+    lo, hi = nz.minmax1D(f1_t)
+    check(lo.item() == f1.min() and hi.item() == f1.max(), "minmax1D")
+    n_pix = N_PLANES * N_PLANE * N_PLANE
+    print(f"reference normalize: normalize2D {N_PLANES}x{N_PLANE}x"
+          f"{N_PLANE} u8 (plane 5 constant -> zeros) max abs err "
+          f"{err_n:.2e}, " + timed(lambda: nz.normalize2D(p_t), n_pix,
+                                   5.0 * n_pix)
+          + f" | minmax1D {N_MINMAX} floats exact, "
+          + timed(lambda: nz.minmax1D(f1_t), N_MINMAX, 4.0 * N_MINMAX))
+
+    # peaks: a noisy multi-tone of 2^20 samples
+    t_pk = np.arange(N_PEAKS)
+    x_pk = (np.sin(2 * np.pi * t_pk / 4096.0)
+            + 0.5 * np.sin(2 * np.pi * t_pk / 97.0)
+            + 0.1 * rng.randn(N_PEAKS)).astype(np.float32)
+    xp_t = torch.as_tensor(x_pk, device=dev)
+    pos, vals = dp.detect_peaks(xp_t)
+    want_pos, want_vals = dp.detect_peaks_na(x_pk)
+    check(np.array_equal(pos, want_pos) and np.array_equal(vals, want_vals),
+          "detect_peaks differs from its oracle")
+    cap = N_PEAKS // 8      # the top-k compaction route
+    fpos, fvals, fcount = dp.detect_peaks_fixed(xp_t, max_peaks=cap)
+    k = min(int(fcount), cap)
+    check(int(fcount) == len(want_pos)
+          and np.array_equal(fpos[:k].cpu().numpy(), want_pos[:k])
+          and np.array_equal(fvals[:k].cpu().numpy(), want_vals[:k]),
+          "detect_peaks_fixed differs from its oracle")
+    # find_peaks' float64 oracle at this size: the maxima of the
+    # detect_peaks oracle, SciPy's prominences and bases (compiled; the
+    # same outward walk and tie rule as the port's oracle, whose Python
+    # walk takes tens of seconds here), the port's width oracle on the
+    # kept peaks, and find_peaks' two conditions in its order
+    from scipy import signal as ss
+
+    kw = dict(prominence=0.5, width=3.0)
+    peaks, props = dp.find_peaks(xp_t, **kw)
+    raw = want_pos[x_pk[want_pos] > x_pk[want_pos - 1]]
+    prom64, lbase, rbase = ss.peak_prominences(x_pk.astype(np.float64),
+                                               raw)
+    prom = prom64.astype(np.float32)
+    keep = prom >= kw["prominence"]
+    raw, prom, lbase, rbase = raw[keep], prom[keep], lbase[keep], \
+        rbase[keep]
+    widths = dp.peak_widths_na(x_pk, raw, 0.5, prom=prom)
+    keep = widths[0] >= kw["width"]
+    want_props = {"prominences": prom[keep], "left_bases": lbase[keep],
+                  "right_bases": rbase[keep]}
+    want_props.update(zip(("widths", "width_heights", "left_ips",
+                           "right_ips"), (w[keep] for w in widths)))
+    check(np.array_equal(peaks, raw[keep]), "find_peaks positions")
+    for key in ("prominences", "left_bases", "right_bases"):
+        check(np.array_equal(props[key], want_props[key]),
+              f"find_peaks {key} differ from the oracle")
+    err_w = max(rel_err(props[key], want_props[key])
+                for key in ("widths", "width_heights", "left_ips",
+                            "right_ips"))
+    check(err_w <= PARITY_TOL, f"find_peaks widths rel err {err_w:.3e}")
+    print(f"reference peaks: {N_PEAKS} samples, detect_peaks "
+          f"{len(pos)} extrema exact, "
+          + host_timed(lambda: dp.detect_peaks(xp_t), N_PEAKS,
+                       4.0 * N_PEAKS)
+          + f" (host clock) | detect_peaks_fixed max_peaks {cap} (top-k) "
+          "exact, "
+          + timed(lambda: dp.detect_peaks_fixed(xp_t, max_peaks=cap),
+                  N_PEAKS, 4.0 * N_PEAKS)
+          + f" | find_peaks {kw} {len(peaks)} peaks, positions, "
+          f"prominences and bases exact, widths rel {err_w:.2e}, "
+          + host_timed(lambda: dp.find_peaks(xp_t, **kw), N_PEAKS,
+                       4.0 * N_PEAKS) + " (host clock)")
+
+    # filters: 64 x 16384 rows, 16 planes of 512 x 512
+    x_fl = rng.randn(ROWS_BS, N_BS).astype(np.float32)
+    xf_t = torch.as_tensor(x_fl, device=dev)
+    img = rng.randn(IMGS_2D, N_2D, N_2D).astype(np.float32)
+    img_t = torch.as_tensor(img, device=dev)
+    filt = (
+        ("medfilt k=5", lambda: fl.medfilt(xf_t, 5),
+         fl.medfilt_na(x_fl, 5), 0.0, ROWS_BS * N_BS),
+        ("savgol_filter 31/3", lambda: fl.savgol_filter(xf_t, 31, 3),
+         fl.savgol_filter_na(x_fl, 31, 3), PARITY_TOL, ROWS_BS * N_BS),
+        ("wiener", lambda: fl.wiener(xf_t), fl.wiener_na(x_fl),
+         PARITY_TOL, ROWS_BS * N_BS),
+        ("medfilt2d 3x3", lambda: fl.medfilt2d(img_t, 3),
+         fl.medfilt2d_na(img, 3), 0.0, IMGS_2D * N_2D * N_2D))
+    parts = []
+    for name, fn, want, tol, elems in filt:
+        err = rel_err(fn().cpu().numpy(), want)
+        check(err <= tol, f"{name} rel err {err:.3e} > {tol}")
+        parts.append(f"{name} rel {err:.2e}, "
+                     + timed(fn, elems, 8.0 * elems))
+    print(f"reference filters: {ROWS_BS}x{N_BS} rows and "
+          f"{IMGS_2D}x{N_2D}x{N_2D} planes vs float64 oracles: "
+          + " | ".join(parts))
+    torch.cuda.synchronize()
+    check(not any(ck.LAUNCHES.values()),
+          f"the reference path launched a csrc kernel: {ck.LAUNCHES}")
 
 
 def main():
@@ -602,6 +960,9 @@ def main():
     check(err_cw <= ORACLE_TOL, f"morlet_cwt rel err {err_cw:.3e}")
     print("main: " + " | ".join(an_parts) + f" | morlet_cwt {ROWS_CWT}x"
           f"{N_CWT} {SCALES_CWT} scales {cw_routes[0]} rel {err_cw:.2e}")
+
+    # 4b. the reference-header surface and the filters
+    reference(torch, rng, bm, obs, ck, smi)
 
     # 5. times at the main-path shapes
     obs.disable()

@@ -574,3 +574,93 @@ def test_analytic_and_psd_routes_on_the_card():
     assert _rel(p.cpu(), sp.welch_na(x, nperseg=512)[1]) <= TOL
     assert _crel(sp.czt(x[0]).cpu(),
                  np.fft.fft(x[0].astype(np.float64))) <= 1e-4
+
+
+# ---- the reference-header surface on the card ------------------------------
+
+def _gemm64(a, b):
+    return np.matmul(np.asarray(a, np.float64), np.asarray(b, np.float64))
+
+
+@pytest.mark.parametrize("route", ["fp32", "bf16_comp", "int8", "bf16"])
+@pytest.mark.parametrize("a_shape,b_shape", [
+    ((17, 9), (9, 13)),            # int8 pads every dim
+    ((3, 40, 24), (24, 16)),       # batched, b shared
+    ((2, 3, 33, 17), (3, 17, 5)),  # broadcast batch dims
+    ((512, 512), (512, 512)),
+])
+def test_gemm_routes_within_budget(route, a_shape, b_shape):
+    from veles.simd_tpu_torch.ops import matrix as mx
+    from veles.simd_tpu_torch.runtime import precision as prx
+
+    rng = np.random.RandomState(71)
+    a = rng.randn(*a_shape).astype(np.float32)
+    b = rng.randn(*b_shape).astype(np.float32)
+    got = mx.matrix_multiply(a, b, precision=route)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    budget = prx.ERROR_BUDGETS[mx.GEMM_PRECISIONS[route]]
+    assert _rel(got.cpu(), _gemm64(a, b)) <= max(budget, 1e-5)
+    # the CPU computes the same route: int8 accumulators bit-equal
+    config.set_config(device="cpu")
+    want = mx.matrix_multiply(a, b, precision=route).numpy()
+    if route == "int8":
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("route", ["fp32", "bf16_comp", "int8"])
+def test_gemv_routes_within_budget(route):
+    from veles.simd_tpu_torch.ops import matrix as mx
+    from veles.simd_tpu_torch.runtime import precision as prx
+
+    rng = np.random.RandomState(72)
+    m = rng.randn(300, 257).astype(np.float32)
+    v = rng.randn(257).astype(np.float32)
+    got = mx.matrix_vector_multiply(m, v, precision=route)
+    budget = prx.ERROR_BUDGETS[mx.GEMM_PRECISIONS[route]]
+    assert _rel(got.cpu(), _gemm64(m, v)) <= max(budget, 1e-5)
+
+
+def test_fp32_route_runs_no_tf32_kernel():
+    from veles.simd_tpu_torch.ops import matrix as mx
+
+    a = _t(np.random.RandomState(73).randn(1024, 1024))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True   # a caller's setting
+    try:
+        names = bm.device_kernels(lambda: mx.matrix_multiply(a, a),
+                                  calls=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert names and not any("tf32" in n.lower() for n in names), names
+
+
+def test_float_to_int32_saturates_on_the_card():
+    from veles.simd_tpu_torch.ops import arithmetic as ar
+
+    x = np.array([3e9, -3e9, np.nan, 0.9, -0.9, 2.0 ** 31, 123.7],
+                 np.float32)
+    got = ar.float_to_int32(x)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        np.array([2 ** 31 - 1, -2 ** 31, 0, 0, 0, 2 ** 31 - 1, 123],
+                 np.int32))
+    np.testing.assert_array_equal(
+        ar.float_to_int16(x).cpu().numpy(),
+        np.array([32767, -32768, 0, 0, 0, 32767, 123], np.int16))
+
+
+def test_log_special_values_on_the_card():
+    from veles.simd_tpu_torch.ops import mathfun as mf
+
+    x = np.array([1e-40, -1e-40, 1e-45, 0.0, -0.0, -1.0, np.nan, np.inf,
+                  1.0], np.float32)
+    got = mf.log_psv(x).cpu().numpy()
+    want = np.array([-np.inf] * 5 + [np.nan, np.nan, np.inf, 0.0],
+                    np.float32)
+    np.testing.assert_array_equal(got, want)
+    u = np.random.RandomState(74).uniform(0.1, 5.0, 1 << 16)
+    u = u.astype(np.float32)
+    np.testing.assert_allclose(mf.log_psv(u).cpu().numpy(),
+                               np.log(u.astype(np.float64)),
+                               rtol=1e-4, atol=1e-4)

@@ -320,7 +320,7 @@ def test_precision_matches():
     assert torch.get_float32_matmul_precision() == prev
     with pytest.raises(ValueError, match="precision"):
         tprx.p_einsum("ab,bc->ac", torch.ones(2, 2), torch.ones(2, 2),
-                      precision="bf16_comp")
+                      precision="fp64")
 
 
 def test_fp32_bound():

@@ -35,6 +35,13 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.ops.wavelet_coeffs",
                  "veles.simd_tpu_torch.ops.correlate",
                  "veles.simd_tpu_torch.ops.cuda_kernels",
+                 "veles.simd_tpu_torch.ops.matrix",
+                 "veles.simd_tpu_torch.ops.arithmetic",
+                 "veles.simd_tpu_torch.ops.mathfun",
+                 "veles.simd_tpu_torch.ops.normalize",
+                 "veles.simd_tpu_torch.ops.detect_peaks",
+                 "veles.simd_tpu_torch.ops.filters",
+                 "veles.simd_tpu_torch.runtime.precision",
                  "veles.simd_tpu_torch.runtime.routing",
                  "veles.simd_tpu_torch.obs"):
         assert name in mods

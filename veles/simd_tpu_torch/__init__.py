@@ -7,10 +7,11 @@ path is a CUDA C++ kernel written for Hopper (``csrc/``), built with
 ``nvcc`` at first use and loaded with ``ctypes``
 (:mod:`veles.simd_tpu_torch.ops.cuda_kernels`).
 
-Ported so far: 1D convolution and cross-correlation with automatic
-algorithm selection (:mod:`~veles.simd_tpu_torch.ops.convolve`,
-:mod:`~veles.simd_tpu_torch.ops.correlate`), over the routing, config
-and telemetry core they need.
+Ported so far: 1D and 2D convolution and cross-correlation, the
+wavelet and spectral families, waveforms, and the reference-header
+surface (matrix, arithmetic, mathfun, normalize, detect_peaks) with
+the filters (:mod:`veles.simd_tpu_torch.ops`), over the routing,
+precision, config and telemetry core they need.
 
 Entry points compute on ``Config.device`` (``"cuda"`` by default;
 ``utils.config.set_config(device="cpu")`` for the CPU).  The package

@@ -16,6 +16,16 @@
   (``batched_stft``), route handles in a bounded LRU
 * :mod:`.waveforms`    — chirps, square/sawtooth waves, pulses,
   maximum-length sequences and analysis windows
+* :mod:`.matrix`       — GEMM / gemv / add / sub with engine-selected
+  precision routes (fp32, bf16_comp, int8, bf16)
+* :mod:`.arithmetic`   — saturating conversions, float16 bits, real and
+  interleaved-complex multiplies, sums
+* :mod:`.mathfun`      — sin / cos / log / exp / pow / sqrt
+* :mod:`.normalize`    — u8 plane normalization and min/max scans
+* :mod:`.detect_peaks` — local extrema, scipy-style ``find_peaks`` with
+  prominences and widths
+* :mod:`.filters`      — median / rank, Savitzky-Golay, Wiener, and the
+  host-side FIR designs (firwin, firwin2, remez, kaiserord)
 * :mod:`.cuda_kernels` — the hand-written Hopper kernels, their
   wrappers, plain versions, gates and launch counters
 

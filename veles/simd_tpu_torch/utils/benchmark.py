@@ -16,11 +16,15 @@
 * :func:`fp32_bound` — the least time the card could take for a
   float32 function: the larger of its operations over the fp32 peak
   outside the tensor cores and its bytes over the memory rate.
+* :func:`gemm_work` and :func:`gemm_bound` — the same for a GEMM at
+  one of the precision layer's schemes, each against the peak of the
+  units its passes run on.
 
-The peaks are the H100 SXM's (NVIDIA data sheet, 700 W): 67 TFLOP/s
-fp32 without the tensor cores, 3.35 TB/s of HBM3.  A card set below
-700 W runs slower under load; callers print its power limit beside
-every bound.
+The peaks are the H100 SXM's (NVIDIA data sheet, 700 W, dense rates
+without sparsity): 67 TFLOP/s fp32 without the tensor cores, 495
+TFLOP/s TF32, 989 TFLOP/s bf16, 1979 TOP/s int8 on the tensor cores,
+3.35 TB/s of HBM3.  A card set below 700 W runs slower under load;
+callers print its power limit beside every bound.
 """
 
 from __future__ import annotations
@@ -32,11 +36,28 @@ import torch
 
 __all__ = ["device_time_ms", "host_time", "device_busy_ms",
            "device_breakdown", "device_kernels", "fp32_bound", "conv_work",
-           "conv2d_work", "stft_work",
-           "H100_FP32_TFLOPS", "H100_HBM_TBPS"]
+           "conv2d_work", "stft_work", "gemm_work", "gemm_bound",
+           "H100_FP32_TFLOPS", "H100_TF32_TFLOPS", "H100_BF16_TFLOPS",
+           "H100_INT8_TOPS", "H100_HBM_TBPS", "GEMM_PEAK_TFLOPS"]
 
 H100_FP32_TFLOPS = 67.0
+H100_TF32_TFLOPS = 495.0
+H100_BF16_TFLOPS = 989.0
+H100_INT8_TOPS = 1979.0
 H100_HBM_TBPS = 3.35
+
+# a GEMM's ceiling at each precision of runtime.precision: the peak of
+# the units its input type runs on, over its pass count (bf16_comp is
+# three bf16 passes); the matrix module's fp32 route sums in float64 on
+# the FP64 tensor cores, whose data-sheet peak is the same 67 TFLOP/s
+GEMM_PEAK_TFLOPS = {
+    "highest": H100_FP32_TFLOPS,
+    "high": H100_FP32_TFLOPS,
+    "default": H100_TF32_TFLOPS,
+    "bf16": H100_BF16_TFLOPS,
+    "bf16_comp": H100_BF16_TFLOPS / 3,
+    "int8": H100_INT8_TOPS,
+}
 
 
 def device_time_ms(fn, *, iters: int = 50, warmup: int = 3) -> float:
@@ -136,7 +157,35 @@ def fp32_bound(flops: float, nbytes: float) -> tuple[float, str]:
     """``(ms, bound_by)``: the least time for ``flops`` fp32 operations
     that move ``nbytes`` (each input read once, each output written
     once), and whether ``"operations"`` or ``"bytes"`` set it."""
-    t_ops = float(flops) / (H100_FP32_TFLOPS * 1e12) * 1e3
+    return _bound(flops, nbytes, H100_FP32_TFLOPS)
+
+
+def gemm_bound(flops: float, nbytes: float,
+               precision: str) -> tuple[float, str]:
+    """:func:`fp32_bound` for a GEMM at ``precision`` (a key of
+    :data:`GEMM_PEAK_TFLOPS`): its operations over that precision's
+    ceiling."""
+    try:
+        peak = GEMM_PEAK_TFLOPS[precision]
+    except KeyError:
+        raise ValueError(f"precision must be one of "
+                         f"{sorted(GEMM_PEAK_TFLOPS)}, got "
+                         f"{precision!r}") from None
+    return _bound(flops, nbytes, peak)
+
+
+def gemm_work(h1: int, w1: int, w2: int,
+              rows: int = 1) -> tuple[float, float]:
+    """``(flops, bytes)`` of ``rows`` float32 GEMMs ``[h1, w1] @ [w1,
+    w2]``: two operations per multiply-add, and the bytes of the three
+    float32 matrices of each, read or written once."""
+    h1, w1, w2, rows = (int(v) for v in (h1, w1, w2, rows))
+    return (2.0 * rows * h1 * w1 * w2,
+            4.0 * rows * (h1 * w1 + w1 * w2 + h1 * w2))
+
+
+def _bound(flops, nbytes, peak_tflops):
+    t_ops = float(flops) / (peak_tflops * 1e12) * 1e3
     t_bytes = float(nbytes) / (H100_HBM_TBPS * 1e12) * 1e3
     if t_ops >= t_bytes:
         return t_ops, "operations"

@@ -19,7 +19,13 @@ import torch
 
 from veles.simd_tpu_torch.utils.config import get_config
 
-__all__ = ["device", "on_cuda", "as_f32", "as_c64", "smi_line"]
+__all__ = ["device", "on_cuda", "as_tensor", "as_f32", "as_c64",
+           "smi_line"]
+
+# JAX (x64 off) computes 64-bit NumPy input in its 32-bit twin
+_X32 = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+        np.dtype(np.uint64): np.uint32,
+        np.dtype(np.complex128): np.complex64}
 
 
 def device() -> torch.device:
@@ -37,6 +43,19 @@ def device() -> torch.device:
 def on_cuda() -> bool:
     """Is the configured device a CUDA card that is present?"""
     return get_config().device == "cuda" and torch.cuda.is_available()
+
+
+def as_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor of its own dtype, 64-bit NumPy types narrowed
+    to 32 bits as ``jnp.asarray`` narrows them: a tensor stays as it
+    is, anything else goes to :func:`device`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    arr = arr.astype(_X32.get(arr.dtype, arr.dtype), copy=False)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.as_tensor(arr, device=device())
 
 
 def as_f32(x) -> torch.Tensor:
