@@ -54,6 +54,22 @@ without printing a result):
             detect_peaks_fixed / find_peaks on 2^20 samples (exact vs
             the oracles), medfilt / savgol_filter / wiener on
             64 x 16384 and medfilt2d 3 x 3 on 16 x 512^2;
+4c. dsp  — the IIR and resampling families through their entry
+            points at the JAX bench's shapes, nothing cut: ``sosfilt``
+            and ``batched_sosfilt`` (butterworth(4, 0.25)) on
+            64 x 16384 and 1 x 16384, ``sosfiltfilt`` and
+            ``decimate(ftype='iir', factor=4)`` (cheby1(8, 0.05, 0.2))
+            on 64 x 16384, ``batched_lfilter`` (order 3) on 64 x 16384,
+            ``StreamingSosfilt`` over 8 blocks of 2048 (equal to the
+            one-shot call), ``resample_poly`` 160/147 (3201 taps) on
+            2^20 samples, ``batched_resample_poly`` 160/147 on
+            256 x 4096, FIR ``decimate`` by 4 on 2^20 and
+            ``resample_fourier`` on 2^20 to the same length as 160/147;
+            each against a float64 oracle (IIR 2e-5 of max|y|, the FIR
+            resamplers 2e-5, Fourier 1e-4), with its chained ms (CUDA
+            events), device busy ms and kernels a call
+            (``torch.profiler``), Msamples/s and the bound of its least
+            bytes; no csrc kernel, no TF32 kernel;
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -106,6 +122,13 @@ N_MF = 1 << 20                           # config 2: 1M floats
 N_GEMM, N_GEMM2 = 512, 2048              # config 3, and the route GEMM
 N_PLANES, N_PLANE, N_MINMAX = 64, 1024, 1 << 24
 N_PEAKS = 1 << 20
+# the dsp phase: tools/benchmark_suite.py:411-508 and bench.py:805-840
+N_RS, UP_RS, DOWN_RS = 1 << 20, 160, 147   # 48 k -> 44.1 k
+ROWS_BRS, N_BRS = 256, 4096
+STREAM_BLOCK = 2048
+IIR_TOL = 2e-5           # of max|y| (tests/test_iir.py)
+RESAMPLE_TOL = 2e-5      # tests/test_resample.py
+FOURIER_TOL = 1e-4
 DAUB8_LO = np.array([-0.010597401784997278, 0.032883011666982945,
                      0.030841381835986965, -0.18703481171888114,
                      -0.02798376941698385, 0.6308807679295904,
@@ -486,6 +509,164 @@ def reference(torch, rng, bm, obs, ck, smi):
     torch.cuda.synchronize()
     check(not any(ck.LAUNCHES.values()),
           f"the reference path launched a csrc kernel: {ck.LAUNCHES}")
+
+
+def resample64(x, up, down, taps):
+    """float64 ``resample_poly`` oracle in polyphase form (SciPy's
+    compiled ``upfirdn``), for sizes where the textbook oracle's
+    zero-stuffed signal (n * up samples) is too large: the centered
+    grid ``full[pad + i * down]`` is ``upfirdn`` of the signal behind
+    ``z`` zeros, from output ``j0``, with ``pad + z * up = j0 * down``
+    (up and down coprime)."""
+    from scipy import signal as ss
+
+    k, n = len(taps), x.shape[-1]
+    pad = (k - 1) // 2
+    out_len = -(-n * up // down)
+    z = next(z for z in range(down) if (pad + z * up) % down == 0)
+    j0 = (pad + z * up) // down
+    xz = np.concatenate([np.zeros(x.shape[:-1] + (z,)),
+                         x.astype(np.float64)], axis=-1)
+    y = ss.upfirdn(taps, xz, up, down, axis=-1)[..., j0:j0 + out_len]
+    out = np.zeros(x.shape[:-1] + (out_len,))
+    out[..., :y.shape[-1]] = y
+    return out
+
+
+def dsp(torch, rng, bm, ck, smi):
+    """The IIR and resampling families on the card through their entry
+    points, each held to a float64 oracle and timed; they reach no
+    kernel of csrc/ (torch ops: the doubling scan's fp32 multiply-adds,
+    cuDNN ``conv1d`` pinned to fp32, cuFFT)."""
+    from veles.simd_tpu_torch.ops import batched as bt
+    from veles.simd_tpu_torch.ops import iir
+    from veles.simd_tpu_torch.ops import resample as rs
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+
+    def cuda(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def measure(name, fn, want, tol, n_in, n_out, extra=""):
+        got = fn()
+        torch.cuda.synchronize()
+        err = rel_err(got.cpu().numpy(), want)
+        check(err <= tol, f"dsp {name} rel err {err:.3e} > {tol}")
+        chained = bm.device_time_ms(fn, iters=20)
+        busy, launches = bm.device_profile(fn, calls=10)
+        nbytes = 4.0 * (n_in + n_out)
+        bound = nbytes / (bm.H100_HBM_TBPS * 1e9)
+        print(f"dsp {name}: rel {err:.2e} (tol {tol:.0e}) | "
+              f"{chained:.4f} ms chained = "
+              f"{n_in / chained / 1e3:.1f} Msamples/s | device busy "
+              f"{busy:.4f} ms, {launches:.0f} kernels a call | bound "
+              f"{bound:.6f} ms ({nbytes / 1e6:.1f} MB read and written "
+              f"once) = {bound / busy:.3f} of busy{extra}")
+        return launches
+
+    # the float64 polyphase oracle against the textbook one first
+    x_small = rng.randn(2, 1000)
+    taps_rs = rs._resample_taps(UP_RS, DOWN_RS, None)
+    gap = rel_err(resample64(x_small, UP_RS, DOWN_RS, taps_rs),
+                  rs.resample_poly_na(x_small, UP_RS, DOWN_RS))
+    check(gap <= 1e-12, f"the upfirdn oracle differs by {gap:.3e}")
+
+    # IIR: 64 x 16384 rows (tools/benchmark_suite.py), one row too
+    butter = iir.butterworth(4, 0.25)
+    cheby = iir.cheby1(8, 0.05, 0.2)
+    b_lf, a_lf = [0.2, 0.3, 0.1], [1.0, -0.5, 0.2, -0.05]
+    x_ii = rng.randn(ROWS_BS, N_BS).astype(np.float32)
+    x_t = cuda(x_ii)
+    x1_t = x_t[:1].contiguous()
+    n_ii = ROWS_BS * N_BS
+    want_butter = iir.sosfilt_na(butter, x_ii)
+    want_ff = iir.sosfiltfilt_na(cheby, x_ii)
+    per_section = measure(
+        f"sosfilt butterworth(4, 0.25) {ROWS_BS}x{N_BS}",
+        lambda: iir.sosfilt(butter, x_t), want_butter, IIR_TOL, n_ii, n_ii,
+        f" | {len(butter)} sections, levels "
+        + str([iir._doubling_powers(iir._companion((1.0, r[4], r[5])),
+                                    (N_BS - 1).bit_length()).shape[0]
+               for r in butter])) / len(butter)
+    print(f"dsp scan: {per_section:.1f} kernels a section (sosfilt "
+          f"{ROWS_BS}x{N_BS}) | breakdown (device us per call): "
+          + bm.device_breakdown(lambda: iir.sosfilt(butter, x_t), calls=5))
+    measure(f"sosfilt butterworth(4, 0.25) 1x{N_BS}",
+            lambda: iir.sosfilt(butter, x1_t), want_butter[:1], IIR_TOL,
+            N_BS, N_BS)
+    measure(f"batched_sosfilt butterworth(4, 0.25) {ROWS_BS}x{N_BS}",
+            lambda: bt.batched_sosfilt(butter, x_t), want_butter, IIR_TOL,
+            n_ii, n_ii)
+    measure(f"batched_sosfilt butterworth(4, 0.25) 1x{N_BS}",
+            lambda: bt.batched_sosfilt(butter, x1_t), want_butter[:1],
+            IIR_TOL, N_BS, N_BS)
+    measure(f"sosfiltfilt cheby1(8, 0.05, 0.2) {ROWS_BS}x{N_BS}",
+            lambda: iir.sosfiltfilt(cheby, x_t), want_ff, IIR_TOL, n_ii,
+            n_ii)
+    measure(f"decimate iir factor 4 {ROWS_BS}x{N_BS}",
+            lambda: rs.decimate(x_t, 4, ftype="iir"), want_ff[..., ::4],
+            IIR_TOL, n_ii, n_ii // 4)
+    measure(f"batched_lfilter order 3 {ROWS_BS}x{N_BS}",
+            lambda: bt.batched_lfilter(b_lf, a_lf, x_t),
+            iir.lfilter_na(b_lf, a_lf, x_ii), IIR_TOL, n_ii, n_ii)
+    one_shot = iir.sosfilt(butter, x_t)
+
+    def stream():
+        st = iir.StreamingSosfilt(butter)
+        return torch.cat([st.process(c)
+                          for c in x_t.split(STREAM_BLOCK, dim=-1)], -1)
+
+    gap = rel_err(stream().cpu().numpy(), one_shot.cpu().numpy())
+    check(gap <= IIR_TOL, f"streaming vs one-shot {gap:.3e}")
+    measure(f"StreamingSosfilt {N_BS // STREAM_BLOCK} blocks of "
+            f"{STREAM_BLOCK} x {ROWS_BS} rows", stream, want_butter,
+            IIR_TOL, n_ii, n_ii, f" | vs one-shot {gap:.2e}")
+
+    # resampling: 2^20 samples at 160/147, 256 x 4096 batched
+    x_rs = rng.randn(N_RS).astype(np.float32)
+    xr_t = cuda(x_rs)
+    out_rs = rs.resample_length(N_RS, UP_RS, DOWN_RS)
+    k_rs = len(taps_rs)
+    n_phase, _, runs = rs._polyphase_runs(taps_rs, UP_RS, DOWN_RS,
+                                          k_rs - 1 - (k_rs - 1) // 2)
+    macs = sum(w.size for _, w in runs) * -(-out_rs // n_phase)
+    measure(f"resample_poly {UP_RS}/{DOWN_RS} {N_RS} ({k_rs} taps)",
+            lambda: rs.resample_poly(xr_t, UP_RS, DOWN_RS),
+            resample64(x_rs, UP_RS, DOWN_RS, taps_rs), RESAMPLE_TOL, N_RS,
+            out_rs, f" | {len(runs)} conv1d runs, {macs / 1e6:.1f} M "
+            f"multiply-adds (out_len * ceil(k/up) = "
+            f"{out_rs * -(-k_rs // UP_RS) / 1e6:.1f} M)")
+    names = bm.device_kernels(lambda: rs.resample_poly(xr_t, UP_RS,
+                                                       DOWN_RS), calls=2)
+    names += bm.device_kernels(lambda: iir.sosfilt(butter, x_t), calls=2)
+    check(not any("tf32" in n.lower() for n in names),
+          f"a TF32 kernel in the scan or the polyphase core: {names}")
+    print("dsp breakdown resample_poly (device us per call): "
+          + bm.device_breakdown(lambda: rs.resample_poly(
+              xr_t, UP_RS, DOWN_RS), calls=5))
+    x_brs = rng.randn(ROWS_BRS, N_BRS).astype(np.float32)
+    xb_t = cuda(x_brs)
+    measure(f"batched_resample_poly {UP_RS}/{DOWN_RS} "
+            f"{ROWS_BRS}x{N_BRS}",
+            lambda: bt.batched_resample_poly(xb_t, UP_RS, DOWN_RS),
+            resample64(x_brs, UP_RS, DOWN_RS, taps_rs), RESAMPLE_TOL,
+            ROWS_BRS * N_BRS,
+            ROWS_BRS * rs.resample_length(N_BRS, UP_RS, DOWN_RS))
+    measure(f"decimate fir factor 4 {N_RS}",
+            lambda: rs.decimate(xr_t, 4),
+            resample64(x_rs, 1, 4, rs._resample_taps(1, 4, None)),
+            RESAMPLE_TOL, N_RS, N_RS // 4)
+    measure(f"resample_fourier {N_RS} -> {out_rs}",
+            lambda: rs.resample_fourier(xr_t, out_rs),
+            rs.resample_fourier_na(x_rs, out_rs), FOURIER_TOL, N_RS,
+            out_rs)
+    torch.cuda.synchronize()
+    check(not any(ck.LAUNCHES.values()),
+          f"the dsp path launched a csrc kernel: {ck.LAUNCHES}")
+    print(f"dsp: card {smi} | no csrc kernel, no TF32 kernel | phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -963,6 +1144,9 @@ def main():
 
     # 4b. the reference-header surface and the filters
     reference(torch, rng, bm, obs, ck, smi)
+
+    # 4c. the IIR and resampling families
+    dsp(torch, rng, bm, ck, smi)
 
     # 5. times at the main-path shapes
     obs.disable()

@@ -204,3 +204,135 @@ def test_failed_build_releases_the_key():
     assert not tb._build_locks
     h = tb._get_handle(("race3", "key"), lambda: (lambda *a: "ok"))
     assert h("x") == "ok"
+
+
+# ---- resample and IIR -------------------------------------------------------
+
+IIR_TOL = 2e-5   # tests/test_iir.py and tests/test_resample.py
+
+
+def _rel64(got, want):
+    got = np.asarray(got.numpy() if isinstance(got, torch.Tensor)
+                     else got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("shape", [(4, 300), (2, 3, 257)])
+@pytest.mark.parametrize("up,down", [(160, 147), (3, 2), (1, 4), (2, 2)])
+def test_batched_resample_poly_agrees(shape, up, down):
+    from veles.simd_tpu.ops import resample as jrs
+
+    x = _x(up + down + shape[-1], shape)
+    jb.clear_handle_cache()
+    got = tb.batched_resample_poly(x, up, down)
+    want = jb.batched_resample_poly(x, up, down, simd=True)
+    assert got.dtype == torch.float32
+    assert _rel64(got, want) <= IIR_TOL
+    assert _rel64(got, jrs.resample_poly_na(x, up, down)) <= IIR_TOL
+    # the same handle key as the JAX package's (the 1/1 rate keys none)
+    assert tb.handle_cache_info()["keys"] == jb.handle_cache_info()["keys"]
+    np.testing.assert_array_equal(
+        tb.batched_resample_poly(x, up, down, simd=False),
+        jb.batched_resample_poly(x, up, down, simd=False))
+
+
+@pytest.mark.parametrize("shape", [(4, 300), (2, 3, 129), (1, 2)])
+def test_batched_sosfilt_agrees(shape):
+    from veles.simd_tpu.ops import iir as jiir
+
+    x = _x(shape[-1], shape)
+    jb.clear_handle_cache()
+    for sos in (jiir.butterworth(4, 0.25), jiir.cheby1(8, 0.05, 0.2)):
+        got = tb.batched_sosfilt(sos, x)
+        assert _rel64(got, jb.batched_sosfilt(sos, x, simd=True)) <= IIR_TOL
+        assert _rel64(got, jiir.sosfilt_na(sos, x)) <= IIR_TOL
+        np.testing.assert_array_equal(
+            tb.batched_sosfilt(sos, x, simd=False),
+            jb.batched_sosfilt(sos, x, simd=False))
+    assert tb.handle_cache_info()["keys"] == jb.handle_cache_info()["keys"]
+
+
+@pytest.mark.parametrize("b,a", [
+    ([0.2, 0.3, 0.1], [1.0, -0.5, 0.2, -0.05]), ([1.0, 0.5], [2.0])])
+@pytest.mark.parametrize("shape", [(4, 300), (2, 3, 65)])
+def test_batched_lfilter_agrees(b, a, shape):
+    from veles.simd_tpu.ops import iir as jiir
+
+    x = _x(len(a) + shape[-1], shape)
+    jb.clear_handle_cache()
+    got = tb.batched_lfilter(b, a, x)
+    assert _rel64(got, jb.batched_lfilter(b, a, x, simd=True)) <= IIR_TOL
+    assert _rel64(got, jiir.lfilter_na(b, a, x)) <= IIR_TOL
+    assert tb.handle_cache_info()["keys"] == jb.handle_cache_info()["keys"]
+    np.testing.assert_array_equal(tb.batched_lfilter(b, a, x, simd=False),
+                                  jb.batched_lfilter(b, a, x, simd=False))
+
+
+def test_donate_is_accepted_and_keys_carry_no_donation():
+    from veles.simd_tpu.ops import iir as jiir
+
+    x = _x(5, (3, 200))
+    sos = jiir.butterworth(2, 0.3)
+    calls = (
+        lambda m, d: m.batched_resample_poly(x, 3, 2, donate=d),
+        lambda m, d: m.batched_sosfilt(sos, x, donate=d),
+        lambda m, d: m.batched_lfilter([1.0, 0.5], [1.0, -0.3], x,
+                                       donate=d),
+    )
+    jb.clear_handle_cache()
+    for call in calls:
+        np.testing.assert_array_equal(call(tb, True).numpy(),
+                                      call(tb, False).numpy())
+        call(jb, True)
+    info = tb.handle_cache_info()
+    assert (info["misses"], info["hits"]) == (3, 3)
+    assert info["keys"] == jb.handle_cache_info()["keys"]
+    assert all(k[-1] == () for k in info["keys"])
+    # the same signal the JAX package's entries take, donate= included
+    import inspect
+
+    for name in ("batched_resample_poly", "batched_sosfilt",
+                 "batched_lfilter"):
+        assert inspect.signature(getattr(tb, name)) == \
+            inspect.signature(getattr(jb, name))
+
+
+def test_batched_iir_contracts_match():
+    from veles.simd_tpu.ops import iir as jiir
+
+    sos = jiir.butterworth(2, 0.3)
+    for call in (lambda m: m.batched_sosfilt(sos, np.zeros(8)),
+                 lambda m: m.batched_resample_poly(np.zeros((0, 8)), 3, 2),
+                 lambda m: m.batched_lfilter([1.0], np.r_[1.0, 0.1 * np.ones(
+                     33)], np.zeros((2, 8))),
+                 lambda m: m.batched_lfilter([1.0], [0.0, 1.0],
+                                             np.zeros((2, 8)))):
+        with pytest.raises(ValueError) as want:
+            call(jb)
+        with pytest.raises(ValueError) as got:
+            call(tb)
+        assert str(got.value) == str(want.value)
+
+
+def test_batched_iir_decisions_and_spans():
+    from veles.simd_tpu.ops import iir as jiir
+
+    x = _x(6, (2, 100))
+    tobs.enable()
+    tobs.reset()
+    try:
+        tb.batched_sosfilt(jiir.butterworth(2, 0.3), x)
+        tb.batched_lfilter([1.0], [1.0, -0.5], x)
+        tb.batched_resample_poly(x, 3, 2)
+        assert [e["decision"] for e in tobs.events()
+                if e["op"] == "batched"] == [
+            "sosfilt", "lfilter", "resample_poly"]
+        names = {h["name"] for h in tobs.snapshot()["histograms"]}
+        assert {"span.batched.sosfilt.dispatch",
+                "span.batched.lfilter.dispatch",
+                "span.batched.resample_poly.dispatch"} <= names
+    finally:
+        tobs.reset()
+        tobs.disable()

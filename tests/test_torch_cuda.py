@@ -18,6 +18,8 @@ from veles.simd_tpu_torch.ops import convolve as cv
 from veles.simd_tpu_torch.ops import convolve2d as cv2
 from veles.simd_tpu_torch.ops import correlate as cr
 from veles.simd_tpu_torch.ops import cuda_kernels as ck
+from veles.simd_tpu_torch.ops import iir
+from veles.simd_tpu_torch.ops import resample as rs
 from veles.simd_tpu_torch.ops import spectral as sp
 from veles.simd_tpu_torch.ops import wavelet as wv
 from veles.simd_tpu_torch.utils import benchmark as bm
@@ -664,3 +666,98 @@ def test_log_special_values_on_the_card():
     np.testing.assert_allclose(mf.log_psv(u).cpu().numpy(),
                                np.log(u.astype(np.float64)),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---- IIR and resampling (no csrc kernel: torch ops on the card) -------------
+
+IIR_TOL = 2e-5      # tests/test_iir.py, tests/test_resample.py
+FOURIER_TOL = 1e-4
+
+
+def _no_copy_no_tf32(fn):
+    """The device work of ``fn`` on card-resident operands: neither a
+    TF32 kernel nor a copy to or from the host (the constants are on
+    the card after the profiler's warm-up call)."""
+    names = bm.device_kernels(fn, calls=2)
+    assert names
+    assert not any("tf32" in n.lower() for n in names), names
+    assert not any(d in n.lower() for n in names
+                   for d in ("htod", "dtoh")), names
+    return names
+
+
+@pytest.mark.parametrize("sos", [iir.butterworth(4, 0.25),
+                                 iir.cheby1(8, 0.05, 0.2)])
+def test_sosfilt_on_the_card(sos):
+    r = np.random.RandomState(3)
+    x = r.randn(8, 5000).astype(np.float32)
+    xt = _t(x)
+    got = iir.sosfilt(sos, xt)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert _rel(got.cpu(), iir.sosfilt_na(sos, x)) <= IIR_TOL
+    zi = r.randn(len(sos), 2)
+    y, zf = iir.sosfilt(sos, xt, zi=zi, return_zf=True)
+    wy, wzf = iir.sosfilt_na(sos, x, zi=zi, return_zf=True)
+    assert zf.is_cuda
+    assert _rel(y.cpu(), wy) <= IIR_TOL and _rel(zf.cpu(), wzf) <= IIR_TOL
+    assert _rel(iir.sosfiltfilt(sos, xt).cpu(),
+                iir.sosfiltfilt_na(sos, x)) <= IIR_TOL
+    assert _rel(bt.batched_sosfilt(sos, xt).cpu(),
+                iir.sosfilt_na(sos, x)) <= IIR_TOL
+    st = iir.StreamingSosfilt(sos)
+    ys = torch.cat([st.process(c) for c in xt.split(1000, -1)], -1)
+    assert ys.is_cuda
+    assert _rel(ys.cpu(), iir.sosfilt_na(sos, x)) <= IIR_TOL
+    _no_copy_no_tf32(lambda: iir.sosfilt(sos, xt))
+    _no_copy_no_tf32(lambda: iir.sosfiltfilt(sos, xt))
+
+
+def test_lfilter_on_the_card():
+    b, a = [0.2, 0.3, 0.1], [1.0, -0.5, 0.2, -0.05]
+    x = np.random.RandomState(4).randn(4, 3000).astype(np.float32)
+    xt = _t(x)
+    want = iir.lfilter_na(b, a, x)
+    assert _rel(iir.lfilter(b, a, xt).cpu(), want) <= IIR_TOL
+    assert _rel(bt.batched_lfilter(b, a, xt).cpu(), want) <= IIR_TOL
+    _no_copy_no_tf32(lambda: iir.lfilter(b, a, xt))
+
+
+@pytest.mark.parametrize("up,down", [(160, 147), (147, 160), (1, 4),
+                                     (4, 1), (3, 2)])
+def test_resample_poly_on_the_card(up, down):
+    x = np.random.RandomState(up + down).randn(3, 20000).astype(np.float32)
+    xt = _t(x)
+    got = rs.resample_poly(xt, up, down)
+    assert got.is_cuda
+    assert _rel(got.cpu(), rs.resample_poly_na(x, up, down)) <= IIR_TOL
+    assert _rel(bt.batched_resample_poly(xt, up, down).cpu(),
+                rs.resample_poly_na(x, up, down)) <= IIR_TOL
+    names = _no_copy_no_tf32(lambda: rs.resample_poly(xt, up, down))
+    # the polyphase core never runs a transposed conv
+    assert not any("dgrad" in n.lower() for n in names), names
+
+
+def test_other_resamplers_on_the_card():
+    r = np.random.RandomState(5)
+    x = r.randn(2, 8192).astype(np.float32)
+    xt = _t(x)
+    h = r.randn(31)
+    assert _rel(rs.upfirdn(h, xt, 3, 2).cpu(),
+                rs.upfirdn_na(h, x, 3, 2)) <= IIR_TOL
+    assert _rel(rs.decimate(xt, 4).cpu(),
+                rs.resample_poly_na(x, 1, 4)) <= IIR_TOL
+    assert _rel(rs.decimate(xt, 4, ftype="iir").cpu(),
+                rs.decimate(x, 4, ftype="iir", simd=False)) <= IIR_TOL
+    num = rs.resample_length(8192, 160, 147)
+    assert _rel(rs.resample_fourier(xt, num).cpu(),
+                rs.resample_fourier_na(x, num)) <= FOURIER_TOL
+    sos = iir.butterworth(3, 0.3)
+    for fn in (lambda: rs.upfirdn(h, xt, 3, 2),
+               lambda: rs.decimate(xt, 4),
+               lambda: rs.decimate(xt, 4, ftype="iir"),
+               lambda: rs.resample_fourier(xt, num),
+               lambda: bt.batched_resample_poly(xt, 160, 147),
+               lambda: bt.batched_sosfilt(sos, xt),
+               lambda: bt.batched_lfilter([1.0, 0.5], [1.0, -0.3], xt)):
+        assert fn().is_cuda
+        _no_copy_no_tf32(fn)

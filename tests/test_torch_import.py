@@ -2,12 +2,16 @@
 
 Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``) is
 imported in a fresh interpreter where ``import jax`` fails; afterwards no
-``veles.simd_tpu`` module may be loaded.
+``veles.simd_tpu`` module may be loaded.  Every port module of the op
+library exports each public name of its JAX twin.
 """
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "veles" / "simd_tpu_torch"
@@ -41,6 +45,8 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.ops.normalize",
                  "veles.simd_tpu_torch.ops.detect_peaks",
                  "veles.simd_tpu_torch.ops.filters",
+                 "veles.simd_tpu_torch.ops.iir",
+                 "veles.simd_tpu_torch.ops.resample",
                  "veles.simd_tpu_torch.runtime.precision",
                  "veles.simd_tpu_torch.runtime.routing",
                  "veles.simd_tpu_torch.obs"):
@@ -65,3 +71,27 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def _ops_with_jax_twins():
+    ops = PKG / "ops"
+    return sorted(p.stem for p in ops.glob("*.py")
+                  if p.stem != "__init__"
+                  and (REPO / "veles" / "simd_tpu" / "ops"
+                       / p.name).exists())
+
+
+def test_op_modules_are_listed_in_pairs():
+    names = _ops_with_jax_twins()
+    assert {"iir", "resample", "batched", "spectral",
+            "convolve"} <= set(names)
+
+
+@pytest.mark.parametrize("name", _ops_with_jax_twins())
+def test_port_all_covers_the_jax_all(name):
+    port = importlib.import_module(f"veles.simd_tpu_torch.ops.{name}")
+    ref = importlib.import_module(f"veles.simd_tpu.ops.{name}")
+    missing = sorted(set(ref.__all__) - set(port.__all__))
+    assert not missing, missing
+    for public in ref.__all__:
+        assert hasattr(port, public), public

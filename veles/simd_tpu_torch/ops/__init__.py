@@ -12,8 +12,15 @@
 * :mod:`.spectral`     — STFT / ISTFT, spectrogram, Hilbert envelope,
   Morlet CWT, PSD estimation (welch, periodogram, csd, coherence,
   detrend), chirp-Z / zoom FFT and Lomb-Scargle
+* :mod:`.iir`          — IIR design (Butterworth, Chebyshev I/II,
+  Bessel, elliptic, notch/peak, order estimation, ba/zpk/sos) and the
+  doubling-scan runtime (``sosfilt``, ``sosfiltfilt``, ``lfilter``,
+  streaming)
+* :mod:`.resample`     — polyphase rational resampling, ``upfirdn``,
+  decimation, Fourier resampling and the streaming resample step
 * :mod:`.batched`      — many short signals in one dispatch
-  (``batched_stft``), route handles in a bounded LRU
+  (``batched_resample_poly``, ``batched_sosfilt``, ``batched_lfilter``,
+  ``batched_stft``), route handles in a bounded LRU
 * :mod:`.waveforms`    — chirps, square/sawtooth waves, pulses,
   maximum-length sequences and analysis windows
 * :mod:`.matrix`       — GEMM / gemv / add / sub with engine-selected

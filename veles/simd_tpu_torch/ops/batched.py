@@ -11,16 +11,22 @@ once per geometry.  The key, the hit/miss/eviction stats, the
 decision event are the JAX package's, so a shape-churning caller shows
 up the same way in ``obs``.
 
-Ported: :func:`batched_stft`.  ``batched_resample_poly``,
-``batched_sosfilt`` and ``batched_lfilter`` come with the resample and
-IIR slice.  No ``donate=``: PyTorch frees an input when its last
-reference goes, so donation has no counterpart.
+All four entries are ported: :func:`batched_resample_poly`,
+:func:`batched_sosfilt`, :func:`batched_lfilter` and
+:func:`batched_stft`, each on the same core as its single-signal op.
+The first three accept the JAX package's ``donate=`` and, as the JAX
+package does off the TPU, donate nothing (their keys carry the JAX
+package's empty donation): PyTorch frees an input when its last
+reference goes.
 
 Usage::
 
     from veles.simd_tpu_torch.ops import batched
 
-    spec = batched.batched_stft(xs, 512, 128)   # xs: [B, n]
+    ys = batched.batched_resample_poly(xs, 160, 147)   # xs: [B, n]
+    ys = batched.batched_sosfilt(sos, xs)              # one dispatch
+    ys = batched.batched_lfilter(b, a, xs)
+    spec = batched.batched_stft(xs, 512, 128)
 
 The ``simd=`` flag works as everywhere else (falsy runs the NumPy
 oracle twin, batched trivially).
@@ -39,7 +45,8 @@ from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32
 
 __all__ = [
-    "BatchedHandle", "batched_stft", "handle_cache_info",
+    "BatchedHandle", "batched_resample_poly", "batched_sosfilt",
+    "batched_lfilter", "batched_stft", "handle_cache_info",
     "clear_handle_cache", "BATCHED_CACHE_MAXSIZE",
 ]
 
@@ -169,6 +176,133 @@ def _as_batch2d(x):
             f"empty batch (B=0): batched ops need at least one "
             f"signal, got shape {shape}")
     return shape[:-1], n
+
+
+# donation never applies on this backend: the JAX package's
+# ``_donate_argnums`` off the TPU, and the last field of its keys
+_NO_DONATION = ()
+
+
+# ---------------------------------------------------------------------------
+# resample
+# ---------------------------------------------------------------------------
+
+
+def batched_resample_poly(x, up: int, down: int, taps=None, simd=None,
+                          donate: bool = False):
+    """Rational-rate resampling of a BATCH of equal-length signals in
+    one dispatch: ``x[..., batch, n] -> [..., batch, ceil(n*up/down)]``.
+
+    Same numerics and conventions as
+    :func:`~veles.simd_tpu_torch.ops.resample.resample_poly` (the handle
+    wraps the same polyphase core); the taps stay an operand, so
+    switching filters builds no new handle — only a new ``(batch, n,
+    up, down, len(taps))`` geometry does.  ``donate`` is accepted for
+    the JAX package's signature and donates nothing (module note).
+    """
+    from veles.simd_tpu_torch.ops import resample as rs
+
+    batch_shape, n = _as_batch2d(x)
+    up, down, taps = rs._normalize_resample_args(n, up, down, taps)
+    if not resolve_simd(simd, op="batched_resample_poly"):
+        return rs.resample_poly_na(x, up, down, taps).astype(np.float32)
+    if up == 1 and down == 1:
+        return as_f32(x)
+    out_len = rs.resample_length(n, up, down)
+    rows = int(np.prod(batch_shape))
+    key = ("resample_poly", rows, n, up, down, len(taps), _NO_DONATION)
+
+    def build():
+        def run(xb, taps_b):
+            return rs._resample_conv(xb, taps_b, up, down, out_len)
+
+        return run
+
+    with obs.span("batched.resample_poly.dispatch"):
+        handle = _get_handle(key, build)
+        out = handle(as_f32(x).reshape(rows, n), taps)
+    return out.reshape(tuple(batch_shape) + (out_len,))
+
+
+# ---------------------------------------------------------------------------
+# IIR cascades / transfer functions
+# ---------------------------------------------------------------------------
+
+
+def batched_sosfilt(sos, x, simd=None, donate: bool = False):
+    """Second-order-section cascade over a BATCH of equal-length
+    signals in one dispatch: ``x[..., batch, n] -> same shape``.
+
+    Same doubling-scan numerics as
+    :func:`~veles.simd_tpu_torch.ops.iir.sosfilt` (zero initial state —
+    the streaming/zi form stays on the single-signal API).  The section
+    coefficients parameterize the scan's transition powers, so the
+    handle key includes them: one handle per (filter, batch, length).
+    ``donate`` is accepted and donates nothing (module note).
+    """
+    from veles.simd_tpu_torch.ops import iir
+
+    sos = iir._check_sos(sos)
+    batch_shape, n = _as_batch2d(x)
+    if not resolve_simd(simd, op="batched_sosfilt"):
+        return iir.sosfilt_na(sos, x).astype(np.float32)
+    sos_key = tuple(tuple(float(v) for v in row) for row in sos)
+    rows = int(np.prod(batch_shape))
+    key = ("sosfilt", rows, n, sos_key, _NO_DONATION)
+
+    def build():
+        sos_rows = np.asarray(sos_key, np.float64)
+
+        def run(xb):
+            return iir._sos_scan(xb, sos_rows)
+
+        return run
+
+    with obs.span("batched.sosfilt.dispatch"):
+        handle = _get_handle(key, build)
+        out = handle(as_f32(x).reshape(rows, n))
+    return out.reshape(tuple(batch_shape) + (n,))
+
+
+def batched_lfilter(b, a, x, simd=None, donate: bool = False):
+    """Direct-form transfer-function filter over a BATCH of
+    equal-length signals in one dispatch (the batched form of
+    :func:`~veles.simd_tpu_torch.ops.iir.lfilter`, same companion-matrix
+    scan and order bound).  Coefficients key the handle, like
+    :func:`batched_sosfilt`; ``donate`` is accepted and donates nothing
+    (module note).
+    """
+    from veles.simd_tpu_torch.ops import iir
+
+    b, a = iir._normalize_ba(b, a)
+    p = len(a) - 1
+    if p > iir._LFILTER_MAX_ORDER:
+        raise ValueError(
+            f"denominator order {p} > {iir._LFILTER_MAX_ORDER}: use "
+            "batched_sosfilt (cascaded second-order sections) for "
+            "high-order filters")
+    batch_shape, n = _as_batch2d(x)
+    if not resolve_simd(simd, op="batched_lfilter"):
+        return iir.lfilter_na(b, a, x).astype(np.float32)
+    if p == 0:
+        a = np.concatenate([a, [0.0]])  # the JAX package's FIR key
+    b_key = tuple(float(v) for v in b)
+    a_key = tuple(float(v) for v in a)
+    rows = int(np.prod(batch_shape))
+    key = ("lfilter", rows, n, b_key, a_key, _NO_DONATION)
+
+    def build():
+        b_arr, a_arr = np.asarray(b_key), np.asarray(a_key)
+
+        def run(xb):
+            return iir._lfilter_torch(xb, b_arr, a_arr)
+
+        return run
+
+    with obs.span("batched.lfilter.dispatch"):
+        handle = _get_handle(key, build)
+        out = handle(as_f32(x).reshape(rows, n))
+    return out.reshape(tuple(batch_shape) + (n,))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@
   host's enqueue cost.
 * :func:`device_breakdown` — ``torch.profiler``'s device time per
   kernel and copy for one call, and the device's idle share;
-  :func:`device_kernels` — the names of those kernels and copies.
+  :func:`device_kernels` — the names of those kernels and copies;
+  :func:`device_profile` — the busy time and how many kernels and
+  copies one call runs.
 * :func:`fp32_bound` — the least time the card could take for a
   float32 function: the larger of its operations over the fp32 peak
   outside the tensor cores and its bytes over the memory rate.
@@ -35,7 +37,8 @@ import time
 import torch
 
 __all__ = ["device_time_ms", "host_time", "device_busy_ms",
-           "device_breakdown", "device_kernels", "fp32_bound", "conv_work",
+           "device_breakdown", "device_kernels", "device_profile",
+           "fp32_bound", "conv_work",
            "conv2d_work", "stft_work", "gemm_work", "gemm_bound",
            "H100_FP32_TFLOPS", "H100_TF32_TFLOPS", "H100_BF16_TFLOPS",
            "H100_INT8_TOPS", "H100_HBM_TBPS", "GEMM_PEAK_TFLOPS"]
@@ -91,9 +94,9 @@ def host_time(fn, *, repeats: int = 3, warmup: int = 1) -> float:
 
 def _profile(fn, calls: int):
     """``(rows, wall_us)``: ``torch.profiler``'s device microseconds per
-    call of ``fn`` by kernel or copy, largest first, and the host-clock
-    microseconds per call, over ``calls`` calls after one profiled
-    warm-up."""
+    call of ``fn`` by kernel or copy, largest first, with their names
+    and launches per call, and the host-clock microseconds per call,
+    over ``calls`` calls after one profiled warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -112,11 +115,22 @@ def _profile(fn, calls: int):
         wall_us = (time.perf_counter() - t0) * 1e6 / calls
     # device-side events only (kernels, copies, memsets): the host ops
     # that launched them report the same time again
-    rows = sorted(((e.device_time_total / calls, e.key)
+    rows = sorted(((e.device_time_total / calls, e.key, e.count / calls)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     return rows, wall_us
+
+
+def _device_rows(fn, calls: int):
+    """:func:`_profile`'s rows; a trace can come back empty on its own,
+    so one more window before giving up."""
+    rows, _ = _profile(fn, calls)
+    if not rows:
+        rows, _ = _profile(fn, calls)
+    if not rows:
+        raise RuntimeError("torch.profiler saw no device time")
+    return rows
 
 
 def device_busy_ms(fn, *, calls: int = 20) -> float:
@@ -124,13 +138,7 @@ def device_busy_ms(fn, *, calls: int = 20) -> float:
     and copies' device time under ``torch.profiler``, free of the
     host's enqueue cost (which sets the chained time of a call whose
     kernels are shorter than its Python dispatch)."""
-    rows, _ = _profile(fn, calls)
-    if not rows:
-        # a trace can come back empty on its own: one more window
-        rows, _ = _profile(fn, calls)
-    if not rows:
-        raise RuntimeError("torch.profiler saw no device time")
-    return sum(us for us, _ in rows) / 1e3
+    return device_profile(fn, calls=calls)[0]
 
 
 def device_breakdown(fn, *, calls: int = 5) -> str:
@@ -140,8 +148,8 @@ def device_breakdown(fn, *, calls: int = 5) -> str:
     rows, wall_us = _profile(fn, calls)
     if not rows:
         return f"profiler saw no device time ({wall_us:.1f} us wall)"
-    busy = sum(us for us, _ in rows)
-    parts = [f"{name[:48]} {us:.1f}" for us, name in rows[:6]]
+    busy = sum(row[0] for row in rows)
+    parts = [f"{name[:48]} {us:.1f}" for us, name, _ in rows[:6]]
     return (" | ".join(parts) + f" | device busy {busy:.1f} of "
             f"{wall_us:.1f} wall (profiled), idle share "
             f"{max(0.0, 1 - busy / wall_us):.3f}")
@@ -150,7 +158,16 @@ def device_breakdown(fn, *, calls: int = 5) -> str:
 def device_kernels(fn, *, calls: int = 5) -> list[str]:
     """Names of the kernels and copies ``fn`` runs on the device
     (``torch.profiler``), largest device time first."""
-    return [name for _, name in _profile(fn, calls)[0]]
+    return [name for _, name, _ in _device_rows(fn, calls)]
+
+
+def device_profile(fn, *, calls: int = 20) -> tuple[float, float]:
+    """``(busy_ms, launches)`` per call of ``fn`` from one profiled
+    window: :func:`device_busy_ms` and the number of kernels and copies
+    it runs on the device."""
+    rows = _device_rows(fn, calls)
+    return (sum(row[0] for row in rows) / 1e3,
+            sum(row[2] for row in rows))
 
 
 def fp32_bound(flops: float, nbytes: float) -> tuple[float, str]:
