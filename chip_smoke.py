@@ -70,6 +70,28 @@ without printing a result):
             events), device busy ms and kernels a call
             (``torch.profiler``), Msamples/s and the bound of its least
             bytes; no csrc kernel, no TF32 kernel;
+4d. faults — the fault policy through the entry points at full size,
+            with injected plans and no backoff: the headline with
+            ``convolve.os_cuda:vmem_oom:1`` (demoted, no K1 launch on
+            that call or the next, within 1e-4 of float64),
+            ``convolve.dispatch:device_lost:2`` (retried, answered by
+            K1), ``stft`` 2^20 at 512/128 with
+            ``spectral.stft_cuda:vmem_oom:1``, ``convolve2d`` 16 x 512^2
+            7 x 7 with ``convolve2d.direct_cuda:vmem_oom:1``, and a
+            breaker opened by ``convolve.dispatch:device_lost:9999`` on
+            host input that short-circuits to the oracle and recloses
+            once the plan clears; the same device loss and a refused
+            K1 launch with operands already on the card, which
+            re-raise (no oracle, no demotion, nothing remembered);
+            ``packed_stft`` (128/64 and 512/128)
+            and ``packed_convolve`` (129 taps) on 256 segments of the
+            serve campaign's Pareto lengths, against float64 oracles
+            and the unpacked calls; the guard's host cost (each entry
+            against its unguarded core and the bare kernel wrapper, in
+            turns, and the guard's pieces on the host clock).  The
+            main, reference, dsp and times phases must record no
+            fault: no ``fault_*`` counter, ``fault_policy`` event,
+            fault record or failed breaker;
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -669,6 +691,412 @@ def dsp(torch, rng, bm, ck, smi):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def healthy(phase, obs, faults, breaker):
+    """Fail when a phase that runs no fault plan recorded a fault: a
+    ``fault_*`` counter or ``fault_policy`` event since the last
+    ``obs.reset()``, a retained fault record (retries, demotions and
+    exhaustions since the engine's last reset, whatever ``obs`` did),
+    a breaker that ever failed or is not closed, or an armed plan."""
+    snap = obs.snapshot()
+    bad = ([c["name"] for c in snap["counters"]
+            if c["name"].startswith("fault_")]
+           + [e["decision"] for e in snap["events"]
+              if e["op"] == "fault_policy"]
+           + [r["action"] + "@" + r["site"] for r in faults.fault_history()]
+           + [b["site"] for b in breaker.snapshot()
+              if b["state"] != breaker.CLOSED or b["failures"]])
+    check(not bad and not faults.plan_snapshot()
+          and faults.FAULT_PLAN_ENV not in os.environ,
+          f"{phase}: the healthy path recorded faults {bad[:8]}")
+    return len(breaker.snapshot())
+
+
+def pareto_lengths(rng, count, lo, hi):
+    """The serve campaign's heavy-tailed request lengths
+    (tools/loadgen.py:588-623): ``lo * (1 + Pareto(1.5))`` clipped to
+    ``[lo, hi]``."""
+    return [max(lo, min(int(lo * (1.0 + rng.pareto(1.5))), hi))
+            for _ in range(count)]
+
+
+def faults_phase(torch, rng, bm, ck, obs, smi):
+    """The fault policy on the card through the entry points, at full
+    size, with injected plans (backoff 0): each kernel route's
+    demotion (no launch, the answer from the fallback route within
+    1e-4 of the float64 oracle, the next call skipping the kernel),
+    the dispatch guard's retry answered by K1, a breaker opened by
+    exhausted retries on host input that short-circuits to the oracle
+    and recloses once the plan clears, operands already on the card
+    (no oracle, no demotion: the fault re-raises); then the ragged
+    segment packing
+    of the serve campaign's lengths; then the guard's host cost."""
+    from veles.simd_tpu_torch.ops import batched as bt
+    from veles.simd_tpu_torch.ops import convolve as cv
+    from veles.simd_tpu_torch.ops import convolve2d as cv2
+    from veles.simd_tpu_torch.ops import segments as seg
+    from veles.simd_tpu_torch.ops import spectral as sp
+    from veles.simd_tpu_torch.runtime import breaker, faults
+
+    t_phase = time.perf_counter()
+    os.environ[faults.FAULT_BACKOFF_ENV] = "0"
+    dev = torch.device("cuda")
+    obs.enable()
+    sync = torch.cuda.synchronize
+
+    def cuda(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def host(y):
+        return y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+
+    def start(plan):
+        # each scenario on a clean engine: no fault records, no breakers
+        obs.reset()
+        faults.reset_fault_history()
+        ck.reset_launches()
+        faults.set_fault_plan(plan)
+
+    # the headline's kernel route refused once: demoted, remembered
+    x_head = rng.randn(N_HEAD).astype(np.float32)
+    h_head = rng.randn(K_HEAD).astype(np.float32)
+    want_head = fft_conv64(x_head, h_head)
+    handle = cv.convolve_initialize(N_HEAD, K_HEAD)
+    start("convolve.os_cuda:vmem_oom:1")
+    os_launches, os_err = [], []
+    for _ in range(2):
+        ck.reset_launches()
+        y = cv.convolve(handle, x_head, h_head)
+        sync()
+        os_launches.append(ck.LAUNCHES["overlap_save"])
+        os_err.append(rel_err(host(y), want_head))
+    faults.set_fault_plan(None)
+    routes = [e["decision"] for e in obs.events()
+              if e["op"] == "convolve_os_route"]
+    check(obs.counter_value("cuda_os_demotion", reason="compile_oom") == 1
+          and obs.counter_value("fault_demotion",
+                                site="convolve.os_cuda") == 1
+          and K_HEAD in cv._CUDA_OS_REJECTED,
+          "the headline's kernel route did not demote and remember")
+    check(os_launches == [0, 0] and routes == ["xla_matmul"] * 2,
+          f"demoted headline launches {os_launches}, routes {routes}")
+    check(max(os_err) <= ORACLE_TOL, f"demoted headline rel err {os_err}")
+    cv._CUDA_OS_REJECTED.discard(K_HEAD)
+    print(f"faults: convolve {N_HEAD}x{K_HEAD} convolve.os_cuda:vmem_oom:1"
+          f" demoted 1 (cuda_os_demotion), overlap_save launches "
+          f"{os_launches}, routes {routes}, rel {max(os_err):.2e}")
+
+    # the dispatch guard: two device losses retried, K1 answers
+    start("convolve.dispatch:device_lost:2")
+    y = cv.convolve(handle, x_head, h_head)
+    sync()
+    faults.set_fault_plan(None)
+    retry_launches = ck.LAUNCHES["overlap_save"]
+    err_retry = rel_err(host(y), want_head)
+    check(isinstance(y, torch.Tensor) and y.is_cuda
+          and retry_launches == 2
+          and obs.counter_value("fault_retry",
+                                site="convolve.dispatch") == 2
+          and err_retry <= ORACLE_TOL,
+          f"retried headline: launches {retry_launches}, rel "
+          f"{err_retry:.3e}")
+    print(f"faults: convolve.dispatch:device_lost:2 retried 2, answered "
+          f"by K1 (overlap_save launches {retry_launches}), rel "
+          f"{err_retry:.2e}")
+
+    # the STFT kernel route refused once
+    x_st = rng.randn(N_ST).astype(np.float32)
+    want_st = sp.stft_na(x_st, L_ST, HOP_ST)
+    start("spectral.stft_cuda:vmem_oom:1")
+    st_launches, st_err = [], []
+    for _ in range(2):
+        ck.reset_launches()
+        y = sp.stft(x_st, L_ST, HOP_ST)
+        sync()
+        st_launches.append(ck.LAUNCHES["stft"])
+        st_err.append(crel_err(host(y), want_st))
+    faults.set_fault_plan(None)
+    st_routes = [(e["decision"], e.get("demoted_from"))
+                 for e in obs.events() if e["op"] == "stft_route"]
+    check(obs.counter_value("cuda_stft_demotion",
+                            reason="compile_oom") == 1
+          and (L_ST, HOP_ST) in sp._CUDA_STFT_REJECTED
+          and st_launches == [0, 0] and max(st_err) <= ORACLE_TOL
+          and st_routes == [("cuda_fused", None),
+                            ("rdft_matmul", "cuda_fused"),
+                            ("rdft_matmul", None)],
+          f"stft demotion: launches {st_launches}, routes {st_routes}, "
+          f"rel {st_err}")
+    sp._CUDA_STFT_REJECTED.discard((L_ST, HOP_ST))
+    print(f"faults: stft {N_ST} {L_ST}/{HOP_ST} spectral.stft_cuda:"
+          f"vmem_oom:1 demoted 1 (cuda_stft_demotion) to rdft_matmul, "
+          f"stft launches {st_launches}, rel {max(st_err):.2e}")
+
+    # the 2D kernel route refused once
+    x_2d = rng.randn(IMGS_2D, N_2D, N_2D).astype(np.float32)
+    h_2d = rng.randn(K_2D, K_2D).astype(np.float32)
+    want_2d = conv2d64(x_2d, h_2d)
+    key_2d = (IMGS_2D, N_2D, N_2D, K_2D, K_2D)
+    start("convolve2d.direct_cuda:vmem_oom:1")
+    c2_launches, c2_err = [], []
+    for _ in range(2):
+        ck.reset_launches()
+        y = cv2.convolve2d(x_2d, h_2d)
+        sync()
+        c2_launches.append(ck.LAUNCHES["filter_2d"])
+        c2_err.append(rel_err(host(y), want_2d))
+    faults.set_fault_plan(None)
+    c2_routes = [e["decision"] for e in obs.events()
+                 if e["op"] == "convolve2d"]
+    check(obs.counter_value("cuda2d_demotion", reason="compile_oom") == 1
+          and key_2d in cv2._CUDA2D_REJECTED and c2_launches == [0, 0]
+          and c2_routes == ["fft", "fft"] and max(c2_err) <= ORACLE_TOL,
+          f"convolve2d demotion: launches {c2_launches}, routes "
+          f"{c2_routes}, rel {c2_err}")
+    cv2._CUDA2D_REJECTED.discard(key_2d)
+    print(f"faults: convolve2d {IMGS_2D}x{N_2D}x{N_2D} k {K_2D}x{K_2D} "
+          f"convolve2d.direct_cuda:vmem_oom:1 demoted 1 (cuda2d_demotion)"
+          f" to fft, filter_2d launches {c2_launches}, rel "
+          f"{max(c2_err):.2e}")
+
+    # a class whose dispatch keeps failing, on host input: two calls
+    # exhaust their retries and degrade, the breaker opens, the third
+    # short-circuits to the oracle; the plan cleared, the cadence's
+    # probe recloses it and K1 answers again
+    start("convolve.dispatch:device_lost:9999")
+    br_err = []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        y = cv.convolve(handle, x_head, h_head)
+        check(isinstance(y, np.ndarray), "a degraded answer is NumPy")
+        br_err.append(rel_err(y, want_head))
+    degraded_s = time.perf_counter() - t0
+    faults.set_fault_plan(None)
+    br = breaker.lookup("convolve.dispatch",
+                        ("overlap_save", K_HEAD, N_HEAD))
+    state_open = br.state
+    counts = {name: obs.counter_value(name, site="convolve.dispatch")
+              for name in ("fault_retry", "fault_breaker_short_circuit")}
+    counts["fault_degraded"] = obs.counter_value(
+        "fault_degraded", site="convolve.dispatch", to="oracle")
+    check(state_open == breaker.OPEN and ck.LAUNCHES["overlap_save"] == 0
+          and counts == {"fault_retry": 4,
+                         "fault_breaker_short_circuit": 1,
+                         "fault_degraded": 2}
+          and max(br_err) <= ORACLE_TOL,
+          f"breaker: state {state_open}, counters {counts}, launches "
+          f"{ck.LAUNCHES['overlap_save']}, rel {br_err}")
+    n_close = 0
+    while br.state != breaker.CLOSED and n_close < 8:
+        ck.reset_launches()
+        y = cv.convolve(handle, x_head, h_head)
+        sync()
+        n_close += 1
+    check(br.state == breaker.CLOSED and isinstance(y, torch.Tensor)
+          and ck.LAUNCHES["overlap_save"] == 2
+          and rel_err(host(y), want_head) <= ORACLE_TOL,
+          f"breaker did not reclose: {br.info()}")
+    print(f"faults: convolve.dispatch:device_lost:9999 on host input: 2 "
+          f"calls degraded to the oracle, breaker {state_open}, 1 short-"
+          f"circuit, counters {counts}, rel {max(br_err):.2e}, "
+          f"{degraded_s * 1e3:.1f} ms host clock for the 3 calls | plan "
+          f"cleared: closed after {n_close} calls, the last on K1 "
+          f"(launches 2), breaker {br.info()}")
+    faults.reset_fault_history()
+
+    # operands already on the card get no oracle and no demotion: two
+    # device losses retried, then the third re-raised with the fault
+    # recorded; a refused kernel launch raises untouched, nothing
+    # remembered, and the next call runs K1
+    xc, hc = cuda(x_head), cuda(h_head)
+    card = {}
+    for plan in ("convolve.dispatch:device_lost:9999",
+                 "convolve.os_cuda:vmem_oom:1"):
+        start(plan)
+        try:
+            cv.convolve(handle, xc, hc)
+            card[plan] = "answered"
+        except faults.InjectedFault as e:
+            card[plan] = "raised " + str(e).split(":")[0]
+        faults.set_fault_plan(None)
+        card[plan + " counts"] = (
+            obs.counter_value("fault_retry", site="convolve.dispatch"),
+            obs.counter_value("fault_exhausted", site="convolve.dispatch",
+                              kind="device_lost"),
+            obs.counter_value("fault_degraded", site="convolve.dispatch",
+                              to="oracle"),
+            obs.counter_value("fault_demotion", site="convolve.os_cuda"),
+            ck.LAUNCHES["overlap_save"])
+    ck.reset_launches()
+    y = cv.convolve(handle, xc, hc)
+    sync()
+    err_card = rel_err(host(y), want_head)
+    lost, refused = ("convolve.dispatch:device_lost:9999",
+                     "convolve.os_cuda:vmem_oom:1")
+    check(card[lost].startswith("raised")
+          and card[lost + " counts"] == (2, 1, 0, 0, 0)
+          and card[refused].startswith("raised")
+          and card[refused + " counts"] == (0, 0, 0, 0, 0)
+          and K_HEAD not in cv._CUDA_OS_REJECTED
+          and ck.LAUNCHES["overlap_save"] == 2 and err_card <= ORACLE_TOL,
+          f"card operands: {card}, then launches "
+          f"{ck.LAUNCHES['overlap_save']}, rel {err_card:.3e}")
+    print(f"faults: card operands: {lost} {card[lost]} (retry, exhausted, "
+          f"degraded, demotion, launches {card[lost + ' counts']}); "
+          f"{refused} {card[refused]} ({card[refused + ' counts']}), not "
+          f"remembered; the next call on K1 (launches 2), rel "
+          f"{err_card:.2e}")
+    faults.reset_fault_history()
+
+    # ragged segment packing: 256 segments of the serve campaign's
+    # Pareto lengths, each against its float64 oracle and against the
+    # unpacked per-segment call
+    def pack_case(name, segs, packed, unpacked_one, oracle_one, kernel):
+        ck.reset_launches()
+        obs.reset()
+        outs, degraded = packed()
+        sync()
+        launches = ck.LAUNCHES[kernel] if kernel else 0
+        check(degraded == [False] * len(segs), f"{name} degraded")
+        check(not faults.fault_history(), f"{name} recorded a fault")
+        alone = [host(unpacked_one(s)) for s in segs]
+        err = max(crel_err(o, oracle_one(s)) for o, s in zip(outs, segs))
+        diff = max(float(np.max(np.abs(o - a)) / np.max(np.abs(a)))
+                   for o, a in zip(outs, alone))
+        equal = sum(bool(np.array_equal(o, a)) for o, a in zip(outs, alone))
+        packed_ms = bm.host_time(packed, repeats=3) * 1e3
+
+        def loop():
+            for s in segs:
+                host(unpacked_one(s))
+
+        loop_ms = bm.host_time(loop, repeats=3) * 1e3
+        return launches, err, diff, equal, packed_ms, loop_ms
+
+    seg_lines = []
+    for name, lo, hi, L, hop in (("stft", 128, 2800, 128, 64),
+                                 ("stft", 512, 16384, 512, 128)):
+        segs = [rng.randn(n).astype(np.float32)
+                for n in pareto_lengths(rng, 256, lo, hi)]
+        # the K4 case packs into rows of the longest length, so every
+        # packed row holds enough frames for the kernel's gate
+        width = hi if hop % 128 == 0 else None
+        strides = [seg.stft_stride(s.shape[0], hop) for s in segs]
+        width, rows, _ = seg.plan_pack(strides, width)
+        res = pack_case(
+            name, segs,
+            lambda: seg.packed_stft(segs, L, hop, width=width),
+            lambda s: bt.batched_stft(s[None, :], L, hop)[0],
+            lambda s: sp.stft_na(s, L, hop), "stft")
+        check(res[1] <= ORACLE_TOL and res[2] <= ORACLE_TOL,
+              f"packed_stft {L}/{hop}: rel {res[1]:.3e}, vs unpacked "
+              f"{res[2]:.3e}")
+        check((res[0] >= 1) == (hop % 128 == 0),
+              f"packed_stft {L}/{hop} stft launches {res[0]}")
+        seg_lines.append(
+            f"packed_stft {L}/{hop} 256 segments {lo}-{hi} "
+            f"(samples {sum(s.shape[0] for s in segs)}) -> {rows} x "
+            f"{width}, stft launches {res[0]}, rel vs float64 "
+            f"{res[1]:.2e}, max diff vs unpacked {res[2]:.2e} "
+            f"({res[3]}/256 bit-equal), host clock {res[4]:.2f} ms "
+            f"packed vs {res[5]:.2f} ms unpacked loop")
+    segs = [rng.randn(n).astype(np.float32)
+            for n in pareto_lengths(rng, 256, 128, 2800)]
+    h_pk = rng.randn(K_FB).astype(np.float32)
+    width, rows, _ = seg.plan_pack(
+        [seg.convolve_stride(s.shape[0], K_FB) for s in segs])
+    res = pack_case(
+        "convolve", segs, lambda: seg.packed_convolve(segs, h_pk),
+        lambda s: cv.convolve_simd(s, h_pk),
+        lambda s: fft_conv64(s, h_pk), "filter_bank")
+    check(res[0] >= 1 and res[1] <= ORACLE_TOL and res[2] <= 1e-5,
+          f"packed_convolve: fb launches {res[0]}, rel {res[1]:.3e}, vs "
+          f"unpacked {res[2]:.3e}")
+    seg_lines.append(
+        f"packed_convolve {K_FB} taps 256 segments 128-2800 (samples "
+        f"{sum(s.shape[0] for s in segs)}) -> {rows} x {width}, "
+        f"filter_bank launches {res[0]}, rel vs float64 {res[1]:.2e}, "
+        f"max diff vs unpacked {res[2]:.2e} ({res[3]}/256 bit-equal), "
+        f"host clock {res[4]:.2f} ms packed vs {res[5]:.2f} ms unpacked "
+        "loop")
+    for line in seg_lines:
+        print("segments: " + line)
+
+    # the guard's host cost: each entry point against the unguarded
+    # core it calls and the bare kernel wrapper, operands on the card,
+    # telemetry off, in turns; the device work is the same kernels
+    obs.disable()
+    xh, th = cuda(x_head), cuda(h_head)
+    xst = cuda(x_st)
+    win_np = sp.hann_window(L_ST)
+    win = cuda(win_np)
+    x2, h2 = cuda(x_2d), cuda(h_2d)
+    levels = {
+        "convolve": (lambda: cv.convolve(handle, xh, th),
+                     lambda: cv._run_torch(handle, xh, th),
+                     lambda: cv._conv_os_cuda(xh, th)),
+        "stft": (lambda: sp.stft(xst, L_ST, HOP_ST),
+                 lambda: sp._run_stft_cuda(xst, win_np, L_ST, HOP_ST),
+                 lambda: ck.stft_cuda(xst, win, L_ST, HOP_ST)),
+        "convolve2d": (lambda: cv2.convolve2d(x2, h2),
+                       lambda: cv2._run2d_torch(x2, h2, False, "direct",
+                                                True, True, (0, 0)),
+                       lambda: cv2._conv2d_direct_cuda(x2, h2)),
+    }
+    for name, (entry, core, bare) in levels.items():
+        turns = []
+        for label, fn in (("entry", entry), ("core", core), ("bare", bare),
+                          ("bare", bare), ("core", core),
+                          ("entry", entry)):
+            turns.append((label, bm.device_time_ms(fn, iters=200)))
+        mean = {lab: float(np.mean([ms for lab_, ms in turns
+                                    if lab_ == lab]))
+                for lab in ("entry", "core", "bare")}
+        busy_entry, busy_bare = bm.device_busy_ms(entry), \
+            bm.device_busy_ms(bare)
+        k_entry, k_bare = (sorted(bm.device_kernels(entry)),
+                           sorted(bm.device_kernels(bare)))
+        check(k_entry == k_bare, f"guard {name}: the entry runs "
+              f"{k_entry}, the bare wrapper {k_bare}")
+        print(f"guard: {name} chained ms per call in turns "
+              + " ".join(f"{lab} {ms:.4f}" for lab, ms in turns)
+              + f" | entry - core {(mean['entry'] - mean['core']) * 1e3:.1f}"
+              f" us, core - bare {(mean['core'] - mean['bare']) * 1e3:.1f}"
+              f" us | device busy entry {busy_entry:.4f} ms, bare "
+              f"{busy_bare:.4f} ms, same kernels {k_entry}")
+
+    # the guard's pieces on the host clock (no plan, no card work)
+    def per_call_us(fn, n=20000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    noop = lambda: None  # noqa: E731
+    rej = set()
+    parts = {
+        "inject": lambda: faults.inject("convolve.dispatch"),
+        "armed": lambda: faults.armed("convolve.os_cuda"),
+        "breaker_for+admit+success": lambda: (
+            breaker.breaker_for("guard.cost", 1).admit(),
+            breaker.breaker_for("guard.cost", 1).success()),
+        "guarded": lambda: faults.guarded("guard.cost", noop),
+        "breaker_guarded": lambda: faults.breaker_guarded(
+            "guard.cost", 1, noop, fallback=noop),
+        "demote_and_remember": lambda: faults.demote_and_remember(
+            "guard.cost", noop, noop, cache=rej, key=1, route="a",
+            fallback_route="b", counter="c"),
+        "route_allowed": lambda: cv._use_cuda_os(K_HEAD, xh),
+    }
+    print("guard parts: host-clock us per call (no plan): " + " | ".join(
+        f"{k} {per_call_us(fn):.2f}" for k, fn in parts.items()))
+    faults.reset_fault_history()
+    obs.enable()
+    obs.reset()
+    del os.environ[faults.FAULT_BACKOFF_ENV]
+    print(f"faults: phase {time.perf_counter() - t_phase:.1f} s | card "
+          f"{smi}")
+
+
 def main():
     import torch
 
@@ -685,6 +1113,7 @@ def main():
     from veles.simd_tpu_torch.ops import cuda_kernels as ck
     from veles.simd_tpu_torch.ops import spectral as sp
     from veles.simd_tpu_torch.ops import wavelet as wv
+    from veles.simd_tpu_torch.runtime import breaker, faults
     from veles.simd_tpu_torch.utils import benchmark as bm
     from veles.simd_tpu_torch.utils.config import set_config
     from veles.simd_tpu_torch.utils.platform import smi_line
@@ -1142,11 +1571,19 @@ def main():
     print("main: " + " | ".join(an_parts) + f" | morlet_cwt {ROWS_CWT}x"
           f"{N_CWT} {SCALES_CWT} scales {cw_routes[0]} rel {err_cw:.2e}")
 
+    healthy("main", obs, faults, breaker)
+
     # 4b. the reference-header surface and the filters
     reference(torch, rng, bm, obs, ck, smi)
+    healthy("reference", obs, faults, breaker)
 
     # 4c. the IIR and resampling families
     dsp(torch, rng, bm, ck, smi)
+    healthy("dsp", obs, faults, breaker)
+
+    # 4d. the fault policy under injected plans, then a clean engine
+    faults_phase(torch, rng, bm, ck, obs, smi)
+    healthy("faults (after its reset)", obs, faults, breaker)
 
     # 5. times at the main-path shapes
     obs.disable()
@@ -1504,6 +1941,10 @@ def main():
             rows[-1]["contract_ms"] = bm.device_busy_ms(
                 lambda: ck.cascade_bank_cuda(xc_ext, taps, plans, ns, n_cb),
                 calls=20)
+    n_breakers = healthy("times", obs, faults, breaker)
+    print("healthy: main, reference, dsp and times recorded no fault_* "
+          "counter, no fault_policy event and no fault record; "
+          f"{n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start
     print(f"times: card {smi} | chip_smoke {elapsed:.1f} s so far")
     print(json.dumps({"kernels": rows}))

@@ -761,3 +761,105 @@ def test_other_resamplers_on_the_card():
                lambda: bt.batched_lfilter([1.0, 0.5], [1.0, -0.3], xt)):
         assert fn().is_cuda
         _no_copy_no_tf32(fn)
+
+
+def test_oversized_smem_launch_is_a_typed_rejection(monkeypatch):
+    # the STFT kernel's admission opened past the card's shared memory
+    # per block: the launch is refused with cudaErrorInvalidValue (1),
+    # raised as a typed CudaError that the fault policy classifies as a
+    # rejection for the geometry, never as a transient fault
+    from veles.simd_tpu_torch import obs
+    from veles.simd_tpu_torch.runtime import faults
+
+    L, hop = 32768, 128
+    assert not ck.fits_smem_stft(L, hop)
+    monkeypatch.setattr(ck, "fits_smem_stft", lambda L, hop: True)
+    r = np.random.RandomState(90)
+    x = r.randn(L + 70 * hop).astype(np.float32)
+    with pytest.raises(ck.CudaError) as ei:
+        ck.stft_cuda(_t(x), _t(sp.hann_window(L)), L, hop)
+    assert ei.value.code == 1
+    assert faults.is_mosaic_vmem_oom(ei.value)
+    assert not faults.is_transient(ei.value)
+    # through the entry point with the operand on the card: the
+    # refusal raises untouched and nothing is remembered
+    obs.enable()
+    obs.reset()
+    try:
+        with pytest.raises(ck.CudaError):
+            sp.stft(_t(x), L, hop)
+        assert (L, hop) not in sp._CUDA_STFT_REJECTED
+        assert obs.counter_value("fault_demotion",
+                                 site="spectral.stft_cuda") == 0
+        # with host input: the route demotes to xla_fft, remembers the
+        # class and launches nothing
+        ck.reset_launches()
+        got = sp.stft(x, L, hop)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["stft"] == 0
+        assert (L, hop) in sp._CUDA_STFT_REJECTED
+        assert obs.counter_value("cuda_stft_demotion",
+                                 reason="compile_oom") == 1
+        assert obs.counter_value("fault_demotion",
+                                 site="spectral.stft_cuda") == 1
+        want = sp.stft_na(x, L, hop)
+        assert _rel(got.cpu().numpy().view(np.float32),
+                    want.astype(np.complex64).view(np.float32)) <= 1e-4
+    finally:
+        obs.disable()
+        obs.reset()
+        sp._CUDA_STFT_REJECTED.discard((L, hop))
+
+
+def test_card_operands_reraise_after_retries(monkeypatch):
+    # operands already on the card: a device loss is retried, then
+    # re-raised with the fault recorded; no NumPy oracle answers
+    from veles.simd_tpu_torch import obs
+    from veles.simd_tpu_torch.runtime import faults
+
+    monkeypatch.setenv(faults.FAULT_BACKOFF_ENV, "0")
+    r = np.random.RandomState(92)
+    x, h = _t(r.randn(1 << 16)), _t(r.randn(2047))
+    obs.enable()
+    obs.reset()
+    try:
+        with faults.fault_plan("convolve.dispatch:device_lost:9999"):
+            with pytest.raises(faults.InjectedFault):
+                cv.convolve(x, h)
+        assert obs.counter_value("fault_retry",
+                                 site="convolve.dispatch") == 2
+        assert obs.counter_value("fault_degraded", site="convolve.dispatch",
+                                 to="oracle") == 0
+        assert faults.fault_history()[-1]["action"] == "exhausted"
+        assert cv.convolve(x, h).is_cuda
+    finally:
+        faults.reset_fault_history()
+        obs.disable()
+        obs.reset()
+
+
+def test_healthy_kernel_routes_record_no_fault():
+    from veles.simd_tpu_torch import obs
+
+    r = np.random.RandomState(91)
+    x = r.randn(1 << 16).astype(np.float32)
+    h = r.randn(2047).astype(np.float32)
+    obs.enable()
+    obs.reset()
+    try:
+        ck.reset_launches()
+        y = cv.convolve(_t(x), _t(h))
+        y2 = cv2.convolve2d(_t(r.randn(4, 64, 64)), _t(r.randn(5, 5)))
+        s = sp.stft(_t(r.randn(1 << 16)), 512, 128)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["overlap_save"] >= 1
+        assert ck.LAUNCHES["filter_2d"] == 1 and ck.LAUNCHES["stft"] == 1
+        assert all(t.is_cuda for t in (y, y2, s))
+        snap = obs.snapshot()
+        assert not [c for c in snap["counters"]
+                    if c["name"].startswith("fault_")]
+        assert not [e for e in snap["events"]
+                    if e["op"] == "fault_policy"]
+    finally:
+        obs.disable()
+        obs.reset()

@@ -47,9 +47,15 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.ops.filters",
                  "veles.simd_tpu_torch.ops.iir",
                  "veles.simd_tpu_torch.ops.resample",
+                 "veles.simd_tpu_torch.ops.segments",
                  "veles.simd_tpu_torch.runtime.precision",
                  "veles.simd_tpu_torch.runtime.routing",
-                 "veles.simd_tpu_torch.obs"):
+                 "veles.simd_tpu_torch.runtime.faults",
+                 "veles.simd_tpu_torch.runtime.breaker",
+                 "veles.simd_tpu_torch.obs",
+                 "veles.simd_tpu_torch.obs.flightrec",
+                 "veles.simd_tpu_torch.obs.atomic",
+                 "veles.simd_tpu_torch.obs.export"):
         assert name in mods
 
 
@@ -85,6 +91,20 @@ def test_op_modules_are_listed_in_pairs():
     names = _ops_with_jax_twins()
     assert {"iir", "resample", "batched", "spectral",
             "convolve"} <= set(names)
+
+
+@pytest.mark.parametrize("name", ["runtime.faults", "runtime.breaker",
+                                  "obs.flightrec", "obs.atomic",
+                                  "obs.export", "ops.segments"])
+def test_runtime_and_obs_copies_keep_the_jax_all(name):
+    # the fault policy, the breakers, the flight recorder, its writer
+    # and exporters, and the segment packing mirror their JAX modules'
+    # public surface exactly
+    port = importlib.import_module(f"veles.simd_tpu_torch.{name}")
+    ref = importlib.import_module(f"veles.simd_tpu.{name}")
+    assert port.__all__ == ref.__all__
+    for public in ref.__all__:
+        assert hasattr(port, public), public
 
 
 @pytest.mark.parametrize("name", _ops_with_jax_twins())

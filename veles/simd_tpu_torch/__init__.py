@@ -10,8 +10,10 @@ path is a CUDA C++ kernel written for Hopper (``csrc/``), built with
 Ported so far: 1D and 2D convolution and cross-correlation, the
 wavelet and spectral families, waveforms, and the reference-header
 surface (matrix, arithmetic, mathfun, normalize, detect_peaks) with
-the filters (:mod:`veles.simd_tpu_torch.ops`), over the routing,
-precision, config and telemetry core they need.
+the filters, the IIR and resampling families and the ragged segment
+packing (:mod:`veles.simd_tpu_torch.ops`), over the routing,
+precision, fault-policy, circuit-breaker, config and telemetry core
+they need.
 
 Entry points compute on ``Config.device`` (``"cuda"`` by default;
 ``utils.config.set_config(device="cpu")`` for the CPU).  The package

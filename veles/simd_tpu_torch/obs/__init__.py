@@ -4,16 +4,18 @@ The port's slim counterpart of ``veles.simd_tpu.obs``: the counters,
 timing histograms, bounded decision-event log and host-side spans that
 the dispatch layer reports into, over copies of the JAX package's
 framework-free storage modules (:mod:`.registry`, :mod:`.events`,
-:mod:`.spans`, :mod:`.lru`), and the cache introspection of its
-resource axis (:func:`register_cache`, :func:`caches`).  The rest of
-the resource axis and the compile, flight-recorder, request, journal,
-time-series, incident and HTTP axes are not ported yet.
+:mod:`.spans`, :mod:`.lru`, :mod:`.atomic`, :mod:`.export`), the
+cache introspection of its resource axis (:func:`register_cache`,
+:func:`caches`) and the crash flight recorder (:mod:`.flightrec`,
+which the fault policy arms on retry exhaustion).  The rest of the
+resource axis and the compile, request, journal, time-series,
+incident and HTTP axes are not ported yet.
 
 Contract with the compute layer: ops modules touch telemetry only
-through :func:`record_decision`, :func:`count` and :func:`span`, and
-only at the Python dispatch layer.  Off by default; enable with
-``VELES_SIMD_TELEMETRY=1`` or :func:`enable`.  While disabled every
-helper is one flag check.
+through :func:`record_decision`, :func:`count`, :func:`gauge` and
+:func:`span`, and only at the Python dispatch layer.  Off by default;
+enable with ``VELES_SIMD_TELEMETRY=1`` or :func:`enable`.  While
+disabled every helper is one flag check.
 
 Usage::
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 import os
 import threading
 
+from veles.simd_tpu_torch.obs import export as _export
 from veles.simd_tpu_torch.obs import spans as _spans_mod
 from veles.simd_tpu_torch.obs.events import EventLog
 from veles.simd_tpu_torch.obs.lru import LRUSet
@@ -35,8 +38,9 @@ from veles.simd_tpu_torch.obs.registry import MetricsRegistry
 from veles.simd_tpu_torch.obs.spans import SpanTracer
 
 __all__ = [
-    "enable", "disable", "enabled", "count", "record_decision", "span",
-    "counter_value", "events", "snapshot", "report", "reset",
+    "enable", "disable", "enabled", "count", "gauge", "record_decision",
+    "span", "counter_value", "events", "snapshot", "report",
+    "to_prometheus", "reset",
     "register_cache", "caches",
     "MetricsRegistry", "EventLog", "SpanTracer", "LRUSet",
 ]
@@ -73,6 +77,13 @@ def count(name: str, n: int = 1, **labels) -> None:
     _registry.count(name, n, **labels)
 
 
+def gauge(name: str, value: float, **labels) -> None:
+    """Set gauge ``name`` to ``value`` (no-op while disabled)."""
+    if not _enabled:
+        return
+    _registry.gauge(name, value, **labels)
+
+
 def span(name: str, **attrs):
     """Time a host-side dispatch scope (context manager); the shared
     no-op context while telemetry is off."""
@@ -102,14 +113,21 @@ def events() -> list:
 
 def snapshot() -> dict:
     """One JSON-native dict: counters, gauges, histograms (including
-    the ``span.*`` latency distributions), events, drop counts and the
-    enabled flag."""
+    the ``span.*`` latency distributions), events, drop counts, cache
+    stats (:func:`caches`) and the enabled flag."""
     snap = _registry.snapshot()
     snap["events"] = _events.events()
     snap["events_dropped"] = _events.dropped
     snap["spans_dropped"] = _spans.dropped
+    snap["caches"] = caches()
     snap["enabled"] = _enabled
     return snap
+
+
+def to_prometheus(snap: dict | None = None) -> str:
+    """A snapshot in the Prometheus text format
+    (:func:`veles.simd_tpu_torch.obs.export.to_prometheus`)."""
+    return _export.to_prometheus(snapshot() if snap is None else snap)
 
 
 def report(snap: dict | None = None, max_events: int = 20) -> str:

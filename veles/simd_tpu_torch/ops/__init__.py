@@ -21,6 +21,10 @@
 * :mod:`.batched`      — many short signals in one dispatch
   (``batched_resample_poly``, ``batched_sosfilt``, ``batched_lfilter``,
   ``batched_stft``), route handles in a bounded LRU
+* :mod:`.segments`     — ragged segment packing: variable-length
+  signals packed along the sample axis into shared rows
+  (``packed_stft``, ``packed_convolve``), one guarded dispatch with a
+  per-segment salvage
 * :mod:`.waveforms`    — chirps, square/sawtooth waves, pulses,
   maximum-length sequences and analysis windows
 * :mod:`.matrix`       — GEMM / gemv / add / sub with engine-selected
@@ -38,5 +42,6 @@
 
 Every public op takes the reference-compatible ``simd=`` flag: truthy
 (the default) runs PyTorch on ``Config.device``; falsy runs the NumPy
-oracle twin.
+oracle twin.  The routed dispatch sites run behind the fault policy of
+:mod:`veles.simd_tpu_torch.runtime.faults`.
 """

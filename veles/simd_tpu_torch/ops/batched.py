@@ -39,6 +39,7 @@ import functools
 import threading
 
 import numpy as np
+import torch
 
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.utils.config import resolve_simd
@@ -334,13 +335,16 @@ def batched_stft(x, frame_length: int, hop: int, window=None,
     if not resolve_simd(simd, op="batched_stft"):
         return sp.stft_na(x, frame_length, hop,
                           window).astype(np.complex64)
-    xt = as_f32(x)
     rows = int(np.prod(batch_shape))
     frames = sp.frame_count(n, frame_length, hop)
-    route = sp._stft_route_for(frame_length, hop, frames, rows,
-                               cuda=xt.is_cuda)
+    route = sp._stft_route_for(
+        frame_length, hop, frames, rows,
+        cuda=x.is_cuda if isinstance(x, torch.Tensor) else None)
     if route == "cuda_fused":
-        return sp.stft(xt, frame_length, hop, window=window, simd=True)
+        # the caller's operand, as the JAX package passes it: host data
+        # keeps stft's oracle fallback
+        return sp.stft(x, frame_length, hop, window=window, simd=True)
+    xt = as_f32(x)
     bins = frame_length // 2 + 1
     key = ("stft", rows, n, frame_length, hop, route)
 

@@ -18,8 +18,23 @@ Routes, JAX name → port name where they differ:
   taps;
 * ``fft``: one padded ``torch.fft.rfft`` product.
 
-:data:`ROUTE_NAMES` maps the JAX names to the port's.  There is no
-fault or breaker wrapping yet: a kernel failure raises.
+:data:`ROUTE_NAMES` maps the JAX names to the port's.
+
+Faults, as in the JAX package (:mod:`veles.simd_tpu_torch.runtime.
+faults`): every handle dispatch runs behind
+``faults.breaker_guarded("convolve.dispatch", ...)``, keyed by
+``(algorithm, h_length, pow2_bucket(x_length))`` — a device loss or
+timeout is retried, then answered by the NumPy oracle (which returns
+NumPy), and a class that keeps failing opens its breaker.  The
+operands reach the device inside the guard, so a fault in the
+host-to-device copy is retried too.  The ``cuda_fused`` route runs
+under ``faults.demote_and_remember`` at ``convolve.os_cuda``: a launch
+the card refuses for the filter length (``cuda_os_demotion``) demotes
+to ``xla_matmul`` and is remembered in ``cuda_os_rejected`` (64
+entries), so the next call skips the kernel.  The oracle and the
+demotion serve host operands only: with an operand already on the
+card a transient fault is retried and then re-raised, recorded, and a
+refused launch raises untouched (``faults.on_card``).
 
 Result length is always ``x_length + h_length - 1`` (full linear
 convolution); ``mode=`` slices it numpy's way.  All entry points accept
@@ -38,8 +53,8 @@ import torch.nn.functional as F
 
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import cuda_kernels as _ck
+from veles.simd_tpu_torch.runtime import faults, routing
 from veles.simd_tpu_torch.runtime import precision as prx
-from veles.simd_tpu_torch.runtime import routing
 from veles.simd_tpu_torch.utils.config import get_config, resolve_simd
 from veles.simd_tpu_torch.utils.memory import (
     next_highest_power_of_2, zeropadding_length)
@@ -237,9 +252,20 @@ def os_precision() -> str:
     return get_config().conv_precision
 
 
+# Filter lengths whose overlap-save kernel launch the card refused
+# (demote-and-remember, runtime/faults.py): a bounded LRU in
+# obs.caches(), consulted by the cuda_fused gate.  Tests may
+# substitute a plain set; the provider re-reads the module global.
+_CUDA_OS_MAXSIZE = 64
+_CUDA_OS_REJECTED = obs.LRUSet(_CUDA_OS_MAXSIZE)
+faults.register_rejection_cache(
+    "cuda_os_rejected", lambda: _CUDA_OS_REJECTED, _CUDA_OS_MAXSIZE)
+
+
 # Overlap-save candidate table: the overlap-save kernel vs the fp32
 # block matmul.  The static priors of the JAX table stay: the kernel
-# for filters of 256 taps and more.
+# for filters of 256 taps and more.  The rejection cache and the
+# injection site ride the table, as in the JAX package.
 _OS_FAMILY = routing.family("convolve.os", (
     routing.Route(
         "cuda_fused",
@@ -247,6 +273,9 @@ _OS_FAMILY = routing.family("convolve.os", (
             cuda and h_length >= _ck.OS_MIN_H
             and _ck.fits_smem_os(h_length)),
         disable_env="VELES_SIMD_DISABLE_CUDA_OS",
+        fault_site="convolve.os_cuda",
+        rejection_cache=lambda: _CUDA_OS_REJECTED,
+        rejection_key=lambda h_length, **_: h_length,
         doc="overlap-save kernel: an FFT segment per block in shared "
             "memory, halo reloaded (VELES_SIMD_DISABLE_CUDA_OS opts "
             "out)"),
@@ -258,10 +287,12 @@ _OS_FAMILY = routing.family("convolve.os", (
 
 def _use_cuda_os(h_length: int, x) -> bool:
     """Route the overlap-save handle through the overlap-save kernel
-    — a thin delegate into the ``convolve.os`` table.  Tests
-    monkeypatch this gate."""
-    return _OS_FAMILY.gate("cuda_fused", h_length=int(h_length),
-                           cuda=x.is_cuda)
+    — a thin delegate into the ``convolve.os`` table: rejection memory
+    first, then an armed fault plan (which opens the gate on the CPU),
+    then the env opt-out and the kernel gates.  Tests monkeypatch this
+    gate."""
+    return _OS_FAMILY.route_allowed("cuda_fused", h_length=int(h_length),
+                                    cuda=x.is_cuda)
 
 
 def _conv_os_cuda(x, h, reverse=False):
@@ -434,16 +465,35 @@ def _check_lengths(handle, x, h):
 
 def _run(handle: ConvolutionHandle, x, h, simd=None):
     if resolve_simd(simd, op="convolve"):
+        # the transient-fault policy (bounded retry on device loss or
+        # timeout, then the NumPy oracle) around the whole device side,
+        # operand copies included, behind the shape class's circuit
+        # breaker (x_length pow2-bucketed, h_length exact: it gates
+        # routes); the oracle answers host operands only
         with obs.span("convolve.dispatch",
                       algo=handle.algorithm.value,
                       os_matmul=handle.os_matmul):
-            return _run_torch(handle, x, h)
+            return faults.breaker_guarded(
+                "convolve.dispatch",
+                (handle.algorithm.value, handle.h_length,
+                 routing.pow2_bucket(handle.x_length)),
+                lambda: _run_torch(handle, x, h),
+                fallback=None if faults.on_card(x, h)
+                else lambda: _run_oracle(handle, x, h))
     return _run_oracle(handle, x, h)
 
 
+def _host(a):
+    """``a`` as NumPy: a tensor comes to the host."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def _run_oracle(handle: ConvolutionHandle, x, h):
-    """The NumPy-oracle side of :func:`_run`."""
-    x, h = np.asarray(x), np.asarray(h)
+    """The NumPy-oracle side of :func:`_run` — also the fault policy's
+    degradation target when the device side exhausts its retries."""
+    x, h = _host(x), _host(h)
     _check_lengths(handle, x, h)
     if handle.reverse:
         h = h[..., ::-1]
@@ -463,6 +513,7 @@ _OS_RUNNERS = {
 
 def _run_torch(handle: ConvolutionHandle, x, h):
     """The PyTorch side of :func:`_run`."""
+    host = not faults.on_card(x, h)
     x, h = _operands(x, h)
     _check_lengths(handle, x, h)
     if handle.algorithm is ConvolutionAlgorithm.BRUTE_FORCE:
@@ -470,17 +521,40 @@ def _run_torch(handle: ConvolutionHandle, x, h):
     if handle.algorithm is ConvolutionAlgorithm.FFT:
         return _conv_fft(x, h, handle.fft_length, reverse=handle.reverse)
     if handle.os_matmul:
+        def os_route(route="xla_matmul"):
+            # the default keeps this a zero-arg demotion fallback
+            obs.record_decision(
+                "convolve_os_route", route, x_length=handle.x_length,
+                h_length=handle.h_length, step=handle.step)
+            with obs.span("convolve.os_route", route=route):
+                return _OS_RUNNERS[route](x, h, handle)
+
         eligible = (["cuda_fused", "xla_matmul"]
                     if _use_cuda_os(handle.h_length, x)
                     else ["xla_matmul"])
         route = _OS_FAMILY.select(eligible=eligible)
-        obs.record_decision(
-            "convolve_os_route", route, x_length=handle.x_length,
-            h_length=handle.h_length,
-            step=(_ck.os_step(handle.h_length, handle.x_length)
-                  if route == "cuda_fused" else handle.step))
-        with obs.span("convolve.os_route", route=route):
-            return _OS_RUNNERS[route](x, h, handle)
+        if route != "cuda_fused":
+            return os_route(route)
+
+        def os_kernel():
+            with obs.span("convolve.os_route", route="cuda_fused"):
+                out = _OS_RUNNERS["cuda_fused"](x, h, handle)
+            # recorded after the launch, so a demotion never
+            # misattributes the executed route
+            obs.record_decision(
+                "convolve_os_route", "cuda_fused",
+                x_length=handle.x_length, h_length=handle.h_length,
+                step=_ck.os_step(handle.h_length, handle.x_length))
+            return out
+
+        # a launch the card refuses for this filter length demotes to
+        # the block matmul and is remembered (host operands only); any
+        # other error raises
+        return faults.demote_and_remember(
+            "convolve.os_cuda", os_kernel, os_route if host else None,
+            cache=_CUDA_OS_REJECTED, key=handle.h_length,
+            route="cuda_fused", fallback_route="xla_matmul",
+            counter="cuda_os_demotion")
     return _conv_overlap_save(x, h, handle.block_length,
                               reverse=handle.reverse)
 

@@ -20,14 +20,26 @@ Routes (the ``convolve2d`` candidate table):
   two — every shape the kernel route refuses.
 
 The area cap is the JAX package's static prior; it has not been
-measured on the H100.  Not ported: the fault and rejection-cache
-wrapping of the JAX routes and its compile-time stack model, which
-belong to the TPU's compiler; the kernel's shared-memory admission here
-is exact arithmetic.  Results are float32 tensors; ``simd=False`` runs
-the float64 NumPy oracle and returns NumPy.
+measured on the H100.  Faults, as in the JAX package: the dispatch runs
+behind ``faults.breaker_guarded("convolve2d.dispatch", ...)`` keyed by
+``(algorithm, kernel shape, pow2-bucketed image shape)`` (retry on a
+device loss or timeout, then the float64 oracle, which returns NumPy),
+and the kernel route under ``faults.demote_and_remember`` at
+``convolve2d.direct_cuda``: a launch the card refuses for the shape
+(``cuda2d_demotion``) is remembered in ``cuda2d_rejected`` (256
+entries, keyed ``(images, n0, n1, k0, k1)``) and demotes auto dispatch
+to ``fft``, an explicit ``"direct"`` to ``direct_mxu``.  The oracle
+and the demotion serve host operands only (``faults.on_card``).  Not
+ported:
+the JAX package's compile-time stack model for traced calls, which
+belongs to the TPU's compiler; the kernel's shared-memory admission
+here is exact arithmetic.  Results are float32 tensors;
+``simd=False`` runs the float64 NumPy oracle and returns NumPy.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -35,9 +47,9 @@ import torch.nn.functional as F
 
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import cuda_kernels as _ck
-from veles.simd_tpu_torch.ops.convolve import _check_mode, _operands
+from veles.simd_tpu_torch.ops.convolve import _check_mode, _host, _operands
+from veles.simd_tpu_torch.runtime import faults, routing
 from veles.simd_tpu_torch.runtime import precision as prx
-from veles.simd_tpu_torch.runtime import routing
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.memory import next_highest_power_of_2
 from veles.simd_tpu_torch.utils.platform import as_f32, on_cuda
@@ -56,11 +68,25 @@ def _direct2d_gate(k0, k1, cuda=False, **_):
             and _ck.fits_smem_f2d(k0, k1))
 
 
+# Shape classes whose 2D kernel launch the card refused
+# (demote-and-remember, runtime/faults.py), keyed (images, n0, n1, k0,
+# k1) as in the JAX package; a bounded LRU in obs.caches().  Tests may
+# substitute a plain set; the provider re-reads the module global.
+_CUDA2D_MAXSIZE = 256
+_CUDA2D_REJECTED = obs.LRUSet(_CUDA2D_MAXSIZE)
+faults.register_rejection_cache(
+    "cuda2d_rejected", lambda: _CUDA2D_REJECTED, _CUDA2D_MAXSIZE)
+
+
 _CONV2D_FAMILY = routing.family("convolve2d", (
     routing.Route(
         "direct",
         predicate=_direct2d_gate,
         disable_env="VELES_SIMD_DISABLE_CUDA2D",
+        fault_site="convolve2d.direct_cuda",
+        rejection_cache=lambda: _CUDA2D_REJECTED,
+        rejection_key=lambda rows, n0, n1, k0, k1, **_:
+            (rows, n0, n1, k0, k1),
         doc="2D shifted-MAC kernel (VELES_SIMD_DISABLE_CUDA2D opts "
             "out)"),
     routing.Route(
@@ -72,11 +98,13 @@ _CONV2D_FAMILY = routing.family("convolve2d", (
 
 def _use_cuda_direct2d(x_shape, k0: int, k1: int, cuda: bool) -> bool:
     """Route the direct form through the 2D kernel — a thin delegate
-    into the ``convolve2d`` table.  Tests monkeypatch this gate."""
-    return _CONV2D_FAMILY.gate("direct", k0=int(k0), k1=int(k1),
-                               rows=_images(x_shape),
-                               n0=int(x_shape[-2]), n1=int(x_shape[-1]),
-                               cuda=bool(cuda))
+    into the ``convolve2d`` table: rejection memory first (a demoted
+    shape skips the kernel without re-raising), then an armed fault
+    plan (which opens the gate on the CPU), then the env opt-out and
+    the kernel gates.  Tests monkeypatch this gate."""
+    return _CONV2D_FAMILY.route_allowed(
+        "direct", k0=int(k0), k1=int(k1), rows=_images(x_shape),
+        n0=int(x_shape[-2]), n1=int(x_shape[-1]), cuda=bool(cuda))
 
 
 def select_algorithm2d(k0: int, k1: int, x_shape=None) -> str:
@@ -89,7 +117,7 @@ def select_algorithm2d(k0: int, k1: int, x_shape=None) -> str:
 
 
 def _images(x_shape) -> int:
-    return int(np.prod(x_shape[:-2])) if len(x_shape) > 2 else 1
+    return math.prod(x_shape[:-2])
 
 
 def _crop(full, crop):
@@ -165,22 +193,73 @@ def _run2d(x, h, reverse, algorithm, simd, crop=(0, 0)):
         raise ValueError(f"algorithm must be 'direct' or 'fft', "
                          f"got {algorithm!r}")
     if not resolve_simd(simd, op="convolve2d"):
-        h = np.asarray(h, np.float32)
-        return _crop(convolve2d_na(x, h[::-1, ::-1] if reverse else h),
-                     crop)
-    x, h = _operands(x, h)
-    k0, k1 = h.shape
+        return _run2d_oracle(x, h, reverse, crop)
+    x_shape, h_shape = tuple(np.shape(x)), tuple(np.shape(h))
+    k0, k1 = h_shape
+    cuda = x.is_cuda if isinstance(x, torch.Tensor) else on_cuda()
     auto = algorithm is None
-    kernel = _use_cuda_direct2d(x.shape, k0, k1, x.is_cuda)
+    # the kernel gate, evaluated once for the call: it picks the auto
+    # algorithm and the direct route alike
+    kernel = algorithm != "fft" and _use_cuda_direct2d(x_shape, k0, k1,
+                                                       cuda)
     if auto:
         algorithm = "direct" if kernel else "fft"
-    route = ("fft" if algorithm == "fft"
-             else "direct_cuda" if kernel else "direct_mxu")
-    obs.record_decision("convolve2d", route, auto=auto,
-                        images=_images(x.shape), n0=int(x.shape[-2]),
-                        n1=int(x.shape[-1]), k0=int(k0), k1=int(k1))
     with obs.span("convolve2d.dispatch", algo=algorithm, auto=auto):
+        # transient device faults: bounded retry, then the float64
+        # oracle for host operands, behind the shape class's circuit
+        # breaker (image dims pow2-bucketed, kernel dims exact)
+        return faults.breaker_guarded(
+            "convolve2d.dispatch",
+            (algorithm, h_shape,
+             tuple(routing.pow2_bucket(d) for d in x_shape)),
+            lambda: _run2d_torch(x, h, reverse, algorithm, auto, kernel,
+                                 crop),
+            fallback=None if faults.on_card(x, h)
+            else lambda: _run2d_oracle(x, h, reverse, crop))
+
+
+def _run2d_oracle(x, h, reverse, crop):
+    """The NumPy-oracle side of :func:`_run2d` (also the fault
+    policy's degradation target)."""
+    h = _host(h).astype(np.float32)
+    return _crop(convolve2d_na(_host(x), h[::-1, ::-1] if reverse else h),
+                 crop)
+
+
+def _run2d_torch(x, h, reverse, algorithm, auto, kernel, crop):
+    """The PyTorch side of :func:`_run2d`: operands to the device, the
+    route (``kernel``: the 2D kernel's gate admitted the call), and the
+    kernel route's demotion."""
+    host = not faults.on_card(x, h)
+    x, h = _operands(x, h)
+    k0, k1 = h.shape
+    geom = dict(auto=auto, images=_images(x.shape), n0=int(x.shape[-2]),
+                n1=int(x.shape[-1]), k0=int(k0), k1=int(k1))
+
+    def run(route):
+        obs.record_decision("convolve2d", route, **geom)
         return _RUNNERS[route](x, h, reverse=reverse, crop=crop)
+
+    if not kernel:
+        return run("fft" if algorithm == "fft" else "direct_mxu")
+    fallback = "fft" if auto else "direct_mxu"
+
+    def direct_cuda():
+        out = _RUNNERS["direct_cuda"](x, h, reverse=reverse, crop=crop)
+        # recorded after the launch: a demotion records its own route
+        obs.record_decision("convolve2d", "direct_cuda", **geom)
+        return out
+
+    # a launch the card refuses for this shape demotes (auto to fft,
+    # an explicit "direct" to conv2d) and is remembered, for host
+    # operands only
+    return faults.demote_and_remember(
+        "convolve2d.direct_cuda", direct_cuda,
+        (lambda: run(fallback)) if host else None,
+        cache=_CUDA2D_REJECTED,
+        key=(geom["images"], geom["n0"], geom["n1"], int(k0), int(k1)),
+        route="direct_cuda", fallback_route=fallback,
+        counter="cuda2d_demotion")
 
 
 def _sym_index(n, p, mode):

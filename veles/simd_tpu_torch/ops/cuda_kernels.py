@@ -43,8 +43,12 @@ Wrappers take float32 torch tensors.  On a CPU tensor a wrapper
 computes the kernel's plain PyTorch version (:func:`overlap_save_plain`,
 :func:`filter_bank_plain`, ...) — the tests' path.  On a CUDA tensor it
 launches the kernel on the current stream, without synchronising, or
-raises; nothing falls back.  Every launch adds one to
-``LAUNCHES[<kernel>]``, and only a launch does.
+raises; nothing falls back here.  A launch the runtime refuses raises
+:class:`CudaError`, which carries the CUDA error code (``.code``) the
+fault policy classifies (``runtime.faults``); a build, link or loader
+failure raises :class:`KernelBuildError`, which no policy catches.
+Every launch adds one to ``LAUNCHES[<kernel>]``, and only a launch
+does.
 
 The kernels are built at first use: one ``nvcc`` per source, all
 started together, for ``sm_90a``, linked into one shared library with a
@@ -85,7 +89,7 @@ __all__ = [
     "f2d_smem_bytes", "fits_smem_f2d",
     "stft_fft_length", "stft_frames_per_block", "stft_smem_bytes",
     "fits_smem_stft",
-    "should_route", "on_card",
+    "should_route", "on_card", "CudaError", "KernelBuildError",
     "LAUNCHES", "reset_launches", "load_library", "build_log",
     "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_MAX_FFT",
     "FB_TILE", "FB_MMA_TILE", "FB_MMA_MIN_K", "CB_MAX_SPLIT", "F2D_TILE",
@@ -403,13 +407,30 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
+class CudaError(RuntimeError):
+    """A kernel launch the CUDA runtime refused: ``code`` is the
+    ``cudaError_t`` the C entry point returned (1 for a geometry the
+    kernel does not admit, ``cudaErrorInvalidValue``)."""
+
+    def __init__(self, what: str, code: int, text: str):
+        super().__init__(f"{what}: CUDA error {code} ({text})")
+        self.code = int(code)
+
+
+class KernelBuildError(RuntimeError):
+    """The kernels could not be built or loaded: ``nvcc`` missing or
+    failing, the link failing, or the built library's tile geometry
+    differing from this module's admission constants.  Never a fault
+    of the card, so the fault policy never catches it."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found ($CUDA_HOME/bin or $PATH): the "
-                       "CUDA kernels are built on first use")
+    raise KernelBuildError("nvcc not found ($CUDA_HOME/bin or $PATH): "
+                           "the CUDA kernels are built on first use")
 
 
 def _build_dir() -> Path:
@@ -440,14 +461,14 @@ def _build(out_dir: Path) -> Path:
             failed.append(name)
     log = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        raise KernelBuildError(f"nvcc failed on {failed}:\n{log}")
     tmp = out_dir / f"{_LIB_NAME}.{tag}"
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
         capture_output=True, text=True)
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
-                           f"{link.stderr}")
+        raise KernelBuildError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
     for obj in objs:
         obj.unlink()
     (out_dir / "build.log").write_text(log)
@@ -554,8 +575,9 @@ def load_library():
                        or lib.veles_stft_smem_bytes(*a) != stft_smem_bytes(*a)
                        for a in ((512, 128), (255, 85), (384, 128),
                                  (16384, 128), (4096, 2048)))):
-            raise RuntimeError("csrc/ tile geometry differs from the "
-                               "admission constants in cuda_kernels.py")
+            raise KernelBuildError(
+                "csrc/ tile geometry differs from the admission "
+                "constants in cuda_kernels.py")
         _lib = lib
         return lib
 
@@ -566,8 +588,8 @@ _VARIANT_CODE = {None: 0, "ffma": 1, "mma": 2}
 
 def _check_err(lib, err: int, what: str) -> None:
     if err != 0:
-        msg = lib.veles_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        raise CudaError(what, err,
+                        lib.veles_cuda_error_string(err).decode())
 
 
 def _check_operands(*tensors) -> None:

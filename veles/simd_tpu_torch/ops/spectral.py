@@ -39,9 +39,25 @@ class of the call.
 Host-side constants (DFT bases, analytic multipliers, wavelet banks)
 live in one bounded LRU (``utils.cache.ConstantCache``), their device
 copies in a second, keyed by device too; both report through
-``obs.caches()``.  Not ported: the
-``*_bf16_comp`` precision routes, the fault and breaker wrapping (a
-failed kernel launch raises; it never changes route), and the measured
+``obs.caches()``.
+
+Faults, as in the JAX package: ``stft`` and ``istft`` dispatch behind
+``faults.breaker_guarded`` (``stft.dispatch`` / ``istft.dispatch``,
+keyed ``(route, frame_length, hop)``): a device loss or timeout is
+retried, then answered by the float64 oracle (NumPy).  A forced
+``route=`` retries but never degrades; with its breaker open it makes
+a zero-retry trial.  The ``cuda_fused`` STFT runs under
+``faults.demote_and_remember`` at ``spectral.stft_cuda``: a launch the
+card refuses for the ``(frame_length, hop)`` class
+(``cuda_stft_demotion``) demotes to ``rdft_matmul`` (``xla_fft`` past
+4096-sample frames) and is remembered in ``cuda_stft_rejected`` (256
+entries); a forced ``cuda_fused`` remembers and re-raises.  The
+oracle and the demotion serve host operands only
+(``faults.on_card``): with an operand already on the card a fault
+re-raises, as for a forced route, and a refused launch remembers
+nothing.
+
+Not ported: the ``*_bf16_comp`` precision routes and the measured
 autotuner.
 
 All entry points accept leading batch dimensions.  Results are tensors
@@ -58,8 +74,8 @@ import torch.nn.functional as F
 
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import cuda_kernels as _ck
+from veles.simd_tpu_torch.runtime import faults, routing
 from veles.simd_tpu_torch.runtime import precision as prx
-from veles.simd_tpu_torch.runtime import routing
 from veles.simd_tpu_torch.utils.cache import ConstantCache
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import (as_c64, as_f32, device,
@@ -459,9 +475,20 @@ def _stft_rdft(x, basis, frame_length, hop):
     return torch.complex(out[..., :bins], out[..., bins:])
 
 
+# (frame_length, hop) classes whose fused STFT launch the card
+# refused (demote-and-remember, runtime/faults.py): a bounded LRU in
+# obs.caches(); an evicted class pays one more refused launch.
+_CUDA_STFT_MAXSIZE = 256
+_CUDA_STFT_REJECTED = obs.LRUSet(_CUDA_STFT_MAXSIZE)
+faults.register_rejection_cache(
+    "cuda_stft_rejected", lambda: _CUDA_STFT_REJECTED,
+    _CUDA_STFT_MAXSIZE)
+
+
 # The spectral candidate-route tables (runtime/routing.py): priority
-# order is the static selection order, and the predicates are the one
-# home of the route constants.
+# order is the static selection order, the predicates are the one
+# home of the route constants, and the fused kernel's rejection cache
+# and injection site ride the table.
 _STFT_FAMILY = routing.family("stft", (
     routing.Route(
         "cuda_fused",
@@ -472,6 +499,10 @@ _STFT_FAMILY = routing.family("stft", (
             and frames >= _ck.STFT_MIN_FRAMES
             and _ck.fits_smem_stft(frame_length, hop)),
         disable_env=_ck.STFT_DISABLE_ENV,
+        fault_site="spectral.stft_cuda",
+        rejection_cache=lambda: _CUDA_STFT_REJECTED,
+        rejection_key=lambda frame_length, hop, **_: (frame_length,
+                                                      hop),
         doc="fused STFT kernel (csrc/stft.cu): a shared-memory FFT per "
             "frame over a span of frames staged once, the frames "
             "tensor never built"),
@@ -544,10 +575,12 @@ def _use_cuda_stft(frame_length: int, hop: int, frames: int,
                    cuda=None) -> bool:
     """Route STFT through the fused kernel (:func:`~veles.
     simd_tpu_torch.ops.cuda_kernels.stft_cuda`): a thin delegate into
-    the ``stft`` table (operand on a card, dividing 128-multiple hop,
-    at least two hops a frame, enough frames, shared-memory admission,
-    and the ``VELES_SIMD_DISABLE_STFT_CUDA`` opt-out)."""
-    return _STFT_FAMILY.gate(
+    the ``stft`` table — rejection memory first, then an armed fault
+    plan (which opens the gate on the CPU), then the
+    ``VELES_SIMD_DISABLE_STFT_CUDA`` opt-out and the kernel gates
+    (operand on a card, dividing 128-multiple hop, at least two hops a
+    frame, enough frames, shared-memory admission)."""
+    return _STFT_FAMILY.route_allowed(
         "cuda_fused", frame_length=int(frame_length), hop=int(hop),
         frames=int(frames), cuda=_cuda_flag(cuda))
 
@@ -599,11 +632,35 @@ def _run_stft_rdft(x, window, frame_length, hop):
     return _stft_rdft(x, basis, frame_length, hop)
 
 
-def _run_stft_cuda(x, window, frame_length, hop):
-    """The fused-kernel route.  A failed launch raises: there is no
-    demotion to another route."""
-    return _ck.stft_cuda(x.contiguous(), _device_window(window, x.device),
-                         frame_length, hop)
+def _run_stft_cuda(x, window, frame_length, hop, forced=False,
+                   host=True):
+    """The fused-kernel route, through the shared demote-and-remember
+    engine: a launch the card refuses for this (frame, hop) class
+    demotes to the basis matmul (or the FFT past its frame bound) and
+    is recorded, so the executed route is never misattributed.  A
+    FORCED kernel route still remembers the rejection but re-raises —
+    a caller who pinned the kernel must never silently get another
+    route's numbers.  ``host=False`` (the caller's operand was already
+    on the card) demotes nothing: a refusal raises untouched."""
+    fb_route = ("rdft_matmul" if _use_matmul_dft(frame_length)
+                else "xla_fft")
+
+    def demoted():
+        obs.record_decision(
+            "stft_route", fb_route, frame_length=int(frame_length),
+            hop=int(hop), demoted_from="cuda_fused")
+        return _STFT_ROUTES[fb_route](x, window, frame_length, hop)
+
+    return faults.demote_and_remember(
+        "spectral.stft_cuda",
+        lambda: _ck.stft_cuda(x.contiguous(),
+                              _device_window(window, x.device),
+                              frame_length, hop),
+        demoted if host else None,
+        cache=_CUDA_STFT_REJECTED,
+        key=(int(frame_length), int(hop)),
+        route="cuda_fused", fallback_route=fb_route,
+        counter="cuda_stft_demotion", forced=forced and host)
 
 
 _STFT_ROUTES = {"xla_fft": _run_stft_xla,
@@ -676,14 +733,15 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
     ``route`` forces one of ``cuda_fused`` / ``rdft_matmul`` /
     ``xla_fft`` (None auto-selects via :func:`_stft_route_for`); the
     chosen route is recorded as a ``stft_route`` decision event.  A
-    forced route raises on failure; it never degrades.
+    device loss or timeout is retried, then answered by the float64
+    oracle (NumPy); a forced route retries but never degrades.
     """
-    n = int(np.shape(x)[-1])
+    shape = tuple(np.shape(x))
+    n = int(shape[-1])
     _check_stft_args(n, frame_length, hop)
     window = _resolve_window(window, frame_length)
     if not resolve_simd(simd, op="stft"):
         return stft_na(x, frame_length, hop, window).astype(np.complex64)
-    xt = as_f32(x)
     frames = frame_count(n, frame_length, hop)
     forced = route is not None
     if forced and route not in _STFT_ROUTES:
@@ -693,9 +751,10 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
     if forced:
         chosen = route
     else:
-        rows = int(np.prod(xt.shape[:-1])) if xt.ndim > 1 else 1
-        chosen = _stft_route_for(frame_length, hop, frames, rows,
-                                 cuda=xt.is_cuda)
+        rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+        chosen = _stft_route_for(
+            frame_length, hop, frames, rows,
+            cuda=x.is_cuda if isinstance(x, torch.Tensor) else None)
     path = _framing_path(frame_length, hop)
     obs.record_decision(
         "stft_route", chosen, n=n, frame_length=int(frame_length),
@@ -705,9 +764,29 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
     obs.record_decision(
         "stft", path, n=n, frame_length=int(frame_length),
         hop=int(hop))
-    with obs.span("stft.dispatch", route=chosen, path=path):
+    host = not faults.on_card(x)
+
+    def run():
+        xt = as_f32(x)
+        if chosen == "cuda_fused":
+            return _run_stft_cuda(xt, window, int(frame_length), int(hop),
+                                  forced=forced, host=host)
         return _STFT_ROUTES[chosen](xt, window, int(frame_length),
                                     int(hop))
+
+    with obs.span("stft.dispatch", route=chosen, path=path):
+        # the transient-fault policy around the whole route call,
+        # the operand's copy to the device included, behind the
+        # (route, frame, hop) class's circuit breaker.  A FORCED route
+        # gets the retries but never the oracle: a caller who pinned a
+        # route must never silently get another implementation's
+        # numbers; with its breaker open it makes a zero-retry trial.
+        # An operand already on the card gets no oracle either
+        return faults.breaker_guarded(
+            "stft.dispatch",
+            (chosen, int(frame_length), int(hop)), run,
+            fallback=None if forced or not host else lambda: stft_na(
+                x, frame_length, hop, window).astype(np.complex64))
 
 
 def stft_na(x, frame_length: int, hop: int, window=None):
@@ -800,7 +879,6 @@ def istft(spec, n: int, frame_length: int, hop: int, window=None,
     if not resolve_simd(simd, op="istft"):
         return istft_na(spec, n, frame_length, hop,
                         window).astype(np.float32)
-    spec_t = as_c64(spec)
     forced = route is not None
     if forced and route not in _ISTFT_ROUTES:
         raise ValueError(
@@ -824,10 +902,20 @@ def istft(spec, n: int, frame_length: int, hop: int, window=None,
     obs.record_decision(
         "istft", path, n=int(n), frame_length=int(frame_length),
         hop=int(hop))
-    with obs.span("istft.dispatch", route=chosen, path=path):
+    def run():
+        spec_t = as_c64(spec)
         return _ISTFT_ROUTES[chosen](
             spec_t, window, _to_device(env_inv, spec_t.device), int(n),
             int(frame_length), int(hop))
+
+    with obs.span("istft.dispatch", route=chosen, path=path):
+        # forced routes and card operands retry but never degrade
+        # (see stft); breaker-gated per (route, frame, hop) class
+        return faults.breaker_guarded(
+            "istft.dispatch", (chosen, int(frame_length), int(hop)), run,
+            fallback=None if forced or faults.on_card(spec)
+            else lambda: istft_na(
+                spec, n, frame_length, hop, window).astype(np.float32))
 
 
 def istft_na(spec, n: int, frame_length: int, hop: int, window=None):
@@ -849,7 +937,9 @@ def spectrogram(x, frame_length: int, hop: int, window=None, simd=None,
     """Power spectrogram ``|STFT|^2`` -> f32 [..., frames, bins].
     ``route`` passes through to :func:`stft`."""
     s = stft(x, frame_length, hop, window, simd=simd, route=route)
-    if resolve_simd(simd, op="spectrogram"):
+    # a spectrum the fault policy degraded to the oracle is NumPy
+    if resolve_simd(simd, op="spectrogram") and isinstance(s,
+                                                           torch.Tensor):
         return (s.real ** 2 + s.imag ** 2).to(torch.float32)
     return (np.abs(s) ** 2).astype(np.float32)
 

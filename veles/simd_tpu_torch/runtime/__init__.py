@@ -1,10 +1,16 @@
 """veles.simd_tpu_torch.runtime — cross-op runtime policies of the port:
-the static routing engine (:mod:`.routing`) and the matmul precision
-layer (:mod:`.precision`: fp32, TF32, bf16, compensated bf16, int8).
-Faults, breakers, the autotuner and the artifact store are not ported
-yet."""
+the fault-policy engine (:mod:`.faults`: demote-and-remember for a
+kernel route the card refuses for its geometry, bounded retry then
+degradation to the NumPy oracle for device losses and timeouts, and
+the deterministic fault-injection harness), the per-``(site,
+shape-class)`` circuit breakers (:mod:`.breaker`), the static routing
+engine (:mod:`.routing`) and the matmul precision layer
+(:mod:`.precision`: fp32, TF32, bf16, compensated bf16, int8).  The
+autotuner and the artifact store are not ported yet."""
 
+from veles.simd_tpu_torch.runtime import breaker
+from veles.simd_tpu_torch.runtime import faults
 from veles.simd_tpu_torch.runtime import precision
 from veles.simd_tpu_torch.runtime import routing
 
-__all__ = ["precision", "routing"]
+__all__ = ["breaker", "faults", "precision", "routing"]
