@@ -89,9 +89,32 @@ without printing a result):
             and the unpacked calls; the guard's host cost (each entry
             against its unguarded core and the bare kernel wrapper, in
             turns, and the guard's pieces on the host clock).  The
-            main, reference, dsp and times phases must record no
-            fault: no ``fault_*`` counter, ``fault_policy`` event,
-            fault record or failed breaker;
+            main, reference, dsp, autotune and times phases must
+            record no fault: no ``fault_*`` counter, ``fault_policy``
+            event, fault record or failed breaker;
+4e. autotune — the measured autotuner (``VELES_SIMD_AUTOTUNE=on`` in
+            this thread, a private tune cache in a temporary
+            directory, the default CUDA-event probe timer) at the main
+            path's geometries: the headline, 512 x 16384 x 129 and the
+            short rows 3 x 5000 x 256, 70,000 x 8 x 256 and
+            1 x 2^20 x 300 (``convolve.direct`` and, where the handle
+            admits them, ``convolve.os``), ``stft`` 2^20 at 512/128,
+            ``istft`` 64 x 16384, ``convolve2d`` 16 x 512^2 7 x 7, the
+            DWT 512 x 4096 daub8, ``matrix_multiply`` 2048^3,
+            ``hilbert`` at 1024 and 65536 and ``morlet_cwt`` 8 x 4096
+            with 32 scales; one ``autotune:`` line each (family, tune
+            key, static prior, winner, each route's probe us; a
+            candidate whose probe failed, or a probe error, retry or
+            inconclusive round, fails the phase), the
+            winner held to its float64 oracle (1e-4 of max|y|, a
+            ``*_bf16_comp`` winner to ``ERROR_BUDGETS["bf16_comp"]``);
+            then the same calls as cache hits (no probe, no launch but
+            the winner's kernel), the pack reloaded ``readonly`` (the
+            same winners, zero probes), the pack restamped
+            ``TPU v5 lite`` (every lookup a miss, ``device_mismatch``
+            counted, the static priors), a CPU operand (never probed or
+            stored under the card's stamp) and ``off`` bit-identical
+            with and without the pack;
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -115,6 +138,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -1097,6 +1121,278 @@ def faults_phase(torch, rng, bm, ck, obs, smi):
           f"{smi}")
 
 
+# the kernel counter each kernel route's dispatch bumps
+KERNEL_OF_ROUTE = {("convolve.os", "cuda_fused"): "overlap_save",
+                   ("convolve.direct", "direct_cuda"): "filter_bank",
+                   ("wavelet", "cuda"): "filter_bank",
+                   ("convolve2d", "direct"): "filter_2d",
+                   ("stft", "cuda_fused"): "stft"}
+
+
+def autotune_phase(torch, rng, obs, ck, smi):
+    """The measured autotuner on the card (``VELES_SIMD_AUTOTUNE=on``
+    in this thread, a private tune cache in a temporary directory, the
+    default CUDA-event probe timer): each main-path geometry probed
+    once, its winner held to the float64 oracle; the same calls again
+    as cache hits (no probe, no launch but the winner's kernel); the
+    pack reloaded ``readonly`` (same winners, zero probes); the pack
+    restamped for another device (every lookup misses, the static
+    priors); a CPU operand in this card process (no probe, nothing
+    stored); and ``off`` bit-identical to a run with no cache."""
+    import tempfile
+
+    from veles.simd_tpu_torch.ops import convolve as cv
+    from veles.simd_tpu_torch.ops import convolve2d as cv2
+    from veles.simd_tpu_torch.ops import matrix as mx
+    from veles.simd_tpu_torch.ops import spectral as sp
+    from veles.simd_tpu_torch.ops import wavelet as wv
+    from veles.simd_tpu_torch.runtime import precision as prx
+    from veles.simd_tpu_torch.runtime import routing
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    obs.enable()
+    routing.set_probe_timer(None)
+
+    def cuda(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def host(y):
+        return y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+
+    # the decision event each family's dispatch records (probes record
+    # none), and its name for a family route where the two differ
+    decision_of = {"convolve.os": "convolve_os_route",
+                   "convolve.direct": "convolve_direct_route",
+                   "stft": "stft_route", "istft": "istft_route",
+                   "convolve2d": "convolve2d", "wavelet": "wavelet_apply",
+                   "matrix.gemm": "matrix_precision_route",
+                   "hilbert": "hilbert_route",
+                   "morlet_cwt": "morlet_cwt_route"}
+    route_of = {("convolve2d", "direct_cuda"): "direct"}
+
+    # (label, family, call, float64 oracle, compare) per geometry; the
+    # operands live on the card, the oracles are computed once
+    geoms = []
+
+    def add(label, fam, call, oracle, cmp=crel_err):
+        geoms.append((label, fam, call, oracle, cmp))
+
+    x_os = rng.randn(N_HEAD).astype(np.float32)
+    h_os = rng.randn(K_HEAD).astype(np.float32)
+    hd_os = cv.convolve_overlap_save_initialize(N_HEAD, K_HEAD)
+    xo, ho = cuda(x_os), cuda(h_os)
+    add(f"convolve.os {N_HEAD}x{K_HEAD}", "convolve.os",
+        lambda: cv.convolve(hd_os, xo, ho), lambda: fft_conv64(x_os, h_os))
+    x_d = rng.randn(ROWS_FB, N_FB).astype(np.float32)
+    h_d = rng.randn(K_FB).astype(np.float32)
+    xd, hdd = cuda(x_d), cuda(h_d)
+    add(f"convolve.direct {ROWS_FB}x{N_FB}x{K_FB}", "convolve.direct",
+        lambda: cv.convolve_simd(xd, hdd), lambda: fft_conv64(x_d, h_d))
+    # the short rows where K1 once lost to a direct form
+    for rows, n, k in ((3, 5000, 256), (70000, 8, 256),
+                       (1, 1 << 20, 300)):
+        xs_np = rng.randn(rows, n).astype(np.float32)
+        hs_np = rng.randn(k).astype(np.float32)
+        xs, hs = cuda(xs_np), cuda(hs_np)
+        want = (lambda a=xs_np, b=hs_np: fft_conv64(a, b))
+        add(f"convolve.direct {rows}x{n}x{k}", "convolve.direct",
+            lambda a=xs, b=hs: cv.convolve_simd(a, b), want)
+        if k < n // 2:      # the overlap-save handle's contract
+            hd = cv.convolve_overlap_save_initialize(n, k)
+            add(f"convolve.os {rows}x{n}x{k}", "convolve.os",
+                lambda a=xs, b=hs, hd=hd: cv.convolve(hd, a, b), want)
+    x_st = rng.randn(N_ST).astype(np.float32)
+    xst = cuda(x_st)
+    add(f"stft {N_ST} {L_ST}/{HOP_ST}", "stft",
+        lambda: sp.stft(xst, L_ST, HOP_ST),
+        lambda: sp.stft_na(x_st, L_ST, HOP_ST))
+    x_is = rng.randn(ROWS_BS, N_BS).astype(np.float32)
+    spec_is = torch.as_tensor(sp.stft_na(x_is, L_ST, HOP_ST).astype(
+        np.complex64), device=dev)
+    core = slice(L_ST - HOP_ST, N_BS - L_ST + HOP_ST)
+    add(f"istft {ROWS_BS}x{N_BS} {L_ST}/{HOP_ST}", "istft",
+        lambda: sp.istft(spec_is, N_BS, L_ST, HOP_ST),
+        lambda: sp.istft_na(spec_is.cpu().numpy(), N_BS, L_ST, HOP_ST),
+        lambda got, want: crel_err(got[:, core], want[:, core]))
+    x_2d = rng.randn(IMGS_2D, N_2D, N_2D).astype(np.float32)
+    h_2d = rng.randn(K_2D, K_2D).astype(np.float32)
+    x2, h2 = cuda(x_2d), cuda(h_2d)
+    add(f"convolve2d {IMGS_2D}x{N_2D}^2 {K_2D}x{K_2D}", "convolve2d",
+        lambda: cv2.convolve2d(x2, h2), lambda: conv2d64(x_2d, h_2d))
+    x_wv = rng.randn(ROWS_WV, N_WV).astype(np.float32)
+    xw = cuda(x_wv)
+    P = wv.ExtensionType.PERIODIC
+    add(f"wavelet {ROWS_WV}x{N_WV} daub8", "wavelet",
+        lambda: torch.stack(wv.wavelet_apply("daub", 8, P, xw)),
+        lambda: np.stack(wv.wavelet_apply_na("daub", 8, P, x_wv)))
+    a_g = cuda(rng.randn(N_GEMM2, N_GEMM2))
+    b_g = cuda(rng.randn(N_GEMM2, N_GEMM2))
+    add(f"matrix.gemm {N_GEMM2}^3", "matrix.gemm",
+        lambda: mx.matrix_multiply(a_g, b_g),
+        lambda: (a_g.double() @ b_g.double()).cpu().numpy())
+    for n_h in (1024, 65536):
+        x_h = rng.randn(n_h).astype(np.float32)
+        xh = cuda(x_h)
+        add(f"hilbert {n_h}", "hilbert",
+            lambda a=xh: sp.hilbert(a), lambda a=x_h: sp.hilbert_na(a))
+    x_cw = rng.randn(ROWS_CWT, N_CWT).astype(np.float32)
+    scales = np.geomspace(2.0, 512.0, SCALES_CWT)
+    xc = cuda(x_cw)
+    add(f"morlet_cwt {ROWS_CWT}x{N_CWT} {SCALES_CWT} scales",
+        "morlet_cwt", lambda: sp.morlet_cwt(xc, scales),
+        lambda: sp.morlet_cwt_na(x_cw, scales))
+
+    def run(i):
+        """Geometry i's call: (output on the host, its family's pick or
+        None, launches by kernel, autotune events)."""
+        label, fam, call, _, _ = geoms[i]
+        obs.reset()
+        ck.reset_launches()
+        out = host(call())
+        torch.cuda.synchronize()
+        mine = [route_of.get((fam, e["decision"]), e["decision"])
+                for e in obs.events() if e["op"] == decision_of[fam]
+                and e["decision"] != "autotune_fft"]
+        check(len(mine) <= 1, f"autotune {label}: {len(mine)} {fam} "
+              f"dispatches in one call")
+        return (out, mine[0] if mine else None,
+                {k: v for k, v in ck.LAUNCHES.items() if v},
+                [e for e in obs.events() if e["op"] == "autotune"])
+
+    def counted(name, fam):
+        """``name`` summed over the family's route labels."""
+        return sum(c["value"] for c in obs.snapshot()["counters"]
+                   if c["name"] == name
+                   and c["labels"].get("family") == fam)
+
+    oracles = [oracle() for _, _, _, oracle, _ in geoms]
+    tmp = tempfile.mkdtemp(prefix="veles_autotune_")
+    pack = os.path.join(tmp, "pack.json")
+    try:
+        # 1. probe each geometry once
+        first = []
+        with routing.private_tune_cache(pack) as cache, \
+                routing.autotune_mode_override("on"):
+            for i, (label, fam, _, _, cmp) in enumerate(geoms):
+                out, pick, _, evs = run(i)
+                check(pick is not None, f"{label}: no {fam} selection")
+                if evs:
+                    (ev,) = evs
+                    check(ev["decision"] == pick, f"{label}: event "
+                          f"{ev['decision']} but dispatched {pick}")
+                    prior, timings = ev["static"], ev["timings"]
+                    key = ev["key"]
+                    # a candidate that failed its probe would lose to
+                    # the others unseen: every one must have a time
+                    check("=failed" not in timings,
+                          f"autotune {label}: a probe failed: {timings}")
+                else:
+                    prior, timings, key = pick, "1 candidate, no probe", "-"
+                troubles = {name: counted(name, fam) for name in (
+                    "autotune_probe_error", "autotune_probe_transient",
+                    "autotune_probe_retry", "autotune_inconclusive")}
+                check(not any(troubles.values()),
+                      f"autotune {label}: probe trouble {troubles}")
+                tol = (prx.ERROR_BUDGETS["bf16_comp"]
+                       if pick.endswith("bf16_comp") else ORACLE_TOL)
+                err = cmp(out, oracles[i])
+                check(err <= tol, f"autotune {label}: winner {pick} rel "
+                      f"err {err:.3e} > {tol}")
+                first.append((pick, prior, bool(evs)))
+                flip = " (differs from the prior)" if pick != prior else ""
+                print(f"autotune: {fam} | {label} | key {key} | prior "
+                      f"{prior} | winner {pick}{flip} | probe {timings} | "
+                      f"rel {err:.2e}")
+            probed = [i for i, (_, _, p) in enumerate(first) if p]
+            check(len(probed) == len(cache.entries()),
+                  f"{len(probed)} probe rounds but "
+                  f"{len(cache.entries())} pack entries")
+            # 2. the same calls again: cache hits, no probe, no launch
+            # but the winner's kernel
+            hits = []
+            for i, (label, fam, _, _, _) in enumerate(geoms):
+                out, pick, launched, evs = run(i)
+                check(pick == first[i][0] and not evs,
+                      f"{label}: second call picked {pick}, probed "
+                      f"{len(evs)}")
+                if first[i][2]:
+                    check(counted("autotune_cache_hit", fam) == 1,
+                          f"{label}: no cache hit on the second call")
+                kern = KERNEL_OF_ROUTE.get((fam, pick))
+                check(set(launched) <= ({kern} if kern else set()),
+                      f"{label}: the hit launched {launched} for {pick}")
+                hits.append(launched)
+            cache.save()
+        print(f"autotune: second calls all cache hits, {len(probed)} "
+              f"entries | launches per hit call: " + ", ".join(
+                  f"{g[0].split()[0]} {h or 'none'}"
+                  for g, h in zip(geoms, hits)))
+        # 3. the pack reloaded readonly: the same winners, zero probes
+        def never(thunk, name):
+            raise RuntimeError(f"a readonly reload probed {name}")
+
+        with routing.probe_timer(never), \
+                routing.private_tune_cache(pack) as reloaded, \
+                routing.autotune_mode_override("readonly"):
+            for i, (label, _, _, _, _) in enumerate(geoms):
+                out, pick, launched, evs = run(i)
+                check(pick == first[i][0] and not evs
+                      and launched == hits[i],
+                      f"{label}: readonly reload picked {pick}, "
+                      f"launched {launched}")
+            info = reloaded.info()
+        check(info["hits"] == len(probed) and info["stores"] == 0,
+              f"readonly reload: {info}")
+        print(f"autotune: readonly reload of {pack} | {info['hits']} hits,"
+              f" 0 probes, 0 stores, the same winners")
+        # 4. the pack restamped for another device: every lookup
+        # misses, device_mismatch counted, the static priors
+        with open(pack) as f:
+            data = json.load(f)
+        data["device"] = "TPU v5 lite"
+        with open(pack, "w") as f:
+            json.dump(data, f)
+        with routing.probe_timer(never), \
+                routing.private_tune_cache(pack) as foreign, \
+                routing.autotune_mode_override("readonly"):
+            for i, (label, _, _, _, _) in enumerate(geoms):
+                out, pick, _, evs = run(i)
+                check(pick == first[i][1] and not evs,
+                      f"{label}: a foreign pack steered {pick}")
+            info = foreign.info()
+        check(info["device_mismatch"] == 1 and info["hits"] == 0
+              and info["size"] == 0, f"foreign pack: {info}")
+        print(f"autotune: pack restamped 'TPU v5 lite' | device_mismatch "
+              f"{info['device_mismatch']}, {info['misses']} misses, 0 hits,"
+              " the static priors")
+        # a CPU operand in this card process: never probed, never stored
+        with routing.private_tune_cache() as own, \
+                routing.autotune_mode_override("on"):
+            obs.reset()
+            y_cpu = sp.hilbert(torch.randn(4, 1024))
+            check(y_cpu.device.type == "cpu" and not own.entries()
+                  and counted("autotune_device_skip", "hilbert") == 1,
+                  f"a CPU operand was tuned under {own.device}")
+        # 5. off: bit-identical to a run with no cache at all
+        with routing.autotune_mode_override("off"):
+            with routing.private_tune_cache(pack):
+                bound = [run(i)[0] for i in range(len(geoms))]
+            free = [run(i)[0] for i in range(len(geoms))]
+        for (label, *_), a, b in zip(geoms, bound, free):
+            check(np.array_equal(a, b), f"{label}: off differs with a "
+                  "pack bound")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    flips = [f"{g[0]}: {w} over {p}" for g, (w, p, _) in zip(geoms, first)
+             if w != p]
+    print(f"autotune: winners that differ from the static prior: "
+          f"{'; '.join(flips) or 'none'} | off bit-identical with and "
+          f"without the pack | phase {time.perf_counter() - t_phase:.1f} "
+          f"s | card {smi}")
+    obs.reset()
+
+
 def main():
     import torch
 
@@ -1585,6 +1881,10 @@ def main():
     faults_phase(torch, rng, bm, ck, obs, smi)
     healthy("faults (after its reset)", obs, faults, breaker)
 
+    # 4e. the measured autotuner and its tune cache
+    autotune_phase(torch, rng, obs, ck, smi)
+    healthy("autotune", obs, faults, breaker)
+
     # 5. times at the main-path shapes
     obs.disable()
     F = torch.nn.functional
@@ -1942,9 +2242,9 @@ def main():
                 lambda: ck.cascade_bank_cuda(xc_ext, taps, plans, ns, n_cb),
                 calls=20)
     n_breakers = healthy("times", obs, faults, breaker)
-    print("healthy: main, reference, dsp and times recorded no fault_* "
-          "counter, no fault_policy event and no fault record; "
-          f"{n_breakers} breakers, all closed and never failed")
+    print("healthy: main, reference, dsp, autotune and times recorded "
+          "no fault_* counter, no fault_policy event and no fault "
+          f"record; {n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start
     print(f"times: card {smi} | chip_smoke {elapsed:.1f} s so far")
     print(json.dumps({"kernels": rows}))

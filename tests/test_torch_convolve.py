@@ -353,3 +353,65 @@ def test_kernel_wrappers_not_called_on_cpu_routes():
     tcv.convolve_simd(r.randn(16, 400), r.randn(9))
     assert tck.LAUNCHES == {"overlap_save": 0, "filter_bank": 0,
                             "cascade_bank": 0, "filter_2d": 0, "stft": 0}
+
+
+# ---- the xla_matmul_bf16_comp candidate ------------------------------------
+
+def _comp_budget():
+    from veles.simd_tpu_torch.runtime import precision as tprx
+
+    return tprx.ERROR_BUDGETS["bf16_comp"]
+
+
+@pytest.mark.parametrize("shape,k", [((20000,), 127), ((3, 5000), 300),
+                                     ((2, 4096), 2047)])
+def test_os_matmul_bf16_comp_route_agrees(shape, k):
+    # the route's core, forced, in both packages, against float64
+    r = np.random.RandomState(k)
+    x = r.randn(*shape).astype(np.float32)
+    h = r.randn(k).astype(np.float32)
+    step = tcv.overlap_save_step(k)
+    got = tcv._conv_os_matmul(torch.as_tensor(x), torch.as_tensor(h),
+                              step, precision="bf16_comp")
+    want = jcv._conv_os_matmul(x, h, step, precision="bf16_comp")
+    want64 = jcv.convolve_na(x.astype(np.float64), h.astype(np.float64))
+    assert _rel(got, want64) <= _comp_budget()
+    assert _rel(want, want64) <= _comp_budget()
+    assert _rel(got, want) <= 2 * _comp_budget()
+
+
+def test_os_bf16_comp_is_eligible_but_never_the_static_route(tmp_path,
+                                                              monkeypatch):
+    from veles.simd_tpu_torch.runtime import routing as trouting
+
+    r = np.random.RandomState(61)
+    x = r.randn(2, 6000).astype(np.float32)
+    h = r.randn(300).astype(np.float32)
+    handle = tcv.convolve_overlap_save_initialize(6000, 300)
+    assert handle.os_matmul
+    static = tcv.convolve(handle, x, h, simd=True)
+    forced = tcv._conv_os_matmul(torch.as_tensor(x), torch.as_tensor(h),
+                                 handle.step, precision="highest")
+    # autotune off (the default): the static route, bit for bit
+    monkeypatch.delenv(trouting.AUTOTUNE_ENV, raising=False)
+    assert torch.equal(static, forced)
+    # a pack winner steers dispatch onto the compensated route
+    trouting.set_cache_path(str(tmp_path / "pack.json"))
+    try:
+        trouting.tune_cache().store(
+            "convolve.os",
+            {"rows": 2, "x_length": 8192, "h_length": 300,
+             "step": handle.step, "precision": "highest"},
+            "xla_matmul_bf16_comp")
+        monkeypatch.setenv(trouting.AUTOTUNE_ENV, "readonly")
+        got = tcv.convolve(handle, x, h, simd=True)
+        comp = tcv._conv_os_matmul(torch.as_tensor(x), torch.as_tensor(h),
+                                   handle.step, precision="bf16_comp")
+        assert torch.equal(got, comp)
+        want64 = jcv.convolve_na(x.astype(np.float64),
+                                 h.astype(np.float64))
+        assert _rel(got, want64) <= _comp_budget()
+        monkeypatch.setenv("VELES_SIMD_DISABLE_BF16_COMP", "1")
+        assert torch.equal(tcv.convolve(handle, x, h, simd=True), static)
+    finally:
+        trouting.set_cache_path(None)

@@ -863,3 +863,105 @@ def test_healthy_kernel_routes_record_no_fault():
     finally:
         obs.disable()
         obs.reset()
+
+
+# ---- the measured autotuner on the card ---------------------------------
+
+def test_autotune_probes_on_cuda_events_and_persists(tmp_path):
+    from veles.simd_tpu_torch import obs
+    from veles.simd_tpu_torch.runtime import routing
+
+    r = np.random.RandomState(5)
+    x_np, h_np = r.randn(64, 4096), r.randn(129)
+    x, h = _t(x_np), _t(h_np)
+    pack = str(tmp_path / "pack.json")
+    obs.enable()
+    obs.reset()
+    try:
+        with routing.private_tune_cache(pack) as cache, \
+                routing.autotune_mode_override("on"):
+            ck.reset_launches()
+            y = cv.convolve_simd(x, h)
+            torch.cuda.synchronize()
+            # the default timer: 1 warm-up + 2 + (2 + 8) calls of K2
+            assert ck.LAUNCHES["filter_bank"] >= 13
+            (ev,) = [e for e in obs.events() if e["op"] == "autotune"]
+            entry = cache.entry("convolve.direct",
+                                {"rows": 64, "n": 4096, "k": 129})
+            assert entry["route"] == ev["decision"]
+            assert set(entry["timings_us"]) == {"direct_cuda",
+                                                "direct_mxu"}
+            assert all(0 < t < 1e5 for t in entry["timings_us"].values())
+            ck.reset_launches()
+            cv.convolve_simd(x, h)          # a hit: the winner alone
+            torch.cuda.synchronize()
+            kern = {"direct_cuda": {"filter_bank"}}.get(entry["route"],
+                                                        set())
+            assert {k for k, v in ck.LAUNCHES.items() if v} == kern
+        import json
+
+        data = json.load(open(pack))
+        assert data["device"] == torch.cuda.get_device_name(0)
+        assert _rel(y.cpu(), _conv64(x_np, h_np)) <= TOL
+    finally:
+        obs.disable()
+        obs.reset()
+
+
+def test_autotune_off_launches_nothing_extra(monkeypatch):
+    from veles.simd_tpu_torch.runtime import routing
+
+    monkeypatch.delenv(routing.AUTOTUNE_ENV, raising=False)
+    r = np.random.RandomState(6)
+    x, h = _t(r.randn(1 << 16)), _t(r.randn(2047))
+    handle = cv.convolve_initialize(1 << 16, 2047)
+
+    def never(thunk, name):
+        raise AssertionError("autotune off must not probe")
+
+    with routing.probe_timer(never):
+        ck.reset_launches()
+        cv.convolve(handle, x, h)
+        torch.cuda.synchronize()
+        off = dict(ck.LAUNCHES)
+        with routing.private_tune_cache():
+            ck.reset_launches()
+            cv.convolve(handle, x, h)
+            torch.cuda.synchronize()
+    assert off["overlap_save"] == 2 and ck.LAUNCHES == off
+
+
+def test_autotune_never_tunes_cpu_operands_under_the_card_stamp():
+    from veles.simd_tpu_torch.runtime import routing
+
+    def never(thunk, name):
+        raise AssertionError("a CPU operand must not be probed here")
+
+    with routing.probe_timer(never), \
+            routing.private_tune_cache() as cache, \
+            routing.autotune_mode_override("on"):
+        y = sp.hilbert(torch.randn(2, 512))
+    assert y.device.type == "cpu" and not cache.entries()
+    assert cache.device == torch.cuda.get_device_name(0)
+
+
+def test_autotune_card_probe_refusal_raises_unremembered(monkeypatch):
+    # a refused launch met while probing data already on the card
+    # surfaces: no other route takes the call, nothing is remembered
+    from veles.simd_tpu_torch.runtime import routing
+
+    def refused(x, h, hd):
+        raise ck.CudaError("overlap_save kernel", 1, "refused")
+
+    monkeypatch.setitem(cv._OS_RUNNERS, "cuda_fused", refused)
+    r = np.random.RandomState(7)
+    x, h = _t(r.randn(1 << 16)), _t(r.randn(2047))
+    handle = cv.convolve_initialize(1 << 16, 2047)
+    before = len(cv._CUDA_OS_REJECTED)
+    with routing.private_tune_cache() as cache, \
+            routing.autotune_mode_override("on"):
+        with pytest.raises(ck.CudaError):
+            cv.convolve(handle, x, h)
+    assert len(cv._CUDA_OS_REJECTED) == before
+    assert 2047 not in cv._CUDA_OS_REJECTED
+    assert not cache.entries()

@@ -403,3 +403,14 @@ def test_constant_cache_bounds_entries_and_bytes():
     importlib.import_module("veles.simd_tpu_torch.ops.spectral")
     assert {"spectral_host_lru", "spectral_device_lru",
             "cuda_kernels_device_lru"} <= set(tobs.caches())
+
+
+def test_device_rows_retries_empty_profiler_windows(monkeypatch):
+    # torch.profiler can return a window without device events: the
+    # helper takes another window, up to four, then raises
+    got = iter([([], 1.0), ([], 1.0), ([], 1.0), ([(5.0, "k", 1.0)], 1.0)])
+    monkeypatch.setattr(tbench, "_profile", lambda fn, calls: next(got))
+    assert tbench._device_rows(lambda: None, 3) == [(5.0, "k", 1.0)]
+    monkeypatch.setattr(tbench, "_profile", lambda fn, calls: ([], 1.0))
+    with pytest.raises(RuntimeError, match="no device time"):
+        tbench._device_rows(lambda: None, 3)

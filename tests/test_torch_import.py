@@ -1,7 +1,8 @@
 """The PyTorch port imports without JAX and without the JAX package.
 
-Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``) is
-imported in a fresh interpreter where ``import jax`` fails; afterwards no
+Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``, and
+the port's tools) is imported in a fresh interpreter where ``import
+jax`` fails; afterwards no
 ``veles.simd_tpu`` module may be loaded.  Every port module of the op
 library exports each public name of its JAX twin.
 """
@@ -77,6 +78,48 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("tool", ["autotune_pack_torch.py",
+                                  "tune_overlap_save_torch.py",
+                                  "time_torch_autotune_off.py"])
+def test_port_tools_import_without_jax(tool):
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+ns = runpy.run_path({str(REPO / "tools" / tool)!r}, run_name="tool")
+assert callable(ns["main"])
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("tool", ["autotune_pack_torch.py",
+                                  "tune_overlap_save_torch.py",
+                                  "time_torch_autotune_off.py"])
+def test_port_tools_refuse_to_run_without_a_card(tool):
+    # the CPU has no card: the tools exit 2 before measuring anything
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = ["{tool}", "--quick"]
+sys.path.insert(0, {str(REPO)!r})
+import torch
+torch.cuda.is_available = lambda: False
+ns = runpy.run_path({str(REPO / "tools" / tool)!r}, run_name="tool")
+sys.exit(ns["main"]())
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2, out.stderr
+    assert "no CUDA card" in out.stderr
 
 
 def _ops_with_jax_twins():

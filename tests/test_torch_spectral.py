@@ -575,3 +575,67 @@ def test_caches_report_the_three_lrus():
 def test_contract_errors_match(call, match, side):
     with pytest.raises(ValueError, match=match):
         call(js if side == "jax" else ts)
+
+
+# ---- the *_bf16_comp candidates --------------------------------------------
+
+COMP_BUDGET = 1e-4      # runtime/precision.py ERROR_BUDGETS["bf16_comp"]
+
+
+def _comp_cases():
+    return [
+        ("stft", "rdft_matmul_bf16_comp",
+         lambda m, x, **kw: m.stft(x, 256, 64, **kw),
+         lambda x: js.stft_na(x, 256, 64), (2, 2048)),
+        ("hilbert", "matmul_dft_bf16_comp",
+         lambda m, x, **kw: m.hilbert(x, **kw), js.hilbert_na, (3, 500)),
+        ("morlet_cwt", "matmul_dft_bf16_comp",
+         lambda m, x, **kw: m.morlet_cwt(x, [2.0, 5.0, 11.0], **kw),
+         lambda x: js.morlet_cwt_na(x, [2.0, 5.0, 11.0]), (2, 600)),
+    ]
+
+
+@pytest.mark.parametrize("name,route,call,oracle,shape", _comp_cases(),
+                         ids=[c[0] for c in _comp_cases()])
+def test_bf16_comp_route_agrees(name, route, call, oracle, shape):
+    x = _x(len(name), shape)
+    got = call(ts, x, route=route)
+    want = np.asarray(call(js, x, simd=True, route=route))
+    want64 = oracle(x)
+    assert _rel(got, want64) <= COMP_BUDGET
+    assert _rel(want, want64) <= COMP_BUDGET
+    assert _rel(got, want) <= 2 * COMP_BUDGET
+
+
+def test_istft_bf16_comp_route_agrees():
+    n, frame, hop = 2048, 256, 64
+    spec = js.stft_na(_x(9, (2, n)), frame, hop).astype(np.complex64)
+    core = slice(frame - hop, n - frame + hop)
+    route = "rdft_matmul_bf16_comp"
+    got = ts.istft(spec, n, frame, hop, route=route).numpy()[:, core]
+    want = np.asarray(js.istft(spec, n, frame, hop, simd=True,
+                               route=route))[:, core]
+    want64 = js.istft_na(spec, n, frame, hop)[:, core]
+    assert _rel(got, want64) <= COMP_BUDGET
+    assert _rel(want, want64) <= COMP_BUDGET
+
+
+@pytest.mark.parametrize("name,route,call,oracle,shape", _comp_cases(),
+                         ids=[c[0] for c in _comp_cases()])
+def test_autotune_off_keeps_the_static_route_bit_for_bit(
+        name, route, call, oracle, shape, monkeypatch):
+    from veles.simd_tpu_torch.runtime import routing as trouting
+
+    monkeypatch.delenv(trouting.AUTOTUNE_ENV, raising=False)
+    x = _x(len(name) + 1, shape)
+    tobs.enable()
+    tobs.reset()
+    try:
+        got = call(ts, x)
+        (ev,) = [e for e in tobs.events()
+                 if e["op"] == f"{name}_route"]
+    finally:
+        tobs.disable()
+        tobs.reset()
+    assert ev["decision"] != route and not ev["forced"]
+    assert torch.equal(got, call(ts, x, route=ev["decision"]))

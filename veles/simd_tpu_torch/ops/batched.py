@@ -319,7 +319,9 @@ def batched_stft(x, frame_length: int, hop: int, window=None,
     Same numerics and route family as
     :func:`~veles.simd_tpu_torch.ops.spectral.stft`: the route comes
     from ``spectral._stft_route_for`` (the same selection ``stft``
-    uses), and the ``rdft_matmul`` / ``xla_fft`` routes run through the
+    uses, so a tune-cache winner steers both; this path consults the
+    pack but never probes), and the ``rdft_matmul`` (or its
+    ``bf16_comp`` variant) / ``xla_fft`` routes run through the
     handle LRU keyed ``(rows, n, frame_length, hop, route)`` — the
     basis and the window are runtime operands, so switching windows
     builds nothing new, only a new geometry does.  A ``cuda_fused``
@@ -339,7 +341,8 @@ def batched_stft(x, frame_length: int, hop: int, window=None,
     frames = sp.frame_count(n, frame_length, hop)
     route = sp._stft_route_for(
         frame_length, hop, frames, rows,
-        cuda=x.is_cuda if isinstance(x, torch.Tensor) else None)
+        cuda=x.is_cuda if isinstance(x, torch.Tensor) else None,
+        probe_operand=x)
     if route == "cuda_fused":
         # the caller's operand, as the JAX package passes it: host data
         # keeps stft's oracle fallback
@@ -348,17 +351,24 @@ def batched_stft(x, frame_length: int, hop: int, window=None,
     bins = frame_length // 2 + 1
     key = ("stft", rows, n, frame_length, hop, route)
 
+    # a pack winner may be the bf16_comp variant: the same basis
+    # matmul at the compensated precision
+    rdft = {"rdft_matmul": "highest",
+            "rdft_matmul_bf16_comp": "bf16_comp"}.get(route)
+
     def build():
-        core = sp._stft_rdft if route == "rdft_matmul" else sp._stft_xla
-        return functools.partial(core, frame_length=frame_length,
-                                 hop=hop)
+        if rdft is None:
+            return functools.partial(sp._stft_xla,
+                                     frame_length=frame_length, hop=hop)
+        return functools.partial(sp._stft_rdft, frame_length=frame_length,
+                                 hop=hop, precision=rdft)
 
     with obs.span("batched.stft.dispatch"):
         handle = _get_handle(key, build)
         operand = (sp._device_basis(
             "rdft_fwd", frame_length, window,
             lambda: sp._rdft_basis(frame_length, window), xt.device)
-            if route == "rdft_matmul"
+            if rdft is not None
             else sp._device_window(window, xt.device))
         out = handle(xt.reshape(rows, n), operand)
     return out.reshape(tuple(batch_shape) + (frames, bins))

@@ -14,6 +14,9 @@ Routes, JAX name → port name where they differ:
 * overlap-save: ``pallas_fused`` → ``cuda_fused``, the overlap-save
   kernel (``csrc/overlap_save.cu``) for filters of 256 taps and more;
   ``xla_matmul``, the frames × Toeplitz block matmul in fp32;
+  ``xla_matmul_bf16_comp``, the same matmul at ``bf16_comp``, after
+  the table's terminal fallback, so only the measured autotuner
+  (``runtime/routing.py``) reaches it;
   ``os_fft``, batched-frames ``torch.fft`` for filters beyond 16384
   taps;
 * ``fft``: one padded ``torch.fft.rfft`` product.
@@ -46,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 
 import numpy as np
 import torch
@@ -229,11 +233,29 @@ _DIRECT_RUNNERS = {"direct_cuda": _conv_direct_cuda,
 
 def _direct(x, h, reverse=False):
     """Direct-form dispatch — used by ``convolve_simd``, the
-    BRUTE_FORCE handle path and ``correlate.cross_correlate_simd``."""
+    BRUTE_FORCE handle path and ``correlate.cross_correlate_simd``.
+    Under ``VELES_SIMD_AUTOTUNE=on`` the engine probes both candidates
+    once per geometry class (rows and n pow2-bucketed, k exact, the
+    JAX package's key) and the measured winner persists."""
     eligible = (["direct_cuda", "direct_mxu"]
                 if _use_cuda_direct(x, h.shape[-1]) else ["direct_mxu"])
-    chosen = _DIRECT_FAMILY.select(eligible=eligible)
+    chosen = (eligible[0] if routing.autotune_mode() == "off"
+              else _tuned_direct_route(eligible, x, h, reverse))
+    obs.record_decision("convolve_direct_route", chosen,
+                        n=int(x.shape[-1]), k=int(h.shape[-1]))
     return _DIRECT_RUNNERS[chosen](x, h, reverse=reverse)
+
+
+def _tuned_direct_route(eligible, x, h, reverse):
+    """The ``convolve.direct`` engine's pick under the autotuner."""
+    rows = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
+    return _DIRECT_FAMILY.select(
+        eligible=eligible,
+        runners=lambda: {name: functools.partial(run, x, h,
+                                                 reverse=reverse)
+                         for name, run in _DIRECT_RUNNERS.items()},
+        probe_operand=x, rows=routing.pow2_bucket(rows),
+        n=routing.pow2_bucket(int(x.shape[-1])), k=int(h.shape[-1]))
 
 
 # ---- FFT and overlap-save --------------------------------------------------
@@ -282,6 +304,17 @@ _OS_FAMILY = routing.family("convolve.os", (
     routing.Route(
         "xla_matmul",
         doc="fp32 block matmul over gather-free shifted frames"),
+    # a precision variant AFTER the terminal fallback, as in the JAX
+    # table: the static prior never picks it, the measured autotuner
+    # probes it like any candidate and a tune-cache winner steers
+    # dispatch
+    routing.Route(
+        "xla_matmul_bf16_comp",
+        predicate=lambda **_: prx.precision_allowed("bf16_comp"),
+        disable_env=prx.BF16_COMP_ENV,
+        doc="the block matmul at bf16_comp: split bf16 operands, three "
+            "passes, fp32 sums (VELES_SIMD_DISABLE_BF16_COMP opts "
+            "out)"),
 ))
 
 
@@ -508,7 +541,25 @@ _OS_RUNNERS = {
     "cuda_fused": lambda x, h, hd: _conv_os_cuda(x, h, reverse=hd.reverse),
     "xla_matmul": lambda x, h, hd: _conv_os_matmul(
         x, h, hd.step, reverse=hd.reverse, precision=os_precision()),
+    "xla_matmul_bf16_comp": lambda x, h, hd: _conv_os_matmul(
+        x, h, hd.step, reverse=hd.reverse, precision="bf16_comp"),
 }
+
+
+def _tuned_os_route(eligible, x, h, handle):
+    """The ``convolve.os`` engine's pick under the autotuner, keyed by
+    the JAX package's tune class: rows and x_length pow2-bucketed,
+    h_length and step exact (gate dimensions and the rejection key),
+    precision too (the runners read it)."""
+    rows = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
+    return _OS_FAMILY.select(
+        eligible=eligible,
+        runners=lambda: {name: functools.partial(run, x, h, handle)
+                         for name, run in _OS_RUNNERS.items()},
+        probe_operand=x, rows=routing.pow2_bucket(rows),
+        x_length=routing.pow2_bucket(handle.x_length),
+        h_length=handle.h_length, step=handle.step,
+        precision=os_precision())
 
 
 def _run_torch(handle: ConvolutionHandle, x, h):
@@ -532,7 +583,8 @@ def _run_torch(handle: ConvolutionHandle, x, h):
         eligible = (["cuda_fused", "xla_matmul"]
                     if _use_cuda_os(handle.h_length, x)
                     else ["xla_matmul"])
-        route = _OS_FAMILY.select(eligible=eligible)
+        route = (eligible[0] if routing.autotune_mode() == "off"
+                 else _tuned_os_route(eligible, x, h, handle))
         if route != "cuda_fused":
             return os_route(route)
 
@@ -697,11 +749,15 @@ def streaming_carry_len(h_length: int) -> int:
     return max(int(h_length) - 1, 0)
 
 
-def select_stream_route(x_length: int, h_length: int) -> str:
+def select_stream_route(x_length: int, h_length: int,
+                        tune_geom: dict | None = None) -> str:
     """Route for one causal streaming-FIR block, from the ``convolve``
-    candidate table."""
+    candidate table: a tune-cache winner steers it (``tune_geom`` lets
+    the caller stamp its own tune class, e.g. a pipeline stage's);
+    consults the cache, never probes."""
     return _ALGO_FAMILY.select(x_length=int(x_length),
-                               h_length=int(h_length))
+                               h_length=int(h_length),
+                               tune_geom=tune_geom)
 
 
 def causal_stream_block(x_ext, h, route: str, reverse: bool = False):

@@ -19,6 +19,10 @@ Routes (the ``convolve2d`` candidate table):
 * ``fft``: one batched ``torch.fft.rfft2`` product, padded to powers of
   two — every shape the kernel route refuses.
 
+On auto dispatch the measured autotuner (``VELES_SIMD_AUTOTUNE``,
+``runtime/routing.py``) may pick ``fft`` over the kernel per geometry
+class; an ``autotune_fft`` decision event marks the flip.
+
 The area cap is the JAX package's static prior; it has not been
 measured on the H100.  Faults, as in the JAX package: the dispatch runs
 behind ``faults.breaker_guarded("convolve2d.dispatch", ...)`` keyed by
@@ -240,8 +244,36 @@ def _run2d_torch(x, h, reverse, algorithm, auto, kernel, crop):
         obs.record_decision("convolve2d", route, **geom)
         return _RUNNERS[route](x, h, reverse=reverse, crop=crop)
 
+    if kernel and auto and routing.autotune_mode() != "off":
+        # the measured autotuner: the kernel against the batched fft,
+        # once per geometry class.  geom carries the exact dims (a
+        # probe's refused launch feeds the rejection cache under the
+        # demotion key); the tune class pow2-buckets the image dims,
+        # kernel dims exact — the JAX package's key
+        chosen = _CONV2D_FAMILY.select(
+            eligible=["direct", "fft"],
+            runners=lambda: {
+                "direct": lambda: _RUNNERS["direct_cuda"](
+                    x, h, reverse=reverse, crop=crop),
+                "fft": lambda: _RUNNERS["fft"](
+                    x, h, reverse=reverse, crop=crop)},
+            probe_operand=x,
+            tune_geom={"rows": routing.pow2_bucket(geom["images"]),
+                       "n0": routing.pow2_bucket(geom["n0"]),
+                       "n1": routing.pow2_bucket(geom["n1"]),
+                       "k0": int(k0), "k1": int(k1)},
+            rows=geom["images"], n0=geom["n0"], n1=geom["n1"],
+            k0=int(k0), k1=int(k1))
+        if chosen == "fft":
+            # the flip away from the static "direct" must be
+            # attributable (the dispatch span still says direct)
+            obs.record_decision(
+                "convolve2d", "autotune_fft", rows=geom["images"],
+                n0=geom["n0"], n1=geom["n1"], k0=int(k0), k1=int(k1),
+                mode=routing.autotune_mode())
+            kernel = False
     if not kernel:
-        return run("fft" if algorithm == "fft" else "direct_mxu")
+        return run("fft" if auto or algorithm == "fft" else "direct_mxu")
     fallback = "fft" if auto else "direct_mxu"
 
     def direct_cuda():

@@ -20,8 +20,10 @@ anywhere), ``bf16_comp`` (three bf16 passes, fp32
 accumulate; ``VELES_SIMD_DISABLE_BF16_COMP`` closes it), ``int8``
 (scaled int8 on ``torch._int_mm``; eligible only under
 ``VELES_SIMD_ENABLE_INT8``) and ``bf16`` (one bf16 pass, forced only).
-The port has no autotuner yet, so the engine's pick is the static
-prior ``fp32``; ``precision=`` forces any route, and ``fast=True`` is
+The engine's pick is the static prior ``fp32``, or under
+``VELES_SIMD_AUTOTUNE`` the measured or cached winner among the
+eligible routes (``runtime/routing.py``); ``precision=`` forces any
+route, and ``fast=True`` is
 the deprecated spelling of ``precision='bf16'``.  Every resolution is a
 ``matrix_precision_route`` decision event.  Leading batch dims
 broadcast as ``torch.matmul`` does, for every route.
@@ -36,6 +38,7 @@ and leaves only the output's rounding.
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -102,11 +105,18 @@ _GEMM_FAMILY = routing.family("matrix.gemm", (
 ))
 
 
-def _select_gemm_route(geom: dict) -> str:
+def _select_gemm_route(core, a, b, geom: dict) -> str:
     """Engine-selected precision route for one GEMM-shaped dispatch:
-    the first eligible route of the table, which is the static prior
-    ``fp32`` (no autotuner in the port yet)."""
-    return _GEMM_FAMILY.select(**geom)
+    the static prior ``fp32``, or the tune-cache winner or measured
+    probe under ``VELES_SIMD_AUTOTUNE`` — precision as the candidate
+    axis, as in the JAX package."""
+    if routing.autotune_mode() == "off":
+        return _GEMM_FAMILY.static_select(**geom)
+    # the engine probes only the eligible names
+    return _GEMM_FAMILY.select(
+        runners=lambda: {name: functools.partial(core, a, b, precision=p)
+                         for name, p in GEMM_PRECISIONS.items()},
+        probe_operand=a, **geom)
 
 
 def _resolve_precision_route(precision, fast: bool) -> str | None:
@@ -138,7 +148,8 @@ def _gemm_dispatch(core, a, b, geom: dict, precision, fast: bool):
     """Shared route resolution + decision event + in-span dispatch for
     the two GEMM entry points."""
     forced = _resolve_precision_route(precision, fast)
-    chosen = forced if forced is not None else _select_gemm_route(geom)
+    chosen = forced if forced is not None \
+        else _select_gemm_route(core, a, b, geom)
     obs.record_decision(
         "matrix_precision_route", chosen, forced=forced is not None,
         **geom)

@@ -57,8 +57,17 @@ oracle and the demotion serve host operands only
 re-raises, as for a forced route, and a refused launch remembers
 nothing.
 
-Not ported: the ``*_bf16_comp`` precision routes and the measured
-autotuner.
+Each of the four tables ends with a precision variant after its
+terminal fallback, as in the JAX package: ``rdft_matmul_bf16_comp``
+(``stft``, ``istft``) and ``matmul_dft_bf16_comp`` (``hilbert``,
+``morlet_cwt``), the route's matmuls at ``bf16_comp``
+(``runtime/precision.py``; ``VELES_SIMD_DISABLE_BF16_COMP`` closes
+them).  The static prior never picks them: only the measured
+autotuner (``VELES_SIMD_AUTOTUNE``, ``runtime/routing.py``) and a
+``route=`` force reach them.  Under the autotuner each entry point
+hands the engine its routes' calls, forced, as probe runners, keyed by
+the JAX package's geometry classes; ``batched_stft`` consults the
+tune cache through :func:`_stft_route_for` and never probes.
 
 All entry points accept leading batch dimensions.  Results are tensors
 (complex64 spectra) on the device; ``simd=False`` runs the NumPy
@@ -67,6 +76,8 @@ does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -468,9 +479,10 @@ def _stft_xla(x, window, frame_length, hop):
     return torch.fft.rfft(frames * window, dim=-1)
 
 
-def _stft_rdft(x, basis, frame_length, hop):
+def _stft_rdft(x, basis, frame_length, hop, precision="highest"):
     frames = _take_frames(x, frame_length, hop)
-    out = prx.p_einsum("...fl,lb->...fb", frames, basis)
+    out = prx.p_einsum("...fl,lb->...fb", frames, basis,
+                       precision=precision)
     bins = frame_length // 2 + 1
     return torch.complex(out[..., :bins], out[..., bins:])
 
@@ -517,6 +529,18 @@ _STFT_FAMILY = routing.family("stft", (
         "xla_fft",
         doc="torch.fft.rfft of the windowed frames — the long-frame "
             "terminal fallback"),
+    # the precision variant AFTER the terminal fallback (the JAX
+    # table's place): never the static prior, a candidate of the
+    # measured autotuner
+    routing.Route(
+        "rdft_matmul_bf16_comp",
+        predicate=lambda frame_length, **_: (
+            frame_length <= AUTO_DFT_MATMUL_MAX_FRAME
+            and dft_matmul_allowed()
+            and prx.precision_allowed("bf16_comp")),
+        disable_env=prx.BF16_COMP_ENV,
+        doc="the basis matmul at bf16_comp (split bf16 operands, "
+            "three passes, fp32 sums)"),
 ))
 
 _ISTFT_FAMILY = routing.family("istft", (
@@ -527,6 +551,14 @@ _ISTFT_FAMILY = routing.family("istft", (
         disable_env=_DFT_MATMUL_ENV,
         doc="inverse-basis matmul feeding the shared overlap-add"),
     routing.Route("xla_fft", doc="torch.fft.irfft + overlap-add"),
+    routing.Route(
+        "rdft_matmul_bf16_comp",
+        predicate=lambda frame_length, **_: (
+            frame_length <= AUTO_DFT_MATMUL_MAX_FRAME
+            and dft_matmul_allowed()
+            and prx.precision_allowed("bf16_comp")),
+        disable_env=prx.BF16_COMP_ENV,
+        doc="inverse-basis matmul at bf16_comp"),
 ))
 
 _HILBERT_FAMILY = routing.family("hilbert", (
@@ -537,6 +569,13 @@ _HILBERT_FAMILY = routing.family("hilbert", (
         doc="dense circulant analytic-signal operator as two fp32 "
             "matmuls"),
     routing.Route("xla_fft", doc="fft -> multiplier -> ifft"),
+    routing.Route(
+        "matmul_dft_bf16_comp",
+        predicate=lambda n, **_: (
+            n <= HILBERT_MATMUL_MAX_N and dft_matmul_allowed()
+            and prx.precision_allowed("bf16_comp")),
+        disable_env=prx.BF16_COMP_ENV,
+        doc="the circulant operator at bf16_comp"),
 ))
 
 _CWT_FAMILY = routing.family("morlet_cwt", (
@@ -554,6 +593,13 @@ _CWT_FAMILY = routing.family("morlet_cwt", (
             "stages + twiddle), for transform sizes past the dense "
             "basis-residency cutoff"),
     routing.Route("xla_fft", doc="batched fft -> bank -> ifft"),
+    routing.Route(
+        "matmul_dft_bf16_comp",
+        predicate=lambda n, **_: (
+            n <= CWT_MATMUL_MAX_N and dft_matmul_allowed()
+            and prx.precision_allowed("bf16_comp")),
+        disable_env=prx.BF16_COMP_ENV,
+        doc="the positive-frequency basis pair at bf16_comp"),
 ))
 
 
@@ -609,15 +655,24 @@ def _stft_tune_class(frame_length: int, hop: int, frames: int,
 
 
 def _stft_route_for(frame_length: int, hop: int, frames: int,
-                    rows: int, cuda=None) -> str:
-    """Engine-selected stft route (the static prior: the port has no
-    tune cache yet) for the true frame count and the operand's
-    device."""
+                    rows: int, cuda=None, runners=None,
+                    probe_operand=None) -> str:
+    """Engine-selected stft route for the true frame count and the
+    operand's device: the static prior, or under
+    ``VELES_SIMD_AUTOTUNE`` a tune-cache winner (one pack entry
+    steers :func:`stft`, ``batched.batched_stft`` and the packed
+    segments alike).  Only :func:`stft` passes ``runners``, so only it
+    probes."""
+    geom = dict(frame_length=int(frame_length), hop=int(hop),
+                frames=int(frames), cuda=_cuda_flag(cuda))
+    if routing.autotune_mode() == "off":
+        return _STFT_FAMILY.static_select(**geom)
+    # eligibility reads the exact frame count, the tune class buckets
+    # it (the JAX package's key)
     return _STFT_FAMILY.select(
-        eligible=_STFT_FAMILY.eligible(
-            frame_length=int(frame_length), hop=int(hop),
-            frames=int(frames), cuda=_cuda_flag(cuda)),
-        **_stft_tune_class(frame_length, hop, frames, rows))
+        runners=runners, probe_operand=probe_operand,
+        tune_geom=_stft_tune_class(frame_length, hop, frames, rows),
+        **geom)
 
 
 def _run_stft_xla(x, window, frame_length, hop):
@@ -625,11 +680,11 @@ def _run_stft_xla(x, window, frame_length, hop):
                      hop)
 
 
-def _run_stft_rdft(x, window, frame_length, hop):
+def _run_stft_rdft(x, window, frame_length, hop, precision="highest"):
     basis = _device_basis("rdft_fwd", frame_length, window,
                           lambda: _rdft_basis(frame_length, window),
                           x.device)
-    return _stft_rdft(x, basis, frame_length, hop)
+    return _stft_rdft(x, basis, frame_length, hop, precision=precision)
 
 
 def _run_stft_cuda(x, window, frame_length, hop, forced=False,
@@ -665,7 +720,19 @@ def _run_stft_cuda(x, window, frame_length, hop, forced=False,
 
 _STFT_ROUTES = {"xla_fft": _run_stft_xla,
                 "rdft_matmul": _run_stft_rdft,
+                "rdft_matmul_bf16_comp": functools.partial(
+                    _run_stft_rdft, precision="bf16_comp"),
                 "cuda_fused": _run_stft_cuda}
+
+
+def _run_stft_route(route, x, window, frame_length, hop, forced=False,
+                    host=True):
+    """One stft route on a float32 tensor; only the kernel route takes
+    the forced/host flags of its demotion."""
+    if route == "cuda_fused":
+        return _run_stft_cuda(x, window, frame_length, hop,
+                              forced=forced, host=host)
+    return _STFT_ROUTES[route](x, window, frame_length, hop)
 
 
 # -- streaming STFT hooks (the pipeline compiler's state-export API) --------
@@ -689,15 +756,16 @@ def stft_stream_carry(frame_length: int, hop: int) -> int:
 def select_stft_stream_route(frame_length: int, hop: int, frames: int,
                              tune_geom: dict | None = None) -> str:
     """Route for the streaming STFT stage — the pipeline compiler's
-    hook into the ``stft`` table.  Eligibility is restricted to
-    ``rdft_matmul`` / ``xla_fft``: the fused kernel is excluded, as the
-    JAX package excludes its own.  ``tune_geom`` is accepted for
-    parity (the port has no tune cache)."""
-    del tune_geom
+    hook into the ``stft`` table.  The fused kernel is excluded, as
+    the JAX package excludes its own.  Consults the tune cache
+    (``tune_geom``: the caller's tune class), never probes."""
     eligible = [name for name in _STFT_FAMILY.eligible(
         frame_length=int(frame_length), hop=int(hop),
         frames=int(frames)) if name != "cuda_fused"]
-    return _STFT_FAMILY.select(eligible=eligible or ["xla_fft"])
+    return _STFT_FAMILY.select(
+        eligible=eligible or ["xla_fft"], tune_geom=tune_geom,
+        frame_length=int(frame_length), hop=int(hop),
+        frames=int(frames))
 
 
 def stft_stream_step(x_ext, frame_length: int, hop: int, window,
@@ -706,8 +774,8 @@ def stft_stream_step(x_ext, frame_length: int, hop: int, window,
     new chunk) -> complex64 ``[..., block/hop, L//2 + 1]``, through the
     same route cores one-shot :func:`stft` dispatches."""
     x_ext = as_f32(x_ext)
-    if route == "rdft_matmul":
-        return _run_stft_rdft(x_ext, window, frame_length, hop)
+    if route in ("rdft_matmul", "rdft_matmul_bf16_comp"):
+        return _STFT_ROUTES[route](x_ext, window, frame_length, hop)
     return _run_stft_xla(x_ext, window, frame_length, hop)
 
 
@@ -748,13 +816,26 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
         raise ValueError(
             f"route must be one of {sorted(_STFT_ROUTES)}, "
             f"got {route!r}")
+    host = not faults.on_card(x)
     if forced:
         chosen = route
     else:
         rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+
+        def runners():
+            # the probes run the routes forced (a refused launch is
+            # remembered and skipped, never rerouted) on the operand
+            # moved to the device once
+            xt = as_f32(x)
+            return {name: functools.partial(
+                _run_stft_route, name, xt, window, int(frame_length),
+                int(hop), forced=True, host=host)
+                for name in _STFT_ROUTES}
+
         chosen = _stft_route_for(
             frame_length, hop, frames, rows,
-            cuda=x.is_cuda if isinstance(x, torch.Tensor) else None)
+            cuda=x.is_cuda if isinstance(x, torch.Tensor) else None,
+            runners=runners, probe_operand=x)
     path = _framing_path(frame_length, hop)
     obs.record_decision(
         "stft_route", chosen, n=n, frame_length=int(frame_length),
@@ -764,15 +845,11 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
     obs.record_decision(
         "stft", path, n=n, frame_length=int(frame_length),
         hop=int(hop))
-    host = not faults.on_card(x)
 
     def run():
-        xt = as_f32(x)
-        if chosen == "cuda_fused":
-            return _run_stft_cuda(xt, window, int(frame_length), int(hop),
-                                  forced=forced, host=host)
-        return _STFT_ROUTES[chosen](xt, window, int(frame_length),
-                                    int(hop))
+        return _run_stft_route(chosen, as_f32(x), window,
+                               int(frame_length), int(hop),
+                               forced=forced, host=host)
 
     with obs.span("stft.dispatch", route=chosen, path=path):
         # the transient-fault policy around the whole route call,
@@ -838,17 +915,21 @@ def _run_istft_xla(spec, window, env_inv, n, frame_length, hop):
     return _overlap_add(frames, n, frame_length, hop) * env_inv
 
 
-def _run_istft_rdft(spec, window, env_inv, n, frame_length, hop):
+def _run_istft_rdft(spec, window, env_inv, n, frame_length, hop,
+                    precision="highest"):
     inv_basis = _device_basis(
         "rdft_inv", frame_length, window,
         lambda: _rdft_inv_basis(frame_length, window), spec.device)
     parts = torch.cat([spec.real, spec.imag], dim=-1)
-    frames = prx.p_einsum("...fb,bl->...fl", parts, inv_basis)
+    frames = prx.p_einsum("...fb,bl->...fl", parts, inv_basis,
+                          precision=precision)
     return _overlap_add(frames, n, frame_length, hop) * env_inv
 
 
 _ISTFT_ROUTES = {"xla_fft": _run_istft_xla,
-                 "rdft_matmul": _run_istft_rdft}
+                 "rdft_matmul": _run_istft_rdft,
+                 "rdft_matmul_bf16_comp": functools.partial(
+                     _run_istft_rdft, precision="bf16_comp")}
 
 
 def istft(spec, n: int, frame_length: int, hop: int, window=None,
@@ -886,9 +967,23 @@ def istft(spec, n: int, frame_length: int, hop: int, window=None,
             f"got {route!r}")
     if forced:
         chosen = route
+    elif routing.autotune_mode() == "off":
+        chosen = _ISTFT_FAMILY.static_select(
+            frame_length=int(frame_length), hop=int(hop))
     else:
         rows = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+
+        def runners():
+            spec_t = as_c64(spec)
+            env_t = _to_device(env_inv, spec_t.device)
+            return {name: functools.partial(
+                fn, spec_t, window, env_t, int(n), int(frame_length),
+                int(hop)) for name, fn in _ISTFT_ROUTES.items()}
+
+        # no istft route depends on the frame count: the class is
+        # (frame_length, hop) and the pow2-bucketed batch
         chosen = _ISTFT_FAMILY.select(
+            runners=runners, probe_operand=spec,
             frame_length=int(frame_length), hop=int(hop),
             rows=routing.pow2_bucket(rows))
     # the adjoint decomposition: framing gather <-> overlap-add
@@ -985,12 +1080,12 @@ def _hilbert_basis(n: int) -> np.ndarray:
     return _cached_host(("hilbert_matmul", int(n)), build)
 
 
-def _run_hilbert_matmul(x):
+def _run_hilbert_matmul(x, precision="highest"):
     n = int(x.shape[-1])
     basis = _cached_device(("hilbert_matmul", n), x.device,
                            lambda: _to_device(_hilbert_basis(n), x.device))
-    re = prx.p_einsum("...n,nm->...m", x, basis[0])
-    im = prx.p_einsum("...n,nm->...m", x, basis[1])
+    re = prx.p_einsum("...n,nm->...m", x, basis[0], precision=precision)
+    im = prx.p_einsum("...n,nm->...m", x, basis[1], precision=precision)
     return torch.complex(re, im)
 
 
@@ -1003,6 +1098,8 @@ def _run_hilbert_xla(x):
 
 
 _HILBERT_ROUTES = {"matmul_dft": _run_hilbert_matmul,
+                   "matmul_dft_bf16_comp": functools.partial(
+                       _run_hilbert_matmul, precision="bf16_comp"),
                    "xla_fft": _run_hilbert_xla}
 
 
@@ -1028,10 +1125,18 @@ def hilbert(x, simd=None, route=None):
             f"got {route!r}")
     if forced:
         chosen = route
+    elif routing.autotune_mode() == "off":
+        chosen = _HILBERT_FAMILY.static_select(n=n)
     else:
         rows = int(np.prod(xt.shape[:-1])) if xt.ndim > 1 else 1
-        chosen = _HILBERT_FAMILY.select(n=n,
-                                        rows=routing.pow2_bucket(rows))
+        # the exact n for the eligibility predicates; the tune class
+        # pow2-buckets it, as the JAX package does
+        chosen = _HILBERT_FAMILY.select(
+            runners=lambda: {name: functools.partial(fn, xt)
+                             for name, fn in _HILBERT_ROUTES.items()},
+            probe_operand=xt, n=n, rows=routing.pow2_bucket(rows),
+            tune_geom={"n": routing.pow2_bucket(n),
+                       "rows": routing.pow2_bucket(rows)})
     obs.record_decision("hilbert_route", chosen, n=n, forced=forced)
     with obs.span("hilbert.dispatch", route=chosen):
         return _HILBERT_ROUTES[chosen](xt)
@@ -1101,17 +1206,17 @@ def _cwt_basis(n: int):
     return _cached_host(("cwt_matmul", int(n)), build)
 
 
-def _run_cwt_matmul(x, hat):
+def _run_cwt_matmul(x, hat, precision="highest"):
     n = int(x.shape[-1])
     fwd, ic, is_ = _cached_device(
         ("cwt_matmul", n), x.device,
         lambda: tuple(_to_device(a, x.device) for a in _cwt_basis(n)))
     K = ic.shape[0]
     hat = _to_device(hat[:, 1:1 + K].astype(np.float32), x.device)
-    xf = prx.p_einsum("...n,nk->...k", x, fwd)
+    e = functools.partial(prx.p_einsum, precision=precision)
+    xf = e("...n,nk->...k", x, fwd)
     a = xf[..., None, :K] * hat          # [..., S, K] Re X * hat
     b = xf[..., None, K:] * hat          # [..., S, K] Im X * hat
-    e = prx.p_einsum
     out_re = (e("...sk,km->...sm", a, ic)
               - e("...sk,km->...sm", b, is_))
     out_im = (e("...sk,km->...sm", a, is_)
@@ -1137,6 +1242,8 @@ def _run_cwt_ct(x, hat):
 
 
 _CWT_ROUTES = {"matmul_dft": _run_cwt_matmul,
+               "matmul_dft_bf16_comp": functools.partial(
+                   _run_cwt_matmul, precision="bf16_comp"),
                "ct_matmul": _run_cwt_ct,
                "xla_fft": _run_cwt_xla}
 
@@ -1171,8 +1278,20 @@ def morlet_cwt(x, scales, w0: float = 6.0, simd=None, route=None):
             f"n={n} has no Cooley-Tukey split with both factors "
             f"<= {AUTO_DFT_MATMUL_MAX_FRAME}")
     xt = as_f32(x)
-    chosen = route if forced else _CWT_FAMILY.select(
-        n=n, scales=routing.pow2_bucket(len(scales)))
+    # the scale count keys the class too (pow2-bucketed); the exact n
+    # for eligibility, pow2-bucketed in the tune class
+    if forced:
+        chosen = route
+    elif routing.autotune_mode() == "off":
+        chosen = _CWT_FAMILY.static_select(n=n)
+    else:
+        chosen = _CWT_FAMILY.select(
+            runners=lambda: {name: functools.partial(fn, xt, hat)
+                             for name, fn in _CWT_ROUTES.items()},
+            probe_operand=xt, n=n,
+            scales=routing.pow2_bucket(len(scales)),
+            tune_geom={"n": routing.pow2_bucket(n),
+                       "scales": routing.pow2_bucket(len(scales))})
     obs.record_decision("morlet_cwt_route", chosen, n=n,
                         scales=len(scales), forced=forced)
     with obs.span("morlet_cwt.dispatch", route=chosen):

@@ -22,7 +22,8 @@ Routes, JAX name → port name where they differ:
   stride 2 or with dilation, for batched signals whose block fits the
   kernel's shared memory; ``xla_conv`` → ``conv1d`` with two output
   channels, cuDNN pinned to fp32.  ``VELES_SIMD_DISABLE_CUDA_WAVELET``
-  closes the kernel route.
+  closes the kernel route; under ``VELES_SIMD_AUTOTUNE`` the measured
+  autotuner picks between the two per geometry class.
 * ``wavelet.cascade`` (:func:`wavelet_transform`): ``fused_cascade``,
   the whole PERIODIC cascade in one launch of the cascade-bank kernel
   (``csrc/cascade_bank.cu``), which reads the signal's wrap and writes
@@ -42,7 +43,7 @@ output energy by 1/2 per level; this is kept for parity.
 
 All entry points accept leading batch dimensions.  Results are float32
 tensors on the device; ``simd=False`` runs the NumPy oracle twins and
-returns NumPy.  Not ported: the measured autotuner of the route tables.
+returns NumPy.
 """
 
 from __future__ import annotations
@@ -237,11 +238,15 @@ def _wavelet_runners(src, type, order, ext, stride, dilation, out_len):
             "xla_conv": lambda: _filter_bank_conv(*args)}
 
 
-def _select_wavelet_route(src, order, dilation, stride, route=None):
+def _select_wavelet_route(src, order, dilation, stride, route=None,
+                          runners=None):
     """Shared DWT/SWT route choice: a forced ``route`` is validated and
     pinned (a forced route re-raises on failure, it never degrades);
-    otherwise the gate builds the candidate list and the table selects
-    its static prior.  Returns ``(route, forced)``."""
+    otherwise the gate builds the candidate list and the engine
+    selects — the static prior, or the measured/cached winner under
+    ``VELES_SIMD_AUTOTUNE`` (``runners``: the callers'
+    :func:`_wavelet_runners`, the thunks dispatch runs).  Returns
+    ``(route, forced)``."""
     if route is not None:
         if route not in _WAVELET_FAMILY.names():
             raise ValueError(
@@ -251,7 +256,14 @@ def _select_wavelet_route(src, order, dilation, stride, route=None):
     eligible = (["cuda", "xla_conv"]
                 if _use_cuda(src, order, dilation, stride)
                 else ["xla_conv"])
-    return _WAVELET_FAMILY.select(eligible=eligible), False
+    if routing.autotune_mode() == "off":
+        return eligible[0], False
+    # rows and n pow2-bucketed, the filter design exact (the JAX key)
+    return _WAVELET_FAMILY.select(
+        eligible=eligible, runners=runners, probe_operand=src,
+        rows=routing.pow2_bucket(_rows(src.shape)),
+        n=routing.pow2_bucket(int(src.shape[-1])), order=int(order),
+        dilation=int(dilation), stride=int(stride)), False
 
 
 # --------------------------------------------------------------------------
@@ -317,7 +329,8 @@ def wavelet_apply(type, order, ext, src, simd=None, route=None):
     _check_apply_args(type, order, src.shape[-1])
     runners = _wavelet_runners(src, type, order, ext, 2, 1,
                                src.shape[-1] // 2)
-    chosen, forced = _select_wavelet_route(src, int(order), 1, 2, route)
+    chosen, forced = _select_wavelet_route(src, int(order), 1, 2, route,
+                                           runners)
     obs.record_decision(
         "wavelet_apply", chosen,
         family=WaveletType(type).value, order=int(order),
@@ -345,7 +358,7 @@ def stationary_wavelet_apply(type, order, level, ext, src, simd=None,
     runners = _wavelet_runners(src, type, order, ext, 1, dilation,
                                src.shape[-1])
     chosen, forced = _select_wavelet_route(src, int(order), dilation, 1,
-                                           route)
+                                           route, runners)
     obs.record_decision(
         "stationary_wavelet_apply", chosen,
         family=WaveletType(type).value, order=int(order),

@@ -3,10 +3,10 @@ the fault-policy engine (:mod:`.faults`: demote-and-remember for a
 kernel route the card refuses for its geometry, bounded retry then
 degradation to the NumPy oracle for device losses and timeouts, and
 the deterministic fault-injection harness), the per-``(site,
-shape-class)`` circuit breakers (:mod:`.breaker`), the static routing
-engine (:mod:`.routing`) and the matmul precision layer
-(:mod:`.precision`: fp32, TF32, bf16, compensated bf16, int8).  The
-autotuner and the artifact store are not ported yet."""
+shape-class)`` circuit breakers (:mod:`.breaker`), the routing
+engine with its measured autotuner and tune cache (:mod:`.routing`)
+and the matmul precision layer (:mod:`.precision`: fp32, TF32, bf16,
+compensated bf16, int8).  The artifact store is not ported yet."""
 
 from veles.simd_tpu_torch.runtime import breaker
 from veles.simd_tpu_torch.runtime import faults

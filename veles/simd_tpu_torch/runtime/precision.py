@@ -34,10 +34,11 @@ for any realistic contraction length.
 from __future__ import annotations
 
 import contextlib
-import os
 
 import torch
 import torch.nn.functional as F
+
+from veles.simd_tpu_torch.runtime.faults import getenv
 
 __all__ = [
     "HIGHEST", "PRECISIONS", "JAX_PRECISIONS", "COMP_PRECISIONS",
@@ -79,8 +80,9 @@ _COMP_SUFFIX = "_bf16_comp"
 
 def _env_truthy(name: str) -> bool:
     # routing.env_truthy's parser, inlined: this module sits below the
-    # routing engine
-    return os.environ.get(name, "0").strip().lower() in (
+    # routing engine.  getenv is os.environ.get at a dict lookup's
+    # cost: the *_bf16_comp gates read it on every dispatch
+    return (getenv(name) or "0").strip().lower() in (
         "1", "true", "yes", "on")
 
 

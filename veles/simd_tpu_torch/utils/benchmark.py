@@ -122,15 +122,15 @@ def _profile(fn, calls: int):
     return rows, wall_us
 
 
-def _device_rows(fn, calls: int):
+def _device_rows(fn, calls: int, windows: int = 4):
     """:func:`_profile`'s rows; a trace can come back empty on its own,
-    so one more window before giving up."""
-    rows, _ = _profile(fn, calls)
-    if not rows:
+    twice in a row too, so up to ``windows`` windows before giving
+    up."""
+    for _ in range(windows):
         rows, _ = _profile(fn, calls)
-    if not rows:
-        raise RuntimeError("torch.profiler saw no device time")
-    return rows
+        if rows:
+            return rows
+    raise RuntimeError("torch.profiler saw no device time")
 
 
 def device_busy_ms(fn, *, calls: int = 20) -> float:
