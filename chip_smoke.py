@@ -6,9 +6,16 @@
 Phases, one line each (any failure raises, and the script exits non-zero
 without printing a result):
 
-1. card   — the card's name, power limit and count; no CUDA card is a
-            failure (the port is never smoke-run on the CPU);
-2. build  — builds the CUDA kernels from csrc/ with nvcc (sm_90a);
+1. card   — a reachability probe in a subprocess
+            (``utils.platform.require_reachable_device``), then the
+            card's name and count under ``init_deadline``, its power
+            limit, and one ``probes`` line (``probe_history()``); no
+            CUDA card is a failure (the port is never smoke-run on the
+            CPU);
+2. build  — builds the CUDA kernels from csrc/ with nvcc (sm_90a); the
+            build counts as ``compile.backend_compile`` (its seconds in
+            ``compile.backend_compile_secs``), a library found built as
+            ``compile.cache_hits``;
 3. parity — each kernel against its plain PyTorch version run in
             float64 on the card, at the main path's shapes and at the
             edge cases (K2 and K5 also through their padded entries, the
@@ -38,6 +45,12 @@ without printing a result):
             ``hilbert``/``envelope`` at n = 1024 and 65536, and
             ``morlet_cwt`` on 8 x 4096 with 32 scales (``ct_matmul``);
             each within 1e-4 of a float64 oracle;
+            then the ``resources`` line: one main-path call per kernel
+            (the headline, ``convolve_simd``, the DWT, the fused
+            cascade, ``convolve2d``, ``stft``), each after
+            ``obs.reset()``, whose ``("cuda", route)`` row of
+            ``obs.resources()`` carries ``utils.benchmark``'s work at
+            that shape and at most 100 % of the roofline;
 4b. reference — the reference-header surface through its entry
             points, each op against a float64 NumPy oracle, then timed
             (chained CUDA events; host clock where a call ends on the
@@ -115,6 +128,27 @@ without printing a result):
             counted, the static priors), a CPU operand (never probed or
             stored under the card's stamp) and ``off`` bit-identical
             with and without the pack;
+4f. pipeline — the pipeline compiler at full size, two chains:
+            bench.py's ``sensor_bench`` (medfilt 5, linear detrend,
+            sosfilt of butterworth(4, (0.044, 0.056), "bandstop"),
+            stft 256/64, power; one stream, 24 blocks of 2048, held to
+            ``oracle`` at bench.py's 1e-3) and ``matched_stft``
+            (matched_filter of a 2047-tap template, stft 512/128,
+            power; 64 streams x 16,384-sample blocks, 8 blocks, held at
+            1e-4).  Each: its routes, one CUDA graph captured (and its
+            seconds), one ``pipeline.dispatch`` span a block, fused
+            equal to ``fused=False`` within 1e-6 of max|y|, blocks/s
+            and p99 host-clock latency a block (each block synced) and
+            device busy ms and kernels a block (``torch.profiler``),
+            fused and unfused, its ``("pipeline", name)`` resource row;
+            no fault on the healthy replays; under
+            ``pipeline.dispatch:device_lost:1`` with no retry exactly
+            one host block degrades to the oracle and the stream stays
+            within its tolerance; a host block on block 2, whose
+            carried state is on the card, retries and re-raises under
+            ``pipeline.dispatch:device_lost:9999`` with no oracle; the
+            fused and unfused busy times agree within a factor of
+            ``PL_BUSY_FACTOR`` (windows retried);
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -127,11 +161,12 @@ without printing a result):
             kernel, its plain version and its library yardstick (cuDNN
             ``conv1d``/``conv2d`` in fp32, ``torch.stft``) at the
             main-path shapes, as device time per call from
-            ``torch.profiler`` (the kernel also as chained CUDA events),
-            beside the fp32 bound (each counts the function's least
-            work, ``utils.benchmark.conv_work``/``conv2d_work``/
-            ``stft_work``, so the bytes set them); printed as one
-            ``{"kernels": [...]}`` line.
+            ``torch.profiler`` (the longest of three windows; the kernel
+            also as chained CUDA events), beside the fp32 bound (each
+            counts the function's least work, ``utils.benchmark.
+            conv_work``/``conv2d_work``/``stft_work``, so the bytes set
+            them), which neither the kernel nor the library may beat;
+            printed as one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -175,6 +210,15 @@ STREAM_BLOCK = 2048
 IIR_TOL = 2e-5           # of max|y| (tests/test_iir.py)
 RESAMPLE_TOL = 2e-5      # tests/test_resample.py
 FOURIER_TOL = 1e-4
+# the pipeline phase: bench.py's sensor_bench (bench.py:830-897), and the
+# matched filter and STFT of the main path on bench configs 7-8's rows
+PL_BLOCK, PL_BLOCKS, PL_BENCH_TOL = 2048, 24, 1e-3
+PL_BLOCKS2 = 8
+FUSED_TOL = 1e-6         # fused vs fused=False, of max|y|
+# the same kernels run fused and unfused: their busy times a block
+# agree within this factor (the fused step adds copies in and out of
+# its static buffers); a profiled window that comes back short retries
+PL_BUSY_FACTOR, PL_BUSY_WINDOWS = 1.5, 4
 DAUB8_LO = np.array([-0.010597401784997278, 0.032883011666982945,
                      0.030841381835986965, -0.18703481171888114,
                      -0.02798376941698385, 0.6308807679295904,
@@ -1129,6 +1173,200 @@ KERNEL_OF_ROUTE = {("convolve.os", "cuda_fused"): "overlap_save",
                    ("stft", "cuda_fused"): "stft"}
 
 
+def resources_line(torch, obs, calls):
+    """``obs.resources()``'s ``("cuda", route)`` row of each main-path
+    call, recorded afresh (``obs.reset()`` before each), its FLOPs and
+    bytes equal to ``utils.benchmark``'s work at that shape and its
+    attainable share of the roofline at most 100 %; one ``resources``
+    line."""
+    rows = []
+    for route, call, (flops, nbytes) in calls:
+        obs.reset()
+        call()
+        torch.cuda.synchronize()
+        got = [r for r in obs.resources()
+               if r["op"] == "cuda" and r["route"] == route]
+        check(len(got) == 1, f"resources: {len(got)} ('cuda', {route!r}) "
+              f"rows, want 1: {obs.resources()}")
+        r = got[0]
+        check(r["flops"] == flops and r["bytes_accessed"] == nbytes,
+              f"resources {route}: flops {r['flops']} bytes "
+              f"{r['bytes_accessed']} != utils.benchmark's {flops} "
+              f"{nbytes} at {r['shapes']}")
+        pct = r["attainable_pct_of_roofline"]
+        check(pct is not None and 0.0 < pct <= 100.0,
+              f"resources {route}: attainable {pct} %")
+        rows.append({k: r[k] for k in (
+            "route", "flops", "bytes_accessed", "arith_intensity",
+            "attainable_pct_of_roofline", "peak_bytes")})
+        # the cascade's plan tuples make its signature long
+        rows[-1]["shapes"] = r["shapes"][:80]
+    print("resources: " + json.dumps({"cuda": rows}))
+
+
+def pipeline_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
+    """The pipeline compiler at full size: bench.py's ``sensor_bench``
+    chain (1 stream, 24 blocks of 2048, held to its oracle at 1e-3) and
+    the main path's matched filter (2047 taps) and STFT (512/128) on
+    64 streams of 16,384-sample blocks (8 blocks, 1e-4).  Each captures
+    one CUDA graph on its first block, runs one ``pipeline.dispatch``
+    span a block, equals ``fused=False`` within 1e-6 of max|y|, records
+    no fault on healthy replays, and under
+    ``pipeline.dispatch:device_lost:1`` (no retries) degrades exactly
+    one host block to the oracle and stays within tolerance."""
+    from veles.simd_tpu_torch import pipeline as pl
+    from veles.simd_tpu_torch.ops import iir
+
+    t_phase = time.perf_counter()
+    notch = iir.butterworth(4, (44 / 1000.0, 56 / 1000.0), "bandstop")
+    template = rng.randn(K_HEAD).astype(np.float32)
+    chains = (
+        ("sensor_bench",
+         lambda: [pl.medfilt(5), pl.detrend("linear"), pl.sosfilt(notch),
+                  pl.stft(256, 64), pl.power()],
+         PL_BLOCK, (), PL_BLOCKS, PL_BENCH_TOL),
+        ("matched_stft",
+         lambda: [pl.matched_filter(template), pl.stft(L_ST, HOP_ST),
+                  pl.power()],
+         N_BS, (ROWS_BS,), PL_BLOCKS2, ORACLE_TOL),
+    )
+    for name, stages, block, lead, n_blocks, tol in chains:
+        cp = pl.Pipeline(stages(), name=name).compile(block)
+        x = rng.randn(*lead, n_blocks * block).astype(np.float32)
+        blocks = [x[..., i:i + block]
+                  for i in range(0, n_blocks * block, block)]
+        want = cp.oracle(x)
+
+        # the fused stream: the first block captures the graph
+        obs.reset()
+        ck.reset_launches()
+        got, _ = cp.stream(x)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        captures = [e for e in obs.events() if e["op"] == "pipeline_graph"]
+        spans = [e for e in obs.trace_events()
+                 if e.get("name") == "pipeline.dispatch"]
+        check(cp.compile_cache_size() == 1 and len(captures) == 1,
+              f"{name}: {cp.compile_cache_size()} graphs, "
+              f"{len(captures)} captures, want 1")
+        check(len(spans) == n_blocks, f"{name}: {len(spans)} "
+              f"pipeline.dispatch spans for {n_blocks} blocks")
+        err = rel_err(got, want)
+        check(err <= tol, f"{name}: stream vs oracle rel err {err:.3e}")
+        res = [r for r in obs.resources()
+               if (r["op"], r["route"]) == ("pipeline", name)]
+        check(len(res) == 1, f"{name}: resources {obs.resources()}")
+        unfused, _ = cp.stream(x, fused=False)
+        torch.cuda.synchronize()
+        d_fu = float(np.max(np.abs(got - unfused)) / np.max(np.abs(got)))
+        check(d_fu <= FUSED_TOL, f"{name}: fused vs fused=False "
+              f"{d_fu:.3e}")
+
+        # per-block host latency from host blocks, each block synced
+        def block_times(fused):
+            state = cp.init_state(lead)
+            ts = []
+            for b in blocks:
+                t0 = time.perf_counter()
+                _, state = cp.process(b, state, fused=fused)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            return np.asarray(ts)
+
+        block_times(False)                  # warm the unfused path
+        timing = {f: block_times(f) for f in (True, False)}
+        _, st_dev = cp.process(blocks[0], cp.init_state(lead))
+        for _ in range(PL_BUSY_WINDOWS):
+            busy = {f: bm.device_profile(
+                lambda f=f: cp.process(blocks[1], st_dev, fused=f),
+                calls=10) for f in (True, False)}
+            ratio = busy[True][0] / busy[False][0]
+            if 1 / PL_BUSY_FACTOR <= ratio <= PL_BUSY_FACTOR:
+                break
+        check(1 / PL_BUSY_FACTOR <= ratio <= PL_BUSY_FACTOR,
+              f"{name}: busy a block fused {busy[True][0]:.4f} ms against "
+              f"unfused {busy[False][0]:.4f} ms in {PL_BUSY_WINDOWS} "
+              f"windows, want within {PL_BUSY_FACTOR}x")
+        n_breakers = healthy(f"pipeline {name}", obs, faults, breaker)
+
+        # one device loss on a host block: that block alone degrades
+        obs.reset()
+        faults.reset_fault_history()
+        os.environ[faults.FAULT_RETRIES_ENV] = "0"
+        os.environ[faults.FAULT_BACKOFF_ENV] = "0"
+        faults.set_fault_plan("pipeline.dispatch:device_lost:1")
+        try:
+            got_f, _ = cp.stream(x)
+        finally:
+            faults.set_fault_plan(None)
+            del os.environ[faults.FAULT_RETRIES_ENV]
+            del os.environ[faults.FAULT_BACKOFF_ENV]
+        torch.cuda.synchronize()
+        degraded = obs.counter_value("fault_degraded",
+                                     site="pipeline.dispatch", to="oracle")
+        check(degraded == 1, f"{name}: {degraded} blocks degraded, want 1")
+        err_f = rel_err(got_f, want)
+        check(err_f <= tol, f"{name}: degraded stream rel err {err_f:.3e}")
+        faults.reset_fault_history()
+        obs.reset()
+
+        # a host block whose carried state is on the card (block 2):
+        # no oracle, the default retries, then the fault re-raises
+        state = cp.init_state(lead)
+        for b in blocks[:2]:
+            _, state = cp.process(b, state)
+        def leaves(tree):
+            return ([v for t in tree for v in leaves(t)]
+                    if isinstance(tree, tuple) else [tree])
+
+        check(faults.on_card(*leaves(state)),
+              f"{name}: carried state not on the card after 2 blocks")
+        os.environ[faults.FAULT_BACKOFF_ENV] = "0"
+        faults.set_fault_plan("pipeline.dispatch:device_lost:9999")
+        raised = False
+        try:
+            cp.process(blocks[2], state)
+        except faults.InjectedFault:
+            raised = True
+        finally:
+            faults.set_fault_plan(None)
+            del os.environ[faults.FAULT_BACKOFF_ENV]
+        counts = tuple(obs.counter_value(c, site="pipeline.dispatch", **kw)
+                       for c, kw in (("fault_retry", {}),
+                                     ("fault_degraded", {"to": "oracle"})))
+        check(raised and counts == (2, 0), f"{name}: card state under "
+              f"device_lost:9999 raised {raised}, (retries, degraded) "
+              f"{counts}, want True, (2, 0)")
+        faults.reset_fault_history()
+        breaker.reset()
+        obs.reset()
+
+        r = res[0]
+        print(f"pipeline {name}: {'x'.join(map(str, lead + (block,)))} "
+              f"blocks x {n_blocks} | routes {cp.routes()} | graphs "
+              f"{cp.compile_cache_size()} captured in "
+              f"{captures[0]['seconds']:.3f} s | rel {err:.2e} (tol "
+              f"{tol:g}) | fused vs unfused {d_fu:.2e} | one "
+              f"pipeline.dispatch span a block | kernel launches "
+              f"{launches or 0} | {n_breakers} breakers closed")
+        print(f"pipeline {name} times (host clock, each block synced): " +
+              " | ".join(
+                  f"{'fused' if f else 'fused=False'} "
+                  f"{n_blocks / ts.sum():.1f} blocks/s p99 "
+                  f"{np.percentile(ts, 99) * 1e3:.3f} ms busy "
+                  f"{busy[f][0]:.4f} ms {busy[f][1]:.0f} kernels a block"
+                  for f, ts in timing.items()) + f" | card {smi}")
+        print(f"pipeline {name} resources: " + json.dumps({k: r[k] for k in (
+            "op", "route", "shapes", "argument_bytes", "output_bytes",
+            "peak_bytes")}))
+        print(f"pipeline {name} faults: pipeline.dispatch:device_lost:1 "
+              f"(no retry) degraded {degraded} host block to the oracle, "
+              f"stream rel {err_f:.2e} | block 2 with card state under "
+              f"device_lost:9999: re-raised after {counts[0]} retries, "
+              f"none degraded")
+    print(f"pipeline: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def autotune_phase(torch, rng, obs, ck, smi):
     """The measured autotuner on the card (``VELES_SIMD_AUTOTUNE=on``
     in this thread, a private tune cache in a temporary directory, the
@@ -1412,6 +1650,7 @@ def main():
     from veles.simd_tpu_torch.runtime import breaker, faults
     from veles.simd_tpu_torch.utils import benchmark as bm
     from veles.simd_tpu_torch.utils.config import set_config
+    from veles.simd_tpu_torch.utils import platform as plat
     from veles.simd_tpu_torch.utils.platform import smi_line
 
     t_start = time.perf_counter()
@@ -1423,13 +1662,17 @@ def main():
     def cuda(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    # 1. card
+    # 1. card: a probe subprocess first, then the first device touch
+    # under a deadline
+    plat.require_reachable_device(timeout=120.0)
+    with plat.init_deadline(180.0, what="CUDA init"):
+        kind = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
     smi = smi_line()
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
     print(f"card: {kind} | count {count} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
+    print("probes: " + json.dumps(plat.probe_history()))
 
     # 2. build
     t0 = time.perf_counter()
@@ -1437,7 +1680,15 @@ def main():
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in ck.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"build: {build_s:.1f} s | " + " | ".join(ptxas))
+    compiles = {c["name"]: c["value"] for c in obs.snapshot()["counters"]
+                if c["name"].startswith("compile.")}
+    check(compiles in ({"compile.cache_hits": 1},
+                       {"compile.cache_misses": 1,
+                        "compile.backend_compile": 1}),
+          f"build: compile counters {compiles}, want one build or one "
+          "cache hit")
+    print(f"build: {build_s:.1f} s | compile counters {compiles} | "
+          + " | ".join(ptxas))
     lib = ck.load_library()
     print("persistent kernels, blocks resident per SM: filter_bank mma "
           f"(1 x {K_FB} taps) {lib.veles_fb_mma_resident(1, K_FB)}, "
@@ -1869,6 +2120,34 @@ def main():
 
     healthy("main", obs, faults, breaker)
 
+    # the resource axis: one main-path call per kernel, each row's work
+    # held to utils.benchmark's at that shape
+    n_cbs = sum(len(p_) for p_ in wv._cascade_plan_for(
+        wv.WaveletType("daub"), 8, LEVELS)[0])
+
+    def fused_cascade_call():
+        os.environ[FORCE_FUSED] = "1"
+        try:
+            wv.wavelet_transform("daub", 8, P, x_wv, LEVELS)
+        finally:
+            del os.environ[FORCE_FUSED]
+
+    resources_line(torch, obs, (
+        ("overlap_save", lambda: cv.convolve(handle, x_head, h_head),
+         bm.conv_work(1, N_HEAD, K_HEAD)),
+        ("filter_bank", lambda: cv.convolve_simd(x_fb, h_fb),
+         bm.conv_work(ROWS_FB, N_FB, K_FB)),
+        ("filter_bank", lambda: wv.wavelet_apply("daub", 8, P, x_wv),
+         bm.filter_bank_work(ROWS_WV, N_WV + 8, 2, 8, N_WV // 2)),
+        ("cascade_bank", fused_cascade_call,
+         bm.cascade_bank_work(ROWS_WV, N_WV, n_cbs, 1 << LEVELS,
+                              N_WV >> LEVELS)),
+        ("filter_2d", lambda: cv2.convolve2d(x_2d, h_2d),
+         bm.conv2d_work(IMGS_2D, N_2D, N_2D, K_2D, K_2D)),
+        ("stft", lambda: sp.stft(x_st, L_ST, HOP_ST),
+         bm.stft_work(1, N_ST, L_ST, HOP_ST))))
+    healthy("resources", obs, faults, breaker)
+
     # 4b. the reference-header surface and the filters
     reference(torch, rng, bm, obs, ck, smi)
     healthy("reference", obs, faults, breaker)
@@ -1884,6 +2163,10 @@ def main():
     # 4e. the measured autotuner and its tune cache
     autotune_phase(torch, rng, obs, ck, smi)
     healthy("autotune", obs, faults, breaker)
+
+    # 4f. the pipeline compiler: one CUDA-graph replay per block
+    pipeline_phase(torch, rng, bm, obs, faults, breaker, ck, smi)
+    healthy("pipeline", obs, faults, breaker)
 
     # 5. times at the main-path shapes
     obs.disable()
@@ -2216,6 +2499,11 @@ def main():
         plain_ms = bm.device_busy_ms(plain, calls=3)
         lib_ms = bm.device_busy_ms(lib, calls=20)
         bound_ms, bound_by = bm.fp32_bound(*work[name])
+        # no call of the same function beats its bound: a time under it
+        # is a profiled window that lost device time
+        check(ms >= bound_ms and lib_ms >= bound_ms,
+              f"kernels {name}: {ms:.5f} ms, library {lib_ms:.5f} ms, "
+              f"under the bound {bound_ms:.5f} ms")
         source, replaces, shape, (diff, rel) = meta[name]
         variant = {"filter_bank": ck.fb_variant(K_FB, 1, 1),
                    "filter_bank_dwt": ck.fb_variant(8, 2, 1)}.get(name)

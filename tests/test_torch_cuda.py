@@ -965,3 +965,99 @@ def test_autotune_card_probe_refusal_raises_unremembered(monkeypatch):
     assert len(cv._CUDA_OS_REJECTED) == before
     assert 2047 not in cv._CUDA_OS_REJECTED
     assert not cache.entries()
+
+
+# ---------------------------------------------------------------------------
+# the pipeline compiler: one CUDA-graph replay per block
+# ---------------------------------------------------------------------------
+
+def _pipeline_chain(name):
+    from veles.simd_tpu_torch import pipeline as pl
+
+    sos = iir.butterworth(4, 0.25, "lowpass")
+    h = np.random.RandomState(3).randn(300).astype(np.float32)
+    return pl.Pipeline(
+        [pl.resample_poly(2, 1), pl.fir(h), pl.sosfilt(sos),
+         pl.stft(256, 64), pl.power()], name=name)
+
+
+def test_pipeline_graph_step_equals_eager_step():
+    from veles.simd_tpu_torch.pipeline.compiler import _tree_map
+
+    cp = _pipeline_chain("graph_eq").compile(512)
+    r = np.random.RandomState(1)
+    x = _t(r.randn(3, 512))
+    # a state of random values, so a replay that read the wrong buffer
+    # would show
+    state = cp._device_state(_tree_map(
+        lambda a: r.randn(*a.shape).astype(np.float32),
+        cp.init_state((3,))))
+    out, new = cp.process(x, state)
+    torch.cuda.synchronize()
+    assert cp.compile_cache_size() == 1
+    want, want_new = cp._run_stages(x, state)
+    assert _rel(out.cpu(), want.cpu()) <= TOL
+    flat_new = torch.cat([t.reshape(-1) for t in _flat(new)])
+    flat_want = torch.cat([t.reshape(-1) for t in _flat(want_new)])
+    assert _rel(flat_new.cpu(), flat_want.cpu()) <= TOL
+
+
+def _flat(tree):
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _flat(t)]
+    return [tree]
+
+
+def test_pipeline_graph_state_straddles_blocks():
+    # every block a replay of the one graph, the state carried through
+    # copies: block boundaries straddle the resampler history, the FIR
+    # halo, the IIR zi and the STFT overlap; the outputs handed back
+    # are copies, so the next replay cannot overwrite them
+    cp = _pipeline_chain("graph_stream").compile(512)
+    x = np.random.RandomState(2).randn(2, 6 * 512).astype(np.float32)
+    outs, state = [], cp.init_state((2,))
+    for i in range(6):
+        out, state = cp.process(x[:, i * 512:(i + 1) * 512], state)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert cp.compile_cache_size() == 1
+    got = cp.assemble(outs)
+    assert _rel(got, cp.oracle(x)) <= TOL
+    eager, _ = cp.stream(x, fused=False)
+    assert _rel(got, eager) <= 1e-6
+
+
+def test_pipeline_graph_threads_share_one_pipeline():
+    # threads replay one graph through its shared static buffers: each
+    # stream must still match its own oracle
+    import threading
+
+    cp = _pipeline_chain("graph_threads").compile(512)
+    r = np.random.RandomState(4)
+    xs = [r.randn(2, 4 * 512).astype(np.float32) for _ in range(4)]
+    cp.stream(xs[0])                # capture before the threads start
+    got = [None] * len(xs)
+
+    def worker(i):
+        got[i] = cp.stream(xs[i])[0]
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert cp.compile_cache_size() == 1
+    for x, y in zip(xs, got):
+        assert _rel(y, cp.oracle(x)) <= TOL
+
+
+def test_pipeline_second_batch_shape_captures_second_graph():
+    cp = _pipeline_chain("graph_shapes").compile(512)
+    r = np.random.RandomState(3)
+    for rows in (1, 4, 1):
+        x = r.randn(rows, 1024).astype(np.float32)
+        got, _ = cp.stream(x)
+        assert _rel(got, cp.oracle(x)) <= TOL
+    assert cp.compile_cache_size() == 2

@@ -414,3 +414,37 @@ def test_device_rows_retries_empty_profiler_windows(monkeypatch):
     monkeypatch.setattr(tbench, "_profile", lambda fn, calls: ([], 1.0))
     with pytest.raises(RuntimeError, match="no device time"):
         tbench._device_rows(lambda: None, 3)
+
+
+def test_device_rows_keeps_the_longest_window(monkeypatch):
+    # a window can lose device time, never gain it: of three windows
+    # that saw device time the longest stands, and no fourth is taken
+    got = iter([([(2.0, "k", 1.0)], 1.0), ([], 1.0),
+                ([(5.0, "k", 1.0)], 1.0), ([(1.0, "k", 1.0)], 1.0)])
+    monkeypatch.setattr(tbench, "_profile", lambda fn, calls: next(got))
+    assert tbench._device_rows(lambda: None, 3) == [(5.0, "k", 1.0)]
+    got = iter([([(2.0, "a", 1.0), (1.0, "b", 1.0)], 1.0),
+                ([(2.5, "a", 1.0)], 1.0), ([(2.0, "a", 1.0)], 1.0),
+                ([(9.0, "a", 1.0)], 1.0)])
+    monkeypatch.setattr(tbench, "_profile", lambda fn, calls: next(got))
+    assert tbench._device_rows(lambda: None, 3) == [(2.0, "a", 1.0),
+                                                   (1.0, "b", 1.0)]
+
+
+def test_utils_package_all_equals_jax():
+    # F2: the package re-exports the JAX package's eleven names
+    import veles.simd_tpu.utils as jutils
+    import veles.simd_tpu_torch.utils as tutils
+
+    assert tutils.__all__ == jutils.__all__
+    from veles.simd_tpu_torch.utils import (align_complement,  # noqa: F401
+                                            crmemcpyf, malloc_aligned,
+                                            mallocf, rmemcpyf)
+
+    x = np.arange(6, dtype=np.float32)
+    np.testing.assert_array_equal(tutils.rmemcpyf(x), jutils.rmemcpyf(x))
+    np.testing.assert_array_equal(tutils.crmemcpyf(x),
+                                  jutils.crmemcpyf(x))
+    assert tutils.align_complement(x) == jutils.align_complement(x)
+    for name in jutils.__all__:
+        assert callable(getattr(tutils, name))

@@ -56,7 +56,15 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.obs",
                  "veles.simd_tpu_torch.obs.flightrec",
                  "veles.simd_tpu_torch.obs.atomic",
-                 "veles.simd_tpu_torch.obs.export"):
+                 "veles.simd_tpu_torch.obs.export",
+                 "veles.simd_tpu_torch.obs.resources",
+                 "veles.simd_tpu_torch.obs.compile",
+                 "veles.simd_tpu_torch.obs.journal",
+                 "veles.simd_tpu_torch.utils.profiler",
+                 "veles.simd_tpu_torch.utils.platform",
+                 "veles.simd_tpu_torch.pipeline",
+                 "veles.simd_tpu_torch.pipeline.stages",
+                 "veles.simd_tpu_torch.pipeline.compiler"):
         assert name in mods
 
 
@@ -82,7 +90,8 @@ print("ok")
 
 @pytest.mark.parametrize("tool", ["autotune_pack_torch.py",
                                   "tune_overlap_save_torch.py",
-                                  "time_torch_autotune_off.py"])
+                                  "time_torch_autotune_off.py",
+                                  "time_torch_obs_off.py"])
 def test_port_tools_import_without_jax(tool):
     code = f"""
 import runpy, sys
@@ -103,7 +112,8 @@ print("ok")
 
 @pytest.mark.parametrize("tool", ["autotune_pack_torch.py",
                                   "tune_overlap_save_torch.py",
-                                  "time_torch_autotune_off.py"])
+                                  "time_torch_autotune_off.py",
+                                  "time_torch_obs_off.py"])
 def test_port_tools_refuse_to_run_without_a_card(tool):
     # the CPU has no card: the tools exit 2 before measuring anything
     code = f"""
@@ -138,11 +148,17 @@ def test_op_modules_are_listed_in_pairs():
 
 @pytest.mark.parametrize("name", ["runtime.faults", "runtime.breaker",
                                   "obs.flightrec", "obs.atomic",
-                                  "obs.export", "ops.segments"])
+                                  "obs.export", "ops.segments",
+                                  "obs.resources", "obs.compile",
+                                  "obs.journal", "obs.spans",
+                                  "utils.profiler", "utils",
+                                  "pipeline", "pipeline.stages",
+                                  "pipeline.compiler"])
 def test_runtime_and_obs_copies_keep_the_jax_all(name):
     # the fault policy, the breakers, the flight recorder, its writer
-    # and exporters, and the segment packing mirror their JAX modules'
-    # public surface exactly
+    # and exporters, the segment packing, obs's standalone half, the
+    # profiler, the utils package and the pipeline compiler mirror
+    # their JAX modules' public surface exactly
     port = importlib.import_module(f"veles.simd_tpu_torch.{name}")
     ref = importlib.import_module(f"veles.simd_tpu.{name}")
     assert port.__all__ == ref.__all__

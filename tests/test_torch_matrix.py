@@ -457,3 +457,17 @@ def test_gemm_routes_on_a_cuda_tensor_need_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         tmx.matrix_multiply(np.ones((2, 2), np.float32),
                             np.ones((2, 2), np.float32))
+
+
+@pytest.mark.parametrize("v_shape", [(5,), (5, 2), (3,)])
+def test_gemv_mismatch_raises_the_jax_class(v_shape):
+    # F4: a vector that does not match the matrix raises TypeError in
+    # both packages (torch alone would raise RuntimeError), checked
+    # before any torch call
+    m = np.ones((3, 4), np.float32)
+    v = np.ones(v_shape, np.float32)
+    with pytest.raises(TypeError) as want:
+        jmx.matrix_vector_multiply(m, v, simd=True)
+    with pytest.raises(TypeError) as got:
+        tmx.matrix_vector_multiply(m, v, simd=True)
+    assert str(got.value) == str(want.value)

@@ -127,3 +127,20 @@ def test_dispatch_span_recorded():
         tobs.reset()
     assert {"span.normalize2d.dispatch",
             "span.normalize2d_minmax.dispatch"} <= names
+
+
+@pytest.mark.parametrize("call,shape", [
+    ("normalize2D", (0, 4)), ("normalize2D", (3, 0)),
+    ("normalize2D", (2, 0, 5)), ("minmax2D", (0, 4)),
+    ("minmax2D", (3, 0)), ("minmax2D", (2, 0, 5)), ("minmax1D", (0,)),
+    ("minmax1D", (3, 0)), ("minmax1D", (0, 0))])
+def test_empty_input_raises_the_jax_class(call, shape):
+    # F4: an empty reduction on the device path raises ValueError in
+    # both packages (torch alone would raise IndexError)
+    src = np.zeros(shape, np.uint8 if call == "normalize2D"
+                   else np.float32)
+    with pytest.raises(ValueError) as want:
+        getattr(jnz, call)(src, simd=True)
+    with pytest.raises(ValueError) as got:
+        getattr(tnz, call)(src, simd=True)
+    assert "zero-size" in str(got.value) and "zero-size" in str(want.value)

@@ -1452,3 +1452,46 @@ def test_comp_route_is_last_after_the_terminal_fallback(port, ref, comp,
     assert port.static_select(**geom) != comp
     monkeypatch.setenv(prx.BF16_COMP_ENV, "1")
     assert not port.gate(comp, **geom)
+
+
+@pytest.mark.parametrize("jax_env,family,route,geom", [
+    ("VELES_SIMD_DISABLE_PALLAS_OS", lambda: cv._OS_FAMILY, "cuda_fused",
+     dict(h_length=2047, cuda=True)),
+    ("VELES_SIMD_DISABLE_PALLAS2D", lambda: cv2._CONV2D_FAMILY,
+     "direct", dict(rows=16, n0=512, n1=512, k0=7, k1=7, cuda=True)),
+    ("VELES_SIMD_DISABLE_PALLAS_WAVELET", lambda: wv._WAVELET_FAMILY,
+     "cuda", dict(rows=8, n=4096, order=8, stride=2, dilation=1,
+                  cuda=True)),
+    ("VELES_SIMD_DISABLE_STFT_PALLAS", lambda: sp._STFT_FAMILY,
+     "cuda_fused", dict(frame_length=512, hop=128, frames=64,
+                        cuda=True)),
+], ids=["os", "2d", "wavelet", "stft"])
+def test_jax_opt_out_switches_close_the_port_routes(monkeypatch, jax_env,
+                                                    family, route, geom):
+    # F3: each JAX opt-out switch is an alias of the port's own
+    fam = family()
+    r = fam.route(route)
+    port_env = r.disable_env
+    assert routing._JAX_DISABLE_ENVS[port_env] == jax_env
+    assert fam.gate(route, **geom)
+    monkeypatch.setenv(jax_env, "1")
+    assert not fam.gate(route, **geom)
+    monkeypatch.delenv(jax_env)
+    monkeypatch.setenv(port_env, "1")
+    assert not fam.gate(route, **geom)
+
+
+@pytest.mark.parametrize("jax_name,port_name,family", [
+    ("pallas_fused", "cuda_fused", lambda: cv._OS_FAMILY),
+    ("direct_pallas", "direct_cuda", lambda: cv._DIRECT_FAMILY),
+    ("pallas", "cuda", lambda: wv._WAVELET_FAMILY),
+    ("pallas_fused", "cuda_fused", lambda: sp._STFT_FAMILY),
+])
+def test_families_accept_the_jax_route_names(jax_name, port_name, family):
+    # F3: a family looks a JAX route name up as the port's route
+    fam = family()
+    assert fam.route(jax_name) is fam.route(port_name)
+    assert jax_name in (cv.ROUTE_NAMES | sp.ROUTE_NAMES
+                        | wv.ROUTE_NAMES)
+    with pytest.raises(ValueError, match="route must be one of"):
+        fam.route("nonsense")

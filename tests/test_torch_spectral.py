@@ -639,3 +639,30 @@ def test_autotune_off_keeps_the_static_route_bit_for_bit(
         tobs.reset()
     assert ev["decision"] != route and not ev["forced"]
     assert torch.equal(got, call(ts, x, route=ev["decision"]))
+
+
+@pytest.mark.parametrize("entry", ["stft", "spectrogram"])
+def test_jax_route_name_is_an_alias(entry):
+    # F3: the JAX package's route name runs the port's kernel route
+    x = np.random.RandomState(31).randn(2, 4096).astype(np.float32)
+    want = getattr(js, entry)(x, 512, 128, route="pallas_fused")
+    got = getattr(ts, entry)(x, 512, 128, route="pallas_fused")
+    port = getattr(ts, entry)(x, 512, 128, route="cuda_fused")
+    np.testing.assert_array_equal(got.numpy(), port.numpy())
+    w = np.asarray(want)
+    assert np.max(np.abs(got.numpy() - w)) <= REL_TOL * np.max(np.abs(w))
+    with pytest.raises(ValueError, match="route must be one of"):
+        ts.stft(x, 64, 16, route="nonsense")
+
+
+def test_jax_stft_opt_out_switch_is_an_alias(monkeypatch):
+    # F3: VELES_SIMD_DISABLE_STFT_PALLAS closes the kernel route as the
+    # port's VELES_SIMD_DISABLE_STFT_CUDA does
+    geom = dict(frame_length=512, hop=128, frames=64, cuda=True)
+    assert ts._STFT_FAMILY.gate("cuda_fused", **geom)
+    assert ts._STFT_FAMILY.gate("pallas_fused", **geom)
+    monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_PALLAS", "1")
+    assert not ts._STFT_FAMILY.gate("cuda_fused", **geom)
+    assert ts._STFT_FAMILY.static_select(**geom) == "rdft_matmul"
+    monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_PALLAS", "0")
+    assert ts._STFT_FAMILY.gate("cuda_fused", **geom)

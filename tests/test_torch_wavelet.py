@@ -423,3 +423,31 @@ def test_cpu_routes_launch_nothing_and_keep_device():
     y64 = tw.wavelet_apply("daub", 8, tw.ExtensionType.ZERO,
                            x.double().numpy())
     assert y64[0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("entry", ["wavelet_apply",
+                                   "stationary_wavelet_apply"])
+def test_jax_route_name_is_an_alias(entry):
+    # F3: route="pallas" runs the port's kernel route ("cuda")
+    x = np.random.RandomState(32).randn(8, 512).astype(np.float32)
+    args = (("daub", 8, "periodic") if entry == "wavelet_apply"
+            else ("daub", 8, 2, "periodic"))
+    want = getattr(jw, entry)(*args, x, route="pallas")
+    got = getattr(tw, entry)(*args, x, route="pallas")
+    port = getattr(tw, entry)(*args, x, route="cuda")
+    for g, p, w in zip(got, port, want):
+        np.testing.assert_array_equal(_np(g), _np(p))
+        assert np.max(np.abs(_np(g) - np.asarray(w))) <= \
+            REL_TOL * np.max(np.abs(np.asarray(w)))
+    with pytest.raises(ValueError, match="route must be one of"):
+        getattr(tw, entry)(*args, x, route="nonsense")
+
+
+def test_jax_wavelet_opt_out_switch_is_an_alias(monkeypatch):
+    # F3: VELES_SIMD_DISABLE_PALLAS_WAVELET closes the kernel route as
+    # the port's VELES_SIMD_DISABLE_CUDA_WAVELET does
+    geom = dict(rows=8, n=4096, order=8, stride=2, dilation=1, cuda=True)
+    assert tw._WAVELET_FAMILY.gate("cuda", **geom)
+    monkeypatch.setenv("VELES_SIMD_DISABLE_PALLAS_WAVELET", "1")
+    assert not tw._WAVELET_FAMILY.gate("pallas", **geom)
+    assert not tw._WAVELET_FAMILY.gate("cuda", **geom)

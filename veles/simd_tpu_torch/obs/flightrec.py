@@ -14,6 +14,9 @@ disk as one JSON bundle:
   (:data:`MAX_AUTO_BUNDLES` per process) so a fault storm cannot fill a
   disk, and the whole path is exception-proof — the recorder must
   never replace the original error with its own;
+* **on crash** — when an exception escapes a *top-level* ``obs.span``
+  (the dispatch layers are exactly the spans), the span exit hook calls
+  :func:`maybe_record_crash` under the same budget;
 * **on demand** — :func:`dump_debug_bundle` writes the same bundle any
   time.
 
@@ -21,12 +24,12 @@ The bundle carries the JAX package's schema and sections: reason and
 exception, library config, platform (Python, torch, CUDA version, the
 cards' names and ``nvidia-smi``'s name and power limit), environment
 knobs, the telemetry snapshot (counters, gauges, histograms, decision
-events, cache stats) and the fault history.  The axes the port has not
-ported yet — span trace events, request traces, device probes and the
-journal — are written as ``null``.  The port's spans do not call the
-crash hook (:func:`maybe_record_crash`) yet.  Writes go through the
-shared atomic writer (:mod:`veles.simd_tpu_torch.obs.atomic`), so a
-bundle is either complete or absent — never torn.
+events, resources, cache stats), the span trace ring, the fault
+history, the device-probe history (``utils.platform.probe_history``)
+and the journal's cursor, stats and tail.  The request axis is not
+ported yet and is written as ``null``.  Writes go through the shared
+atomic writer (:mod:`veles.simd_tpu_torch.obs.atomic`), so a bundle is
+either complete or absent — never torn.
 """
 
 from __future__ import annotations
@@ -144,6 +147,28 @@ def _fault_info() -> list:
         return []
 
 
+def _probe_info() -> list:
+    """Device-reachability probe history (utils/platform)."""
+    try:
+        from veles.simd_tpu_torch.utils import platform
+
+        return platform.probe_history()
+    except Exception:  # noqa: BLE001
+        return []
+
+
+def _journal_info() -> dict:
+    """The durable journal's cursor, stats, and in-memory tail
+    (:mod:`veles.simd_tpu_torch.obs.journal`) at bundle time."""
+    try:
+        from veles.simd_tpu_torch.obs import journal
+
+        return {"cursor": journal.cursor(), "stats": journal.stats(),
+                "tail": journal.tail()}
+    except Exception as e:  # noqa: BLE001
+        return {"error": repr(e)}
+
+
 def build_bundle(reason: str, exc: BaseException | None = None) -> dict:
     """Assemble the bundle dict (separated from writing for tests and
     in-process consumers)."""
@@ -158,13 +183,12 @@ def build_bundle(reason: str, exc: BaseException | None = None) -> dict:
         "platform": _platform_info(),
         "env": _env_info(),
         "snapshot": obs.snapshot(),
-        # not ported yet (ROADMAP Queue 1 item 5): the span trace
-        # ring, the request axis, device probes and the journal
-        "trace_events": None,
+        "trace_events": obs.trace_events(),
+        # the request axis is not ported yet (ROADMAP Queue 1 item 5)
         "request_traces": None,
         "fault_history": _fault_info(),
-        "device_probes": None,
-        "journal": None,
+        "device_probes": _probe_info(),
+        "journal": _journal_info(),
     }
     if exc is not None:
         bundle["exception"] = {

@@ -1,30 +1,35 @@
-"""Nested, thread-local host-side spans — the *time axis* of obs.
+"""Host-side dispatch spans: the *time axis* of obs.
 
-Copied from ``veles.simd_tpu.obs.spans`` without its
-``jax.profiler.TraceAnnotation`` bridge and its crash hook (the port
-has no flight recorder yet).  A span brackets one region of Python
-dispatch code::
+Copied from ``veles.simd_tpu.obs.spans``, with ``torch.profiler``'s
+``record_function`` in place of ``jax.profiler.TraceAnnotation``.  A
+span brackets one region of Python dispatch code::
 
     with obs.span("convolve.dispatch", algo="overlap_save"):
         ... pick a route, launch the kernels ...
 
-and, while telemetry is enabled, each completed span
+and on exit:
 
-* feeds one sample into the registry's log-spaced timing histogram
-  ``span.<name>`` — labeled ``phase="warmup"`` for the FIRST completion
-  of each distinct ``(name, attrs)`` combination in the process (where
-  a kernel's first-use build lands) and ``phase="steady"`` afterwards;
-* appends one record to a bounded ring buffer exportable as Chrome
-  trace-event JSON that loads directly in Perfetto /
-  ``chrome://tracing``.
+* feeds the registry's ``span.<name>`` latency histogram, tagged
+  ``phase="warmup"`` for the first completion per (name, attrs) class
+  (where a kernel's first-use build lands) and ``phase="steady"``
+  afterwards;
+* lands in a bounded ring (``max_spans``, overflow counted) exported as
+  Chrome trace-event JSON (``obs.save_trace(path)``) that loads
+  directly in Perfetto / ``chrome://tracing``;
+* while a :func:`veles.simd_tpu_torch.utils.profiler.trace` capture is
+  live (:func:`set_xla_trace_active`; the name is the JAX package's),
+  also opens a ``torch.profiler.record_function`` of the same name, so
+  the dispatch names appear in the profiler's timeline;
+* when an exception escapes a top-level span, calls the tracer's
+  ``on_crash`` hook (the flight recorder's, armed by the obs facade).
 
 The clock is the host's: CUDA launches are asynchronous, so a span
 around a launch measures the enqueue, not the kernel — device time
 comes from :mod:`veles.simd_tpu_torch.utils.benchmark`.
 
-Keyword attributes (``algo=...``) travel ONLY into the trace-event
-``args`` — never into histogram labels — so per-call geometry cannot
-explode metric cardinality.
+Attributes travel only into the trace event's ``args`` — never into
+histogram labels — so a caller can tag spans with shapes or routes
+without blowing up metric cardinality.
 
 Cost discipline: telemetry OFF, ``obs.span(...)`` is one module-global
 check returning a shared no-op context manager; telemetry ON, two
@@ -36,12 +41,34 @@ from __future__ import annotations
 
 import collections
 import os
+import sys
 import threading
 import time
 
-__all__ = ["Span", "SpanTracer", "NULL_SPAN", "DEFAULT_MAX_SPANS"]
+__all__ = [
+    "Span", "SpanTracer", "NULL_SPAN", "DEFAULT_MAX_SPANS",
+    "set_xla_trace_active", "xla_trace_active",
+]
 
 DEFAULT_MAX_SPANS = 32768
+
+# armed by utils.profiler.trace (and tests); checked per span enter
+_XLA_TRACE_ACTIVE = False
+
+
+def set_xla_trace_active(active: bool) -> None:
+    """Arm/disarm the ``torch.profiler.record_function`` bridge.  While
+    armed, every enabled span also opens a ``record_function`` scope so
+    the span names show up in the profiler's timeline;
+    ``utils.profiler.trace`` arms it for the duration of a capture.
+    (The name is the JAX package's, whose bridge is XLA's.)"""
+    global _XLA_TRACE_ACTIVE
+    _XLA_TRACE_ACTIVE = bool(active)
+
+
+def xla_trace_active() -> bool:
+    """Is the ``record_function`` bridge currently armed?"""
+    return _XLA_TRACE_ACTIVE
 
 
 class _NullSpan:
@@ -67,30 +94,57 @@ class Span:
     """One live span (context manager).  Created by
     :meth:`SpanTracer.span`; not constructed directly."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_start_ns", "_parent")
+    __slots__ = ("_tracer", "name", "attrs", "_start_ns", "_ann",
+                 "_parent")
 
     def __init__(self, tracer: "SpanTracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self._start_ns = 0
+        self._ann = None
         self._parent = None
 
     def __enter__(self):
         stack = self._tracer._stack()
         self._parent = stack[-1] if stack else None
         stack.append(self.name)
+        if _XLA_TRACE_ACTIVE and "torch" in sys.modules:
+            try:  # best-effort: a failed bridge must not fail dispatch
+                import torch
+
+                self._ann = torch.profiler.record_function(self.name)
+                self._ann.__enter__()
+            except Exception:  # noqa: BLE001
+                self._ann = None
+        # the clock read is LAST so bridge setup never inflates the span
         self._start_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         end_ns = time.perf_counter_ns()
+        if self._ann is not None:
+            try:
+                self._ann.__exit__(exc_type, exc, tb)
+            except Exception:  # noqa: BLE001
+                pass
+            self._ann = None
         stack = self._tracer._stack()
         if stack and stack[-1] == self.name:
             stack.pop()
         self._tracer._finish(self.name, self._start_ns, end_ns,
                              threading.get_ident(), self._parent,
                              self.attrs)
+        if exc_type is not None and self._parent is None:
+            # an exception escaping a TOP-LEVEL dispatch span is the
+            # flight recorder's trigger (obs/flightrec.py); the hook is
+            # best-effort and must never mask the unwinding exception
+            hook = self._tracer.on_crash
+            if hook is not None:
+                try:
+                    hook(exc_type, exc)
+                except Exception:  # noqa: BLE001
+                    pass
         return False
 
 
@@ -117,6 +171,10 @@ class SpanTracer:
         self._warmed: set[tuple] = set()
         self._tls = threading.local()
         self._epoch_ns = time.perf_counter_ns()
+        # called as on_crash(exc_type, exc) when an exception escapes a
+        # top-level span; armed by the obs facade with the flight
+        # recorder's hook (None = one attribute check per crash)
+        self.on_crash = None
 
     def span(self, name: str, **attrs) -> Span:
         return Span(self, str(name), attrs)

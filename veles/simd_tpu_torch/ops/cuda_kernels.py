@@ -48,7 +48,13 @@ raises; nothing falls back here.  A launch the runtime refuses raises
 fault policy classifies (``runtime.faults``); a build, link or loader
 failure raises :class:`KernelBuildError`, which no policy catches.
 Every launch adds one to ``LAUNCHES[<kernel>]``, and only a launch
-does.
+does.  Each of the five wrappers is an ``obs.instrumented_jit`` call
+of op ``"cuda"`` (routes ``overlap_save``, ``filter_bank``,
+``cascade_bank``, ``filter_2d``, ``stft``): with telemetry on, the
+first call per geometry records its work — ``utils.benchmark``'s
+``conv_work``, ``conv2d_work``, ``stft_work`` and their kin — and, on
+the card, its memory peak in ``obs.resources()``.  A CPU call records
+the same work.
 
 The kernels are built at first use: one ``nvcc`` per source, all
 started together, for ``sm_90a``, linked into one shared library with a
@@ -56,7 +62,10 @@ plain C interface and loaded with ``ctypes``.  The build lands in
 ``build/simd_tpu_torch/<hash of sources and flags>/`` under the
 checkout (listed in ``.gitignore``), so a changed source rebuilds and an
 unchanged one is reused within a checkout.  ``$CUDA_HOME`` (default
-``/usr/local/cuda``) or ``nvcc`` on ``$PATH`` names the compiler.
+``/usr/local/cuda``) or ``nvcc`` on ``$PATH`` names the compiler;
+:func:`set_build_root` (``utils.profiler.enable_compilation_cache``)
+moves the build root before the first load.  Builds and reuses count
+as the ``compile.*`` metrics of ``obs.compile``.
 """
 
 from __future__ import annotations
@@ -68,12 +77,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.obs import compile as _compile
+from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.cache import ConstantCache
 
 __all__ = [
@@ -91,6 +103,7 @@ __all__ = [
     "fits_smem_stft",
     "should_route", "on_card", "CudaError", "KernelBuildError",
     "LAUNCHES", "reset_launches", "load_library", "build_log",
+    "set_build_root",
     "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_MAX_FFT",
     "FB_TILE", "FB_MMA_TILE", "FB_MMA_MIN_K", "CB_MAX_SPLIT", "F2D_TILE",
     "STFT_MIN_FRAMES",
@@ -433,6 +446,26 @@ def _nvcc() -> str:
                            "the CUDA kernels are built on first use")
 
 
+def set_build_root(path=None) -> str:
+    """The directory the library is built into and found again (the
+    ``<hash>`` subdirectories live under it); returns it.  ``path``
+    moves it, before the first :func:`load_library` only: afterwards a
+    different directory raises ``RuntimeError``
+    (``utils.profiler.enable_compilation_cache``)."""
+    global _BUILD_ROOT
+    with _lib_lock:
+        if path is None:
+            return str(_BUILD_ROOT)
+        root = Path(path).expanduser().resolve()
+        if _lib is not None and root != _BUILD_ROOT.resolve():
+            raise RuntimeError(
+                f"the kernel library is already loaded from "
+                f"{_BUILD_ROOT}; its build directory cannot move to "
+                f"{root}")
+        _BUILD_ROOT = root
+        return str(root)
+
+
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for name in _SOURCES + _HEADERS:
@@ -492,8 +525,14 @@ def load_library():
             return _lib
         out_dir = _build_dir()
         path = out_dir / _LIB_NAME
-        if not path.exists():
+        if path.exists():
+            _compile.record_event("/veles/cuda/library_cache_hits")
+        else:
+            _compile.record_event("/veles/cuda/library_cache_misses")
+            t0 = time.perf_counter()
             path = _build(out_dir)
+            _compile.record_duration("/veles/cuda/nvcc_build_duration",
+                                     time.perf_counter() - t0)
         lib = ctypes.CDLL(str(path))
         lib.veles_os_fft_length.argtypes = [_I, _L]
         lib.veles_os_fft_length.restype = _I
@@ -618,6 +657,18 @@ def overlap_save_plain(x, taps):
     return y
 
 
+def _rows_n(x):
+    """``(rows, n)`` of ``x[..., n]``."""
+    n = int(x.shape[-1])
+    return x.numel() // max(n, 1), n
+
+
+def _os_work(x, taps):
+    rows, n = _rows_n(x)
+    return _bm.conv_work(rows, n, int(taps.shape[-1]))
+
+
+@obs.instrumented_jit(op="cuda", route="overlap_save", work=_os_work)
 def overlap_save_cuda(x, taps):
     """Full linear convolution ``y[..., n+k-1] = x * taps`` (float32).
 
@@ -685,6 +736,18 @@ def filter_bank_plain(x_ext, filters, stride, dilation, n_out,
     return tuple(outs)
 
 
+def _fb_work(x, filters, stride, dilation, n_out, *, pad_left=0,
+             reverse_taps=False, variant=None):
+    del reverse_taps, variant
+    rows, n = _rows_n(x)
+    channels, k = int(filters.shape[0]), int(filters.shape[-1])
+    if (channels, int(stride), int(dilation)) == (1, 1, 1) \
+            and int(pad_left) == k - 1 and int(n_out) == n + k - 1:
+        return _bm.conv_work(rows, n, k)    # the full convolution
+    return _bm.filter_bank_work(rows, n, channels, k, n_out)
+
+
+@obs.instrumented_jit(op="cuda", route="filter_bank", work=_fb_work)
 def filter_bank_cuda(x, filters, stride, dilation, n_out, *, pad_left=0,
                      reverse_taps=False, variant=None):
     """Multi-channel FIR filter bank (float32): returns a tuple of C
@@ -947,6 +1010,20 @@ def _cb_launch(x, taps_list, info, n_split, n_out, out, rows, periodic):
     LAUNCHES["cascade_bank"] += 1
 
 
+def _cb_work(x_ext, taps_list, plans, n_split, n_out):
+    rows, n = _rows_n(x_ext)
+    return _bm.cascade_bank_work(rows, n, sum(len(p) for p in plans),
+                                 len(plans), n_out)
+
+
+def _cb_periodic_work(x, taps_list, plans, levels):
+    rows, n = _rows_n(x)
+    n_split = 1 << int(levels)
+    return _bm.cascade_bank_work(rows, n, sum(len(p) for p in plans),
+                                 n_split, n // n_split)
+
+
+@obs.instrumented_jit(op="cuda", route="cascade_bank", work=_cb_work)
 def cascade_bank_cuda(x_ext, taps_list, plans, n_split, n_out):
     """FIR channels at stride ``n_split`` from one pass over the input
     (float32): channel c returns ``out_c[..., i] = sum_slot
@@ -978,6 +1055,8 @@ def cascade_bank_cuda(x_ext, taps_list, plans, n_split, n_out):
     return tuple(o.reshape(shape) for o in out)
 
 
+@obs.instrumented_jit(op="cuda", route="cascade_bank",
+                      work=_cb_periodic_work)
 def cascade_bank_periodic_cuda(x, taps_list, plans, levels):
     """The PERIODIC DWT cascade of ``levels`` (2..4) levels in one
     launch (float32): ``plans``/``taps_list`` are the cascade's 2^L
@@ -1032,6 +1111,19 @@ def filter_2d_plain(x_ext, kernel2d, n_out0, n_out1, pad=(0, 0),
     return o
 
 
+def _f2d_work(x, kernel2d, n_out0, n_out1, *, pad=(0, 0),
+              reverse_taps=False):
+    del reverse_taps
+    n0, n1 = int(x.shape[-2]), int(x.shape[-1])
+    imgs = x.numel() // max(n0 * n1, 1)
+    k0, k1 = int(kernel2d.shape[0]), int(kernel2d.shape[1])
+    if (tuple(int(p) for p in pad) == (k0 - 1, k1 - 1)
+            and (int(n_out0), int(n_out1)) == (n0 + k0 - 1, n1 + k1 - 1)):
+        return _bm.conv2d_work(imgs, n0, n1, k0, k1)   # the full form
+    return _bm.filter_2d_work(imgs, n0, n1, k0, k1, n_out0, n_out1)
+
+
+@obs.instrumented_jit(op="cuda", route="filter_2d", work=_f2d_work)
 def filter_2d_cuda(x, kernel2d, n_out0, n_out1, *, pad=(0, 0),
                    reverse_taps=False):
     """2D FIR correlation (float32): ``out[..., i, j] = sum_{p, q}
@@ -1189,6 +1281,12 @@ def stft_plain(x, window, frame_length, hop):
     return _as_spectrum(out, tuple(x.shape[:-1]))
 
 
+def _stft_work(x, window, frame_length, hop):
+    rows, n = _rows_n(x)
+    return _bm.stft_work(rows, n, frame_length, hop)
+
+
+@obs.instrumented_jit(op="cuda", route="stft", work=_stft_work)
 def stft_cuda(x, window, frame_length, hop):
     """Short-time Fourier transform ``x[..., n] -> complex64 [...,
     frames, L // 2 + 1]`` with ``frames = 1 + (n - L) // hop`` of the

@@ -992,10 +992,12 @@ def _section_exit_state(b1, b2, a1, a2, x_sec, y_sec):
     return torch.stack([z1, z2], dim=-1)
 
 
-def _sos_scan(x, sos_rows, zi=None, want_zf=False):
+def _sos_scan(x, sos_rows, zi=None, want_zf=False, powers=None):
     """The cascade over ``x[rows, n]`` (float32): per section the FIR
     drive, the incoming state's corrections (``zi[rows, sections,
-    2]``: z1 onto y[0], z2 onto y[1]), then the doubling scan."""
+    2]``: z1 onto y[0], z2 onto y[1]), then the doubling scan.
+    ``powers`` (one :func:`_device_powers` a section, for this ``n``)
+    are the caller's own device copies; None reads the device LRU."""
     n = x.shape[-1]
     zf = []
     for i, row in enumerate(sos_rows):
@@ -1004,8 +1006,9 @@ def _sos_scan(x, sos_rows, zi=None, want_zf=False):
         if zi is not None:
             for t in range(min(n, 2)):
                 s[0, :, t].add_(zi[:, i, t])
-        _doubling_scan(s, _device_powers(_companion((1.0, a1, a2)), n,
-                                         x.device))
+        _doubling_scan(s, powers[i] if powers is not None
+                       else _device_powers(_companion((1.0, a1, a2)), n,
+                                           x.device))
         y = s[0]
         if want_zf:
             zf.append(_section_exit_state(b1, b2, a1, a2, x, y))
@@ -1024,9 +1027,10 @@ def _state_tensor(zi, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.array(zi, np.float32), device=like.device)
 
 
-def _sosfilt_torch(x, sos, zi=None, want_zf=False):
+def _sosfilt_torch(x, sos, zi=None, want_zf=False, powers=None):
     """:func:`sosfilt` on the float32 tensor ``x[..., n]``; ``zi``
-    ``[..., n_sections, 2]`` broadcasts over the batch."""
+    ``[..., n_sections, 2]`` broadcasts over the batch; ``powers`` as
+    in :func:`_sos_scan`."""
     batch, n = tuple(x.shape[:-1]), x.shape[-1]
     rows = math.prod(batch)
     zi_rows = None
@@ -1034,7 +1038,7 @@ def _sosfilt_torch(x, sos, zi=None, want_zf=False):
         zi_rows = torch.broadcast_to(
             _state_tensor(zi, x), batch + (len(sos), 2)).reshape(
                 rows, len(sos), 2)
-    out = _sos_scan(x.reshape(rows, n), sos, zi_rows, want_zf)
+    out = _sos_scan(x.reshape(rows, n), sos, zi_rows, want_zf, powers)
     if want_zf:
         y, zf = out
         return y.reshape(batch + (n,)), zf.reshape(batch + (len(sos), 2))
@@ -1099,7 +1103,17 @@ def sosfilt_na(sos, x, zi=None, return_zf=False):
     return y
 
 
-def sos_stream_step(x, sos, zi):
+def _stream_powers(sos, n: int, dev) -> list:
+    """The doubling scan's powers of each section's companion matrix
+    for ``n``-sample blocks on ``dev``: what :func:`sos_stream_step`
+    reads; a caller that holds them (the pipeline's stage) passes them
+    as ``powers``."""
+    return [_device_powers(_companion((1.0, row[4], row[5])), int(n),
+                           dev)
+            for row in _check_sos(sos)]
+
+
+def sos_stream_step(x, sos, zi, powers=None):
     """One-block SOS cascade step — the pipeline compiler's
     state-export hook.
 
@@ -1108,10 +1122,12 @@ def sos_stream_step(x, sos, zi):
     ``(y, zf)`` with ``zf`` the exit states in the same convention —
     thread them into the next block's call and the concatenated outputs
     equal the one-shot cascade to f32 round-off.  ``sos`` is a host
-    array; ``x`` and ``zi`` may be tensors on the card.
+    array; ``x`` and ``zi`` may be tensors on the card; ``powers`` as
+    returned by :func:`_stream_powers` (None reads the device LRU).
     """
     sos = _check_sos(sos)
-    return _sosfilt_torch(as_f32(x), sos, zi, want_zf=True)
+    return _sosfilt_torch(as_f32(x), sos, zi, want_zf=True,
+                          powers=powers)
 
 
 def sos_stream_step_na(x, sos, zi):

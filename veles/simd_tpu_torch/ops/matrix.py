@@ -205,6 +205,20 @@ def _check_2d(name, *ms):
             raise ValueError(f"{name}: expected >=2D matrices, got {m.ndim}D")
 
 
+def _check_contraction(m, v):
+    """The JAX package's ``TypeError`` for a gemv whose vector does
+    not match the matrix's width (torch would raise ``RuntimeError``),
+    checked on the shapes before any torch call."""
+    ms, vs = tuple(np.shape(m)), tuple(np.shape(v))
+    if not ms or not vs:
+        return
+    w = vs[-2] if len(vs) >= 2 else vs[0]   # jnp.dot's contraction
+    if ms[-1] != w:
+        raise TypeError(
+            "dot_general requires contracting dimensions to have the "
+            f"same shape, got ({ms[-1]},) and ({w},).")
+
+
 def matrix_add(m1, m2, simd=None):
     if resolve_simd(simd, op="matrix"):
         return as_tensor(m1) + as_tensor(m2)
@@ -264,6 +278,7 @@ def matrix_vector_multiply(m, v, simd=None, precision=None):
     forces a named route (the gemv is bandwidth-bound, so the engine
     does not pick one: fp32 is the default)."""
     if resolve_simd(simd, op="matrix"):
+        _check_contraction(m, v)
         route = _resolve_precision_route(precision, fast=False)
         return _matmul_p(as_f32(m), as_f32(v),
                          precision=GEMM_PRECISIONS[route or "fp32"])

@@ -105,6 +105,16 @@ def normalize2D_novec(src):
 def _check_2d(src):
     if np.ndim(src) < 2:
         raise ValueError("normalize2D/minmax2D expect a >=2D plane")
+    _check_reducible(src, 2)
+
+
+def _check_reducible(src, axes: int):
+    """The JAX package's error for an empty reduction (torch would
+    raise ``IndexError``): checked on the shape, before any torch
+    call."""
+    if 0 in tuple(np.shape(src))[-axes:]:
+        raise ValueError("zero-size array to reduction operation min "
+                         "which has no identity")
 
 
 def normalize2D(src, simd=None):
@@ -138,6 +148,7 @@ def minmax2D(src, simd=None):
 
 def minmax1D(src, simd=None):
     """(min, max) of a float array (``inc/simd/normalize.h:81-90``)."""
+    _check_reducible(src, 1)
     if resolve_simd(simd, op="normalize"):
         src = as_tensor(src)
         return torch.amin(src, dim=-1), torch.amax(src, dim=-1)

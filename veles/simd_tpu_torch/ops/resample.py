@@ -162,7 +162,7 @@ def _polyphase_runs(taps: np.ndarray, up: int, down: int, c0: int):
     return n_phase, step, runs
 
 
-def _resample_conv(x, taps, up, down, out_len, pad=None):
+def _resample_conv(x, taps, up, down, out_len, pad=None, runs=None):
     """The polyphase core: ``x[..., n]`` (a float32 tensor) through the
     up/down conversion with the host taps, ``[..., out_len]``.
 
@@ -172,7 +172,8 @@ def _resample_conv(x, taps, up, down, out_len, pad=None):
     left pad to crop a halo-extended block into global alignment; the
     left pad sets which full-convolution sample output 0 reads
     (``c0 = k - 1 - pad_left``), the right one how many outputs the
-    padded span holds.
+    padded span holds.  ``runs`` is the caller's own
+    :func:`_device_runs` for this geometry (None reads the device LRU).
     """
     taps = np.asarray(taps, np.float64)
     k = taps.shape[0]
@@ -190,9 +191,11 @@ def _resample_conv(x, taps, up, down, out_len, pad=None):
         return x.new_zeros(batch + (0,))
     c0 = k - 1 - pad[0]
     dev = x.device
-    n_phase, step, runs = _device_cache.get(
-        ("runs", taps.tobytes(), up, down, c0, str(dev)),
-        lambda: _device_runs(taps, up, down, c0, dev))
+    if runs is None:
+        runs = _device_cache.get(
+            ("runs", taps.tobytes(), up, down, c0, str(dev)),
+            lambda: _device_runs(taps, up, down, c0, dev))
+    n_phase, step, runs = runs
     m_out = -(-n_out // n_phase)
     spans = [(base, base + (m_out - 1) * step + w.shape[-1])
              for base, w in runs]
@@ -381,14 +384,24 @@ def resample_stream_plan(up: int, down: int, block: int,
             "pad": (pad_l, pad_r)}
 
 
-def resample_stream_step(x_ext, taps, plan: dict):
+def _stream_runs(plan: dict, dev):
+    """The device weights :func:`resample_stream_step` reads for
+    ``plan``; a caller that holds them (the pipeline's stage) passes
+    them as ``runs``."""
+    taps = np.asarray(plan["taps"], np.float64)
+    return _device_runs(taps, plan["up"], plan["down"],
+                        len(taps) - 1 - plan["pad"][0], dev)
+
+
+def resample_stream_step(x_ext, taps, plan: dict, runs=None):
     """One-block resample step: ``x_ext[..., hist + block]`` (carry +
     new chunk) -> ``[..., out_block]`` on the streaming grid of
     :func:`resample_stream_plan`.  Runs the same polyphase core as
     :func:`resample_poly` with the plan's padding; ``taps`` is the host
-    array (``plan["taps"]``)."""
+    array (``plan["taps"]``); ``runs`` is the caller's own
+    :func:`_stream_runs` (None reads the device LRU)."""
     return _resample_conv(as_f32(x_ext), taps, plan["up"], plan["down"],
-                          plan["out_block"], pad=plan["pad"])
+                          plan["out_block"], pad=plan["pad"], runs=runs)
 
 
 def resample_stream_step_na(x_ext, plan: dict):

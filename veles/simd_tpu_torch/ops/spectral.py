@@ -768,15 +768,38 @@ def select_stft_stream_route(frame_length: int, hop: int, frames: int,
         frames=int(frames))
 
 
+# the basis-matmul stream routes and their matmul precision
+_STFT_STREAM_RDFT = {"rdft_matmul": "highest",
+                     "rdft_matmul_bf16_comp": "bf16_comp"}
+
+
+def _stft_stream_operand(frame_length: int, window, route: str, dev):
+    """The device constant a stream route reads: the window-folded
+    real-DFT basis for the basis-matmul routes, the window for the FFT
+    route.  A caller that holds it (the pipeline's stage) passes it to
+    :func:`stft_stream_step` as ``operand``."""
+    if route in _STFT_STREAM_RDFT:
+        return _device_basis("rdft_fwd", frame_length, window,
+                             lambda: _rdft_basis(frame_length, window),
+                             dev)
+    return _device_window(window, dev)
+
+
 def stft_stream_step(x_ext, frame_length: int, hop: int, window,
-                     route: str):
+                     route: str, operand=None):
     """One-block STFT step: ``x_ext[..., (L - hop) + block]`` (carry +
     new chunk) -> complex64 ``[..., block/hop, L//2 + 1]``, through the
-    same route cores one-shot :func:`stft` dispatches."""
+    same route cores one-shot :func:`stft` dispatches.  ``operand`` is
+    the caller's own :func:`_stft_stream_operand` for this route (None
+    reads the device LRU)."""
     x_ext = as_f32(x_ext)
-    if route in ("rdft_matmul", "rdft_matmul_bf16_comp"):
-        return _STFT_ROUTES[route](x_ext, window, frame_length, hop)
-    return _run_stft_xla(x_ext, window, frame_length, hop)
+    if operand is None:
+        operand = _stft_stream_operand(frame_length, window, route,
+                                       x_ext.device)
+    if route in _STFT_STREAM_RDFT:
+        return _stft_rdft(x_ext, operand, frame_length, hop,
+                          precision=_STFT_STREAM_RDFT[route])
+    return _stft_xla(x_ext, operand, frame_length, hop)
 
 
 def stft_stream_oracle(x, frame_length: int, hop: int, window=None):
@@ -812,6 +835,7 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
         return stft_na(x, frame_length, hop, window).astype(np.complex64)
     frames = frame_count(n, frame_length, hop)
     forced = route is not None
+    route = ROUTE_NAMES.get(route, route)
     if forced and route not in _STFT_ROUTES:
         raise ValueError(
             f"route must be one of {sorted(_STFT_ROUTES)}, "

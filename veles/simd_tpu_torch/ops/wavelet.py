@@ -248,6 +248,7 @@ def _select_wavelet_route(src, order, dilation, stride, route=None,
     :func:`_wavelet_runners`, the thunks dispatch runs).  Returns
     ``(route, forced)``."""
     if route is not None:
+        route = ROUTE_NAMES.get(route, route)
         if route not in _WAVELET_FAMILY.names():
             raise ValueError(
                 f"route must be one of "

@@ -89,6 +89,7 @@ import threading
 import time
 
 from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.obs._env import getenv
 from veles.simd_tpu_torch.runtime import breaker as _breaker
 
 __all__ = [
@@ -121,23 +122,6 @@ DEFAULT_BACKOFF_S = 0.05
 FAULT_HISTORY_MAXLEN = 64
 
 
-# On POSIX os.environ keeps its values in a dict of bytes that every
-# write through os.environ updates; a lookup there skips the two
-# exceptions Mapping.get raises and catches for an unset name (about
-# 1 us a read, and a healthy guarded call reads the plan, the watchdog
-# knob and each armed route gate's plan)
-_ENVIRON_DATA = getattr(os.environ, "_data", None) \
-    if os.name == "posix" else None
-if not isinstance(_ENVIRON_DATA, dict):
-    _ENVIRON_DATA = None
-
-
-def getenv(name: str) -> str | None:
-    """``os.environ.get(name)``, at a dict lookup's cost on POSIX."""
-    if _ENVIRON_DATA is None:
-        return os.environ.get(name)
-    raw = _ENVIRON_DATA.get(name.encode())
-    return None if raw is None else os.fsdecode(raw)
 
 
 # ---------------------------------------------------------------------------

@@ -675,6 +675,27 @@ def env_truthy(name: str) -> bool:
         "1", "true", "yes", "on")
 
 
+# The JAX package's names for the port's kernel routes and opt-out
+# switches: code written for the JAX package runs unchanged, as
+# :func:`port_plan` does for fault sites.
+_JAX_ROUTE_NAMES = {"pallas_fused": "cuda_fused",
+                    "direct_pallas": "direct_cuda",
+                    "pallas": "cuda"}
+_JAX_DISABLE_ENVS = {
+    "VELES_SIMD_DISABLE_CUDA_OS": "VELES_SIMD_DISABLE_PALLAS_OS",
+    "VELES_SIMD_DISABLE_CUDA2D": "VELES_SIMD_DISABLE_PALLAS2D",
+    "VELES_SIMD_DISABLE_CUDA_WAVELET": "VELES_SIMD_DISABLE_PALLAS_WAVELET",
+    "VELES_SIMD_DISABLE_STFT_CUDA": "VELES_SIMD_DISABLE_STFT_PALLAS",
+}
+
+
+def _disabled(env: str) -> bool:
+    """Is the opt-out ``env`` set truthy, under its own name or the
+    JAX package's?"""
+    alias = _JAX_DISABLE_ENVS.get(env)
+    return env_truthy(env) or (alias is not None and env_truthy(alias))
+
+
 @dataclasses.dataclass(frozen=True)
 class Route:
     """One candidate in a family's table.
@@ -710,7 +731,7 @@ class Route:
     def gate(self, geom: dict) -> bool:
         """Env opt-out, then the predicate (no rejection memory, no
         armed plan): the pure geometry gate."""
-        if self.disable_env and env_truthy(self.disable_env):
+        if self.disable_env and _disabled(self.disable_env):
             return False
         if self.predicate is None:
             return True
@@ -753,6 +774,10 @@ class Family:
         return tuple(self._routes)
 
     def route(self, name: str) -> Route:
+        """The route ``name`` (the port's name, or the JAX package's
+        for the same route)."""
+        if name not in self._routes:
+            name = _JAX_ROUTE_NAMES.get(name, name)
         try:
             return self._routes[name]
         except KeyError:

@@ -39,7 +39,9 @@ import torch
 __all__ = ["device_time_ms", "host_time", "device_busy_ms",
            "device_breakdown", "device_kernels", "device_profile",
            "fp32_bound", "conv_work",
-           "conv2d_work", "stft_work", "gemm_work", "gemm_bound",
+           "conv2d_work", "stft_work", "filter_bank_work",
+           "cascade_bank_work", "filter_2d_work", "gemm_work",
+           "gemm_bound",
            "H100_FP32_TFLOPS", "H100_TF32_TFLOPS", "H100_BF16_TFLOPS",
            "H100_INT8_TOPS", "H100_HBM_TBPS", "GEMM_PEAK_TFLOPS"]
 
@@ -122,15 +124,27 @@ def _profile(fn, calls: int):
     return rows, wall_us
 
 
-def _device_rows(fn, calls: int, windows: int = 4):
-    """:func:`_profile`'s rows; a trace can come back empty on its own,
-    twice in a row too, so up to ``windows`` windows before giving
-    up."""
+def _device_rows(fn, calls: int, windows: int = 4, keep: int = 3):
+    """:func:`_profile`'s rows from the longest of ``keep`` windows.  A
+    trace can come back empty on its own, twice in a row too, or short
+    (some launches with a fraction of their device time, so that a
+    kernel reads below its bound), but never long: so up to
+    ``windows`` windows, the first ``keep`` that saw device time
+    compared, the longest kept."""
+    best, seen = None, 0
     for _ in range(windows):
         rows, _ = _profile(fn, calls)
-        if rows:
-            return rows
-    raise RuntimeError("torch.profiler saw no device time")
+        if not rows:
+            continue
+        if best is None or sum(r[0] for r in rows) > sum(
+                r[0] for r in best):
+            best = rows
+        seen += 1
+        if seen == keep:
+            break
+    if best is None:
+        raise RuntimeError("torch.profiler saw no device time")
+    return best
 
 
 def device_busy_ms(fn, *, calls: int = 20) -> float:
@@ -272,4 +286,49 @@ def stft_work(rows: int, n: int, frame_length: int,
     cols = 2 * (L // 2 + 1)
     flops = rows * frames * (L + _rfft_flops(L))
     nbytes = 4.0 * (rows * n + L + rows * frames * cols)
+    return flops, nbytes
+
+
+def filter_bank_work(rows: int, n_in: int, channels: int, k: int,
+                     n_out: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of a float32 FIR bank: ``channels`` filters
+    of ``k`` taps, each giving ``n_out`` outputs a row of ``rows``
+    signals of ``n_in`` samples (one multiply-add per output and tap,
+    any stride or dilation).  The bytes read the input and the taps
+    once and write every channel's outputs once.  A full convolution
+    (one channel, unit stride, ``n_out = n + k - 1``) is
+    :func:`conv_work`, whose FFT form may be less."""
+    rows, n_in, channels, k, n_out = (int(v) for v in (rows, n_in,
+                                                       channels, k,
+                                                       n_out))
+    flops = 2.0 * channels * k * rows * n_out
+    nbytes = 4.0 * (rows * n_in + channels * k + channels * rows * n_out)
+    return flops, nbytes
+
+
+def cascade_bank_work(rows: int, n_in: int, slots: int, channels: int,
+                      n_out: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of a float32 cascade bank: ``channels``
+    outputs of ``n_out`` samples a row from ``slots`` (phase, offset,
+    tap) slots in all (one multiply-add per output and slot).  The
+    bytes read the ``n_in`` input samples a row and the taps once and
+    write every channel's outputs once."""
+    rows, n_in, slots, channels, n_out = (int(v) for v in (
+        rows, n_in, slots, channels, n_out))
+    flops = 2.0 * slots * rows * n_out
+    nbytes = 4.0 * (rows * n_in + slots + channels * rows * n_out)
+    return flops, nbytes
+
+
+def filter_2d_work(imgs: int, n0: int, n1: int, k0: int, k1: int,
+                   n_out0: int, n_out1: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of a float32 2D correlation of ``imgs``
+    images of ``n0 x n1`` with a ``k0 x k1`` kernel into ``n_out0 x
+    n_out1`` outputs (one multiply-add per output and tap).  The bytes
+    read the unpadded images and the kernel once and write the outputs
+    once.  The full 2D convolution is :func:`conv2d_work`."""
+    imgs, n0, n1, k0, k1, n_out0, n_out1 = (int(v) for v in (
+        imgs, n0, n1, k0, k1, n_out0, n_out1))
+    flops = 2.0 * imgs * n_out0 * n_out1 * k0 * k1
+    nbytes = 4.0 * (imgs * n0 * n1 + k0 * k1 + imgs * n_out0 * n_out1)
     return flops, nbytes
