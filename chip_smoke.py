@@ -102,8 +102,8 @@ without printing a result):
             and the unpacked calls; the guard's host cost (each entry
             against its unguarded core and the bare kernel wrapper, in
             turns, and the guard's pieces on the host clock).  The
-            main, reference, dsp, autotune and times phases must
-            record no fault: no ``fault_*`` counter, ``fault_policy``
+            main, reference, dsp, autotune, serve (but its triad) and
+            times phases must record no fault: no ``fault_*`` counter, ``fault_policy``
             event, fault record or failed breaker;
 4e. autotune — the measured autotuner (``VELES_SIMD_AUTOTUNE=on`` in
             this thread, a private tune cache in a temporary
@@ -149,6 +149,31 @@ without printing a result):
             ``pipeline.dispatch:device_lost:9999`` with no oracle; the
             fused and unfused busy times agree within a factor of
             ``PL_BUSY_FACTOR`` (windows retried);
+4g. serve — the serving loop (``serve.Server``, workers 2): bench
+            config 11 (bench.py:780-828), 160 requests of loadgen's mix
+            (tools/loadgen.py:96-106, rebuilt here with numpy), three
+            tenants, flat-out arrivals, ``max_batch`` 8, 2 ms
+            ``max_wait``, a warm pass then a timed one, against the
+            same requests through the single-call ops (each synced):
+            req/s, ``serve.request_latency`` p50/p99 an op, batches,
+            padding rows, goodput, no csrc kernel; the STFT acceptance
+            class (64 requests of 16,384 samples at 512/128), K4's
+            launches equal to the batches, req/s, p50/p99, device busy
+            ms a batch; ragged packing (``VELES_SIMD_SERVE_RAGGED=1``,
+            stft 128/64 and 512/128 at Pareto lengths); a served
+            ``matched_stft`` pipeline (64 streams x 8 blocks of 16,384,
+            state threaded through the answers) captured under the
+            server while plain ``sosfilt`` traffic runs on the second
+            worker, equal to ``process`` on the same blocks within
+            1e-6, one graph a row class; every answer within its
+            float64 tolerance (IIR and resampling 2e-5, STFT 1e-4),
+            every trace closed by one terminal edge with phases summing
+            to the total within 1e-3 s, none answered twice, no fault
+            on the healthy steps; then the resilience triad (deadlines,
+            a poisoned class's breaker, DEGRADED and probed recovery,
+            answers equal to the oracle) and the scrape endpoint
+            (``/metrics``, ``/healthz``, ``/debug/requests``, 501 on
+            ``/signals``, ``EndpointUnavailable`` on a taken port);
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -219,6 +244,13 @@ FUSED_TOL = 1e-6         # fused vs fused=False, of max|y|
 # agree within this factor (the fused step adds copies in and out of
 # its static buffers); a profiled window that comes back short retries
 PL_BUSY_FACTOR, PL_BUSY_WINDOWS = 1.5, 4
+# the serve phase: tools/loadgen.py:96-106 and bench.py:780-828
+SERVE_TENANTS = ("alice", "bob", "carol")
+SERVE_REQUESTS, SERVE_K4_REQUESTS = 160, 64
+SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS = 8, 2.0
+SERVE_TRACE_TOL = 1e-3   # phases vs total (tools/loadgen.py TRACE_TOL_S)
+SERVE_RAGGED = 48        # ragged requests a geometry
+SERVE_PL_BLOCKS = 8      # served pipeline blocks, ROWS_BS streams each
 DAUB8_LO = np.array([-0.010597401784997278, 0.032883011666982945,
                      0.030841381835986965, -0.18703481171888114,
                      -0.02798376941698385, 0.6308807679295904,
@@ -1367,6 +1399,474 @@ def pipeline_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
     print(f"pipeline: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def serve_mix():
+    """loadgen's traffic table (tools/loadgen.py:96-106): (op, params,
+    lengths) — butterworth(4, 0.25) sosfilt, an order-2 lfilter,
+    resample_poly 3/2 and stft 128/64 on short rows."""
+    from veles.simd_tpu_torch.ops import iir
+
+    return [
+        ("sosfilt", {"sos": iir.butterworth(4, 0.25, "lowpass")},
+         (384, 500, 777, 1024)),
+        ("lfilter", {"b": [0.2, 0.3, 0.1], "a": [1.0, -0.4, 0.1]},
+         (256, 640)),
+        ("resample_poly", {"up": 3, "down": 2}, (300, 512)),
+        ("stft", {"frame_length": 128, "hop": 64}, (512, 1000)),
+    ]
+
+
+def serve_schedule(rng, count):
+    """``count`` requests of loadgen's mix with flat-out arrivals, drawn
+    as ``tools/loadgen.build_schedule(rng, count, rate_hz=0)`` draws
+    them: ``[(op, params, x, tenant), ...]``."""
+    mix = serve_mix()
+    out = []
+    for _ in range(count):
+        op, params, lengths = mix[rng.randint(len(mix))]
+        n = int(lengths[rng.randint(len(lengths))])
+        x = rng.randn(n).astype(np.float32)
+        out.append((op, params, x,
+                    SERVE_TENANTS[rng.randint(len(SERVE_TENANTS))]))
+    return out
+
+
+def serve_oracle(op, params, x):
+    """The float64 answer of one request (the ops' NumPy oracles)."""
+    from veles.simd_tpu_torch.ops import iir
+    from veles.simd_tpu_torch.ops import resample as rs
+    from veles.simd_tpu_torch.ops import spectral as sp
+
+    if op == "sosfilt":
+        return iir.sosfilt_na(params["sos"], x)
+    if op == "lfilter":
+        return iir.lfilter_na(params["b"], params["a"], x)
+    if op == "resample_poly":
+        return rs.resample_poly_na(x, params["up"], params["down"])
+    return sp.stft_na(x, params["frame_length"], params["hop"])
+
+
+SERVE_TOL = {"sosfilt": IIR_TOL, "lfilter": IIR_TOL,
+             "resample_poly": RESAMPLE_TOL, "stft": ORACLE_TOL}
+
+
+def served(srv, schedule, timeout=120.0):
+    """Submit ``schedule`` flat out, wait for every ticket; returns
+    ``(tickets, answers, seconds)`` (submit of the first to the answer
+    of the last, host clock).  A request admission shed (a tenant past
+    its queue bound: the server's typed answer, as loadgen counts it)
+    answers None; one unanswered within ``timeout`` raises."""
+    from veles.simd_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    tickets = [srv.submit(serve.Request(op, x, params, tenant=tenant))
+               for op, params, x, tenant in schedule]
+    answers = []
+    for t in tickets:
+        try:
+            answers.append(t.result(timeout=timeout))
+        except serve.Overloaded:
+            answers.append(None)
+    return tickets, answers, time.perf_counter() - t0
+
+
+def check_served(what, schedule, tickets, answers, obs, sheds=False):
+    """Every answer ``ok`` and within its float64 tolerance (or, where
+    ``sheds``, a typed admission shed), every trace closed by exactly
+    one terminal edge with phases summing to the total, none answered
+    twice; returns ``(worst error an op, sheds)``."""
+    from veles.simd_tpu_torch.obs import requests as obs_requests
+
+    terminal = set(obs_requests.TERMINAL_STATUSES.values())
+    worst, shed = {}, 0
+    for (op, params, x, _), t, y in zip(schedule, tickets, answers):
+        if y is None and sheds and t.status == "shed":
+            shed += 1
+        else:
+            check(t.status == "ok" and isinstance(y, np.ndarray),
+                  f"{what}: {op} ticket {t.status}, answer {type(y)}")
+            err = crel_err(y, serve_oracle(op, params, x))
+            check(err <= SERVE_TOL[op], f"{what}: {op} n={x.size} rel "
+                  f"err {err:.3e} > {SERVE_TOL[op]}")
+            worst[op] = max(worst.get(op, 0.0), err)
+        tr = t.trace
+        ends = [e for e in tr.events() if e["event"] in terminal]
+        p = tr.phases()
+        drift = abs(p["queue_wait_s"] + p["batch_wait_s"] + p["device_s"]
+                    - p["total_s"])
+        check(tr.status == t.status and len(ends) == 1
+              and drift <= SERVE_TRACE_TOL,
+              f"{what}: trace {tr.rid} status {tr.status}, {len(ends)} "
+              f"terminal edges, phase drift {drift:.2e}")
+    check(obs.counter_value("serve_double_answer") == 0,
+          f"{what}: a request was answered twice")
+    return worst, shed
+
+
+def latency_line(obs, ops, tickets):
+    """p50/p99 of ``serve.request_latency`` an op (obs.quantiles: the
+    histogram's bucket bounds) beside the exact ones of the traces."""
+    parts = []
+    for op in ops:
+        q = obs.quantiles("serve.request_latency", op=op, status="ok")
+        tot = np.asarray([t.trace.total_s for t in tickets
+                          if t.op == op and t.status == "ok"]) * 1e3
+        parts.append(f"{op} p50 {q['p50'] * 1e3:.3f} p99 "
+                     f"{q['p99'] * 1e3:.3f} ms (buckets; traces "
+                     f"{np.percentile(tot, 50):.3f} / "
+                     f"{np.percentile(tot, 99):.3f} ms)")
+    return " | ".join(parts)
+
+
+def serve_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
+    """The serving loop on the card through ``serve.Server``: bench
+    config 11's mix (bench.py:780-828) against the single-call ops; the
+    STFT acceptance geometry, one K4 launch a batch; ragged packing;
+    a served pipeline (one graph a row class, captured while plain
+    traffic runs on a second worker); the resilience triad; the scrape
+    endpoint."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from veles.simd_tpu_torch import pipeline as pl
+    from veles.simd_tpu_torch import serve
+    from veles.simd_tpu_torch.obs import http as obs_http
+    from veles.simd_tpu_torch.ops import iir
+    from veles.simd_tpu_torch.ops import resample as rs
+    from veles.simd_tpu_torch.ops import spectral as sp
+    from veles.simd_tpu_torch.serve import server as srv_mod
+
+    t_phase = time.perf_counter()
+
+    def new_server(**kw):
+        kw.setdefault("max_batch", SERVE_MAX_BATCH)
+        kw.setdefault("max_wait_ms", SERVE_MAX_WAIT_MS)
+        kw.setdefault("workers", 2)
+        return serve.Server(**kw)
+
+    # 1. bench config 11: 160 requests of loadgen's mix, warm then timed
+    schedule = serve_schedule(rng, SERVE_REQUESTS)
+    single = {"sosfilt": lambda p, x: iir.sosfilt(p["sos"], x),
+              "lfilter": lambda p, x: iir.lfilter(p["b"], p["a"], x),
+              "resample_poly": lambda p, x: rs.resample_poly(
+                  x, p["up"], p["down"]),
+              "stft": lambda p, x: sp.stft(x, p["frame_length"],
+                                           p["hop"])}
+
+    def sequential():
+        t0 = time.perf_counter()
+        for op, params, x, _ in schedule:
+            single[op](params, x).cpu()
+        return time.perf_counter() - t0
+
+    with new_server() as srv:
+        served(srv, schedule)                        # warm
+        sequential()
+        obs.reset()
+        ck.reset_launches()
+        tickets, answers, wall = served(srv, schedule)
+        launches = dict(ck.LAUNCHES)
+        counts, good = srv.stats()["counts"], srv.goodput()["overall"]
+    seq = sequential()
+    worst, shed = check_served("serve mix", schedule, tickets, answers,
+                               obs, sheds=True)
+    answered = len(schedule) - shed
+    check(not any(launches.values()), f"serve mix: the mix launched "
+          f"csrc kernels {launches}")
+    print(f"serve mix (bench config 11, {SERVE_REQUESTS} requests, 3 "
+          f"tenants, max_batch {SERVE_MAX_BATCH}, max_wait "
+          f"{SERVE_MAX_WAIT_MS} ms, workers 2): served "
+          f"{answered / wall:.1f} req/s ({answered} answered, {shed} "
+          f"shed by admission, {wall * 1e3:.1f} ms) | "
+          f"sequential single calls, each synced "
+          f"{SERVE_REQUESTS / seq:.1f} req/s ({seq * 1e3:.1f} ms) | "
+          f"batches {counts['batches']}, padding rows "
+          f"{counts['dispatched_rows'] - counts['useful_rows']}, goodput "
+          f"rows {good['goodput']:.3f} samples "
+          f"{good['sample_goodput']:.3f} | worst rel " + json.dumps(
+              {k: float(f"{v:.2e}") for k, v in sorted(worst.items())})
+          + " | no csrc kernel")
+    print("serve mix latency: " + latency_line(
+        obs, [m[0] for m in serve_mix()], tickets))
+    healthy("serve mix", obs, faults, breaker)
+
+    # 2. the kernel class: stft 512/128 on 16,384-sample rows, one K4
+    # launch a device batch
+    k4 = [("stft", {"frame_length": L_ST, "hop": HOP_ST},
+           rng.randn(N_BS).astype(np.float32),
+           SERVE_TENANTS[i % len(SERVE_TENANTS)])
+          for i in range(SERVE_K4_REQUESTS)]
+    with new_server() as srv:
+        served(srv, k4)                              # warm
+        obs.reset()
+        ck.reset_launches()
+        before = srv.stats()["counts"]["batches"]
+        tickets, answers, wall = served(srv, k4)
+        launches = dict(ck.LAUNCHES)
+        batches = srv.stats()["counts"]["batches"] - before
+        worst, _ = check_served("serve stft", k4, tickets, answers, obs)
+        latency = latency_line(obs, ["stft"], tickets)
+        others = {k: v for k, v in launches.items() if k != "stft" and v}
+        check(launches["stft"] == batches and not others
+              and batches >= SERVE_K4_REQUESTS // SERVE_MAX_BATCH,
+              f"serve stft: launches {launches} for {batches} batches")
+        healthy("serve stft", obs, faults, breaker)
+        one_batch = k4[:SERVE_MAX_BATCH]
+        busy, kernels = bm.device_profile(lambda: served(srv, one_batch),
+                                          calls=5)
+    print(f"serve stft ({SERVE_K4_REQUESTS} requests of {N_BS} samples at "
+          f"{L_ST}/{HOP_ST}, 3 tenants): {SERVE_K4_REQUESTS / wall:.1f} "
+          f"req/s | {batches} batches, K4 launches {launches['stft']} (one "
+          f"a batch) | {latency} | device busy {busy:.4f} ms a batch, "
+          f"{kernels:.0f} kernels and copies a batch (torch.profiler), "
+          f"{busy * batches / (wall * 1e3):.3f} of the timed pass's "
+          f"wall clock | "
+          f"rel {worst['stft']:.2e} (tol {ORACLE_TOL:g}) | card {smi}")
+
+    # 3. ragged packing: stft 128/64 and 512/128 at Pareto lengths
+    os.environ[srv_mod.RAGGED_ENV] = "1"
+    try:
+        top = srv_mod.ragged_max()
+        ragged = [("stft", {"frame_length": fl, "hop": hop}, rng.randn(
+                      n).astype(np.float32), SERVE_TENANTS[i % 3])
+                  for fl, hop in ((128, 64), (L_ST, HOP_ST))
+                  for i, n in enumerate(pareto_lengths(rng, SERVE_RAGGED,
+                                                       fl, top))]
+        obs.reset()
+        ck.reset_launches()
+        with new_server(max_wait_ms=20.0) as srv:
+            tickets, answers, wall = served(srv, ragged)
+            counts = srv.stats()["counts"]
+        launches = dict(ck.LAUNCHES)
+    finally:
+        del os.environ[srv_mod.RAGGED_ENV]
+    worst, _ = check_served("serve ragged", ragged, tickets, answers,
+                            obs)
+    check(not any(t.degraded for t in tickets), "serve ragged: degraded")
+    healthy("serve ragged", obs, faults, breaker)
+    print(f"serve ragged ({len(ragged)} stft requests, 128/64 and "
+          f"{L_ST}/{HOP_ST}, Pareto lengths up to {top}): "
+          f"{counts['batches']} batches, sample goodput "
+          f"{counts['useful_samples'] / counts['dispatched_samples']:.3f}"
+          f" | rel {worst['stft']:.2e} | none degraded | K4 launches "
+          f"{launches['stft']} (a packed row of at most {top} samples "
+          f"holds fewer than {ck.STFT_MIN_FRAMES} frames at "
+          f"{L_ST}/{HOP_ST})")
+
+    # 4. a served pipeline: matched_stft on ROWS_BS streams of N_BS-sample
+    # blocks, captured under the server while plain sosfilt traffic
+    # runs on the second worker
+    template = rng.randn(K_HEAD).astype(np.float32)
+
+    def matched_stft():
+        return pl.Pipeline([pl.matched_filter(template),
+                            pl.stft(L_ST, HOP_ST), pl.power()],
+                           name="served_mstft").compile(N_BS)
+
+    cp, ref = matched_stft(), matched_stft()
+    x_pl = rng.randn(ROWS_BS, SERVE_PL_BLOCKS * N_BS).astype(np.float32)
+    sos = iir.butterworth(4, 0.25, "lowpass")
+    plain = [("sosfilt", {"sos": sos}, rng.randn(1024).astype(np.float32),
+              "plain") for _ in range(8 * SERVE_PL_BLOCKS)]
+    obs.reset()
+    ck.reset_launches()
+    stop = False
+    plain_done = []
+
+    def plain_traffic(srv):
+        while not stop:
+            tk, ys, _ = served(srv, plain[:8])
+            plain_done.append((tk, ys))
+
+    with new_server(max_wait_ms=20.0) as srv:
+        op = srv.register_pipeline("served_mstft", cp)
+        feeder = threading.Thread(target=plain_traffic, args=(srv,))
+        feeder.start()
+        try:
+            states = [None] * ROWS_BS
+            outs = [[] for _ in range(ROWS_BS)]
+            block_s = []
+            for b in range(SERVE_PL_BLOCKS):
+                blk = x_pl[:, b * N_BS:(b + 1) * N_BS]
+                t0 = time.perf_counter()
+                tks = [srv.submit(op=op, x=blk[i],
+                                  params={"state": states[i]},
+                                  tenant=f"stream{i % 3}")
+                       for i in range(ROWS_BS)]
+                for i, t in enumerate(tks):
+                    outs[i].append(t.result(timeout=120.0)[0])
+                    states[i] = t.result()[1]
+                    check(t.status == "ok", f"serve pipeline: block {b} "
+                          f"stream {i} {t.status}")
+                block_s.append(time.perf_counter() - t0)
+        finally:
+            stop = True
+            feeder.join(timeout=120.0)
+        check(not feeder.is_alive(), "serve pipeline: plain traffic hung")
+        stats = srv.stats()
+    captures = [e for e in obs.events() if e["op"] == "pipeline_graph"
+                and e.get("pipeline") == "served_mstft"]
+    shapes = [tuple(e["shape"]) for e in captures]
+    check(len(shapes) == len(set(shapes)) == cp.compile_cache_size()
+          and all(s[1] == N_BS for s in shapes),
+          f"serve pipeline: captures {shapes}, graphs "
+          f"{cp.compile_cache_size()}: want one a row class")
+    check(plain_done and all(t.status == "ok" for tk, _ in plain_done
+                             for t in tk), "serve pipeline: plain traffic "
+          f"{len(plain_done)} rounds, statuses not all ok")
+    for tk, ys in plain_done[:4]:
+        for (_, params, x, _), y in zip(plain, ys):
+            err = rel_err(y, iir.sosfilt_na(sos, x))
+            check(err <= IIR_TOL, f"serve pipeline: plain sosfilt rel "
+                  f"{err:.3e}")
+    # process() on the same blocks, row groups of max_batch streams
+    rows = SERVE_MAX_BATCH
+    d_max = 0.0
+    for g in range(0, ROWS_BS, rows):
+        st = None
+        for b in range(SERVE_PL_BLOCKS):
+            want, st = ref.process(x_pl[g:g + rows, b * N_BS:(b + 1) * N_BS],
+                                   st)
+            want = want.cpu().numpy()
+            got = np.stack([outs[i][b] for i in range(g, g + rows)])
+            d_max = max(d_max, float(np.max(np.abs(got - want))
+                                     / np.max(np.abs(want))))
+    check(d_max <= FUSED_TOL, f"serve pipeline: served vs process "
+          f"{d_max:.3e} > {FUSED_TOL}")
+    healthy("serve pipeline", obs, faults, breaker)
+    print(f"serve pipeline matched_stft ({ROWS_BS} streams x "
+          f"{SERVE_PL_BLOCKS} blocks of {N_BS}, workers 2, "
+          f"{len(plain_done)} rounds of 8 plain sosfilt requests beside "
+          f"it): graphs {shapes} captured in "
+          + ", ".join(f"{e['seconds']:.3f}" for e in captures)
+          + f" s under the server | served vs process {d_max:.2e} (tol "
+          f"{FUSED_TOL:g}) | {ROWS_BS / np.median(block_s):.1f} "
+          f"invocations/s (median block round "
+          f"{np.median(block_s) * 1e3:.2f} ms) | batches "
+          f"{stats['counts']['batches']} | card {smi}")
+
+    # 5. faults and deadlines (the resilience triad), no backoff
+    os.environ[faults.FAULT_BACKOFF_ENV] = "0"
+    try:
+        x256 = rng.randn(256).astype(np.float32)
+        sos_req = serve.Request("sosfilt", x256, {"sos": sos})
+        with new_server(max_batch=1, max_wait_ms=1.0) as srv:
+            ok = srv.submit(sos_req, deadline_ms=60000.0)
+            ok.result(timeout=60.0)
+        with new_server(max_wait_ms=500.0) as srv:
+            late = srv.submit(sos_req, deadline_ms=0.01)
+            try:
+                late.result(timeout=60.0)
+                raised = False
+            except serve.DeadlineExceeded:
+                raised = True
+            batches = srv.stats()["counts"]["batches"]
+        check(ok.status == "ok" and raised and late.status == "expired"
+              and batches == 0, f"serve deadlines: generous "
+              f"{ok.status}, tiny raised {raised} {late.status}, "
+              f"{batches} batches")
+        lf = {"b": [0.2, 0.3, 0.1], "a": [1.0, -0.4, 0.1]}
+        with new_server(max_batch=1, max_wait_ms=1.0, workers=1,
+                        probe_every=1) as srv:
+            faults.set_fault_plan(
+                "serve.dispatch@sosfilt:device_lost:9999")
+            try:
+                poisoned = [srv.submit(sos_req) for _ in range(6)]
+                for t in poisoned:
+                    t.result(timeout=60.0)
+                sibling = srv.submit(serve.Request("lfilter", x256, lf))
+                sibling.result(timeout=60.0)
+                opened = [b["state"] for b in srv.stats()["breakers"]]
+            finally:
+                faults.set_fault_plan(None)
+            after = []
+            for _ in range(12):
+                t = srv.submit(sos_req)
+                t.result(timeout=60.0)
+                after.append(t.status)
+            closed = [b["state"] for b in srv.stats()["breakers"]]
+        check({t.status for t in poisoned} == {"degraded"}
+              and sibling.status == "ok" and "open" in opened
+              and after[-1] == "ok" and set(closed) == {"closed"},
+              f"serve breaker: poisoned {[t.status for t in poisoned]}, "
+              f"sibling {sibling.status}, breakers {opened} -> {closed}")
+        faults.reset_fault_history()
+        breaker.reset()
+        faults.set_fault_plan("serve.dispatch:device_lost:3")
+        try:
+            with new_server(max_batch=1, max_wait_ms=1.0, workers=1,
+                            probe_every=2) as srv:
+                xs = [rng.randn(256).astype(np.float32) for _ in range(3)]
+                tks = [srv.submit(serve.Request("sosfilt", x,
+                                                {"sos": sos}))
+                       for x in xs]
+                ys = [t.result(timeout=60.0) for t in tks]
+                health = srv.stats()["health"]
+        finally:
+            faults.set_fault_plan(None)
+        same = [np.array_equal(y, srv_mod._oracle_call(
+            "sosfilt", x[None, :], {"sos": sos})[0])
+            for x, y in zip(xs[:2], ys[:2])]
+        check([t.status for t in tks] == ["degraded", "degraded", "ok"]
+              and all(same) and health["state"] == "healthy"
+              and health["trips"] == 1 and health["recoveries"] == 1,
+              f"serve health: {[t.status for t in tks]}, oracle-equal "
+              f"{same}, {health}")
+        check(rel_err(ys[2], iir.sosfilt_na(sos, xs[2])) <= IIR_TOL,
+              "serve health: the recovered answer")
+    finally:
+        del os.environ[faults.FAULT_BACKOFF_ENV]
+        faults.set_fault_plan(None)
+        faults.reset_fault_history()
+        breaker.reset()
+    print("serve faults: a 60 s deadline answered ok, a 0.01 ms one "
+          "raised DeadlineExceeded (expired, 0 batches) | "
+          "serve.dispatch@sosfilt:device_lost:9999 opened the sosfilt "
+          "breaker, lfilter stayed ok, closed again "
+          f"{len(after)} requests after the plan cleared | "
+          "serve.dispatch:device_lost:3 tripped DEGRADED, 2 answers "
+          "equal to the oracle and flagged degraded, the probe "
+          "recovered HEALTHY")
+    obs.reset()
+
+    # 6. the scrape endpoint
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=10.0) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    with new_server(obs_port=0) as srv:
+        served(srv, schedule[:16])
+        port = srv.obs_port
+        base = f"http://{obs_http.BIND_HOST}:{port}"
+        codes = {path: get(base + path) for path in
+                 ("/metrics", "/healthz", "/debug/requests", "/signals")}
+        clash = new_server(obs_port=port)
+        try:
+            clash.start()
+            refused = False
+        except obs_http.EndpointUnavailable:
+            refused = True
+        clash.stop()
+    debug = json.loads(codes["/debug/requests"][1])
+    check(codes["/metrics"][0] == 200
+          and "veles_simd_serve_request_latency_bucket" in
+          codes["/metrics"][1]
+          and codes["/healthz"][0] == 200
+          and debug["summary"]["finished"] >= 16 and debug["recent"]
+          and codes["/signals"][0] == 501 and refused,
+          f"serve endpoint: codes "
+          f"{ {k: v[0] for k, v in codes.items()} }, refused {refused}")
+    healthy("serve endpoint", obs, faults, breaker)
+    print(f"serve endpoint: /metrics 200 (serve_request_latency), "
+          f"/healthz 200, /debug/requests 200 ({len(debug['recent'])} "
+          f"traces), /signals 501, a second server on port {port} "
+          f"raised EndpointUnavailable")
+    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def autotune_phase(torch, rng, obs, ck, smi):
     """The measured autotuner on the card (``VELES_SIMD_AUTOTUNE=on``
     in this thread, a private tune cache in a temporary directory, the
@@ -2167,6 +2667,12 @@ def main():
     # 4f. the pipeline compiler: one CUDA-graph replay per block
     pipeline_phase(torch, rng, bm, obs, faults, breaker, ck, smi)
     healthy("pipeline", obs, faults, breaker)
+
+    # 4g. the serving loop: bench config 11's mix, the K4 class, ragged
+    # packing, a served pipeline, the resilience triad, the endpoint
+    serve_phase(torch, np.random.RandomState(SEED), bm, obs, faults,
+                breaker, ck, smi)
+    healthy("serve", obs, faults, breaker)
 
     # 5. times at the main-path shapes
     obs.disable()

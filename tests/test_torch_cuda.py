@@ -1061,3 +1061,111 @@ def test_pipeline_second_batch_shape_captures_second_graph():
         got, _ = cp.stream(x)
         assert _rel(got, cp.oracle(x)) <= TOL
     assert cp.compile_cache_size() == 2
+
+
+# ---------------------------------------------------------------------------
+# the serving loop: host batches in, one copy back, K4 a batch
+# ---------------------------------------------------------------------------
+
+def test_serve_stft_class_is_one_k4_launch_a_batch():
+    from veles.simd_tpu_torch import serve
+
+    r = np.random.RandomState(21)
+    xs = [r.randn(16384).astype(np.float32) for _ in range(16)]
+    srv = serve.Server(max_batch=8, max_wait_ms=50.0, workers=2)
+    # queued before the workers start: two full batches
+    tickets = [srv.submit(serve.Request(
+        "stft", x, {"frame_length": 512, "hop": 128})) for x in xs]
+    ck.reset_launches()
+    with srv:
+        ys = [t.result(timeout=120.0) for t in tickets]
+    assert srv.stats()["counts"]["batches"] == 2
+    assert ck.LAUNCHES["stft"] == sum(ck.LAUNCHES.values()) == 2
+    for x, y, t in zip(xs, ys, tickets):
+        assert t.status == "ok" and isinstance(y, np.ndarray)
+        want = sp.stft_na(x, 512, 128)
+        assert np.max(np.abs(y - want)) / np.max(np.abs(want)) <= 1e-4
+
+
+def test_serve_pipeline_captures_beside_plain_batches():
+    import threading
+
+    from veles.simd_tpu_torch import serve
+
+    sos = iir.butterworth(4, 0.25, "lowpass")
+    cp = _pipeline_chain("served_graph").compile(512)
+    ref = _pipeline_chain("served_ref").compile(512)
+    r = np.random.RandomState(22)
+    x = r.randn(8, 3 * 512).astype(np.float32)
+    stop = threading.Event()
+    plain = []
+
+    def feeder(srv):
+        rf = np.random.RandomState(23)
+        while not stop.is_set():
+            xs = [rf.randn(int(rf.randint(200, 6000))).astype(np.float32)
+                  for _ in range(8)]
+            tks = [srv.submit(serve.Request("sosfilt", v, {"sos": sos}))
+                   for v in xs]
+            plain.extend((v, t, t.result(timeout=60.0))
+                         for v, t in zip(xs, tks))
+
+    with serve.Server(max_batch=8, max_wait_ms=20.0, workers=2) as srv:
+        op = srv.register_pipeline("served_graph", cp)
+        t = threading.Thread(target=feeder, args=(srv,))
+        t.start()
+        try:
+            while len(plain) < 8:
+                stop.wait(0.001)
+            states, outs = [None] * 8, [[] for _ in range(8)]
+            for b in range(3):
+                tks = [srv.submit(op=op, x=x[i, b * 512:(b + 1) * 512],
+                                  params={"state": states[i]})
+                       for i in range(8)]
+                for i, tk in enumerate(tks):
+                    outs[i].append(tk.result(timeout=60.0)[0])
+                    states[i] = tk.result()[1]
+                    assert tk.status == "ok"
+        finally:
+            stop.set()
+            t.join(timeout=60.0)
+    assert not t.is_alive()
+    assert cp.compile_cache_size() == 1
+    st = None
+    for b in range(3):
+        want, st = ref.process(x[:, b * 512:(b + 1) * 512], st)
+        got = np.stack([outs[i][b] for i in range(8)])
+        assert _rel(got, want.cpu()) <= 1e-6
+    assert plain and all(tk.status == "ok" for _, tk, _ in plain)
+    for v, _, y in plain[:16]:
+        assert _rel(y, iir.sosfilt_na(sos, v)) <= 2e-5
+
+
+def test_serve_degraded_batch_equals_the_oracle(monkeypatch):
+    from veles.simd_tpu_torch import serve
+    from veles.simd_tpu_torch.runtime import breaker, faults
+    from veles.simd_tpu_torch.serve import server
+
+    monkeypatch.setenv("VELES_SIMD_FAULT_BACKOFF", "0")
+    sos = iir.butterworth(4, 0.25, "lowpass")
+    r = np.random.RandomState(24)
+    xs = [r.randn(700).astype(np.float32) for _ in range(3)]
+    breaker.reset()
+    srv = serve.Server(max_batch=4, max_wait_ms=20.0, workers=1)
+    tickets = [srv.submit(serve.Request("sosfilt", v, {"sos": sos}))
+               for v in xs]
+    try:
+        # the batch's device attempts all fail: the host batch's oracle
+        with faults.fault_plan("serve.dispatch:device_lost:3"), srv:
+            ys = [t.result(timeout=60.0) for t in tickets]
+    finally:
+        breaker.reset()
+        faults.reset_fault_history()
+    batch = np.zeros((4, 1024), np.float32)
+    for i, v in enumerate(xs):
+        batch[i, :v.size] = v
+    want = server._oracle_call("sosfilt", batch, {"sos": sos})
+    for i, (v, y, t) in enumerate(zip(xs, ys, tickets)):
+        assert t.status == "degraded"
+        assert np.array_equal(y, want[i, :v.size])
+        assert _rel(y, iir.sosfilt_na(sos, v)) <= 2e-5

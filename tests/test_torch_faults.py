@@ -702,12 +702,12 @@ def test_exhaustion_writes_one_flight_bundle(tmp_path):
             ["retry", "retry", "exhausted"]
         assert bundle["config"]["device"] == "cpu"
         assert bundle["platform"]["torch"] == torch.__version__
-        # the span ring, the probe history and the journal are ported;
-        # the request axis is not yet
+        # the span ring, the probe history, the journal and the
+        # request axis are ported
         assert isinstance(bundle["trace_events"], list)
         assert isinstance(bundle["device_probes"], list)
         assert set(bundle["journal"]) == {"cursor", "stats", "tail"}
-        assert bundle["request_traces"] is None
+        assert bundle["request_traces"]["summary"]["open"] == 0
         counters = {c["name"] for c in bundle["snapshot"]["counters"]}
         assert {"fault_retry", "fault_exhausted"} <= counters
         prom = obs.to_prometheus()

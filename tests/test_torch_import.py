@@ -64,7 +64,14 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.utils.platform",
                  "veles.simd_tpu_torch.pipeline",
                  "veles.simd_tpu_torch.pipeline.stages",
-                 "veles.simd_tpu_torch.pipeline.compiler"):
+                 "veles.simd_tpu_torch.pipeline.compiler",
+                 "veles.simd_tpu_torch.obs.requests",
+                 "veles.simd_tpu_torch.obs.http",
+                 "veles.simd_tpu_torch.serve",
+                 "veles.simd_tpu_torch.serve.admission",
+                 "veles.simd_tpu_torch.serve.health",
+                 "veles.simd_tpu_torch.serve.batcher",
+                 "veles.simd_tpu_torch.serve.server"):
         assert name in mods
 
 
@@ -153,12 +160,18 @@ def test_op_modules_are_listed_in_pairs():
                                   "obs.journal", "obs.spans",
                                   "utils.profiler", "utils",
                                   "pipeline", "pipeline.stages",
-                                  "pipeline.compiler"])
+                                  "pipeline.compiler", "obs.requests",
+                                  "obs.http", "serve.server",
+                                  "serve.admission", "serve.health",
+                                  "serve.batcher"])
 def test_runtime_and_obs_copies_keep_the_jax_all(name):
     # the fault policy, the breakers, the flight recorder, its writer
     # and exporters, the segment packing, obs's standalone half, the
-    # profiler, the utils package and the pipeline compiler mirror
-    # their JAX modules' public surface exactly
+    # profiler, the utils package, the pipeline compiler, the request
+    # axis, the scrape endpoint and serve's core mirror their JAX
+    # modules' public surface exactly (the obs and serve packages lack
+    # the fleet names: tests/test_torch_obs_requests.py and
+    # tests/test_torch_serve.py list them)
     port = importlib.import_module(f"veles.simd_tpu_torch.{name}")
     ref = importlib.import_module(f"veles.simd_tpu.{name}")
     assert port.__all__ == ref.__all__

@@ -394,9 +394,11 @@ def test_facade_names_and_configure(tmp_path, telemetry):
                  "dump_debug_bundle", "configure", "observe"):
         assert name in obs.__all__ and name in jobs.__all__
         assert callable(getattr(obs, name))
-    for kw in ("max_traces", "max_exemplars", "request_axis"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            obs.configure(**{kw: 1})
+    # the request axis is live: its bounds and switch configure
+    obs.configure(max_traces=3, max_exemplars=2, request_axis=False)
+    assert obs.request_trace("op").rid == -1
+    obs.configure(max_traces=256, max_exemplars=64, request_axis=True)
+    assert obs.request_trace("op").rid >= 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         obs.save_trace(str(tmp_path / "t.json"), fleet={})
     obs.configure(max_events=3, max_spans=2)
@@ -428,7 +430,8 @@ def test_flight_bundle_fills_the_ported_axes(tmp_path, telemetry):
             if e["ph"] == "X"] == ["flight.demo"]
     assert bundle["device_probes"][-1]["detail"] == "no card"
     assert set(bundle["journal"]) == {"cursor", "stats", "tail"}
-    assert bundle["request_traces"] is None
+    assert set(bundle["request_traces"]) == {
+        "summary", "recent", "slowest_by_op", "degraded", "slo"}
     plat.reset_probe_history()
 
 

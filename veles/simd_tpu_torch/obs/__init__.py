@@ -17,12 +17,23 @@ framework-free storage modules (:mod:`.registry`, :mod:`.events`,
 * the history axis (:mod:`.journal`): with ``$VELES_SIMD_JOURNAL_DIR``
   set, every decision event is also appended to a durable JSONL
   journal, telemetry on or off;
+* the request axis (:mod:`.requests`): every ``serve.Server.submit``
+  mints a :func:`request_trace` carried across threads on the pending
+  record; lifecycle edges build a causal chain whose phase
+  decomposition (queue wait / batch wait / device) lands in bounded
+  per-(op, tenant) histograms, with slowest-per-op and degraded
+  exemplars retained and per-tenant SLO accounting (:func:`slo`);
+* a live scrape endpoint (:mod:`.http`): ``/metrics``, ``/healthz``
+  and ``/debug/requests`` over the standard library's ``http.server``,
+  armed by ``serve.Server.start``;
 * the crash flight recorder (:mod:`.flightrec`), armed by the fault
-  policy on retry exhaustion and by an exception escaping a top-level
-  span.
+  policy on retry exhaustion, by an exception escaping a top-level
+  span and by a tenant's first SLO breach.
 
-The request, fleet, incident and HTTP axes are not ported yet (ROADMAP
-Queue 1 items 5 and 6).
+The fleet and incident axes (``signals``, ``fleet_record``,
+``fleet_series``, ``stitch_fleet_trace``, ``incidents_snapshot``,
+``scaler_snapshot``, ``FleetSeries``, ``FleetSignals``) are not ported
+yet (ROADMAP Queue 1 item 6).
 
 Contract with the compute layer: ops modules touch telemetry only
 through :func:`record_decision`, :func:`count`, :func:`gauge`,
@@ -50,12 +61,14 @@ from veles.simd_tpu_torch.obs import compile as _compile
 from veles.simd_tpu_torch.obs import export as _export
 from veles.simd_tpu_torch.obs import flightrec as _flightrec
 from veles.simd_tpu_torch.obs import journal as _journal
+from veles.simd_tpu_torch.obs import requests as _requests_mod
 from veles.simd_tpu_torch.obs import spans as _spans_mod
 from veles.simd_tpu_torch.obs.atomic import (
     atomic_write_text as _atomic_write)
 from veles.simd_tpu_torch.obs.events import EventLog
 from veles.simd_tpu_torch.obs.lru import LRUSet
 from veles.simd_tpu_torch.obs.registry import MetricsRegistry
+from veles.simd_tpu_torch.obs.requests import RequestTrace, RequestTracer
 from veles.simd_tpu_torch.obs.resources import (InstrumentedJit,
                                                 instrumented_jit,
                                                 register_cache)
@@ -67,21 +80,46 @@ _resources = sys.modules["veles.simd_tpu_torch.obs.resources"]
 __all__ = [
     "enable", "disable", "enabled", "configure",
     "count", "gauge", "observe", "record_decision", "span",
-    "counter_value", "events", "snapshot", "reset",
+    "counter_value", "quantiles", "events", "snapshot", "reset",
     "to_json", "to_prometheus", "report", "save", "load",
     "save_trace", "trace_events",
+    "request_trace", "slo", "slo_snapshot", "request_snapshot",
+    "request_summary",
     "journal_stats", "journal_cursor", "journal_tail",
     "install_compile_listeners",
     "instrumented_jit", "resources", "caches", "register_cache",
     "dump_debug_bundle",
     "MetricsRegistry", "EventLog", "SpanTracer", "InstrumentedJit",
-    "LRUSet",
+    "RequestTrace", "RequestTracer", "LRUSet",
 ]
 
 _registry = MetricsRegistry()
 _events = EventLog()
 _spans = SpanTracer(_registry.observe)
 _spans.on_crash = _flightrec.maybe_record_crash
+
+
+def _requests_decision(op: str, decision: str, **fields) -> None:
+    """Decision sink for the request tracer (SLO breach events), bound
+    to the current event log through the module global, so
+    ``configure(max_events=...)`` swaps are honored."""
+    if _journal.armed():
+        _journal.emit_decision(op, decision, fields)
+    _events.record(op, decision, **fields)
+    _registry.count("decisions", op=op, decision=decision)
+
+
+def _requests_breach(tenant: str, burn: float) -> None:
+    """Flight-recorder arm for SLO breaches: one budgeted bundle per
+    crossing, with the request exemplars embedded."""
+    _flightrec.maybe_record(f"slo_breach:{tenant}", None)
+
+
+_requests = RequestTracer(_registry, decision=_requests_decision,
+                          on_breach=_requests_breach)
+# request tracing armed while telemetry is on?  configure(
+# request_axis=False) disarms the tracer alone
+_request_axis = True
 _enabled = os.environ.get("VELES_SIMD_TELEMETRY",
                           "0").strip().lower() in ("1", "true", "yes",
                                                    "on")
@@ -89,10 +127,6 @@ if _enabled:
     _resources.set_active(True)
     _compile.install()
 
-# where the not-yet-ported request axis is queued
-_REQUEST_AXIS = ("the request axis (max_traces, max_exemplars, "
-                 "request_axis) is not ported yet: ROADMAP Queue 1 "
-                 "item 5")
 _FLEET_AXIS = ("the fleet trace (save_trace(fleet=...)) is not ported "
                "yet: ROADMAP Queue 1 item 6")
 
@@ -132,13 +166,16 @@ def configure(max_events: int | None = None,
     ``flight_dir`` overrides ``$VELES_SIMD_FLIGHT_DIR`` as the
     crash-bundle destination and ``journal_dir``
     ``$VELES_SIMD_JOURNAL_DIR`` as the journal pack (``""`` restores
-    the environment lookup).  ``max_traces``, ``max_exemplars`` and
-    ``request_axis`` belong to the request axis, which is not ported
-    yet: they raise ``NotImplementedError``."""
-    global _events, _spans
-    if (max_traces is not None or max_exemplars is not None
-            or request_axis is not None):
-        raise NotImplementedError(_REQUEST_AXIS)
+    the environment lookup).  ``max_traces`` / ``max_exemplars``
+    re-bound the request-axis retention rings (:mod:`.requests`; the
+    trace default also reads ``$VELES_SIMD_OBS_MAX_TRACES``).
+    ``request_axis=False`` disarms request tracing (every
+    :func:`request_trace` returns the shared null trace) while
+    counters, gauges and spans keep recording; the terminal request
+    metrics (``serve.request_latency{op, status}``,
+    ``serve_completed``, ``serve_deadline_miss``) ride the trace's
+    terminal edge, so disarming the axis pauses them too."""
+    global _events, _spans, _request_axis
     if max_events is not None:
         _events = EventLog(max_events)
     if max_spans is not None:
@@ -146,6 +183,11 @@ def configure(max_events: int | None = None,
         _spans.on_crash = _flightrec.maybe_record_crash
     if flight_dir is not None:
         _flightrec.configure_flight_dir(flight_dir or None)
+    if max_traces is not None or max_exemplars is not None:
+        _requests.configure(max_traces=max_traces,
+                            max_exemplars=max_exemplars)
+    if request_axis is not None:
+        _request_axis = bool(request_axis)
     if journal_dir is not None:
         _journal.configure_dir(journal_dir or None)
 
@@ -185,6 +227,56 @@ def span(name: str, **attrs):
     return _spans.span(name, **attrs)
 
 
+def request_trace(op: str, tenant: str = "default", *,
+                  shape_class=None, deadline_s=None):
+    """Mint one request-axis trace (:class:`~veles.simd_tpu_torch.obs.\
+requests.RequestTrace`): the serving layer calls this per
+    ``Server.submit`` and carries the trace on the pending record
+    across threads; every lifecycle edge appends via
+    ``trace.event(...)`` and exactly one terminal ``trace.finish
+    (status)`` records the phase histograms, the
+    ``serve.request_latency{op, status}`` sample, SLO accounting and
+    exemplar retention.  While telemetry is off (or the request axis
+    alone is disarmed, ``configure(request_axis=False)``) this returns
+    the shared ``NULL_REQUEST`` after one flag check."""
+    if not _enabled or not _request_axis:
+        return _requests_mod.NULL_REQUEST
+    return _requests.start(op, tenant, shape_class=shape_class,
+                           deadline_s=deadline_s)
+
+
+def slo(tenant: str, target_ms: float,
+        hit_rate: float = _requests_mod.DEFAULT_SLO_HIT_RATE) -> dict:
+    """Register ``tenant``'s SLO: answered within ``target_ms``
+    end-to-end at ``hit_rate`` (shed/expired/errored requests are
+    misses).  Terminal request traces update the tenant's account and
+    export ``slo_hit_rate`` / ``slo_burn_rate`` gauges; the first
+    crossing into burn > 1 records an ``slo``/``breach`` decision
+    event and arms a flight-recorder bundle.  Unregistered tenants
+    fall back to ``$VELES_SIMD_SLO_MS`` / ``$VELES_SIMD_SLO_HIT_RATE``
+    when set."""
+    return _requests.set_slo(tenant, target_ms, hit_rate)
+
+
+def slo_snapshot() -> dict:
+    """Per-tenant SLO state: registered targets, live accounts
+    (requests/good/deadline misses), observed hit rate, burn rate."""
+    return _requests.slo_snapshot()
+
+
+def request_summary() -> dict:
+    """Compact request-axis tally (started/finished/open, per-status
+    counts, retention sizes), the form embedded in :func:`snapshot`."""
+    return _requests.summary()
+
+
+def request_snapshot(recent: int = 50) -> dict:
+    """The full request axis for the live endpoint and flight bundles:
+    the last ``recent`` completed traces, slowest-per-op and degraded
+    exemplars (full causal event chains), and the SLO accounts."""
+    return _requests.traces_snapshot(recent)
+
+
 def record_decision(op: str, decision: str, **fields) -> None:
     """Log one dispatch decision (no-op while disabled) and bump the
     ``decisions{op, decision}`` counter.  With the journal armed
@@ -203,6 +295,20 @@ def counter_value(name: str, **labels) -> int:
     return _registry.counter_value(name, **labels)
 
 
+def quantiles(name: str, qs=(0.5, 0.95, 0.99), **labels):
+    """Quantile estimates for one live histogram, or None if it has
+    never been observed: ``{"p50": s, "p95": s, "p99": s}`` with
+    Prometheus ``histogram_quantile`` semantics (upper bucket bound,
+    :func:`veles.simd_tpu_torch.obs.export.histogram_quantile`).
+    ``labels`` must match the recorded label set exactly (a span
+    histogram carries ``phase="warmup"|"steady"``)."""
+    want = {str(k): str(v) for k, v in labels.items()}
+    for h in _registry.snapshot()["histograms"]:
+        if h["name"] == name and h["labels"] == want:
+            return _export.histogram_quantiles(h, qs)
+    return None
+
+
 def events() -> list:
     """Oldest-first copy of the retained decision events."""
     return _events.events()
@@ -211,13 +317,16 @@ def events() -> list:
 def snapshot() -> dict:
     """One JSON-native dict: counters, gauges, histograms (including
     the ``span.*`` latency distributions), events, drop counts, cache
-    stats (:func:`caches`) and the enabled flag."""
+    stats (:func:`caches`), the request-axis summary and SLO accounts,
+    the journal's stats and the enabled flag."""
     snap = _registry.snapshot()
     snap["events"] = _events.events()
     snap["events_dropped"] = _events.dropped
     snap["spans_dropped"] = _spans.dropped
     snap["resources"] = _resources.resources_snapshot()
     snap["caches"] = caches()
+    snap["requests"] = _requests.summary()
+    snap["slo"] = _requests.slo_snapshot()
     snap["journal"] = _journal.stats()
     snap["enabled"] = _enabled
     return snap
@@ -302,12 +411,14 @@ def dump_debug_bundle(path: str | None = None,
 
 
 def reset() -> None:
-    """Clear all metrics, events, spans and resource records; the
-    enabled flag is untouched."""
+    """Clear all metrics, events, spans, request traces and resource
+    records; the enabled flag is untouched (request ids keep rising, a
+    reset never mints duplicate rids)."""
     _registry.reset()
     _events.reset()
     _spans.reset()
     _resources.reset()
+    _requests.reset()
 
 
 def to_json(snap: dict | None = None, indent: int | None = 2) -> str:

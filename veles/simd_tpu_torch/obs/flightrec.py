@@ -25,9 +25,11 @@ exception, library config, platform (Python, torch, CUDA version, the
 cards' names and ``nvidia-smi``'s name and power limit), environment
 knobs, the telemetry snapshot (counters, gauges, histograms, decision
 events, resources, cache stats), the span trace ring, the fault
-history, the device-probe history (``utils.platform.probe_history``)
-and the journal's cursor, stats and tail.  The request axis is not
-ported yet and is written as ``null``.  Writes go through the shared
+history, the device-probe history (``utils.platform.probe_history``),
+the journal's cursor, stats and tail, and the request axis (recent
+causal chains, slowest and degraded exemplars, SLO accounts).  A
+tenant's first SLO breach also arms a bundle (the request tracer calls
+:func:`maybe_record`).  Writes go through the shared
 atomic writer (:mod:`veles.simd_tpu_torch.obs.atomic`), so a bundle is
 either complete or absent — never torn.
 """
@@ -184,8 +186,9 @@ def build_bundle(reason: str, exc: BaseException | None = None) -> dict:
         "env": _env_info(),
         "snapshot": obs.snapshot(),
         "trace_events": obs.trace_events(),
-        # the request axis is not ported yet (ROADMAP Queue 1 item 5)
-        "request_traces": None,
+        # the request axis: recent causal chains + slowest/degraded
+        # exemplars + SLO accounts (obs/requests.py)
+        "request_traces": obs.request_snapshot(),
         "fault_history": _fault_info(),
         "device_probes": _probe_info(),
         "journal": _journal_info(),

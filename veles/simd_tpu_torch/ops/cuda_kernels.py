@@ -395,10 +395,22 @@ def _launches(rows: int) -> int:
     return -(-int(rows) // _MAX_GRID_ROWS)
 
 
+# the serving loop launches from several worker threads: one count
+# must not lose another's update
+_launch_lock = threading.Lock()
+
+
+def _count(name: str, n: int) -> None:
+    """Add ``n`` launches of kernel ``name`` to :data:`LAUNCHES`."""
+    with _launch_lock:
+        LAUNCHES[name] += n
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 # ---- the built library -----------------------------------------------------
@@ -709,7 +721,7 @@ def overlap_save_cuda(x, taps):
                                     spec.data_ptr(), tw.data_ptr(),
                                     y.data_ptr(), rows, n, k, stream)
     _check_err(lib, err, "overlap_save kernel")
-    LAUNCHES["overlap_save"] += 1 + _launches(rows)
+    _count("overlap_save", 1 + _launches(rows))
     return y
 
 
@@ -811,7 +823,7 @@ def filter_bank_cuda(x, filters, stride, dilation, n_out, *, pad_left=0,
                                _VARIANT_CODE[variant], stream)
     _check_err(lib, err, "filter_bank kernel")
     # the mma variant is one persistent grid; ffma splits rows by 65535
-    LAUNCHES["filter_bank"] += 1 if variant == "mma" else _launches(rows)
+    _count("filter_bank", 1 if variant == "mma" else _launches(rows))
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -1007,7 +1019,7 @@ def _cb_launch(x, taps_list, info, n_split, n_out, out, rows, periodic):
                                int(x.shape[-1]), n_split, len(info[0]),
                                max_off, n_out, int(periodic), stream)
     _check_err(lib, err, "cascade_bank kernel")
-    LAUNCHES["cascade_bank"] += 1
+    _count("cascade_bank", 1)
 
 
 def _cb_work(x_ext, taps_list, plans, n_split, n_out):
@@ -1172,7 +1184,7 @@ def filter_2d_cuda(x, kernel2d, n_out0, n_out1, *, pad=(0, 0),
                                 n_out0, n_out1, p0, p1,
                                 int(bool(reverse_taps)), stream)
     _check_err(lib, err, "filter_2d kernel")
-    LAUNCHES["filter_2d"] += 1      # one persistent grid for all images
+    _count("filter_2d", 1)    # one persistent grid for all images
     return out
 
 
@@ -1324,5 +1336,5 @@ def stft_cuda(x, window, frame_length, hop):
                                  tw.data_ptr(), out.data_ptr(), rows, n, L,
                                  hop, frames, stream)
     _check_err(lib, err, "stft kernel")
-    LAUNCHES["stft"] += _launches(rows)
+    _count("stft", _launches(rows))
     return _as_spectrum(out, lead)

@@ -413,6 +413,15 @@ class CompiledPipeline:
                 budget_s=budget_s, on_fault=on_fault)
         return out, new_state, box["deg"]
 
+    def captures(self, batch_shape) -> bool:
+        """Would the fused step of a ``batch_shape`` block capture a
+        CUDA graph first (on the card, no graph of that shape yet)?  A
+        capture fails if another thread allocates or copies
+        synchronously on the card meanwhile, so a serving layer keeps
+        such a step exclusive of its other device work."""
+        return (self.device.type == "cuda"
+                and tuple(batch_shape) not in self._graphs)
+
     # -- serving-layer state marshalling ------------------------------------
 
     def check_state(self, state) -> None:
