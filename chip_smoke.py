@@ -102,9 +102,10 @@ without printing a result):
             and the unpacked calls; the guard's host cost (each entry
             against its unguarded core and the bare kernel wrapper, in
             turns, and the guard's pieces on the host clock).  The
-            main, reference, dsp, autotune, serve (but its triad) and
-            times phases must record no fault: no ``fault_*`` counter, ``fault_policy``
-            event, fault record or failed breaker;
+            main, reference, dsp, autotune, serve (but its triad),
+            fleet and times phases must record no fault: no
+            ``fault_*`` counter, ``fault_policy`` event, fault record or
+            failed breaker;
 4e. autotune — the measured autotuner (``VELES_SIMD_AUTOTUNE=on`` in
             this thread, a private tune cache in a temporary
             directory, the default CUDA-event probe timer) at the main
@@ -172,8 +173,38 @@ without printing a result):
             on the healthy steps; then the resilience triad (deadlines,
             a poisoned class's breaker, DEGRADED and probed recovery,
             answers equal to the oracle) and the scrape endpoint
-            (``/metrics``, ``/healthz``, ``/debug/requests``, 501 on
-            ``/signals``, ``EndpointUnavailable`` on a taken port);
+            (``/metrics``, ``/healthz``, ``/debug/requests``,
+            ``/signals`` stamped ``veles-simd-signals-v4``,
+            ``EndpointUnavailable`` on a taken port);
+4h. fleet — the serving fleet (``serve.ReplicaGroup`` behind
+            ``serve.FrontRouter``) at the JAX replica campaign's
+            geometry (``tools/chaos.py:596-609``): 3 replicas,
+            ``max_batch`` 32, 150 ms ``max_wait``, workers 2, heartbeat
+            40 ms, fleet tick 25 ms, an aggregation endpoint on port 0,
+            the ``matched_stft`` pipeline passed as ``pipeline_specs=``;
+            waves of bench config 11's mix, the K4 class (16,384
+            samples at 512/128) and one pipeline block a stream (8
+            streams, state carried across waves), in thread mode and
+            over the RPC data plane in subprocess mode: a timed
+            K4-class wave on 3 replicas (req/s, p50, beside one server
+            at the campaign's and at the serve phase's knobs), r0
+            killed mid-wave (a SIGKILL of the child in subprocess
+            mode), r1 drained mid-wave, r0 restarted.  Every answer
+            within its float64 tolerance, the pipeline equal to
+            ``process`` within 1e-6, none lost or answered twice, every
+            trace closed, a failover with its deadline carried, a
+            stitched fleet trace over 2 replicas or more, ``/healthz``
+            200 throughout, r0 non-healthy in ``obs.signals()`` within
+            60 collector ticks; in thread mode ``LAUNCHES["stft"]``
+            equal to the K4-class batches summed over the replicas and
+            the pipeline's graphs captured beside the other replicas'
+            batches, in subprocess mode each live child's ``/metrics``
+            carrying the ``resource_*{op="cuda",route="stft"}`` row and
+            the pipeline's, each child's spawn-to-ready seconds and
+            the card memory the children take; then the scaler
+            (``tools/chaos.py:1260-1266``'s control settings): bursts
+            of the mix until a ``scale_up``, idle until a
+            ``scale_down``, none lost;
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -251,6 +282,15 @@ SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS = 8, 2.0
 SERVE_TRACE_TOL = 1e-3   # phases vs total (tools/loadgen.py TRACE_TOL_S)
 SERVE_RAGGED = 48        # ragged requests a geometry
 SERVE_PL_BLOCKS = 8      # served pipeline blocks, ROWS_BS streams each
+# the fleet phase: the JAX replica campaign (tools/chaos.py:596-609) and
+# its scaler ramp (tools/chaos.py:1260-1266)
+FLEET_REPLICAS, FLEET_MAX_BATCH, FLEET_MAX_WAIT_MS = 3, 32, 150.0
+FLEET_HEARTBEAT_MS, FLEET_TICK_MS = 40.0, 25.0
+FLEET_MIX, FLEET_K4, FLEET_STREAMS = 96, 48, 8   # one traffic wave
+FLEET_TIMED_K4 = 192     # the timed K4-class wave
+FLEET_VISIBLE_TICKS = 60  # r0 non-healthy in obs.signals() within
+FLEET_DEADLINE_MS = 60000.0
+FLEET_RESOURCE = 'op="cuda",route="stft"'
 DAUB8_LO = np.array([-0.010597401784997278, 0.032883011666982945,
                      0.030841381835986965, -0.18703481171888114,
                      -0.02798376941698385, 0.6308807679295904,
@@ -1856,15 +1896,501 @@ def serve_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
           codes["/metrics"][1]
           and codes["/healthz"][0] == 200
           and debug["summary"]["finished"] >= 16 and debug["recent"]
-          and codes["/signals"][0] == 501 and refused,
+          and codes["/signals"][0] == 200
+          and json.loads(codes["/signals"][1])["schema"]
+          == "veles-simd-signals-v4" and refused,
           f"serve endpoint: codes "
           f"{ {k: v[0] for k, v in codes.items()} }, refused {refused}")
     healthy("serve endpoint", obs, faults, breaker)
     print(f"serve endpoint: /metrics 200 (serve_request_latency), "
           f"/healthz 200, /debug/requests 200 ({len(debug['recent'])} "
-          f"traces), /signals 501, a second server on port {port} "
+          f"traces), /signals 200 (an empty fleet on a lone server), a "
+          f"second server on port {port} "
           f"raised EndpointUnavailable")
     print(f"serve: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def fleet_spec(rng):
+    """``matched_stft`` as a ``pipeline_from_spec`` dict (the form that
+    crosses a process boundary): a 2047-tap matched filter, stft
+    512/128, power, on 16,384-sample blocks."""
+    template = rng.randn(K_HEAD).astype(np.float32)
+    return {"name": "matched_stft", "block": N_BS, "stages": [
+        {"stage": "matched_filter", "template": template.tolist()},
+        {"stage": "stft", "frame_length": L_ST, "hop": HOP_ST},
+        {"stage": "power"}]}
+
+
+def fleet_traffic(rng, count_mix, count_k4):
+    """One wave's plain requests: ``count_mix`` of bench config 11's
+    mix and ``count_k4`` of the K4 class (stft 512/128 on 16,384
+    samples), interleaved: ``[(kind, op, params, x, tenant), ...]``."""
+    items = [("mix",) + r for r in serve_schedule(rng, count_mix)]
+    items += [("k4", "stft", {"frame_length": L_ST, "hop": HOP_ST},
+               rng.randn(N_BS).astype(np.float32),
+               SERVE_TENANTS[i % len(SERVE_TENANTS)])
+              for i in range(count_k4)]
+    order = rng.permutation(len(items))
+    return [items[i] for i in order]
+
+
+def fleet_wave(router, items, blocks, states, mid=None):
+    """Submit a wave flat out through the router (or one server): the
+    plain ``items`` and one pipeline block a stream (``blocks[i]`` with
+    carried ``states[i]``), ``mid()`` called after half of them;
+    returns the plain tickets, the pipeline tickets, the wall seconds
+    and the seconds the submits took."""
+    from veles.simd_tpu_torch import serve
+
+    subs = [("plain", i) for i in range(len(items))]
+    subs += [("pipe", i) for i in range(len(blocks))]
+    order = np.random.RandomState(len(items)).permutation(len(subs))
+    plain, pipe = [None] * len(items), [None] * len(blocks)
+    t0 = time.perf_counter()
+    for n, j in enumerate(order):
+        kind, i = subs[j]
+        if kind == "plain":
+            _, op, params, x, tenant = items[i]
+            plain[i] = router.submit(serve.Request(
+                op, x, params, tenant=tenant),
+                deadline_ms=FLEET_DEADLINE_MS)
+        else:
+            pipe[i] = router.submit(
+                op="pipeline:matched_stft", x=blocks[i],
+                params={"state": states[i]}, tenant=f"stream{i % 3}",
+                deadline_ms=FLEET_DEADLINE_MS)
+        if mid is not None and n == len(order) // 2:
+            mid()
+    t_submit = time.perf_counter() - t0
+    for t in plain + pipe:
+        t.result(timeout=120.0)
+    return plain, pipe, time.perf_counter() - t0, t_submit
+
+
+def fleet_k4_batches(items, tickets):
+    """The K4-class batches that answered ``tickets``: distinct
+    (replica, batch id) pairs on the answering attempts' traces."""
+    seen = set()
+    for (kind, *_), t in zip(items, tickets):
+        if kind != "k4":
+            continue
+        bids = [e["batch"] for e in t.trace.events()
+                if e["event"] == "batch_formed"]
+        check(len(bids) == 1, f"fleet: a K4 ticket's trace holds "
+              f"{len(bids)} batch edges")
+        seen.add((t.replica, bids[0]))
+    return len(seen)
+
+
+def fleet_check(what, items, tickets, obs):
+    """Every plain ticket ``ok`` within its float64 tolerance, its
+    trace closed with one terminal edge; returns (worst error an op,
+    failed-over tickets)."""
+    from veles.simd_tpu_torch.obs import requests as obs_requests
+
+    terminal = set(obs_requests.TERMINAL_STATUSES.values())
+    worst, moved = {}, []
+    for (kind, op, params, x, _), t in zip(items, tickets):
+        y = t.result()
+        check(t.status == "ok" and isinstance(y, np.ndarray),
+              f"{what}: {op} ticket {t.status}")
+        err = crel_err(y, serve_oracle(op, params, x))
+        check(err <= SERVE_TOL[op], f"{what}: {op} n={x.size} rel err "
+              f"{err:.3e} > {SERVE_TOL[op]}")
+        worst[kind + " " + op] = max(worst.get(kind + " " + op, 0.0), err)
+        ends = [e for e in t.trace.events() if e["event"] in terminal]
+        check(t.trace.status == "ok" and len(ends) == 1,
+              f"{what}: trace {t.trace.rid} {t.trace.status}, "
+              f"{len(ends)} terminal edges")
+        if getattr(t, "failovers", 0):
+            moved.append(t)
+    for t in moved:
+        dl = t.deadlines_ms
+        check(len(dl) >= 2 and all(b <= a for a, b in zip(dl, dl[1:]))
+              and dl[-1] > 0 and t.prior_traces
+              and all(tr.status == "closed" for tr in t.prior_traces),
+              f"{what}: failover deadlines {dl}, prior traces "
+              f"{[tr.status for tr in t.prior_traces]}")
+    return worst, moved
+
+
+def fleet_campaign(torch, rng, obs, ck, bm, spec, ref_blocks, spawn):
+    """The replica campaign in one spawn mode: a warm wave, the timed
+    K4-class wave on 3 replicas (req/s, p50), a wave with r0 killed
+    (SIGKILL of the child in subprocess mode) halfway, a wave with r1
+    drained halfway, r0 restarted, a last wave; ``/healthz`` polled
+    throughout.  Returns the report the fleet lines print."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from veles.simd_tpu_torch import serve
+    from veles.simd_tpu_torch.obs import http as obs_http
+
+    free0 = torch.cuda.mem_get_info()[0]
+    t_start = time.perf_counter()
+    group = serve.ReplicaGroup(
+        FLEET_REPLICAS, spawn=spawn, max_batch=FLEET_MAX_BATCH,
+        max_wait_ms=FLEET_MAX_WAIT_MS, workers=2,
+        heartbeat_ms=FLEET_HEARTBEAT_MS, obs_port=0,
+        fleet_tick_ms=FLEET_TICK_MS, pipeline_specs=[spec])
+    rep = {"spawn": spawn}
+    codes, stop_poll = [], threading.Event()
+
+    def poll(port):
+        url = f"http://{obs_http.BIND_HOST}:{port}/healthz"
+        while not stop_poll.wait(0.02):
+            try:
+                with urllib.request.urlopen(url, timeout=5.0) as r:
+                    codes.append(r.status)
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
+
+    kill_vis = {}
+
+    def watch_r0():
+        deadline = time.monotonic() + 60 * group.fleet_tick_s + 5.0
+        while time.monotonic() < deadline:
+            if obs.signals().health.get("r0") not in (None, "healthy"):
+                kill_vis["t_visible"] = time.monotonic()
+                return
+            time.sleep(group.fleet_tick_s / 5.0)
+
+    def kill_r0():
+        kill_vis["t_kill"] = time.monotonic()
+        group.kill("r0")
+        w = threading.Thread(target=watch_r0)
+        w.start()
+        kill_vis["watcher"] = w
+
+    obs.reset()
+    with group:
+        rep["start_s"] = time.perf_counter() - t_start
+        rep["ready_s"] = {r.rid: r.ready_s for r in group.replicas}
+        rep["children_mem_gb"] = (free0 - torch.cuda.mem_get_info()[0]) \
+            / 1e9
+        router = serve.FrontRouter(group)
+        poller = threading.Thread(target=poll, args=(group.obs_port,))
+        poller.start()
+        try:
+            states = [None] * FLEET_STREAMS
+            # warm: the handles and plans of every class on every
+            # replica (no pipeline: its graphs are captured under the
+            # traffic waves, beside the other replicas' batches)
+            warm = fleet_traffic(rng, 24, 12)
+            fleet_wave(router, warm, [], [])
+            # the timed K4 wave on 3 replicas, run twice: the first
+            # pays the first full batches and opens the RPC clients'
+            # pooled connections
+            timed = fleet_traffic(rng, 0, FLEET_TIMED_K4)
+            fleet_wave(router, timed, [], [])
+            ck.reset_launches()
+            tk, _, wall, t_submit = fleet_wave(router, timed, [], [])
+            rep["k4_rps"] = FLEET_TIMED_K4 / wall
+            rep["submit_ms"] = t_submit * 1e3
+            rep["k4_p50_ms"] = float(np.median(
+                [t.trace.total_s for t in tk])) * 1e3
+            fleet_check(f"fleet {spawn} timed", timed, tk, obs)
+            if spawn == "thread":
+                rep["timed_launches"] = ck.LAUNCHES["stft"]
+                rep["timed_batches"] = fleet_k4_batches(timed, tk)
+                busy, _ = bm.device_profile(lambda: fleet_wave(
+                    router, timed, [], []), calls=1)
+                rep["busy_ms"], rep["wall_ms"] = busy, wall * 1e3
+            ck.reset_launches()
+            obs.reset()
+            k4_batches, moved, worst, pipes = 0, [], {}, []
+            plans = [("kill", kill_r0), ("drain",
+                                          lambda: group.drain("r1")),
+                     ("restart", None)]
+            for b, (step, mid) in enumerate(plans):
+                if step == "restart":
+                    t0 = time.perf_counter()
+                    group.restart("r0")
+                    rep["restart_s"] = time.perf_counter() - t0
+                    rep["ready_s"]["r0 restarted"] = \
+                        group.replica("r0").ready_s
+                items = fleet_traffic(rng, FLEET_MIX, FLEET_K4)
+                blocks = [ref_blocks[b][i] for i in range(FLEET_STREAMS)]
+                tk, pk, _, _ = fleet_wave(router, items, blocks, states,
+                                          mid)
+                w, m = fleet_check(f"fleet {spawn} {step}", items, tk,
+                                   obs)
+                for k, v in w.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+                moved += m
+                if spawn == "thread":
+                    k4_batches += fleet_k4_batches(items, tk)
+                outs = []
+                for i, t in enumerate(pk):
+                    out, states[i] = t.result()
+                    check(t.status == "ok", f"fleet {spawn} {step}: "
+                          f"pipeline stream {i} {t.status}")
+                    outs.append(out)
+                    if t.failovers:
+                        moved.append(t)
+                pipes.append(np.stack(outs))
+                if step == "kill":
+                    kill_vis["watcher"].join(timeout=60.0)
+            rep["launches"] = ck.LAUNCHES["stft"]
+            rep["k4_batches"] = k4_batches
+            rep["stats"] = router.stats()
+            rep["captures"] = [e for e in obs.events()
+                               if e["op"] == "pipeline_graph"]
+            if spawn == "subprocess":
+                rep["metrics"] = {}
+                for r in group.replicas:
+                    if r.state != "up":
+                        continue
+                    with urllib.request.urlopen(
+                            f"http://{obs_http.BIND_HOST}:{r.port}"
+                            "/metrics", timeout=10.0) as resp:
+                        rep["metrics"][r.rid] = resp.read().decode()
+        finally:
+            stop_poll.set()
+            poller.join(timeout=30.0)
+    check(not poller.is_alive(), f"fleet {spawn}: the /healthz poller "
+          "hung")
+    rep["healthz"] = codes
+    rep["moved"], rep["worst"], rep["pipes"] = moved, worst, pipes
+    t_vis = kill_vis.get("t_visible")
+    rep["visible_ticks"] = (None if t_vis is None else
+                            (t_vis - kill_vis["t_kill"])
+                            / (FLEET_TICK_MS / 1e3))
+    stitched = [obs.stitch_fleet_trace(t) for t in moved
+                if t.prior_traces][:1]
+    rep["stitched"] = stitched[0]["otherData"] if stitched else None
+    return rep
+
+
+def fleet_single(rng, obs):
+    """The timed K4-class wave through one ``serve.Server``: at the
+    campaign's knobs (``max_batch`` 32, 150 ms, workers 2) and at the
+    serve phase's (``max_batch`` 8, 2 ms); returns both req/s."""
+    from veles.simd_tpu_torch import serve
+
+    out = {}
+    for label, mb, mw in (("campaign", FLEET_MAX_BATCH,
+                           FLEET_MAX_WAIT_MS),
+                          ("serve", SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS)):
+        timed = fleet_traffic(rng, 0, FLEET_TIMED_K4)
+        with serve.Server(max_batch=mb, max_wait_ms=mw,
+                          workers=2) as srv:
+            fleet_wave(srv, timed[:32], [], [])      # warm
+            tickets, _, wall, t_submit = fleet_wave(srv, timed, [], [])
+        fleet_check(f"fleet single {label}", timed, tickets, obs)
+        out[label] = (FLEET_TIMED_K4 / wall, t_submit * 1e3)
+    return out
+
+
+def fleet_scaler(rng, obs):
+    """A ramp over a 1-replica thread group with the scaler armed at
+    tools/chaos.py:1260-1266's control settings: bursts of the mix
+    until a ``scale_up`` is decided, then idle until a
+    ``scale_down``; nothing lost.  Returns the report."""
+    from veles.simd_tpu_torch import serve
+
+    group = serve.ReplicaGroup(
+        1, max_batch=8, max_wait_ms=4.0, workers=2,
+        heartbeat_ms=FLEET_HEARTBEAT_MS, obs_port=0,
+        fleet_tick_ms=FLEET_TICK_MS, scaler=True, scaler_tick_ms=30.0,
+        scaler_kwargs=dict(min_replicas=1, max_replicas=3,
+                           cooldown_s=0.35, up_ticks=2, down_ticks=12,
+                           depth_high=6.0, idle_depth=1.0))
+    tickets, alive = [], []
+
+    def actions():
+        return obs.scaler_snapshot()["actions"]
+
+    t0 = time.perf_counter()
+    with group:
+        router = serve.FrontRouter(group)
+        alive.append(group.alive())
+        for _ in range(40):                          # the peak
+            burst = serve_schedule(rng, 150)
+            tks = [router.submit(serve.Request(op, x, params,
+                                               tenant=tenant),
+                                 deadline_ms=FLEET_DEADLINE_MS)
+                   for op, params, x, tenant in burst]
+            for t in tks:
+                t.result(timeout=120.0)
+            tickets += list(zip(burst, tks))
+            alive.append(group.alive())
+            if actions().get("scale_up"):
+                break
+        t_up = time.perf_counter() - t0
+        deadline = time.monotonic() + 15.0           # the idle tail
+        while not actions().get("scale_down") \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        snap = obs.scaler_snapshot()
+        alive.append(group.alive())
+    lost = sum(1 for _, t in tickets if not t.done())
+    bad = [t.status for _, t in tickets if t.status != "ok"]
+    for (op, params, x, _), t in tickets[:64]:
+        err = crel_err(t.result(), serve_oracle(op, params, x))
+        check(err <= SERVE_TOL[op], f"fleet scaler: {op} rel {err:.3e}")
+    check(snap["actions"].get("scale_up", 0) >= 1
+          and snap["actions"].get("scale_down", 0) >= 1 and lost == 0
+          and not bad, f"fleet scaler: actions {snap['actions']}, "
+          f"noops {snap['noops']}, lost {lost}, not ok {bad[:4]}")
+    return {"requests": len(tickets), "t_up": t_up,
+            "actions": snap["actions"], "noops": snap["noops"],
+            "alive": alive, "ticks": snap["ticks"],
+            "seconds": time.perf_counter() - t0}
+
+
+def fleet_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
+    """The serving fleet on the card (``serve.ReplicaGroup`` behind
+    ``serve.FrontRouter``): the JAX replica campaign in thread mode
+    and over the RPC data plane in subprocess mode, K4 a K4-class
+    batch in every replica, then the scaler's ramp."""
+    from veles.simd_tpu_torch import pipeline as pl
+    from veles.simd_tpu_torch.serve import rpc
+
+    t_phase = time.perf_counter()
+    spec = fleet_spec(rng)
+    x_pl = rng.randn(3, FLEET_STREAMS, N_BS).astype(np.float32)
+    ref = pl.pipeline_from_spec(spec)
+    # the float64 oracle of each stream over the three blocks, and the
+    # fused chain on the same blocks (8 streams a batch)
+    oracle = ref.oracle(np.concatenate(list(x_pl), axis=-1))
+    want, st = [], None
+    for b in range(3):
+        y, st = ref.process(x_pl[b], st)
+        want.append(y.cpu().numpy())
+    single = fleet_single(rng, obs)
+    reps = {}
+    for spawn in ("thread", "subprocess"):
+        # the router's RPC clients: one pooled connection a request a
+        # child can batch; with fewer, a child's batch never fills and
+        # waits out max_wait
+        os.environ[rpc.RPC_CONNS_ENV] = str(FLEET_MAX_BATCH)
+        try:
+            reps[spawn] = rep = fleet_campaign(torch, rng, obs, ck, bm,
+                                               spec, x_pl, spawn)
+        finally:
+            del os.environ[rpc.RPC_CONNS_ENV]
+        # served on batches of 1 to 8 streams (cuFFT plans of their
+        # own): held to the float64 oracle, as the pipeline phase holds
+        # matched_stft, and compared with process() on 8 streams
+        rep["pipe_err"] = rel_err(np.concatenate(rep["pipes"], axis=1),
+                                  oracle)
+        check(rep["pipe_err"] <= ORACLE_TOL, f"fleet {spawn}: served "
+              f"pipeline vs its oracle {rep['pipe_err']:.3e} > "
+              f"{ORACLE_TOL}")
+        rep["pipe_fused"] = max(
+            float(np.max(np.abs(got - w)) / np.max(np.abs(w)))
+            for got, w in zip(rep["pipes"], want))
+        st = rep["stats"]
+        check(st["failovers"] >= 1 and rep["moved"],
+              f"fleet {spawn}: no failover ({st['failovers']})")
+        check(rep["healthz"] and set(rep["healthz"]) == {200},
+              f"fleet {spawn}: /healthz answered "
+              f"{sorted(set(rep['healthz']))}")
+        check(rep["visible_ticks"] is not None
+              and rep["visible_ticks"] <= FLEET_VISIBLE_TICKS,
+              f"fleet {spawn}: r0 read non-healthy after "
+              f"{rep['visible_ticks']} ticks")
+        sm = rep["stitched"]
+        check(sm is not None and sm["attempts"] >= 2
+              and len(set(sm["replicas"])) >= 2,
+              f"fleet {spawn}: stitched fleet trace {sm}")
+        check(obs.counter_value("router_dedup") == 0
+              and obs.counter_value("serve_double_answer") == 0,
+              f"fleet {spawn}: a request was answered twice")
+        if spawn == "thread":
+            check(rep["launches"] == rep["k4_batches"] > 0
+                  and rep["timed_launches"] == rep["timed_batches"],
+                  f"fleet thread: K4 launches {rep['launches']} for "
+                  f"{rep['k4_batches']} K4-class batches (timed "
+                  f"{rep['timed_launches']} / {rep['timed_batches']})")
+            check(rep["captures"] and all(
+                e["decision"] == "captured" for e in rep["captures"]),
+                f"fleet thread: pipeline captures {rep['captures']}")
+        else:
+            check(rep["launches"] == 0, "fleet subprocess: the parent "
+                  f"launched K4 {rep['launches']} times")
+            rows = {rid: [ln for ln in text.splitlines()
+                          if ln.startswith("veles_simd_resource_")
+                          and FLEET_RESOURCE in ln]
+                    for rid, text in rep["metrics"].items()}
+            pipes = {rid: any('route="matched_stft"' in ln
+                              for ln in text.splitlines())
+                     for rid, text in rep["metrics"].items()}
+            check(len(rows) >= 2 and all(rows.values())
+                  and all(pipes.values()),
+                  f"fleet subprocess: children without the K4 resource "
+                  f"row or the pipeline row: "
+                  f"{ {k: len(v) for k, v in rows.items()} } {pipes}")
+            rep["rows"] = rows
+        healthy(f"fleet {spawn}", obs, faults, breaker)
+    scal = fleet_scaler(rng, obs)
+    healthy("fleet scaler", obs, faults, breaker)
+    th, sub = reps["thread"], reps["subprocess"]
+    for spawn, rep in reps.items():
+        st = rep["stats"]
+        print(f"fleet {spawn} ({FLEET_REPLICAS} replicas, max_batch "
+              f"{FLEET_MAX_BATCH}, max_wait {FLEET_MAX_WAIT_MS} ms, "
+              f"workers 2, heartbeat {FLEET_HEARTBEAT_MS} ms, tick "
+              f"{FLEET_TICK_MS} ms; waves of {FLEET_MIX} mix + "
+              f"{FLEET_K4} K4-class + {FLEET_STREAMS} matched_stft "
+              f"blocks): r0 killed, r1 drained, r0 restarted | "
+              f"failovers {st['failovers']}, answered "
+              f"{json.dumps(st['answered_by_replica'])}, none lost or "
+              f"twice | r0 non-healthy in obs.signals() after "
+              f"{rep['visible_ticks']:.1f} ticks | stitched "
+              f"{rep['stitched']['attempts']} attempts on "
+              f"{rep['stitched']['replicas']}, deadlines_ms "
+              f"{[round(d, 1) for d in rep['stitched']['deadlines_ms']]}"
+              f" | /healthz 200 x {len(rep['healthz'])} | worst rel "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in
+                            sorted(rep["worst"].items())})
+              + f" | pipeline vs oracle {rep['pipe_err']:.2e} (tol "
+              f"{ORACLE_TOL:g}), vs process() on 8 streams "
+              f"{rep['pipe_fused']:.2e}")
+    print(f"fleet thread K4: launches {th['launches']} = K4-class "
+          f"batches {th['k4_batches']} summed over the replicas (timed "
+          f"wave {th['timed_launches']} = {th['timed_batches']}) | "
+          f"pipeline graphs captured beside the other replicas' "
+          f"batches: {[tuple(e['shape']) for e in th['captures']]} in "
+          + ", ".join(f"{e['seconds']:.3f}" for e in th["captures"])
+          + " s, no capture error")
+    print(f"fleet subprocess K4: the parent launched none; each live "
+          f"child's /metrics carries the resource rows "
+          f"{ {k: len(v) for k, v in sub['rows'].items()} } "
+          f"({FLEET_RESOURCE}) and the matched_stft pipeline row | "
+          f"spawn to ready s "
+          + json.dumps({k: round(v, 3) for k, v in
+                        sub["ready_s"].items()})
+          + f" | RPC conns {FLEET_MAX_BATCH} a child (= max_batch) | "
+          f"group start {sub['start_s']:.2f} s, restart "
+          f"{sub['restart_s']:.2f} s | card memory taken by the "
+          f"children {sub['children_mem_gb']:.2f} GB")
+    print(f"fleet K4 req/s ({FLEET_TIMED_K4} requests of {N_BS} samples "
+          f"at {L_ST}/{HOP_ST}, flat out; the submits' ms in brackets): "
+          f"thread fleet {th['k4_rps']:.1f} ({th['submit_ms']:.1f}) | "
+          f"subprocess fleet {sub['k4_rps']:.1f} ({sub['submit_ms']:.1f})"
+          f" | one server at the campaign's knobs "
+          f"{single['campaign'][0]:.1f} ({single['campaign'][1]:.1f}), "
+          f"at the serve phase's (max_batch {SERVE_MAX_BATCH}, "
+          f"{SERVE_MAX_WAIT_MS} ms) {single['serve'][0]:.1f} "
+          f"({single['serve'][1]:.1f}) | p50 thread "
+          f"{th['k4_p50_ms']:.2f} ms,"
+          f" subprocess {sub['k4_p50_ms']:.2f} ms: the RPC adds "
+          f"{sub['k4_p50_ms'] - th['k4_p50_ms']:.2f} ms | device busy "
+          f"{th['busy_ms']:.3f} ms of the thread fleet's "
+          f"{th['wall_ms']:.1f} ms wave ({th['busy_ms'] / th['wall_ms']:.3f}"
+          f" of the wall clock; the children's busy share not measured: "
+          f"the parent's profiler sees its own process) | card {smi}")
+    print(f"fleet scaler (1 replica, max 3, ticks 30 ms, up 2, down 12, "
+          f"cooldown 0.35 s, depth_high 6): {scal['requests']} requests "
+          f"in bursts of 150, scale_up after {scal['t_up']:.2f} s | "
+          f"actions {json.dumps(scal['actions'])}, no-ops "
+          f"{json.dumps(scal['noops'])} in {scal['ticks']} ticks | "
+          f"alive {scal['alive'][0]} -> {max(scal['alive'])} -> "
+          f"{scal['alive'][-1]} | none lost")
+    print(f"fleet: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def autotune_phase(torch, rng, obs, ck, smi):
@@ -2673,6 +3199,11 @@ def main():
     serve_phase(torch, np.random.RandomState(SEED), bm, obs, faults,
                 breaker, ck, smi)
     healthy("serve", obs, faults, breaker)
+
+    # 4h. the serving fleet: the replica campaign in thread and
+    # subprocess mode, K4 in every replica, the scaler's ramp
+    fleet_phase(torch, np.random.RandomState(SEED + 1), bm, obs, faults,
+                breaker, ck, smi)
 
     # 5. times at the main-path shapes
     obs.disable()

@@ -1169,3 +1169,131 @@ def test_serve_degraded_batch_equals_the_oracle(monkeypatch):
         assert t.status == "degraded"
         assert np.array_equal(y, want[i, :v.size])
         assert _rel(y, iir.sosfilt_na(sos, v)) <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet: K4 in every replica, one capture gate a process
+# ---------------------------------------------------------------------------
+
+def _k4_batches(tickets):
+    return len({(t.replica, e["batch"]) for t in tickets
+                for e in t.trace.events() if e["event"] == "batch_formed"})
+
+
+def test_fleet_thread_group_launches_k4_once_a_batch_in_every_replica():
+    from veles.simd_tpu_torch import obs, serve
+
+    r = np.random.RandomState(31)
+    xs = [r.randn(16384).astype(np.float32) for _ in range(96)]
+    obs.enable()
+    try:
+        with serve.ReplicaGroup(3, max_batch=16, max_wait_ms=20.0,
+                                workers=2, obs_port=-1) as group:
+            router = serve.FrontRouter(group)
+            ck.reset_launches()
+            tickets = [router.submit(op="stft", x=x, params={
+                "frame_length": 512, "hop": 128}, deadline_ms=60000.0)
+                for x in xs]
+            ys = [t.result(timeout=120.0) for t in tickets]
+            answered = router.stats()["answered_by_replica"]
+    finally:
+        obs.disable()
+        obs.reset()
+    assert len(answered) == 3
+    assert ck.LAUNCHES["stft"] == sum(ck.LAUNCHES.values()) \
+        == _k4_batches(tickets)
+    for x, y, t in zip(xs[:16], ys, tickets):
+        assert t.status == "ok"
+        want = sp.stft_na(x, 512, 128)
+        assert np.max(np.abs(y - want)) / np.max(np.abs(want)) <= 1e-4
+
+
+def test_fleet_capture_on_one_replica_beside_batches_on_another():
+    import threading
+
+    from veles.simd_tpu_torch import serve
+    from veles.simd_tpu_torch.serve import server
+
+    sos = iir.butterworth(4, 0.25, "lowpass")
+    spec = {"name": "fleet_graph", "block": 512, "stages": [
+        {"stage": "sosfilt", "sos": np.asarray(sos).tolist()},
+        {"stage": "fir", "h": np.hanning(33).tolist()}]}
+    r = np.random.RandomState(32)
+    x = r.randn(8, 2 * 512).astype(np.float32)
+    plain, stop = [], threading.Event()
+    with serve.ReplicaGroup(2, max_batch=8, max_wait_ms=5.0, workers=2,
+                            obs_port=-1, pipeline_specs=[spec]) as group:
+        r0, r1 = group.replica("r0"), group.replica("r1")
+        assert r0.server._gate is r1.server._gate is server._GATE
+
+        def feeder():
+            rf = np.random.RandomState(33)
+            while not stop.is_set():
+                vs = [rf.randn(int(rf.randint(200, 6000))).astype(
+                    np.float32) for _ in range(8)]
+                tks = [r1.server.submit(serve.Request(
+                    "sosfilt", v, {"sos": sos})) for v in vs]
+                plain.extend((v, t, t.result(timeout=60.0))
+                             for v, t in zip(vs, tks))
+
+        t = threading.Thread(target=feeder)
+        t.start()
+        try:
+            while len(plain) < 8:
+                stop.wait(0.001)
+            states, outs = [None] * 8, [[] for _ in range(8)]
+            for b in range(2):
+                tks = [r0.server.submit(op="pipeline:fleet_graph",
+                                        x=x[i, b * 512:(b + 1) * 512],
+                                        params={"state": states[i]})
+                       for i in range(8)]
+                for i, tk in enumerate(tks):
+                    outs[i].append(tk.result(timeout=60.0)[0])
+                    states[i] = tk.result()[1]
+                    assert tk.status == "ok"
+        finally:
+            stop.set()
+            t.join(timeout=60.0)
+    assert not t.is_alive()
+    assert plain and all(tk.status == "ok" for _, tk, _ in plain)
+    from veles.simd_tpu_torch import pipeline as tpl
+
+    ref = tpl.pipeline_from_spec(spec)
+    st = None
+    for b in range(2):
+        want, st = ref.process(x[:, b * 512:(b + 1) * 512], st)
+        got = np.stack([outs[i][b] for i in range(8)])
+        assert _rel(got, want.cpu()) <= 1e-6
+
+
+def test_fleet_subprocess_child_runs_k4_on_the_card():
+    import urllib.request
+
+    from veles.simd_tpu_torch import serve
+
+    r = np.random.RandomState(34)
+    xs = [r.randn(16384).astype(np.float32) for _ in range(16)]
+    ck.load_library()
+    with serve.ReplicaGroup(1, spawn="subprocess", max_batch=8,
+                            max_wait_ms=20.0, workers=2,
+                            obs_port=-1) as group:
+        child = group.replica("r0")
+        assert child.ready_s is not None and child.ready_s < 60.0
+        router = serve.FrontRouter(group)
+        ck.reset_launches()
+        tickets = [router.submit(op="stft", x=x, params={
+            "frame_length": 512, "hop": 128}, deadline_ms=60000.0)
+            for x in xs]
+        ys = [t.result(timeout=120.0) for t in tickets]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{child.port}/metrics",
+                timeout=10.0) as resp:
+            metrics = resp.read().decode()
+    assert sum(ck.LAUNCHES.values()) == 0        # the child launched
+    assert any(ln.startswith("veles_simd_resource_")
+               and 'op="cuda",route="stft"' in ln
+               for ln in metrics.splitlines())
+    for x, y, t in zip(xs, ys, tickets):
+        assert t.status == "ok"
+        want = sp.stft_na(x, 512, 128)
+        assert np.max(np.abs(y - want)) / np.max(np.abs(want)) <= 1e-4

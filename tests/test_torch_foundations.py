@@ -407,13 +407,19 @@ def test_constant_cache_bounds_entries_and_bytes():
 
 def test_device_rows_retries_empty_profiler_windows(monkeypatch):
     # torch.profiler can return a window without device events: the
-    # helper takes another window, up to four, then raises
-    got = iter([([], 1.0), ([], 1.0), ([], 1.0), ([(5.0, "k", 1.0)], 1.0)])
+    # helper takes another window, up to twelve, then raises
+    got = iter([([], 1.0)] * 3 + [([(5.0, "k", 1.0)], 1.0)] * 3)
     monkeypatch.setattr(tbench, "_profile", lambda fn, calls: next(got))
     assert tbench._device_rows(lambda: None, 3) == [(5.0, "k", 1.0)]
-    monkeypatch.setattr(tbench, "_profile", lambda fn, calls: ([], 1.0))
+    got = iter([([], 1.0)] * 11 + [([(4.0, "k", 1.0)], 1.0)])
+    monkeypatch.setattr(tbench, "_profile", lambda fn, calls: next(got))
+    assert tbench._device_rows(lambda: None, 3) == [(4.0, "k", 1.0)]
+    seen = []
+    monkeypatch.setattr(tbench, "_profile",
+                        lambda fn, calls: seen.append(1) or ([], 1.0))
     with pytest.raises(RuntimeError, match="no device time"):
         tbench._device_rows(lambda: None, 3)
+    assert len(seen) == 12
 
 
 def test_device_rows_keeps_the_longest_window(monkeypatch):

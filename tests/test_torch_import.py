@@ -8,6 +8,7 @@ library exports each public name of its JAX twin.
 """
 
 import importlib
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -71,7 +72,12 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.serve.admission",
                  "veles.simd_tpu_torch.serve.health",
                  "veles.simd_tpu_torch.serve.batcher",
-                 "veles.simd_tpu_torch.serve.server"):
+                 "veles.simd_tpu_torch.serve.server",
+                 "veles.simd_tpu_torch.obs.timeseries",
+                 "veles.simd_tpu_torch.obs.incidents",
+                 "veles.simd_tpu_torch.serve.rpc",
+                 "veles.simd_tpu_torch.serve.cluster",
+                 "veles.simd_tpu_torch.serve.scaler"):
         assert name in mods
 
 
@@ -163,15 +169,17 @@ def test_op_modules_are_listed_in_pairs():
                                   "pipeline.compiler", "obs.requests",
                                   "obs.http", "serve.server",
                                   "serve.admission", "serve.health",
-                                  "serve.batcher"])
+                                  "serve.batcher", "obs.timeseries",
+                                  "obs.incidents", "serve.rpc",
+                                  "serve.cluster", "serve.scaler",
+                                  "obs", "serve"])
 def test_runtime_and_obs_copies_keep_the_jax_all(name):
     # the fault policy, the breakers, the flight recorder, its writer
     # and exporters, the segment packing, obs's standalone half, the
     # profiler, the utils package, the pipeline compiler, the request
-    # axis, the scrape endpoint and serve's core mirror their JAX
-    # modules' public surface exactly (the obs and serve packages lack
-    # the fleet names: tests/test_torch_obs_requests.py and
-    # tests/test_torch_serve.py list them)
+    # axis, the scrape endpoint, serve's core and the fleet (timeseries,
+    # incidents, rpc, cluster, scaler), and the obs and serve packages
+    # themselves, mirror their JAX modules' public surface exactly
     port = importlib.import_module(f"veles.simd_tpu_torch.{name}")
     ref = importlib.import_module(f"veles.simd_tpu.{name}")
     assert port.__all__ == ref.__all__
@@ -187,3 +195,27 @@ def test_port_all_covers_the_jax_all(name):
     assert not missing, missing
     for public in ref.__all__:
         assert hasattr(port, public), public
+
+
+def test_replica_child_runs_without_jax():
+    # a subprocess replica's body (serve/cluster.py _replica_main) on
+    # the CPU with jax blocked: it reports its port, drains when stdin
+    # closes, exits 0, and loaded nothing of the JAX package
+    code = f"""
+import json, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+from veles.simd_tpu_torch.serve.cluster import _replica_main
+rc = _replica_main(["--device", "cpu", "--obs-port", "0",
+                    "--name", "r9", "--workers", "1"])
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+print(json.dumps({{"rc": rc, "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         input="", capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(line) for line in out.stdout.splitlines()]
+    assert lines[0]["port"] > 0 and lines[0]["device"] == "cpu"
+    assert lines[-1] == {"rc": 0, "bad": []}

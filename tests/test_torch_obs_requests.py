@@ -7,11 +7,12 @@ traces (ids unique, events causal, phases summing to the total within
 1e-3 s), every terminal outcome in ``serve.request_latency{op,
 status}``, retry and degrade edges on degraded tickets, per-tenant SLO
 accounting, the live endpoint (``/metrics``, ``/healthz`` with 503 while
-degraded, ``/debug/requests``; the fleet routes answer 501) and the
-flight bundle's ``request_traces``.  The tracer runs the same event
-script in both packages under one scripted clock, so phases,
-``summary()``, ``slo_snapshot()`` and the registry's histograms must
-agree exactly.
+degraded, ``/debug/requests``; the fleet routes ``/signals``,
+``/incidents``, ``/scaler`` and ``POST /submit`` answer with the JAX
+endpoint's schema stamps and keys) and the flight bundle's
+``request_traces``.  The tracer runs the same event script in both
+packages under one scripted clock, so phases, ``summary()``,
+``slo_snapshot()`` and the registry's histograms must agree exactly.
 """
 
 import dataclasses
@@ -31,9 +32,13 @@ sys.path.insert(0, str(REPO / "tools"))
 import loadgen  # noqa: E402
 from veles.simd_tpu import obs as jobs  # noqa: E402
 from veles.simd_tpu.obs import http as jhttp  # noqa: E402
+from veles.simd_tpu.obs import incidents as jincidents  # noqa: E402
 from veles.simd_tpu.obs import registry as jregistry  # noqa: E402
 from veles.simd_tpu.obs import requests as jreq  # noqa: E402
+from veles.simd_tpu.obs import timeseries as jts  # noqa: E402
 from veles.simd_tpu.ops import iir as jiir  # noqa: E402
+from veles.simd_tpu.serve import rpc as jrpc  # noqa: E402
+from veles.simd_tpu.serve import scaler as jscaler  # noqa: E402
 from veles.simd_tpu_torch import obs, serve  # noqa: E402
 from veles.simd_tpu_torch import pipeline as tpl  # noqa: E402
 from veles.simd_tpu_torch.obs import flightrec  # noqa: E402
@@ -41,11 +46,12 @@ from veles.simd_tpu_torch.obs import http as obs_http  # noqa: E402
 from veles.simd_tpu_torch.obs import requests as obs_requests  # noqa: E402
 from veles.simd_tpu_torch.obs.registry import MetricsRegistry  # noqa: E402
 from veles.simd_tpu_torch.runtime import breaker, faults  # noqa: E402
+from veles.simd_tpu_torch.serve import rpc as trpc  # noqa: E402
 from veles.simd_tpu_torch.utils import config  # noqa: E402
 
 RNG = np.random.RandomState(7)
 SOS = jiir.butterworth(4, 0.25, "lowpass")
-# the fleet axis, not ported yet (ROADMAP Queue 1 item 6)
+# the fleet axis of the facade
 FLEET_NAMES = ("signals", "fleet_record", "fleet_series",
                "stitch_fleet_trace", "incidents_snapshot",
                "scaler_snapshot", "FleetSeries", "FleetSignals")
@@ -108,12 +114,11 @@ def test_requests_and_http_constants_equal_the_jax_ones():
 
 
 def test_facade_all_is_the_jax_all_less_the_fleet_names():
-    assert [n for n in jobs.__all__ if n not in FLEET_NAMES] == obs.__all__
-    for name in REQUEST_AXIS:
+    # the fleet names are ported now: the facade's __all__ is the JAX
+    # package's, fleet names included
+    assert jobs.__all__ == obs.__all__
+    for name in REQUEST_AXIS + FLEET_NAMES:
         assert name in obs.__all__ and hasattr(obs, name)
-    for name in FLEET_NAMES:
-        assert name in jobs.__all__
-        assert name not in obs.__all__ and not hasattr(obs, name)
 
 
 class _Clock:
@@ -525,6 +530,14 @@ def _get(url, timeout=10.0, data=None):
         return e.code, e.read().decode()
 
 
+def _get_bytes(url, timeout=10.0, data=None):
+    try:
+        with urllib.request.urlopen(url, timeout=timeout, data=data) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
 class TestScrapeEndpoint:
     def test_routes_serve_live_data(self, telemetry):
         with serve.Server(max_batch=2, max_wait_ms=1.0, workers=1,
@@ -556,19 +569,66 @@ class TestScrapeEndpoint:
                                            ("/submit", True)])
     def test_fleet_routes_answer_501_naming_item_6(self, telemetry, path,
                                                    post):
+        # the fleet routes are ported: each answers as the JAX endpoint
+        # does, its body stamped with the JAX schema and carrying the
+        # JAX body's keys; a malformed /submit body answers a typed
+        # bad_request frame (400), as the JAX serve_submit does
+        from veles.simd_tpu import serve as jserve
+
+        data = b"\x00" * 8 if post else None
         with serve.Server(max_batch=2, max_wait_ms=1.0, workers=1,
                           obs_port=0) as srv:
-            code, body = _get(f"http://127.0.0.1:{srv.obs_port}{path}",
-                              data=b"\x00" * 8 if post else None)
-            # the endpoint still serves after the refusal
+            code, body = _get_bytes(
+                f"http://127.0.0.1:{srv.obs_port}{path}", data=data)
+            # the endpoint still serves after the route
             ok, _ = _get(f"http://127.0.0.1:{srv.obs_port}/healthz")
-        assert code == 501
-        assert "Queue 1 item 6" in json.loads(body)["error"]
+        jobs.enable(compile_listeners=False)
+        try:
+            with jserve.Server(max_batch=2, max_wait_ms=1.0, workers=1,
+                               obs_port=0) as jsrv:
+                jcode, jbody = _get_bytes(
+                    f"http://127.0.0.1:{jsrv.obs_port}{path}", data=data)
+        finally:
+            jobs.disable()
+            jobs.reset()
         assert ok == 200
+        assert code == jcode
+        if post:
+            assert code == 400
+            got = trpc.unpack_response(body)
+            want = jrpc.unpack_response(jbody)
+            assert got["status"] == want["status"] == "error"
+            assert got["error"]["kind"] == want["error"]["kind"] \
+                == "bad_request"
+            return
+        assert code == 200
+        got, want = json.loads(body), json.loads(jbody)
+        stamp = {"/signals": jts.SIGNALS_SCHEMA,
+                 "/incidents": jincidents.SCHEMA,
+                 "/scaler": jscaler.SCHEMA}[path]
+        assert got["schema"] == want["schema"] == stamp
+        assert sorted(got) == sorted(want)
 
-    def test_submit_handler_is_refused(self):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            obs_http.start(0, submit=lambda body: (200, body))
+    def test_submit_handler_is_refused(self, telemetry):
+        # the endpoint arms POST /submit with the handler it is given;
+        # without one the route stays refused (404), and the handler
+        # sees the exact body bytes
+        seen = []
+
+        def echo(body):
+            seen.append(body)
+            return 200, body[::-1]
+
+        ep = obs_http.start(0, submit=echo)
+        bare = obs_http.start(0)
+        try:
+            code, body = _get_bytes(f"{ep.url}/submit", data=b"abc")
+            refused, _ = _get_bytes(f"{bare.url}/submit", data=b"abc")
+        finally:
+            ep.stop()
+            bare.stop()
+        assert (code, body, seen) == (200, b"cba", [b"abc"])
+        assert refused == 404
 
     def test_healthz_503_while_degraded(self, telemetry):
         with faults.fault_plan("serve.dispatch:device_lost:9999"):

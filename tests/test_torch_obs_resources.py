@@ -399,8 +399,15 @@ def test_facade_names_and_configure(tmp_path, telemetry):
     assert obs.request_trace("op").rid == -1
     obs.configure(max_traces=256, max_exemplars=64, request_axis=True)
     assert obs.request_trace("op").rid >= 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        obs.save_trace(str(tmp_path / "t.json"), fleet={})
+    # a stitched fleet trace (a dict) is written as it is, as the JAX
+    # facade writes it
+    fleet = {"traceEvents": [], "otherData": {"fleet": True}}
+    mine = obs.save_trace(str(tmp_path / "t.json"), fleet=fleet)
+    theirs = jobs.save_trace(str(tmp_path / "j.json"), fleet=fleet)
+    with open(mine) as a, open(theirs) as b:
+        text = a.read()
+        assert text == b.read()
+    assert json.loads(text) == fleet
     obs.configure(max_events=3, max_spans=2)
     for i in range(5):
         obs.record_decision("demo", str(i))

@@ -3,11 +3,12 @@ JAX package's.
 
 On the CPU (``set_config(device="cpu")``, ``JAX_PLATFORMS=cpu``):
 
-* the public surface: the package's ``__all__`` is the JAX package's
-  less the fleet names (listed below, ROADMAP Queue 1 item 6; each
-  module's own ``__all__``: ``tests/test_torch_import.py``);
-  ``tools/lint.py``'s serve-layer and request-trace rules
-  pass on the port's sources (read as the JAX package's);
+* the public surface: the package's ``__all__`` is the JAX package's,
+  the fleet names included (each module's own ``__all__``:
+  ``tests/test_torch_import.py``); ``tools/lint.py``'s serve-layer
+  and request-trace rules pass on the port's sources (read as the JAX
+  package's; the fleet modules' own rules:
+  ``tests/test_torch_cluster.py``);
 * the deterministic parts through both packages: ``classify_request``
   keys and ``bucket_length`` over loadgen's mix, the admission
   controller's sheds and depths, the health machine's transitions;
@@ -20,9 +21,10 @@ On the CPU (``set_config(device="cpu")``, ``JAX_PLATFORMS=cpu``):
   exactness, typed ``Overloaded`` and backpressure, degrade parity and
   probed recovery, deadlines, refill, ragged parity and one-ticket
   fault isolation, stop without drain, the endpoint's port conflict);
-* what the card changes: one copy back per batch, the capture gate,
-  a served pipeline whose degraded block keeps its state exact, and
-  ``Server.start`` refusing an armed artifact store.
+* what the card changes: one copy back per batch, the capture gate
+  (one a process, held by every server in it), a served pipeline
+  whose degraded block keeps its state exact, and ``Server.start``
+  refusing an armed artifact store.
 
 The same behaviours on the card: ``tests/test_torch_cuda.py -k serve``.
 """
@@ -64,14 +66,14 @@ IIR_TOL = 2e-5          # of max|y|: IIR and resampling
 STFT_TOL = 1e-4
 TOLS = {"sosfilt": IIR_TOL, "lfilter": IIR_TOL,
         "resample_poly": IIR_TOL, "stft": STFT_TOL}
-# the replica layer, the autoscaler and the RPC plane: ROADMAP Queue 1
-# item 6
+# the replica layer, the autoscaler and the RPC plane
 FLEET_NAMES = ("ReplicaGroup", "FrontRouter", "RouterTicket",
                "NoReplicaAvailable", "ScalerEngine", "RpcClient",
                "RpcTicket", "RPC_CONNS_ENV", "RPC_TIMEOUT_ENV",
                "SCALER_ARM_ENV", "SCALER_TICK_MS_ENV", "REPLICAS_ENV",
                "ROUTER_POLICY_ENV", "HEARTBEAT_MS_ENV")
-SERVE_SOURCES = ("__init__", "admission", "health", "batcher", "server")
+SERVE_SOURCES = ("__init__", "admission", "health", "batcher", "server",
+                 "cluster", "rpc", "scaler")
 
 
 @pytest.fixture(autouse=True)
@@ -128,12 +130,15 @@ def _phase_drift(trace):
 # ---------------------------------------------------------------------------
 
 def test_serve_package_all_is_the_jax_all_less_the_fleet_names():
-    assert ([n for n in jserve.__all__ if n not in FLEET_NAMES]
-            == serve.__all__)
+    # the fleet names are ported now: serve's __all__ is the JAX
+    # package's, and the fleet's environment names are the JAX ones
+    assert jserve.__all__ == serve.__all__
     for name in FLEET_NAMES:
-        assert name in jserve.__all__
-        assert not hasattr(serve, name), name
-    for name in ("DEFAULT_MAX_BATCH", "DEFAULT_MAX_WAIT_MS",
+        assert hasattr(serve, name), name
+    for name in ("RPC_CONNS_ENV", "RPC_TIMEOUT_ENV", "SCALER_ARM_ENV",
+                 "SCALER_TICK_MS_ENV", "REPLICAS_ENV",
+                 "ROUTER_POLICY_ENV", "HEARTBEAT_MS_ENV",
+                 "DEFAULT_MAX_BATCH", "DEFAULT_MAX_WAIT_MS",
                  "DEFAULT_QUEUE_DEPTH", "DEFAULT_TENANT_DEPTH",
                  "MAX_BATCH_ENV", "MAX_WAIT_ENV", "QUEUE_DEPTH_ENV",
                  "TENANT_DEPTH_ENV", "DEADLINE_ENV", "SUPPORTED_OPS",
@@ -1082,6 +1087,41 @@ def test_capture_gate_keeps_a_capture_exclusive():
         t.join(timeout=10.0)
         assert not t.is_alive()
     assert log == ["plain in", "plain out", "capture", "late plain"]
+
+
+def test_every_server_in_a_process_holds_one_capture_gate():
+    # global capture mode spans the process's threads, so one server's
+    # capture must keep out another server's device sections: two
+    # servers hold the same gate, and an exclusive section on one keeps
+    # out a shared section on the other until it is done
+    a, b = serve.Server(workers=1), serve.Server(workers=1, name="r1")
+    assert a._gate is b._gate is tserver._GATE
+    log, inside = [], threading.Event()
+    release = threading.Event()
+
+    def capture():
+        with a._gate.exclusive():
+            log.append("capture in")
+            inside.set()
+            release.wait(10.0)
+            log.append("capture out")
+
+    def plain():
+        with b._gate.shared():
+            log.append("plain")
+
+    t1 = threading.Thread(target=capture)
+    t1.start()
+    assert inside.wait(10.0)
+    t2 = threading.Thread(target=plain)
+    t2.start()
+    time.sleep(0.05)
+    assert log == ["capture in"]
+    release.set()
+    for t in (t1, t2):
+        t.join(timeout=10.0)
+        assert not t.is_alive()
+    assert log == ["capture in", "capture out", "plain"]
 
 
 def test_pipeline_capture_is_exclusive_only_on_the_card(monkeypatch):

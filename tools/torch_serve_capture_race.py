@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
 """Show what the serving loop's capture gate keeps out, on the card.
 
-    python3 tools/torch_serve_capture_race.py [--trials N]
+    python3 tools/torch_serve_capture_race.py [--trials N] [--servers 2]
 
 A pipeline row class captures its CUDA graph at its first batch, inside
-``torch.cuda.graph`` (``global`` capture mode).  With two workers, the
-other one may be running a plain batch at that moment.  This script
-runs ``N`` trials of exactly that: a ``serve.Server(workers=2)`` with
-plain ``sosfilt`` requests flowing (lengths that vary, so the caching
-allocator keeps asking for memory) while a fresh compiled pipeline
-takes its first batch.  It runs them twice, each arm in its own
-process: with the server as shipped (``gate``) and with its
-``_CaptureGate.exclusive`` replaced by ``shared`` (``no gate``), so the
-capture runs beside the plain batches.  One JSON line per arm: the
-trials, the tickets answered ``ok`` and otherwise, answers off their
-float64 oracle, graphs captured, and the first errors seen.  Prints the
-card's name and power limit first.  Exits non-zero without a card, or
-when the shipped arm answered anything but ``ok``.
+``torch.cuda.graph`` (``global`` capture mode: a ``cudaMalloc`` or a
+synchronous copy on any thread of the process breaks it).  With two
+workers, the other one may be running a plain batch at that moment;
+with ``--servers 2``, a second ``serve.Server`` in the same process
+runs the plain batches (two replicas of a thread-mode
+``serve.ReplicaGroup``).  This script runs ``N`` trials of exactly
+that: plain ``sosfilt`` requests flowing (lengths that vary, so the
+caching allocator keeps asking for memory) while a fresh compiled
+pipeline takes its first batch.  It runs each arm in its own process:
+the server as shipped (``gate``: one gate a process); with
+``--servers 2`` also one gate a server (``per-server``: each server
+its own ``_CaptureGate``, as before the gate became process-wide);
+and ``no gate`` (``_CaptureGate.exclusive`` replaced by ``shared``, so
+the capture runs beside the plain batches).  One JSON line per arm:
+the trials, the tickets answered ``ok`` and otherwise, answers off
+their float64 oracle, graphs captured, and the first errors seen.
+Prints the card's name and power limit first.  Exits non-zero without
+a card, or when the shipped arm answered anything but ``ok``.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -35,8 +41,10 @@ BLOCK, STREAMS, PLAIN_ROUND = 4096, 8, 8
 TOL = 2e-5          # of max|y|, the IIR oracle's (tests/test_iir.py)
 
 
-def trial(serve, pl, iir, rng, errors):
-    """One capture beside plain traffic; returns (ok, other, off, graphs)."""
+def trial(serve, pl, iir, rng, errors, servers=1):
+    """One capture beside plain traffic, the plain batches on the same
+    server or (``servers=2``) on a second one; returns (ok, other, off,
+    graphs)."""
     sos = iir.butterworth(4, 0.25, "lowpass")
     h = rng.randn(65).astype(np.float32)
     cp = pl.Pipeline([pl.sosfilt(sos), pl.fir(h)],
@@ -59,10 +67,15 @@ def trial(serve, pl, iir, rng, errors):
                     plain.append((x, None, t))
                     errors.append(f"plain: {type(e).__name__}: {e}"[:300])
 
-    with serve.Server(max_batch=STREAMS, max_wait_ms=1.0,
-                      workers=2) as srv:
+    with contextlib.ExitStack() as stack:
+        srvs = [stack.enter_context(serve.Server(
+            max_batch=STREAMS, max_wait_ms=1.0, workers=2))
+            for _ in range(servers)]
+        # the pipeline on the first server, the plain traffic on the
+        # last (the same one when there is one)
+        srv, plain_srv = srvs[0], srvs[-1]
         op = srv.register_pipeline("race", cp)
-        t = threading.Thread(target=feeder, args=(srv,))
+        t = threading.Thread(target=feeder, args=(plain_srv,))
         t.start()
         try:
             while len(plain) < PLAIN_ROUND:     # plain batches in flight
@@ -94,7 +107,7 @@ def trial(serve, pl, iir, rng, errors):
     return ok, other, off, cp.compile_cache_size()
 
 
-def arm(gate: bool, trials: int) -> dict:
+def arm(name: str, trials: int, servers: int) -> dict:
     import torch
 
     from veles.simd_tpu_torch import pipeline as pl
@@ -104,19 +117,28 @@ def arm(gate: bool, trials: int) -> dict:
     from veles.simd_tpu_torch.utils.config import set_config
 
     set_config(device="cuda")
-    if not gate:
+    if name == "no-gate":
         server._CaptureGate.exclusive = server._CaptureGate.shared
+    elif name == "per-server":
+        init = server.Server.__init__
+
+        def own_gate(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            self._gate = server._CaptureGate()
+
+        server.Server.__init__ = own_gate
     rng = np.random.RandomState(SEED)
     errors, tally = [], {"ok": 0, "other": 0, "off_oracle": 0,
                          "graphs": 0}
     for _ in range(trials):
-        ok, other, off, graphs = trial(serve, pl, iir, rng, errors)
+        ok, other, off, graphs = trial(serve, pl, iir, rng, errors,
+                                       servers)
         tally["ok"] += ok
         tally["other"] += other
         tally["off_oracle"] += off
         tally["graphs"] += graphs
     torch.cuda.synchronize()
-    return {"arm": "gate" if gate else "no gate", "trials": trials,
+    return {"arm": name, "servers": servers, "trials": trials,
             **tally, "errors": len(errors),
             "first_errors": sorted(set(errors))[:4]}
 
@@ -124,7 +146,8 @@ def arm(gate: bool, trials: int) -> dict:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trials", type=int, default=10)
-    ap.add_argument("--arm", choices=("gate", "no-gate"))
+    ap.add_argument("--servers", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--arm", choices=("gate", "per-server", "no-gate"))
     args = ap.parse_args()
     import torch
 
@@ -132,19 +155,22 @@ def main():
         print("torch_serve_capture_race: no CUDA card", file=sys.stderr)
         return 2
     if args.arm:
-        print(json.dumps(arm(args.arm == "gate", args.trials)))
+        print(json.dumps(arm(args.arm, args.trials, args.servers)))
         return 0
     from veles.simd_tpu_torch.utils.platform import smi_line
 
     print(f"card: {smi_line()}")
     rc = 0
-    for name in ("gate", "no-gate"):
+    arms = (("gate", "per-server", "no-gate") if args.servers == 2
+            else ("gate", "no-gate"))
+    for name in arms:
         # its own process each: a broken capture can leave the context
         # unusable for the rest of the process
         try:
             out = subprocess.run(
                 [sys.executable, __file__, "--arm", name, "--trials",
-                 str(args.trials)], capture_output=True, text=True,
+                 str(args.trials), "--servers", str(args.servers)],
+                capture_output=True, text=True,
                 timeout=600)
             line = (out.stdout.strip().splitlines() or [""])[-1]
             res = (json.loads(line) if line.startswith("{") else

@@ -28,12 +28,16 @@ framework-free storage modules (:mod:`.registry`, :mod:`.events`,
   armed by ``serve.Server.start``;
 * the crash flight recorder (:mod:`.flightrec`), armed by the fault
   policy on retry exhaustion, by an exception escaping a top-level
-  span and by a tenant's first SLO breach.
-
-The fleet and incident axes (``signals``, ``fleet_record``,
-``fleet_series``, ``stitch_fleet_trace``, ``incidents_snapshot``,
-``scaler_snapshot``, ``FleetSeries``, ``FleetSignals``) are not ported
-yet (ROADMAP Queue 1 item 6).
+  span and by a tenant's first SLO breach;
+* the fleet axis (:mod:`.timeseries`): bounded per-(replica, series)
+  sample rings fed by the ``serve.cluster.ReplicaGroup`` collector
+  (:func:`fleet_record`), read back as the typed :func:`signals`
+  bundle (the autoscaler's input, ``/signals`` on the endpoint), and
+  :func:`stitch_fleet_trace` / ``save_trace(path, fleet=ticket)`` for
+  a failed-over request's cross-replica trace;
+* the incident engine (:mod:`.incidents`): typed open→closed incidents
+  over the signals (:func:`incidents_snapshot`, ``/incidents``), and
+  the control axis's state (:func:`scaler_snapshot`, ``/scaler``).
 
 Contract with the compute layer: ops modules touch telemetry only
 through :func:`record_decision`, :func:`count`, :func:`gauge`,
@@ -56,13 +60,16 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 
 from veles.simd_tpu_torch.obs import compile as _compile
 from veles.simd_tpu_torch.obs import export as _export
 from veles.simd_tpu_torch.obs import flightrec as _flightrec
+from veles.simd_tpu_torch.obs import incidents as _incidents
 from veles.simd_tpu_torch.obs import journal as _journal
 from veles.simd_tpu_torch.obs import requests as _requests_mod
 from veles.simd_tpu_torch.obs import spans as _spans_mod
+from veles.simd_tpu_torch.obs import timeseries as _timeseries
 from veles.simd_tpu_torch.obs.atomic import (
     atomic_write_text as _atomic_write)
 from veles.simd_tpu_torch.obs.events import EventLog
@@ -73,6 +80,9 @@ from veles.simd_tpu_torch.obs.resources import (InstrumentedJit,
                                                 instrumented_jit,
                                                 register_cache)
 from veles.simd_tpu_torch.obs.spans import SpanTracer
+from veles.simd_tpu_torch.obs.timeseries import (FleetSeries,
+                                                 FleetSignals,
+                                                 stitch_fleet_trace)
 
 # the facade function resources() shadows the submodule attribute
 _resources = sys.modules["veles.simd_tpu_torch.obs.resources"]
@@ -85,15 +95,19 @@ __all__ = [
     "save_trace", "trace_events",
     "request_trace", "slo", "slo_snapshot", "request_snapshot",
     "request_summary",
+    "signals", "fleet_record", "fleet_series", "stitch_fleet_trace",
     "journal_stats", "journal_cursor", "journal_tail",
+    "incidents_snapshot", "scaler_snapshot",
     "install_compile_listeners",
     "instrumented_jit", "resources", "caches", "register_cache",
     "dump_debug_bundle",
     "MetricsRegistry", "EventLog", "SpanTracer", "InstrumentedJit",
     "RequestTrace", "RequestTracer", "LRUSet",
+    "FleetSeries", "FleetSignals",
 ]
 
 _registry = MetricsRegistry()
+_fleet = _timeseries.FleetSeries()
 _events = EventLog()
 _spans = SpanTracer(_registry.observe)
 _spans.on_crash = _flightrec.maybe_record_crash
@@ -126,9 +140,6 @@ _enabled = os.environ.get("VELES_SIMD_TELEMETRY",
 if _enabled:
     _resources.set_active(True)
     _compile.install()
-
-_FLEET_AXIS = ("the fleet trace (save_trace(fleet=...)) is not ported "
-               "yet: ROADMAP Queue 1 item 6")
 
 
 def enabled() -> bool:
@@ -318,7 +329,8 @@ def snapshot() -> dict:
     """One JSON-native dict: counters, gauges, histograms (including
     the ``span.*`` latency distributions), events, drop counts, cache
     stats (:func:`caches`), the request-axis summary and SLO accounts,
-    the journal's stats and the enabled flag."""
+    the fleet store, the journal's stats, the incident engine, the
+    scaler and the enabled flag."""
     snap = _registry.snapshot()
     snap["events"] = _events.events()
     snap["events_dropped"] = _events.dropped
@@ -327,7 +339,10 @@ def snapshot() -> dict:
     snap["caches"] = caches()
     snap["requests"] = _requests.summary()
     snap["slo"] = _requests.slo_snapshot()
+    snap["fleet"] = _fleet.snapshot()
     snap["journal"] = _journal.stats()
+    snap["incidents"] = _incidents.snapshot()
+    snap["scaler"] = scaler_snapshot()
     snap["enabled"] = _enabled
     return snap
 
@@ -384,6 +399,42 @@ def caches() -> dict:
     return _resources.caches_snapshot()
 
 
+def fleet_series() -> _timeseries.FleetSeries:
+    """The live fleet store: bounded per-(replica, series) sample
+    rings.  The :class:`veles.simd_tpu_torch.serve.cluster.ReplicaGroup`
+    collector thread writes it via :func:`fleet_record`; read it through
+    :func:`signals` (the typed contract) or this handle (tests,
+    tooling)."""
+    return _fleet
+
+
+def fleet_record(replica: str, series: str, value: float,
+                 t_s: float) -> None:
+    """Record one fleet-axis sample (no-op while disabled) — the
+    collector's write funnel: ``(replica, series)`` names the ring,
+    ``t_s`` is the sweep's shared monotonic stamp."""
+    if not _enabled:
+        return
+    _fleet.record(replica, series, value, t_s)
+
+
+def signals() -> _timeseries.FleetSignals:
+    """One consistent read of the fleet axis: the typed
+    :class:`~veles.simd_tpu_torch.obs.timeseries.FleetSignals` bundle
+    (slo burn and velocity, queue depths, breaker open/flap counts,
+    goodput per shape class, per-replica health/staleness, the open
+    incidents, journal health and the scaler's summary) — the
+    autoscaler's input contract, also served as ``/signals`` on the
+    scrape endpoint.  Built from the fleet store, the metrics registry
+    and the SLO accounts; cheap enough to poll on the collector
+    cadence."""
+    now = time.monotonic()
+    return _timeseries.FleetSignals.from_sources(
+        _fleet, _registry.snapshot(), _requests.slo_snapshot(),
+        now=now, incidents=_incidents.open_incidents(),
+        journal=_journal.stats(now), scaler=_scaler_summary())
+
+
 def journal_stats() -> dict:
     """History-axis health: armed flag, pack dir, record/drop/rotation
     counts and ``lag_s`` since the last durable record."""
@@ -400,6 +451,54 @@ def journal_tail(n: int = _journal.TAIL_KEEP) -> list:
     """The last ``n`` journal records from the in-memory tail (empty
     while disarmed)."""
     return _journal.tail(n)
+
+
+def incidents_snapshot() -> dict:
+    """The incident engine's JSON-native state — the ``/incidents``
+    route body (:mod:`veles.simd_tpu_torch.obs.incidents`): schema
+    stamp, tick count, open/closed tallies and the typed incident
+    records."""
+    return _incidents.snapshot()
+
+
+# mirrored from veles.simd_tpu_torch.serve.scaler.SCHEMA: obs imports
+# no serve module, so the disarmed /scaler shell stamps this literal
+_SCALER_SCHEMA = "veles-simd-scaler-v1"
+
+
+def _scaler_module():
+    """The serve-layer scaler module if something already imported it
+    — obs never imports serve, so the control axis is read through
+    ``sys.modules`` or not at all."""
+    return sys.modules.get("veles.simd_tpu_torch.serve.scaler")
+
+
+def scaler_snapshot() -> dict:
+    """The control axis — the ``/scaler`` route body: the registered
+    :class:`veles.simd_tpu_torch.serve.scaler.ScalerEngine`'s
+    schema-stamped state (tick count, streaks, cooldown, bounds, recent
+    decisions), or the disarmed shell when no scaler runs here."""
+    mod = _scaler_module()
+    if mod is not None:
+        try:
+            return mod.snapshot()
+        except Exception:  # noqa: BLE001 — a wedged engine must not
+            pass  # take down the scrape endpoint
+    return {"schema": _SCALER_SCHEMA, "armed": False, "running": False,
+            "ticks": 0, "actions": {}, "noops": {},
+            "last_action": None, "decisions": []}
+
+
+def _scaler_summary() -> dict:
+    """The compact control-axis summary embedded in :func:`signals`."""
+    mod = _scaler_module()
+    if mod is not None:
+        try:
+            return mod.summary()
+        except Exception:  # noqa: BLE001
+            pass
+    return {"armed": False, "running": False, "ticks": 0,
+            "actions": {}, "last_action": None}
 
 
 def dump_debug_bundle(path: str | None = None,
@@ -419,6 +518,7 @@ def reset() -> None:
     _spans.reset()
     _resources.reset()
     _requests.reset()
+    _fleet.reset()
 
 
 def to_json(snap: dict | None = None, indent: int | None = 2) -> str:
@@ -439,14 +539,20 @@ def load(path: str) -> dict:
 
 
 def save_trace(path: str, fleet=None) -> str:
-    """Atomically write the retained spans as Chrome trace-event JSON
-    (one complete "X" event per span, per-thread tracks, the warmup/
-    steady phase and the span's attributes under ``args``), loadable in
-    Perfetto or ``chrome://tracing``; returns ``path``.  ``fleet=``
-    (the JAX package's stitched fleet trace) is not ported yet and
-    raises ``NotImplementedError``."""
+    """Atomically write Chrome trace-event JSON, loadable in Perfetto or
+    ``chrome://tracing``; returns ``path``.  Default: the retained
+    spans (one complete "X" event per span, per-thread tracks, the
+    warmup/steady phase and the span's attributes under ``args``).
+    With ``fleet=`` (a failed-over
+    :class:`~veles.simd_tpu_torch.serve.cluster.RouterTicket`, or a
+    dict already stitched by :func:`stitch_fleet_trace`): the
+    cross-replica fleet trace instead, every attempt on its own track
+    with the failover hops and carried deadlines."""
     if fleet is not None:
-        raise NotImplementedError(_FLEET_AXIS)
+        stitched = fleet if isinstance(fleet, dict) \
+            else _timeseries.stitch_fleet_trace(fleet)
+        return _atomic_write(
+            path, _export.to_json(stitched, indent=None))
     return _atomic_write(
         path, _export.to_json(_spans.to_chrome_trace(), indent=None))
 

@@ -1,7 +1,8 @@
 """Live scrape endpoint: the obs layer, served over stdlib HTTP.
 
-The port of ``veles.simd_tpu.obs.http``: read-only routes on a
-daemon-threaded standard-library ``http.server`` (no new dependencies):
+The port of ``veles.simd_tpu.obs.http``, route for route: read-only
+routes plus the RPC data plane's one write route, on a daemon-threaded
+standard-library ``http.server`` (no new dependencies):
 
 * ``GET /metrics`` — ``obs.to_prometheus()`` verbatim (counters,
   gauges incl. the per-tenant ``slo_*`` family, histograms incl.
@@ -16,14 +17,26 @@ daemon-threaded standard-library ``http.server`` (no new dependencies):
 * ``GET /debug/requests`` — JSON: the request axis
   (:mod:`veles.simd_tpu_torch.obs.requests`): recent completed
   traces, slowest-per-op and degraded exemplars, and the per-tenant
-  SLO accounts, stamped ``veles-simd-requests-v1``.
+  SLO accounts;
+* ``GET /signals`` — JSON: the typed ``obs.signals()`` bundle of the
+  fleet axis (:mod:`veles.simd_tpu_torch.obs.timeseries`) with the
+  raw windowed series tails; meaningful on a ``ReplicaGroup``'s
+  aggregation endpoint (its collector feeds the store), an empty fleet
+  on a lone server;
+* ``GET /incidents`` — JSON: the incident engine's typed open→closed
+  records (:mod:`veles.simd_tpu_torch.obs.incidents`);
+* ``GET /scaler`` — JSON: the control axis (``obs.scaler_snapshot()``),
+  or the disarmed shell when no scaler runs here;
+* ``POST /submit`` — armed only when the owning process registered a
+  submit handler (the serving layer binds
+  :func:`veles.simd_tpu_torch.serve.rpc.serve_submit`): an npy-framed
+  request in, an npy-framed response out — the RPC data plane a
+  ``spawn="subprocess"`` replica serves router traffic over.  The
+  endpoint speaks HTTP/1.1, so the router's pooled connections persist.
 
-The fleet routes of the JAX endpoint — ``GET /signals``, ``GET
-/incidents``, ``GET /scaler`` and the RPC data plane's ``POST
-/submit`` — belong to the replica layer (``serve.cluster``,
-``serve.rpc``, ``obs.timeseries``, ``obs.incidents``), which is not
-ported yet: they answer HTTP 501 with a JSON error that names ROADMAP
-Queue 1 item 6, and nothing serves them half-way.
+The JSON routes are schema-stamped (``veles-simd-signals-v4``,
+``veles-simd-requests-v1``, ``veles-simd-incidents-v1``,
+``veles-simd-scaler-v1``), the JAX endpoint's stamps.
 
 Arming: :meth:`veles.simd_tpu_torch.serve.Server.start` reads
 ``$VELES_SIMD_OBS_PORT`` (or its ``obs_port=`` argument; port 0 binds
@@ -44,17 +57,13 @@ __all__ = ["ObsEndpoint", "EndpointUnavailable", "start", "env_port",
 
 OBS_PORT_ENV = "VELES_SIMD_OBS_PORT"
 BIND_HOST = "127.0.0.1"
-# the /debug/requests contract version — dashboards check it instead of
-# guessing
+# the /debug/requests contract version (the /signals and /incidents
+# stamps live with their producers: timeseries.SIGNALS_SCHEMA,
+# incidents.SCHEMA) — dashboards check these instead of guessing
 REQUESTS_SCHEMA = "veles-simd-requests-v1"
 
-# the JAX endpoint's fleet routes, answered 501 until the replica layer
-# is ported
-_FLEET_ROUTES = ("/signals", "/incidents", "/scaler")
-_FLEET_PENDING = ("not ported yet: the fleet axis (serve.cluster, "
-                  "serve.rpc, obs.timeseries, obs.incidents) is ROADMAP "
-                  "Queue 1 item 6")
-_ROUTES = ["/metrics", "/healthz", "/debug/requests"]
+_ROUTES = ["/metrics", "/healthz", "/debug/requests", "/signals",
+           "/incidents", "/scaler"]
 
 
 def env_port() -> int | None:
@@ -87,13 +96,15 @@ class EndpointUnavailable(OSError):
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
-    """The read-only routes; the fleet routes answer 501.  Every
-    handler is exception-proofed into a 500 — a scrape must never kill
-    the serving process, and a half-written response must never wedge
-    the scraper."""
+    """The read-only routes plus the one write route (``POST
+    /submit``, armed only when the owner registered a submit handler).
+    Every handler is exception-proofed into a 500 — a scrape must
+    never kill the serving process, and a half-written response must
+    never wedge the scraper."""
 
-    # HTTP/1.1 keep-alive, as the JAX endpoint speaks it; every
-    # response below sends Content-Length, which keep-alive requires
+    # HTTP/1.1 so the RPC data plane's pooled connections persist
+    # (HTTP/1.0 closes after every exchange); every response below
+    # sends Content-Length, which keep-alive requires
     protocol_version = "HTTP/1.1"
 
     # headers and body leave as separate writes; without TCP_NODELAY
@@ -105,21 +116,19 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # noqa: A003
         pass
 
-    def _send(self, code: int, body: str, ctype: str) -> None:
-        data = body.encode("utf-8")
+    def _send_bytes(self, code: int, data: bytes, ctype: str) -> None:
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
 
+    def _send(self, code: int, body: str, ctype: str) -> None:
+        self._send_bytes(code, body.encode("utf-8"), ctype)
+
     def _send_json(self, code: int, body) -> None:
         self._send(code, json.dumps(body, indent=2, default=str),
                    "application/json")
-
-    def _not_ported(self, path: str) -> None:
-        self._send_json(501, {"error": f"{path} is {_FLEET_PENDING}",
-                              "routes": _ROUTES})
 
     def _guarded(self, route) -> None:
         try:
@@ -140,12 +149,15 @@ class _Handler(http.server.BaseHTTPRequestHandler):
 
     def _post(self, path: str) -> None:
         length = int(self.headers.get("Content-Length") or 0)
-        if length > 0:
-            self.rfile.read(length)     # keep the connection framed
-        if path == "/submit":
-            self._not_ported(path)
-        else:
-            self._send_json(404, {"error": "unknown path", "routes": []})
+        body = self.rfile.read(length) if length > 0 else b""
+        submit = self.server.owner.submit_handler
+        if path != "/submit" or submit is None:
+            self._send_json(404, {"error": "unknown path",
+                                  "routes": (["/submit"] if submit
+                                             is not None else [])})
+            return
+        code, payload = submit(body)
+        self._send_bytes(int(code), payload, "application/octet-stream")
 
     def _get(self, path: str) -> None:
         if path == "/metrics":
@@ -162,8 +174,18 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             body = {"schema": REQUESTS_SCHEMA}
             body.update(obs.request_snapshot())
             self._send_json(200, body)
-        elif path in _FLEET_ROUTES:
-            self._not_ported(path)
+        elif path == "/signals":
+            from veles.simd_tpu_torch import obs
+
+            self._send_json(200, obs.signals().to_dict())
+        elif path == "/incidents":
+            from veles.simd_tpu_torch import obs
+
+            self._send_json(200, obs.incidents_snapshot())
+        elif path == "/scaler":
+            from veles.simd_tpu_torch import obs
+
+            self._send_json(200, obs.scaler_snapshot())
         else:
             self._send_json(404, {"error": "unknown path",
                                   "routes": _ROUTES})
@@ -180,15 +202,15 @@ class ObsEndpoint:
     """One armed scrape endpoint: the bound port, the serving daemon
     thread, and :meth:`stop`.  ``health`` is an optional zero-arg
     callable returning a JSON-native dict for ``/healthz`` (the
-    serving layer passes its ``stats``).  ``submit`` (the JAX
-    endpoint's RPC route handler) belongs to the fleet axis, which is
-    not ported yet: anything but None raises
-    ``NotImplementedError``."""
+    serving layer passes its ``stats``).  ``submit`` is an optional
+    ``(body_bytes) -> (http_code, response_bytes)`` callable arming the
+    ``POST /submit`` RPC route (the serving layer passes
+    ``serve.rpc.serve_submit`` bound to its server; None leaves the
+    endpoint read-only)."""
 
     def __init__(self, port: int, health=None, submit=None):
-        if submit is not None:
-            raise NotImplementedError(f"POST /submit is {_FLEET_PENDING}")
         self._health = health
+        self.submit_handler = submit
         try:
             self._httpd = _Server((BIND_HOST, int(port)), _Handler)
         except OSError as e:
@@ -246,8 +268,8 @@ def start(port: int | None = None, health=None,
           submit=None) -> ObsEndpoint | None:
     """Arm the endpoint on ``port`` (None = ``$VELES_SIMD_OBS_PORT``;
     still None = disarmed, returns None; 0 = ephemeral).  ``submit``
-    is the JAX signature's RPC route handler, not ported yet (see
-    :class:`ObsEndpoint`).  Returns the live :class:`ObsEndpoint` —
+    arms the ``POST /submit`` RPC route (see :class:`ObsEndpoint`).
+    Returns the live :class:`ObsEndpoint` —
     the caller owns :meth:`stop`."""
     if port is None:
         port = env_port()

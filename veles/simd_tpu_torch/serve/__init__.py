@@ -32,11 +32,21 @@ traffic or the card misbehaves:
   dispatches through its own circuit breaker
   (:mod:`veles.simd_tpu_torch.runtime.breaker`).
 
-Not ported yet: the replica layer (``ReplicaGroup``, ``FrontRouter``,
-``RouterTicket``, ``NoReplicaAvailable``), the autoscaler
-(``ScalerEngine``), the RPC data plane (``RpcClient``, ``RpcTicket``)
-and their environment names (ROADMAP Queue 1 item 6); the artifact
-store's preload (item 7: ``Server.start`` refuses an armed store).
+* :mod:`~veles.simd_tpu_torch.serve.cluster` — the replica layer:
+  :class:`~veles.simd_tpu_torch.serve.cluster.ReplicaGroup` (N servers
+  as threads of this process or as child processes, heartbeats, kill,
+  drain, restart, spawn, retire, the fleet collector) behind a
+  breaker-aware :class:`~veles.simd_tpu_torch.serve.cluster.
+  FrontRouter` (placement, failover with the deadline carried, dedup);
+* :mod:`~veles.simd_tpu_torch.serve.rpc` — the RPC data plane a
+  subprocess replica serves on ``POST /submit`` (npy frames
+  byte-identical to the JAX package's, pooled keep-alive connections,
+  the typed errors carried both ways);
+* :mod:`~veles.simd_tpu_torch.serve.scaler` — the SLO-driven autoscaler
+  over ``obs.signals()`` that acts only through the group's verbs.
+
+Not ported yet: the artifact store's preload (ROADMAP Queue 1 item 7:
+``Server.start`` refuses an armed store, in every replica).
 
 Knobs (constructor args override the environment):
 ``VELES_SIMD_SERVE_MAX_BATCH``, ``VELES_SIMD_SERVE_MAX_WAIT_MS``,
@@ -62,6 +72,20 @@ from veles.simd_tpu_torch.serve.batcher import (DEFAULT_MAX_BATCH,
                                                 bucket_length)
 from veles.simd_tpu_torch.serve.health import (DEGRADED, HEALTHY,
                                                HealthMonitor)
+from veles.simd_tpu_torch.serve.cluster import (HEARTBEAT_MS_ENV,
+                                                REPLICAS_ENV,
+                                                ROUTER_POLICY_ENV,
+                                                FrontRouter,
+                                                NoReplicaAvailable,
+                                                ReplicaGroup,
+                                                RouterTicket)
+from veles.simd_tpu_torch.serve.rpc import (RPC_CONNS_ENV,
+                                            RPC_TIMEOUT_ENV, RpcClient,
+                                            RpcTicket)
+from veles.simd_tpu_torch.serve.scaler import ARM_ENV as SCALER_ARM_ENV
+from veles.simd_tpu_torch.serve.scaler import \
+    TICK_MS_ENV as SCALER_TICK_MS_ENV
+from veles.simd_tpu_torch.serve.scaler import ScalerEngine
 from veles.simd_tpu_torch.serve.server import (DEADLINE_ENV,
                                                SUPPORTED_OPS,
                                                DeadlineExceeded, Request,
@@ -73,8 +97,14 @@ __all__ = [
     "DeadlineExceeded", "AdmissionController", "Batcher",
     "HealthMonitor", "bucket_length", "env_deadline_ms",
     "SUPPORTED_OPS", "HEALTHY", "DEGRADED",
+    "ReplicaGroup", "FrontRouter", "RouterTicket",
+    "NoReplicaAvailable", "ScalerEngine",
+    "RpcClient", "RpcTicket",
+    "RPC_CONNS_ENV", "RPC_TIMEOUT_ENV",
+    "SCALER_ARM_ENV", "SCALER_TICK_MS_ENV",
     "MAX_BATCH_ENV", "MAX_WAIT_ENV", "QUEUE_DEPTH_ENV",
-    "TENANT_DEPTH_ENV", "DEADLINE_ENV",
+    "TENANT_DEPTH_ENV", "DEADLINE_ENV", "REPLICAS_ENV",
+    "ROUTER_POLICY_ENV", "HEARTBEAT_MS_ENV",
     "DEFAULT_MAX_BATCH", "DEFAULT_MAX_WAIT_MS",
     "DEFAULT_QUEUE_DEPTH", "DEFAULT_TENANT_DEPTH",
 ]

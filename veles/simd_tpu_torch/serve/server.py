@@ -76,19 +76,18 @@ What the card changes:
   degraded answer equals ``simd=False``, flagged ``degraded``;
 * **graph capture is exclusive** — a pipeline row class captures its
   CUDA graph at its first batch, and a capture fails when another
-  thread allocates or copies synchronously on the card meanwhile.  So
-  a worker about to capture waits until every other worker of this
-  server has left its device section, and holds the others out until
-  the capture is done (:class:`_CaptureGate`); replays of a captured
-  class and every plain batch share the card freely.  Work on the
-  card from outside the server is the caller's to keep off a first
-  pipeline batch;
+  thread of the process allocates or copies synchronously on the card
+  meanwhile.  So a worker about to capture waits until every worker
+  of every server in the process has left its device section, and
+  holds them out until the capture is done (one :class:`_CaptureGate`
+  a process); replays of a captured class and every plain batch share
+  the card freely.  Work on the card from outside the servers is the
+  caller's to keep off a first pipeline batch;
 * **no artifact store** — the JAX package's ahead-of-time artifact
   preload is not ported (ROADMAP Queue 1 item 7): :meth:`Server.start`
   raises ``NotImplementedError`` when ``VELES_SIMD_ARTIFACTS`` arms it
   (``on`` / ``readonly``), and ``stats()["artifact_preload"]`` is
-  None.  The replica layer and the RPC route (``serve.cluster``,
-  ``serve.rpc``) are ROADMAP Queue 1 item 6.
+  None, in a replica of ``serve.cluster`` too.
 
 Usage::
 
@@ -531,16 +530,20 @@ def _oracle_call(op: str, xs, params: dict):
 
 
 class _CaptureGate:
-    """Keeps a CUDA-graph capture exclusive of the server's other
-    device work.  ``torch.cuda.graph`` captures in ``global`` mode: a
-    ``cudaMalloc`` or a synchronous copy on any thread while it
-    captures fails, and the capture with it.  Every device section
-    (a plain or ragged batch through its copy back, a pipeline batch
-    whose class is captured) holds the gate :meth:`shared`; a
-    pipeline batch that will capture holds it :meth:`exclusive`,
-    which waits for the shared holders to leave and keeps new ones
-    out until the capture is done.  A waiting capture bars new shared
-    holders, so a busy server cannot starve it."""
+    """Keeps a CUDA-graph capture exclusive of the process's other
+    serving device work.  ``torch.cuda.graph`` captures in ``global``
+    mode: a ``cudaMalloc`` or a synchronous copy on any thread of the
+    process while it captures fails, and the capture with it.  So
+    there is one gate a process (:data:`_GATE`), held by every
+    :class:`Server` in it: the replicas of a thread-mode
+    ``serve.cluster.ReplicaGroup`` share one compiled pipeline, and
+    one replica's capture must not meet another's copy back.  Every
+    device section (a plain or ragged batch through its copy back, a
+    pipeline batch whose class is captured) holds the gate
+    :meth:`shared`; a pipeline batch that will capture holds it
+    :meth:`exclusive`, which waits for the shared holders to leave and
+    keeps new ones out until the capture is done.  A waiting capture
+    bars new shared holders, so busy servers cannot starve it."""
 
     def __init__(self):
         self._cond = threading.Condition()
@@ -574,6 +577,10 @@ class _CaptureGate:
             with self._cond:
                 self._capturing = False
                 self._cond.notify_all()
+
+
+# the process's one capture gate (global capture mode spans threads)
+_GATE = _CaptureGate()
 
 
 class Server:
@@ -616,7 +623,7 @@ class Server:
         # .obs_port holds the bound port
         self._obs_port_arg = obs_port
         self._endpoint = None
-        self._gate = _CaptureGate()
+        self._gate = _GATE
         self._pipelines: dict = {}
         self._threads: list = []
         self._stats_lock = threading.Lock()
@@ -674,7 +681,8 @@ class Server:
             self._endpoint = None       # explicit disarm beats env
         else:
             self._endpoint = obs_http.start(self._obs_port_arg,
-                                            health=self.stats)
+                                            health=self.stats,
+                                            submit=self._rpc_submit)
         self._started = True
         for i in range(self.workers):
             t = threading.Thread(target=self._worker, daemon=True,
@@ -705,6 +713,16 @@ class Server:
     def obs_port(self) -> int | None:
         """The scrape endpoint's bound port (None while disarmed)."""
         return self._endpoint.port if self._endpoint else None
+
+    def _rpc_submit(self, body: bytes) -> tuple:
+        """The endpoint's ``POST /submit`` handler: one npy-framed
+        request body in, ``(http_code, response_bytes)`` out — the RPC
+        data plane (:func:`veles.simd_tpu_torch.serve.rpc.serve_submit`
+        owns the wire contract; imported lazily, the rpc module imports
+        this one)."""
+        from veles.simd_tpu_torch.serve import rpc
+
+        return rpc.serve_submit(self, body)
 
     def stop(self, drain: bool = True) -> None:
         """Close the intake and join the workers.  ``drain=True``

@@ -124,13 +124,13 @@ def _profile(fn, calls: int):
     return rows, wall_us
 
 
-def _device_rows(fn, calls: int, windows: int = 4, keep: int = 3):
+def _device_rows(fn, calls: int, windows: int = 12, keep: int = 3):
     """:func:`_profile`'s rows from the longest of ``keep`` windows.  A
-    trace can come back empty on its own, twice in a row too, or short
-    (some launches with a fraction of their device time, so that a
-    kernel reads below its bound), but never long: so up to
-    ``windows`` windows, the first ``keep`` that saw device time
-    compared, the longest kept."""
+    trace can come back empty on its own, four times in a row too (late
+    in a long process), or short (some launches with a fraction of
+    their device time, so that a kernel reads below its bound), but
+    never long: so up to ``windows`` windows, the first ``keep`` that
+    saw device time compared, the longest kept."""
     best, seen = None, 0
     for _ in range(windows):
         rows, _ = _profile(fn, calls)
