@@ -205,6 +205,26 @@ without printing a result):
             (``tools/chaos.py:1260-1266``'s control settings): bursts
             of the mix until a ``scale_up``, idle until a
             ``scale_down``, none lost;
+4i. parallel — the sharded families (``veles.simd_tpu_torch.parallel``)
+            on an 8-shard mesh of ``cuda:0`` (the JAX tests' 8-device
+            mesh) at the JAX package's users' sizes: ``sharded_convolve``
+            1,048,576 x 2047 and its ring at 262,145 taps (``sp8``),
+            ``sharded_convolve_batch`` 64 x 262,144 x 129 and
+            ``sharded_convolve2d`` 16 x 512^2 7 x 7 (``dp2xsp4``), the
+            all-to-all 2D DWT and its inverse on 4096^2 daub8 (K2 in
+            the shards), the SWT and its inverse on 2^20 (3 levels),
+            ``sharded_stft`` 2^20 at 512/128 and 8 x 65,536 at
+            8192/2048, ``sharded_rfft`` 2^18 (the static pick, then the
+            matmul route forced), ``sharded_sosfilt`` 8 x 2^20,
+            ``sharded_matmul`` 2048^3 (``tp8``): each against a float64
+            oracle at its JAX test's tolerance, its launches, chained
+            and busy ms beside the single-card op at the same size;
+            every other public function once at the JAX tests' sizes;
+            a CUDA operand on a CPU mesh and the reverse refused;
+            ``mesh_degrade`` 0 and every ``parallel.dispatch`` breaker
+            closed; then ``parallel.sharded_matmul:device_lost`` forced:
+            the call degrades to the single-card twin, still equals
+            ``a @ b``, and the breaker re-closes once the plan clears;
 5. times  — the headline convolve call (CUDA events, device-resident
             operands; and host clock from NumPy operands), the
             handle's own cuFFT overlap-save route beside it, the DWT,
@@ -291,6 +311,23 @@ FLEET_TIMED_K4 = 192     # the timed K4-class wave
 FLEET_VISIBLE_TICKS = 60  # r0 non-healthy in obs.signals() within
 FLEET_DEADLINE_MS = 60000.0
 FLEET_RESOURCE = 'op="cuda",route="stft"'
+# the parallel phase: the JAX tests' 8-device mesh (conftest.py,
+# tools/bench_multichip.py) as 8 shards of cuda:0, at the JAX package's
+# users' sizes: the ring's taps put k - 1 past the 163,840-sample block
+PAR_SHARDS = 8
+K_RING = 262145
+ROWS_PB, N_PB = 64, 262144
+N_PW = 4096
+N_SWT = 1 << 20
+ROWS_PST, N_PST, L_PST, HOP_PST = 8, 65536, 8192, 2048
+N_PRF = 1 << 18
+ROWS_PSOS, N_PSOS = 8, 1 << 20
+# chained calls a timing, and profiled calls a window: a sharded call
+# runs hundreds of kernels, so one window of 3 reads it; the
+# single-card op runs one to a few, whose windows can lose kernels or
+# come back empty late in the process, so it takes 20 a window and the
+# longest of 3 windows (utils.benchmark's default)
+PAR_ITERS, PAR_CALLS, PAR_SINGLE_CALLS = 3, 3, 20
 DAUB8_LO = np.array([-0.010597401784997278, 0.032883011666982945,
                      0.030841381835986965, -0.18703481171888114,
                      -0.02798376941698385, 0.6308807679295904,
@@ -2393,6 +2430,409 @@ def fleet_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
     print(f"fleet: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def conv64_card(torch, x, h):
+    """float64 full convolution of every row of x with h, on the card
+    (``torch.fft`` in float64)."""
+    n, k = x.shape[-1], h.shape[-1]
+    m = 1 << (n + k - 2).bit_length()
+    spec = (torch.fft.rfft(x.double(), m) * torch.fft.rfft(h.double(), m))
+    return torch.fft.irfft(spec, m)[..., : n + k - 1]
+
+
+def wavelet64_last(torch, x, hi, lo, stride, dilation):
+    """float64 periodic DWT (stride 2) or SWT level (stride 1, dilated)
+    along the last axis on the card: ``y[t] = sum_j f[j] x[(stride t +
+    j dilation) mod n]``; returns ``(hi, lo)``."""
+    F = torch.nn.functional
+    n, k = x.shape[-1], hi.shape[-1]
+    ext = torch.cat([x, x[..., :k * dilation]], dim=-1).double()
+    taps = torch.stack([hi, lo]).double().reshape(2, 1, k)
+    out = F.conv1d(ext.reshape(-1, 1, ext.shape[-1]), taps, stride=stride,
+                   dilation=dilation)[..., : n // stride]
+    out = out.reshape(tuple(x.shape[:-1]) + (2, n // stride))
+    return out[..., 0, :], out[..., 1, :]
+
+
+def dwt2_64(torch, img, hi, lo):
+    """float64 separable periodic 2D DWT: ``(ll, lh, hl, hh)``."""
+    hi_r, lo_r = wavelet64_last(torch, img, hi, lo, 2, 1)
+    bands, lows = (b.transpose(-1, -2) for b in wavelet64_last(
+        torch, torch.stack([hi_r, lo_r]).transpose(-1, -2), hi, lo, 2, 1))
+    return lows[1], bands[1], lows[0], bands[0]
+
+
+def abs_err(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
+    check(np.all(np.isfinite(got)), "non-finite output")
+    return float(np.max(np.abs(got - want)))
+
+
+def parallel_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
+    """The sharded families on an 8-shard mesh of ``cuda:0`` (the JAX
+    tests' and ``tools/bench_multichip.py``'s 8-device mesh), at the
+    JAX package's users' sizes: each call against a float64 oracle at
+    its JAX test's tolerance, its launches, chained and busy ms beside
+    the single-card op; the rest of the public surface once at the JAX
+    tests' sizes; no ``mesh_degrade`` on any of it; then one forced
+    ``parallel.sharded_matmul:device_lost`` plan that degrades to the
+    single-card twin and re-closes the breaker."""
+    from scipy import signal as ss
+
+    from veles.simd_tpu_torch import parallel as par
+    from veles.simd_tpu_torch.ops import convolve as cv
+    from veles.simd_tpu_torch.ops import convolve2d as cv2
+    from veles.simd_tpu_torch.ops import filters as fl
+    from veles.simd_tpu_torch.ops import iir
+    from veles.simd_tpu_torch.ops import matrix as mx
+    from veles.simd_tpu_torch.ops import normalize as nm
+    from veles.simd_tpu_torch.ops import resample as rs
+    from veles.simd_tpu_torch.ops import spectral as sp
+    from veles.simd_tpu_torch.ops import wavelet as wv
+    from veles.simd_tpu_torch.parallel import fourier as fr
+
+    t_phase = time.perf_counter()
+    degrades = [0]
+
+    def reset_obs():
+        # mesh_degrade over the phase, across the resets that clear the
+        # decision events read below
+        degrades[0] += sum(c["value"] for c in obs.snapshot()["counters"]
+                           if c["name"] == "mesh_degrade")
+        obs.reset()
+
+    reset_obs()
+    dev = torch.device("cuda", 0)
+
+    def card(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    sp8 = par.make_mesh({"sp": PAR_SHARDS})
+    dpsp = par.make_mesh({"dp": 2, "sp": PAR_SHARDS // 2})
+    tp8 = par.make_mesh({"tp": PAR_SHARDS})
+    check({str(d) for d in sp8.devices.flat} == {str(dev)}
+          and sp8.size == PAR_SHARDS,
+          f"parallel: the default mesh is {sp8}, want {PAR_SHARDS} "
+          f"shards of {dev}")
+    P = wv.ExtensionType.PERIODIC
+    hi8, lo8 = (card(f) for f in wv._filters("daub", 8))
+
+    def timed(name, mesh_name, call, single, err, tol, expect=()):
+        """One sharded call: its error (``err(out)`` against the
+        oracle), the launches of one call, chained and busy ms beside
+        the single-card op's."""
+        t_call = time.perf_counter()
+        ck.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        e = err(out)
+        check(e <= tol, f"parallel {name}: err {e:.3e} > {tol}")
+        for k in expect:
+            check(launches.get(k, 0) > 0,
+                  f"parallel {name}: no {k} launch ({launches})")
+        ch = bm.device_time_ms(call, iters=PAR_ITERS, warmup=1)
+        busy = bm.device_busy_ms(call, calls=PAR_CALLS, keep=1)
+        s_ch = bm.device_time_ms(single, iters=PAR_ITERS, warmup=1)
+        s_busy = bm.device_busy_ms(single, calls=PAR_SINGLE_CALLS)
+        print(f"parallel {name} ({mesh_name}): err {e:.2e} <= {tol} | "
+              f"launches {json.dumps(launches)} | mesh chained "
+              f"{ch:.4f} ms, busy {busy:.4f} ms | single card chained "
+              f"{s_ch:.4f} ms, busy {s_busy:.4f} ms | mesh / single: "
+              f"chained {ch / s_ch:.2f}, busy {busy / s_busy:.2f} | "
+              f"{time.perf_counter() - t_call:.1f} s | card {smi}")
+        return out
+
+    # the headline: 1M x 2047, one-hop halo (bench.py:180-217)
+    x_h = card(rng.randn(N_HEAD))
+    h_h = card(rng.randn(K_HEAD))
+    want = conv64_card(torch, x_h, h_h).cpu().numpy()
+    handle = cv.convolve_initialize(N_HEAD, K_HEAD)
+    timed(f"sharded_convolve {N_HEAD}x{K_HEAD}", "sp8",
+          lambda: par.sharded_convolve(x_h, h_h, sp8),
+          lambda: cv.convolve(handle, x_h, h_h),
+          lambda y: rel_err(y.cpu().numpy(), want), 1e-3)
+    # the ring: k - 1 exceeds the 163,840-sample block
+    h_r = card(rng.randn(K_RING))
+    want = conv64_card(torch, x_h, h_r).cpu().numpy()
+    handle_r = cv.convolve_initialize(N_HEAD, K_RING)
+    reset_obs()
+    timed(f"sharded_convolve_ring {N_HEAD}x{K_RING}", "sp8",
+          lambda: par.sharded_convolve(x_h, h_r, sp8),
+          lambda: cv.convolve(handle_r, x_h, h_r),
+          lambda y: rel_err(y.cpu().numpy(), want), 1e-4)
+    ring = [e for e in obs.events() if e["op"] == "sharded_convolve"]
+    check(ring and ring[0]["decision"] == "ring",
+          f"parallel: the ring was not selected ({ring[:1]})")
+    # dp2 x sp4: 64 x 262,144 x 129
+    x_b = card(rng.randn(ROWS_PB, N_PB))
+    h_b = card(rng.randn(K_FB))
+    want = conv64_card(torch, x_b, h_b).cpu().numpy()
+    timed(f"sharded_convolve_batch {ROWS_PB}x{N_PB}x{K_FB}", "dp2xsp4",
+          lambda: par.sharded_convolve_batch(x_b, h_b, dpsp),
+          lambda: cv.convolve_simd(x_b, h_b),
+          lambda y: rel_err(y.cpu().numpy(), want), 1e-3)
+    # K5's geometry, one sharded image at a time
+    x_2 = card(rng.randn(IMGS_2D, N_2D, N_2D))
+    h_2 = card(rng.randn(K_2D, K_2D))
+    want = conv2d64(x_2.cpu().numpy(), h_2.cpu().numpy())
+    timed(f"sharded_convolve2d {IMGS_2D}x{N_2D}^2 {K_2D}x{K_2D}",
+          "dp2xsp4",
+          lambda: torch.stack([par.sharded_convolve2d(im, h_2, dpsp)
+                               for im in x_2]),
+          lambda: cv2.convolve2d(x_2, h_2),
+          lambda y: abs_err(y.cpu().numpy(), want), 1e-3)
+    # the all-to-all 2D DWT, 4096^2 daub8, and its inverse
+    img = card(rng.randn(N_PW, N_PW))
+    want = [b.cpu().numpy() for b in dwt2_64(torch, img, hi8, lo8)]
+    bands = timed(f"sharded_wavelet_apply2d {N_PW}^2 daub8", "sp8",
+                  lambda: par.sharded_wavelet_apply2d("daub", 8, P, img,
+                                                      sp8),
+                  lambda: wv.wavelet_apply2d("daub", 8, P, img),
+                  lambda q: max(abs_err(b.cpu().numpy(), w)
+                                for b, w in zip(q, want)), 5e-4,
+                  expect=("filter_bank",))
+    timed(f"sharded_wavelet_reconstruct2d {N_PW}^2 daub8", "sp8",
+          lambda: par.sharded_wavelet_reconstruct2d("daub", 8, *bands,
+                                                    sp8),
+          lambda: wv.wavelet_reconstruct2d("daub", 8, *bands),
+          lambda y: abs_err(y.cpu().numpy(), img.cpu().numpy()),
+          ROUND_TRIP_TOL)
+    # the sharded SWT, 2^20 daub8 3 levels, and its inverse
+    x_s = card(rng.randn(N_SWT))
+    want, cur = [], x_s
+    for lvl in range(LEVELS):
+        h_l, cur = wavelet64_last(torch, cur, hi8, lo8, 1, 1 << lvl)
+        want.append(h_l.cpu().numpy())
+    want.append(cur.cpu().numpy())
+    coeffs = timed(f"sharded_swt {N_SWT} daub8 {LEVELS} levels", "sp8",
+                   lambda: par.sharded_swt("daub", 8, LEVELS, x_s, sp8),
+                   lambda: wv.stationary_wavelet_transform(
+                       "daub", 8, P, x_s, LEVELS),
+                   lambda c: max(abs_err(b.cpu().numpy(), w)
+                                 for b, w in zip(c, want)), 5e-4)
+    timed(f"sharded_swt_reconstruct {N_SWT} daub8 {LEVELS} levels",
+          "sp8",
+          lambda: par.sharded_swt_reconstruct("daub", 8, LEVELS, coeffs,
+                                              sp8),
+          lambda: wv.stationary_wavelet_inverse_transform(
+              "daub", 8, coeffs),
+          lambda y: abs_err(y.cpu().numpy(), x_s.cpu().numpy()),
+          ROUND_TRIP_TOL)
+    # the STFT at its acceptance geometry (bench.py:640-680) and at
+    # tools/bench_multichip.py:265-270's
+    x_st = card(rng.randn(N_ST))
+    want = sp.stft_na(x_st.cpu().numpy(), L_ST, HOP_ST)
+    timed(f"sharded_stft {N_ST} at {L_ST}/{HOP_ST}", "sp8",
+          lambda: par.sharded_stft(x_st, L_ST, HOP_ST, sp8),
+          lambda: sp.stft(x_st, L_ST, HOP_ST),
+          lambda y: crel_err(y.cpu().numpy(), want), FOURIER_TOL)
+    x_pst = card(rng.randn(ROWS_PST, N_PST))
+    want = sp.stft_na(x_pst.cpu().numpy(), L_PST, HOP_PST)
+    timed(f"sharded_stft {ROWS_PST}x{N_PST} at {L_PST}/{HOP_PST}", "sp8",
+          lambda: par.sharded_stft(x_pst, L_PST, HOP_PST, sp8),
+          lambda: sp.stft(x_pst, L_PST, HOP_PST),
+          lambda y: crel_err(y.cpu().numpy(), want), FOURIER_TOL)
+    # sharded_rfft 2^18 (tools/bench_multichip.py:264): the static pick,
+    # then the factorized route forced
+    x_f = card(rng.randn(N_PRF))
+    want = np.fft.rfft(x_f.cpu().numpy().astype(np.float64))
+    reset_obs()
+    timed(f"sharded_rfft {N_PRF} (static pick)", "sp8",
+          lambda: fr.sharded_rfft(x_f, sp8),
+          lambda: fr.sharded_rfft(x_f, sp8, route="local_fft"),
+          lambda y: crel_err(y.cpu().numpy(), want), FOURIER_TOL)
+    pick = [e for e in obs.events() if e["op"] == "sharded_rfft"][0]
+    timed(f"sharded_rfft {N_PRF} (sharded_matmul_dft forced)", "sp8",
+          lambda: fr.sharded_rfft(x_f, sp8, route="sharded_matmul_dft"),
+          lambda: fr.sharded_rfft(x_f, sp8, route="local_fft"),
+          lambda y: crel_err(y.cpu().numpy(), want), FOURIER_TOL)
+    # sosfilt 8 x 2^20, butterworth(4, 0.25)
+    sos = iir.butterworth(4, 0.25, "lowpass")
+    x_i = card(rng.randn(ROWS_PSOS, N_PSOS))
+    want = ss.sosfilt(sos, x_i.cpu().numpy().astype(np.float64), axis=-1)
+    timed(f"sharded_sosfilt {ROWS_PSOS}x{N_PSOS}", "sp8",
+          lambda: par.sharded_sosfilt(sos, x_i, sp8),
+          lambda: iir.sosfilt(sos, x_i),
+          lambda y: abs_err(y.cpu().numpy(), want),
+          5e-5 * max(1.0, float(np.max(np.abs(want)))))
+    # the tensor-parallel GEMM, 2048^3
+    a = card(rng.randn(N_GEMM2, N_GEMM2))
+    b = card(rng.randn(N_GEMM2, N_GEMM2))
+    want = (a.double() @ b.double()).cpu().numpy()
+    timed(f"sharded_matmul {N_GEMM2}^3", "tp8",
+          lambda: par.sharded_matmul(a, b, tp8),
+          lambda: mx.matrix_multiply(a, b),
+          lambda y: abs_err(y.cpu().numpy(), want), 1e-3)
+
+    # the rest of the public surface once, at the JAX tests' sizes
+    # (tests/test_parallel.py), each against its oracle
+    rest = {}
+
+    def once(name, fn, err, tol):
+        ck.reset_launches()
+        e = err(fn())
+        check(e <= tol, f"parallel {name}: err {e:.3e} > {tol}")
+        rest[name] = [float(f"{e:.3e}"),
+                      {k: v for k, v in ck.LAUNCHES.items() if v}]
+
+    def rnd(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    x1 = rnd(1024)
+    k2 = rnd(40, 30)
+    i64 = rnd(64, 64)
+    once("sharded_convolve2d_ring", lambda: par.sharded_convolve2d_ring(
+        i64, k2, dpsp), lambda y: rel_err(y.cpu(), conv2d64(i64, k2)),
+        1e-4)
+    i48 = rnd(64, 48)
+    once("sharded_swt_apply2d", lambda: par.sharded_swt_apply2d(
+        "daub", 8, 2, wv.ExtensionType.MIRROR, i48, sp8),
+        lambda q: max(abs_err(g.cpu(), w) for g, w in zip(
+            q, wv.stationary_wavelet_apply2d(
+                "daub", 8, 2, wv.ExtensionType.MIRROR, i48, simd=False))),
+        5e-4)
+    once("sharded_wavelet_packet_transform2d",
+         lambda: par.sharded_wavelet_packet_transform2d(
+             "daub", 4, P, i64, 2, dpsp, axis="sp"),
+         lambda q: max(abs_err(g.cpu(), w) for g, w in zip(
+             q, wv.wavelet_packet_transform2d("daub", 4, P, i64, 2,
+                                              simd=False))), 5e-4)
+    once("sharded_wavelet_apply", lambda: par.sharded_wavelet_apply(
+        "daub", 8, x1[:512], sp8),
+        lambda q: max(abs_err(g.cpu(), w) for g, w in zip(
+            q, wv.wavelet_apply_na("daub", 8, P, x1[:512]))), 5e-4)
+    once("sharded_wavelet_reconstruct", lambda: par.
+         sharded_wavelet_reconstruct("sym", 12, *par.sharded_wavelet_apply(
+             "sym", 12, x1, sp8), sp8),
+         lambda y: abs_err(y.cpu(), x1), ROUND_TRIP_TOL)
+    coeffs = par.sharded_wavelet_transform("daub", 8, x1, 3, dpsp,
+                                           axis="sp")
+    once("sharded_wavelet_transform", lambda: coeffs,
+         lambda c: max(abs_err(g.cpu(), w) for g, w in zip(
+             c, wv.wavelet_transform("daub", 8, P, x1, 3, simd=False))),
+         5e-4)
+    once("sharded_wavelet_inverse_transform",
+         lambda: par.sharded_wavelet_inverse_transform(
+             "daub", 8, coeffs, dpsp, axis="sp"),
+         lambda y: abs_err(y.cpu(), x1), 5e-4)
+    x2k = rnd(2048)
+    spec = sp.stft_na(x2k, 128, 32).astype(np.complex64)
+    once("sharded_istft", lambda: par.sharded_istft(spec, 2048, 128, 32,
+                                                    sp8),
+         lambda y: rel_err(y.cpu(), sp.istft_na(spec, 2048, 128, 32)),
+         1e-4)
+    x8k = rnd(8192)
+    _, pw = sp.welch_na(x8k, fs=100.0, nperseg=256)
+    once("sharded_welch", lambda: par.sharded_welch(
+        x8k, sp8, fs=100.0, nperseg=256)[1],
+        lambda p: rel_err(p.cpu(), pw), 1e-5)
+    x23 = rnd(2352)
+    once("sharded_resample_poly", lambda: par.sharded_resample_poly(
+        x23, 160, 147, sp8), lambda y: abs_err(
+        y.cpu(), rs.resample_poly(x23, 160, 147, simd=False)), 1e-5)
+    once("sharded_order_filter", lambda: par.sharded_order_filter(
+        x1, 0, 7, sp8), lambda y: abs_err(
+        y.cpu(), fl.order_filter_na(x1, 0, 7)), 1e-6)
+    once("sharded_medfilt", lambda: par.sharded_medfilt(x2k, 9, sp8),
+         lambda y: abs_err(y.cpu(), fl.medfilt_na(x2k, 9)), 1e-6)
+    sg = fl.savgol_filter(x1, 11, 3, deriv=1, delta=0.5, simd=False)
+    once("sharded_savgol_filter", lambda: par.sharded_savgol_filter(
+        x1, 11, 3, sp8, deriv=1, delta=0.5),
+        lambda y: abs_err(y.cpu(), sg),
+        5e-4 * max(1.0, float(np.max(np.abs(sg)))))
+    t_ls = np.sort(rng.rand(1021)) * 100.0
+    x_ls = (np.sin(1.3 * t_ls) + 0.4 * rng.randn(1021)).astype(np.float32)
+    f_ls = np.linspace(0.5, 3.0, 64)
+    once("sharded_lombscargle", lambda: par.sharded_lombscargle(
+        t_ls, x_ls, f_ls, sp8), lambda p: rel_err(
+        p.cpu(), sp.lombscargle_na(t_ls, x_ls, f_ls)), 1e-3)
+    u8 = rng.randint(0, 256, (61, 33)).astype(np.uint8)
+    once("sharded_normalize2d", lambda: par.sharded_normalize2d(u8, sp8),
+         lambda y: abs_err(y.cpu(), nm.normalize2D(u8, simd=False)), 1e-6)
+    xb = rnd(16, 256)
+    dwt = par.data_parallel(lambda v: wv.wavelet_apply("daub", 8, P, v),
+                            par.make_mesh({"dp": PAR_SHARDS}))
+    once("data_parallel", lambda: dwt(xb),
+         lambda q: max(abs_err(g.cpu(), w) for g, w in zip(
+             q, wv.wavelet_apply_na("daub", 8, P, xb))), 1e-5)
+    xc = (rng.randn(512) + 1j * rng.randn(512)).astype(np.complex64)
+    once("sharded_dft", lambda: fr.sharded_dft(
+        xc, sp8, route="sharded_matmul_dft"), lambda y: crel_err(
+        y.cpu(), np.fft.fft(xc.astype(np.complex128))), 1e-4)
+    x96 = rnd(960)
+    once("sharded_irfft", lambda: fr.sharded_irfft(
+        np.fft.rfft(x96.astype(np.float64)).astype(np.complex64), 960,
+        sp8, route="sharded_matmul_dft"), lambda y: rel_err(y.cpu(), x96),
+        1e-4)
+    hyb = par.distributed.hybrid_mesh(ici={"sp": PAR_SHARDS})
+    check(par.distributed.process_count() == 1
+          and par.distributed.process_index() == 0,
+          "parallel: a process group on the one card")
+    once("hybrid_mesh sp8 + sharded_convolve", lambda: par.
+         sharded_convolve(x1, rnd(65), hyb),
+         lambda y: 0.0 if tuple(y.shape) == (1088,) else 1.0, 0.0)
+    # no operand moves between the CPU and the card behind the caller
+    cpu8 = par.make_mesh({"sp": PAR_SHARDS}, devices=["cpu"] * PAR_SHARDS)
+    for mesh, x in ((cpu8, x_h[:1024]), (sp8, x_h[:1024].cpu())):
+        try:
+            par.sharded_convolve(x, h_b, mesh)
+        except ValueError:
+            continue
+        check(False, f"parallel: a {x.device} operand ran on {mesh}")
+    print("parallel rest (JAX tests' sizes; err, launches): "
+          + json.dumps(rest))
+    reset_obs()
+    states = {f"{b['key']}": b["state"] for b in breaker.snapshot()
+              if b["site"] == "parallel.dispatch"}
+    check(degrades[0] == 0 and all(s == breaker.CLOSED
+                                   for s in states.values()),
+          f"parallel: healthy calls degraded ({degrades[0]}) or opened a "
+          f"breaker ({states})")
+    healthy("parallel", obs, faults, breaker)
+    print(f"parallel healthy: mesh_degrade {degrades[0]} | "
+          f"{len(states)} parallel.dispatch breakers, all closed | "
+          f"sharded_rfft {N_PRF} static pick {pick['decision']}")
+
+    # the degrade path: the JAX package's verify flow, on a fresh
+    # breaker that probes every second call
+    breaker.reset()
+    os.environ[faults.FAULT_BACKOFF_ENV] = "0"
+    os.environ[breaker.BREAKER_PROBE_EVERY_ENV] = "2"
+    want = (a.double() @ b.double()).cpu().numpy()
+    errs = []
+    try:
+        with faults.fault_plan("parallel.sharded_matmul:device_lost:9999"):
+            for _ in range(5):
+                errs.append(abs_err(par.sharded_matmul(a, b, tp8).cpu(),
+                                    want))
+            br = breaker.lookup("parallel.dispatch",
+                                ("sharded_matmul", "tp8@tp"))
+            opened = br.state
+            degraded = obs.counter_value("mesh_degrade",
+                                         op="sharded_matmul")
+        for _ in range(4):
+            errs.append(abs_err(par.sharded_matmul(a, b, tp8).cpu(), want))
+        closed = br.state
+    finally:
+        del os.environ[faults.FAULT_BACKOFF_ENV]
+        del os.environ[breaker.BREAKER_PROBE_EVERY_ENV]
+    check(opened != breaker.CLOSED and degraded >= 2
+          and closed == breaker.CLOSED and max(errs) <= 1e-3,
+          f"parallel: the forced plan did not degrade and re-close "
+          f"(breaker {opened} -> {closed}, mesh_degrade {degraded}, "
+          f"err {max(errs):.3e})")
+    print(f"parallel degrade: parallel.sharded_matmul:device_lost -> "
+          f"mesh_degrade {degraded}, breaker {opened}, a @ b err "
+          f"{max(errs):.2e} <= 1e-3 | plan cleared: breaker {closed}")
+    faults.reset_fault_history()
+    breaker.reset()
+    obs.reset()
+    print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s | card "
+          f"{smi}")
+
+
 def autotune_phase(torch, rng, obs, ck, smi):
     """The measured autotuner on the card (``VELES_SIMD_AUTOTUNE=on``
     in this thread, a private tune cache in a temporary directory, the
@@ -3204,6 +3644,11 @@ def main():
     # subprocess mode, K4 in every replica, the scaler's ramp
     fleet_phase(torch, np.random.RandomState(SEED + 1), bm, obs, faults,
                 breaker, ck, smi)
+
+    # 4i. the sharded families on an 8-shard mesh of the one card
+    parallel_phase(torch, np.random.RandomState(SEED + 2), bm, obs,
+                   faults, breaker, ck, smi)
+    healthy("parallel (after its reset)", obs, faults, breaker)
 
     # 5. times at the main-path shapes
     obs.disable()

@@ -1297,3 +1297,75 @@ def test_fleet_subprocess_child_runs_k4_on_the_card():
         assert t.status == "ok"
         want = sp.stft_na(x, 512, 128)
         assert np.max(np.abs(y - want)) / np.max(np.abs(want)) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the sharded families on an 8-shard mesh of cuda:0
+# ---------------------------------------------------------------------------
+
+def test_parallel_default_mesh_is_eight_shards_of_the_card():
+    from veles.simd_tpu_torch import parallel as par
+
+    mesh = par.make_mesh({"dp": 2, "sp": 4})
+    assert mesh.size == 8
+    assert {str(d) for d in mesh.devices.flat} == {"cuda:0"}
+
+
+def test_parallel_convolve_halo_and_ring_on_the_card():
+    from veles.simd_tpu_torch import parallel as par
+
+    r = np.random.RandomState(41)
+    mesh = par.make_mesh({"sp": 8})
+    x = _t(r.randn(1 << 16))
+    for k in (129, 20001):      # one hop, then k - 1 past a block
+        h = _t(r.randn(k))
+        y = par.sharded_convolve(x, h, mesh)
+        assert y.is_cuda and y.device == torch.device("cuda", 0)
+        want = _conv64(x.cpu().numpy(), h.cpu().numpy())
+        assert _rel(y.cpu(), want) <= 1e-4
+
+
+def test_parallel_wavelet_rows_reach_k2_and_round_trip():
+    from veles.simd_tpu_torch import parallel as par
+
+    r = np.random.RandomState(42)
+    mesh = par.make_mesh({"sp": 8})
+    img = _t(r.randn(512, 512))
+    P = wv.ExtensionType.PERIODIC
+    ck.reset_launches()
+    bands = par.sharded_wavelet_apply2d("daub", 8, P, img, mesh)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["filter_bank"] >= 16     # rows and columns, 8 each
+    for got, want in zip(bands, wv.wavelet_apply2d("daub", 8, P, img)):
+        assert _rel(got.cpu(), want.cpu()) <= TOL
+    rec = par.sharded_wavelet_reconstruct2d("daub", 8, *bands, mesh)
+    assert np.max(np.abs(rec.cpu().numpy() - img.cpu().numpy())) <= 2e-4
+
+
+def test_parallel_sosfilt_stft_and_matmul_on_the_card():
+    from veles.simd_tpu_torch import parallel as par
+
+    r = np.random.RandomState(43)
+    sp8 = par.make_mesh({"sp": 8})
+    x = _t(r.randn(2, 1 << 16))
+    sos = iir.butterworth(4, 0.25)
+    assert _rel(par.sharded_sosfilt(sos, x, sp8).cpu(),
+                iir.sosfilt(sos, x).cpu()) <= 5e-5
+    got = par.sharded_stft(x, 512, 128, sp8).cpu().numpy()
+    want = sp.stft_na(x.cpu().numpy(), 512, 128)
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-4
+    a, b = _t(r.randn(256, 1000)), _t(r.randn(1000, 128))
+    got = par.sharded_matmul(a, b, par.make_mesh({"tp": 8}))
+    assert _rel(got.cpu(), (a.double() @ b.double()).cpu()) <= 1e-5
+
+
+def test_parallel_operands_never_cross_between_cpu_and_card():
+    from veles.simd_tpu_torch import parallel as par
+
+    cpu8 = par.make_mesh({"sp": 8}, devices=["cpu"] * 8)
+    with pytest.raises(ValueError, match="mesh of cpu"):
+        par.sharded_convolve(_t(np.ones(64)), _t(np.ones(3)), cpu8)
+    with pytest.raises(ValueError, match="mesh of cuda"):
+        par.sharded_convolve(torch.ones(64), torch.ones(3),
+                             par.make_mesh({"sp": 8}))

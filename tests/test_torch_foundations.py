@@ -437,6 +437,17 @@ def test_device_rows_keeps_the_longest_window(monkeypatch):
                                                    (1.0, "b", 1.0)]
 
 
+def test_device_busy_with_one_window_takes_the_first_that_saw_time(
+        monkeypatch):
+    # keep=1: past the empty windows, the first window with device
+    # time is the answer, and no later window is taken
+    got = iter([([], 1.0), ([(2000.0, "k", 1.0)], 1.0),
+                ([(9000.0, "k", 1.0)], 1.0)])
+    monkeypatch.setattr(tbench, "_profile", lambda fn, calls: next(got))
+    assert tbench.device_busy_ms(lambda: None, calls=3, keep=1) == 2.0
+    assert next(got) == ([(9000.0, "k", 1.0)], 1.0)
+
+
 def test_utils_package_all_equals_jax():
     # F2: the package re-exports the JAX package's eleven names
     import veles.simd_tpu.utils as jutils

@@ -77,7 +77,12 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.obs.incidents",
                  "veles.simd_tpu_torch.serve.rpc",
                  "veles.simd_tpu_torch.serve.cluster",
-                 "veles.simd_tpu_torch.serve.scaler"):
+                 "veles.simd_tpu_torch.serve.scaler",
+                 "veles.simd_tpu_torch.parallel",
+                 "veles.simd_tpu_torch.parallel.mesh",
+                 "veles.simd_tpu_torch.parallel.ops",
+                 "veles.simd_tpu_torch.parallel.fourier",
+                 "veles.simd_tpu_torch.parallel.distributed"):
         assert name in mods
 
 
@@ -104,7 +109,8 @@ print("ok")
 @pytest.mark.parametrize("tool", ["autotune_pack_torch.py",
                                   "tune_overlap_save_torch.py",
                                   "time_torch_autotune_off.py",
-                                  "time_torch_obs_off.py"])
+                                  "time_torch_obs_off.py",
+                                  "time_torch_profiler_threads.py"])
 def test_port_tools_import_without_jax(tool):
     code = f"""
 import runpy, sys
@@ -126,7 +132,8 @@ print("ok")
 @pytest.mark.parametrize("tool", ["autotune_pack_torch.py",
                                   "tune_overlap_save_torch.py",
                                   "time_torch_autotune_off.py",
-                                  "time_torch_obs_off.py"])
+                                  "time_torch_obs_off.py",
+                                  "time_torch_profiler_threads.py"])
 def test_port_tools_refuse_to_run_without_a_card(tool):
     # the CPU has no card: the tools exit 2 before measuring anything
     code = f"""
@@ -172,19 +179,43 @@ def test_op_modules_are_listed_in_pairs():
                                   "serve.batcher", "obs.timeseries",
                                   "obs.incidents", "serve.rpc",
                                   "serve.cluster", "serve.scaler",
-                                  "obs", "serve"])
+                                  "obs", "serve", "parallel",
+                                  "parallel.mesh", "parallel.ops",
+                                  "parallel.fourier",
+                                  "parallel.distributed"])
 def test_runtime_and_obs_copies_keep_the_jax_all(name):
     # the fault policy, the breakers, the flight recorder, its writer
     # and exporters, the segment packing, obs's standalone half, the
     # profiler, the utils package, the pipeline compiler, the request
     # axis, the scrape endpoint, serve's core and the fleet (timeseries,
-    # incidents, rpc, cluster, scaler), and the obs and serve packages
-    # themselves, mirror their JAX modules' public surface exactly
+    # incidents, rpc, cluster, scaler), the sharded families, and the
+    # obs, serve and parallel packages themselves, mirror their JAX
+    # modules' public surface exactly
     port = importlib.import_module(f"veles.simd_tpu_torch.{name}")
     ref = importlib.import_module(f"veles.simd_tpu.{name}")
     assert port.__all__ == ref.__all__
     for public in ref.__all__:
         assert hasattr(port, public), public
+
+
+def test_parallel_all_is_the_jax_all_with_jax_blocked():
+    code = f"""
+import json, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+from veles.simd_tpu_torch import parallel
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+assert not bad, bad
+print(json.dumps(parallel.__all__))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    ref = importlib.import_module("veles.simd_tpu.parallel")
+    port_all = json.loads(out.stdout.strip().splitlines()[-1])
+    assert port_all == ref.__all__
+    assert len(port_all) == 35 and "distributed" in port_all
 
 
 @pytest.mark.parametrize("name", _ops_with_jax_twins())

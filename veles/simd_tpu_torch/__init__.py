@@ -13,7 +13,9 @@ surface (matrix, arithmetic, mathfun, normalize, detect_peaks) with
 the filters, the IIR and resampling families and the ragged segment
 packing (:mod:`veles.simd_tpu_torch.ops`), over the routing,
 precision, fault-policy, circuit-breaker, config and telemetry core
-they need.
+they need; the pipeline compiler, the serving loop and its fleet; and
+the sharded families on a mesh of devices
+(:mod:`veles.simd_tpu_torch.parallel`).
 
 Entry points compute on ``Config.device`` (``"cuda"`` by default;
 ``utils.config.set_config(device="cpu")`` for the CPU).  The package

@@ -1,12 +1,16 @@
 """veles.simd_tpu_torch.runtime — cross-op runtime policies of the port:
 the fault-policy engine (:mod:`.faults`: demote-and-remember for a
 kernel route the card refuses for its geometry, bounded retry then
-degradation to the NumPy oracle for device losses and timeouts, and
-the deterministic fault-injection harness), the per-``(site,
-shape-class)`` circuit breakers (:mod:`.breaker`), the routing
-engine with its measured autotuner and tune cache (:mod:`.routing`)
-and the matmul precision layer (:mod:`.precision`: fp32, TF32, bf16,
-compensated bf16, int8).  The artifact store is not ported yet."""
+degradation to the NumPy oracle for device losses and timeouts, or to
+the single-card twin for a sharded dispatch, and the deterministic
+fault-injection harness), the per-``(site, shape-class)`` circuit
+breakers (:mod:`.breaker`; ``parallel.dispatch`` keys them per
+``(op, mesh class)``), the routing engine with its measured autotuner
+and tune cache (:mod:`.routing`; mesh-stamped entries for the sharded
+Fourier families) and the matmul precision layer (:mod:`.precision`:
+fp32, TF32, bf16, compensated bf16, int8).  The JAX package's fourth
+module, the artifact store (``runtime/artifacts.py``), is not ported
+yet (ROADMAP Queue 1 item 7)."""
 
 from veles.simd_tpu_torch.runtime import breaker
 from veles.simd_tpu_torch.runtime import faults

@@ -21,17 +21,24 @@
 * :func:`gemm_work` and :func:`gemm_bound` — the same for a GEMM at
   one of the precision layer's schemes, each against the peak of the
   units its passes run on.
+* :func:`a2a_bytes`, :func:`ct_dft_flops`, :func:`rfft_flops` and
+  :func:`mesh_copy_gbps` — the sharded Fourier route's cost model
+  (``parallel/fourier.py``): the JAX package's counts, the copy rate
+  between a mesh's shards (half of HBM's on one card, NVLink's between
+  cards).
 
 The peaks are the H100 SXM's (NVIDIA data sheet, 700 W, dense rates
 without sparsity): 67 TFLOP/s fp32 without the tensor cores, 495
 TFLOP/s TF32, 989 TFLOP/s bf16, 1979 TOP/s int8 on the tensor cores,
-3.35 TB/s of HBM3.  A card set below 700 W runs slower under load;
-callers print its power limit beside every bound.
+3.35 TB/s of HBM3, 450 GB/s each way over NVLink 4.  A card set below
+700 W runs slower under load; callers print its power limit beside
+every bound.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import torch
@@ -41,8 +48,9 @@ __all__ = ["device_time_ms", "host_time", "device_busy_ms",
            "fp32_bound", "conv_work",
            "conv2d_work", "stft_work", "filter_bank_work",
            "cascade_bank_work", "filter_2d_work", "gemm_work",
-           "gemm_bound",
-           "H100_FP32_TFLOPS", "H100_TF32_TFLOPS", "H100_BF16_TFLOPS",
+           "gemm_bound", "a2a_bytes", "ct_dft_flops", "rfft_flops",
+           "mesh_copy_gbps", "H100_NVLINK_GBPS", "H100_FP32_TFLOPS",
+           "H100_TF32_TFLOPS", "H100_BF16_TFLOPS",
            "H100_INT8_TOPS", "H100_HBM_TBPS", "GEMM_PEAK_TFLOPS"]
 
 H100_FP32_TFLOPS = 67.0
@@ -50,6 +58,9 @@ H100_TF32_TFLOPS = 495.0
 H100_BF16_TFLOPS = 989.0
 H100_INT8_TOPS = 1979.0
 H100_HBM_TBPS = 3.35
+# NVLink 4 between two H100 SXM cards: 900 GB/s both ways, 450 each way
+H100_NVLINK_GBPS = 450.0
+MESH_BW_ENV = "VELES_SIMD_MESH_BW_GBPS"
 
 # a GEMM's ceiling at each precision of runtime.precision: the peak of
 # the units its input type runs on, over its pass count (bf16_comp is
@@ -147,12 +158,13 @@ def _device_rows(fn, calls: int, windows: int = 12, keep: int = 3):
     return best
 
 
-def device_busy_ms(fn, *, calls: int = 20) -> float:
+def device_busy_ms(fn, *, calls: int = 20, keep: int = 3) -> float:
     """Device milliseconds per call of ``fn``: the sum of its kernels'
     and copies' device time under ``torch.profiler``, free of the
     host's enqueue cost (which sets the chained time of a call whose
-    kernels are shorter than its Python dispatch)."""
-    return device_profile(fn, calls=calls)[0]
+    kernels are shorter than its Python dispatch); the longest of
+    ``keep`` windows that saw device time."""
+    return device_profile(fn, calls=calls, keep=keep)[0]
 
 
 def device_breakdown(fn, *, calls: int = 5) -> str:
@@ -175,11 +187,12 @@ def device_kernels(fn, *, calls: int = 5) -> list[str]:
     return [name for _, name, _ in _device_rows(fn, calls)]
 
 
-def device_profile(fn, *, calls: int = 20) -> tuple[float, float]:
+def device_profile(fn, *, calls: int = 20,
+                   keep: int = 3) -> tuple[float, float]:
     """``(busy_ms, launches)`` per call of ``fn`` from one profiled
     window: :func:`device_busy_ms` and the number of kernels and copies
     it runs on the device."""
-    rows = _device_rows(fn, calls)
+    rows = _device_rows(fn, calls, keep=keep)
     return (sum(row[0] for row in rows) / 1e3,
             sum(row[2] for row in rows))
 
@@ -223,9 +236,10 @@ def _bound(flops, nbytes, peak_tflops):
     return t_bytes, "bytes"
 
 
-def _rfft_flops(n: int) -> float:
+def rfft_flops(n: int) -> float:
     """Operations of a real FFT of ``n`` samples: half the usual
-    ``5 n log2 n`` of a complex one."""
+    ``5 n log2 n`` of a complex one (the split-radix estimate)."""
+    n = int(n)
     return 2.5 * n * math.log2(n)
 
 
@@ -244,8 +258,8 @@ def conv_work(rows: int, n: int, k: int) -> tuple[float, float]:
     N = 1 << max(1, (2 * k - 1).bit_length())
     while N <= 1 << 20:
         segs = -(-out_len // (N - k + 1))
-        fft_form = (rows * segs * (2 * _rfft_flops(N) + 6 * (N // 2 + 1))
-                    + _rfft_flops(N))
+        fft_form = (rows * segs * (2 * rfft_flops(N) + 6 * (N // 2 + 1))
+                    + rfft_flops(N))
         flops = min(flops, fft_form)
         N *= 2
     nbytes = 4.0 * (rows * n + k + rows * out_len)
@@ -268,7 +282,7 @@ def conv2d_work(imgs: int, n0: int, n1: int, k0: int,
     flops = 2.0 * imgs * n0 * n1 * k0 * k1
     p0 = 1 << max(0, (m0 - 1).bit_length())
     p1 = 1 << max(1, (m1 - 1).bit_length())
-    fft2 = _rfft_flops(p0 * p1)
+    fft2 = rfft_flops(p0 * p1)
     fft_form = imgs * (2 * fft2 + 6 * p0 * (p1 // 2 + 1)) + fft2
     nbytes = 4.0 * (imgs * n0 * n1 + k0 * k1 + imgs * m0 * m1)
     return min(flops, fft_form), nbytes
@@ -284,7 +298,7 @@ def stft_work(rows: int, n: int, frame_length: int,
     rows, n, L, hop = int(rows), int(n), int(frame_length), int(hop)
     frames = 1 + (n - L) // hop
     cols = 2 * (L // 2 + 1)
-    flops = rows * frames * (L + _rfft_flops(L))
+    flops = rows * frames * (L + rfft_flops(L))
     nbytes = 4.0 * (rows * n + L + rows * frames * cols)
     return flops, nbytes
 
@@ -332,3 +346,39 @@ def filter_2d_work(imgs: int, n0: int, n1: int, k0: int, k1: int,
     flops = 2.0 * imgs * n_out0 * n_out1 * k0 * k1
     nbytes = 4.0 * (imgs * n0 * n1 + k0 * k1 + imgs * n_out0 * n_out1)
     return flops, nbytes
+
+
+# ---------------------------------------------------------------------------
+# the sharded Fourier cost model (parallel/fourier.py): the JAX
+# package's counts, with the H100's rates
+# ---------------------------------------------------------------------------
+
+def a2a_bytes(n_elems: int, itemsize: int, n_shards: int) -> int:
+    """Bytes that move between shards in ONE tiled all-to-all of a
+    global ``n_elems``-element array over ``n_shards`` shards: each
+    shard keeps 1/S of its block and sends the rest, so the global
+    payload is ``elems * itemsize * (S - 1) / S``."""
+    if n_shards <= 1:
+        return 0
+    return int(n_elems) * int(itemsize) * (n_shards - 1) // n_shards
+
+
+def ct_dft_flops(n: int, n1: int, n2: int) -> float:
+    """Useful-FLOP count of one length-``n = n1*n2`` Cooley-Tukey
+    factorized matmul DFT: two dense per-factor stages (8 real FLOPs
+    per complex multiply-add) plus the twiddle multiply (6 FLOPs a
+    sample)."""
+    return 8.0 * float(n) * (int(n1) + int(n2)) + 6.0 * float(n)
+
+
+def mesh_copy_gbps(cards: int = 1) -> float:
+    """GB/s of a copy between two shards of a mesh: ``$VELES_SIMD_MESH_
+    BW_GBPS`` when set; else NVLink's one-way rate between ``cards`` >
+    1 cards, and on one card (or the CPU, modeled as one card) half of
+    HBM's, since a copy there reads and writes the same memory."""
+    env = os.environ.get(MESH_BW_ENV)
+    if env:
+        return float(env)
+    if int(cards) > 1:
+        return H100_NVLINK_GBPS
+    return H100_HBM_TBPS * 1e3 / 2.0
