@@ -80,8 +80,8 @@ without printing a result):
             ``resample_fourier`` on 2^20 to the same length as 160/147;
             each against a float64 oracle (IIR 2e-5 of max|y|, the FIR
             resamplers 2e-5, Fourier 1e-4), with its chained ms (CUDA
-            events), device busy ms and kernels a call
-            (``torch.profiler``), Msamples/s and the bound of its least
+            events), device busy ms and kernels a call (CUPTI's
+            records, ``utils.devtrace``), Msamples/s and the bound of its least
             bytes; no csrc kernel, no TF32 kernel;
 4d. faults — the fault policy through the entry points at full size,
             with injected plans and no backoff: the headline with
@@ -140,7 +140,7 @@ without printing a result):
             seconds), one ``pipeline.dispatch`` span a block, fused
             equal to ``fused=False`` within 1e-6 of max|y|, blocks/s
             and p99 host-clock latency a block (each block synced) and
-            device busy ms and kernels a block (``torch.profiler``),
+            device busy ms and kernels a block (``utils.devtrace``),
             fused and unfused, its ``("pipeline", name)`` resource row;
             no fault on the healthy replays; under
             ``pipeline.dispatch:device_lost:1`` with no retry exactly
@@ -236,13 +236,46 @@ without printing a result):
             variants at 512 x 16384 for 4..256 taps in turns; then each
             kernel, its plain version and its library yardstick (cuDNN
             ``conv1d``/``conv2d`` in fp32, ``torch.stft``) at the
-            main-path shapes, as device time per call from
-            ``torch.profiler`` (the longest of three windows; the kernel
-            also as chained CUDA events), beside the fp32 bound (each
-            counts the function's least work, ``utils.benchmark.
-            conv_work``/``conv2d_work``/``stft_work``, so the bytes set
-            them), which neither the kernel nor the library may beat;
-            printed as one ``{"kernels": [...]}`` line.
+            main-path shapes, as device time per call from CUPTI's
+            records (``utils.devtrace``; the longest of three windows;
+            the kernel also as chained CUDA events), beside the fp32
+            bound (each counts the function's least work,
+            ``utils.benchmark.conv_work``/``conv2d_work``/``stft_work``,
+            so the bytes set them), which neither the kernel nor the
+            library may beat;
+            printed as one ``{"kernels": [...]}`` line;
+6. cabi  — after the measurements of 5, the C ABI: the port's bridge
+            (``veles/simd_tpu_torch/cabi/``) built with gcc,
+            ``csrc/test_veles_simd.c`` and ``examples/c_matched_filter.c``
+            compiled unchanged against it and run side by side with no
+            ``VELES_SIMD_PLATFORM`` (all 17 families, 0 failures, a
+            ``backend:`` line naming the card; the example's peak
+            agreeing); then the bridge loaded with ctypes in this
+            process (the shim runs in this interpreter) and the C
+            entries that reach the kernels called through C on NumPy
+            buffers: the convolution handle at 1,048,576 x 2047 (auto;
+            K1 twice), ``stft`` 2^20 at 512/128 (K4 once),
+            ``convolve2d`` 512^2 7 x 7 (K5 once), ``wavelet_apply2d``
+            512^2 daub8 (K2 twice: rows, then the stacked columns),
+            counters reset before each call and read after, each within
+            1e-4 of float64, with its host ms beside the same call made
+            from Python (result in host memory).  Without gcc,
+            ``python3-config`` or Python's headers the phase prints one
+            line saying so and nothing else;
+7. artifacts — the warm pack: the library this process loaded packed
+            in a private ``on`` store (``runtime/artifacts.py``); a
+            fresh process with an empty build root
+            (``VELES_SIMD_CACHE_DIR``) and ``VELES_SIMD_ARTIFACTS=
+            readonly`` starts a ``serve.Server`` (preload 1 loaded),
+            runs the headline with only a library cache hit (no nvcc)
+            and K1's 2 launches within 1e-4 of float64, its seconds
+            from spawn to result printed, the store unchanged after;
+            the MANIFEST's device stamp doctored, a fresh process (side
+            by side with the first) loads 0, counts ``artifact_stale``,
+            places nothing and loads no library; the cold figure is
+            this run's ``build:`` line when it was a cache miss
+            (``tools/time_torch_cold_start.py`` times cold and warm
+            processes in turns, each alone).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1695,7 +1728,7 @@ def serve_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
           f"{L_ST}/{HOP_ST}, 3 tenants): {SERVE_K4_REQUESTS / wall:.1f} "
           f"req/s | {batches} batches, K4 launches {launches['stft']} (one "
           f"a batch) | {latency} | device busy {busy:.4f} ms a batch, "
-          f"{kernels:.0f} kernels and copies a batch (torch.profiler), "
+          f"{kernels:.0f} kernels and copies a batch (CUPTI), "
           f"{busy * batches / (wall * 1e3):.3f} of the timed pass's "
           f"wall clock | "
           f"rel {worst['stft']:.2e} (tol {ORACLE_TOL:g}) | card {smi}")
@@ -2831,6 +2864,336 @@ def parallel_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
     obs.reset()
     print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s | card "
           f"{smi}")
+
+
+# the cabi phase: the C entries the kernels serve, at the main path's
+# shapes, through the port's C bridge loaded in this process
+CABI_SUITE_TIMEOUT_S = 600
+CABI_REPEATS = 5
+
+
+def cabi_phase(rng, bm, ck, smi, kind):
+    """The port's C ABI on the card: csrc's C suite and example built
+    unchanged against the port's libveles_simd.so and run with no
+    VELES_SIMD_PLATFORM, then the C entries that reach K1, K4, K5 and K2
+    called through C from this process (ctypes; the bridge's PyGILState
+    path runs the shim in this interpreter), each against float64 and
+    beside the same call made from Python."""
+    import ctypes
+    import subprocess
+
+    from veles.simd_tpu_torch import cabi
+    from veles.simd_tpu_torch.ops import convolve as cv
+    from veles.simd_tpu_torch.ops import convolve2d as cv2
+    from veles.simd_tpu_torch.ops import spectral as sp
+    from veles.simd_tpu_torch.ops import wavelet as wv
+
+    t_phase = time.perf_counter()
+    if cabi.toolchain() is None:
+        print("cabi: gcc, python3-config or Python's headers missing on "
+              "this machine: the C ABI was not run on the card")
+        return
+    t0 = time.perf_counter()
+    lib_path = cabi.build_library()
+    suite = cabi.build_program(os.path.join(ROOT, "csrc",
+                                            "test_veles_simd.c"))
+    demo = cabi.build_program(os.path.join(ROOT, "examples",
+                                           "c_matched_filter.c"))
+    build_s = time.perf_counter() - t0
+    # the suite (all 17 families) and the example, side by side, on the
+    # card: no VELES_SIMD_PLATFORM
+    env = cabi.program_env()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for p in (suite, demo)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=CABI_SUITE_TIMEOUT_S)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    run_s = time.perf_counter() - t0
+    (rc, out, err), (drc, dout, derr) = outs
+    summary = [ln for ln in out.splitlines() if "failures" in ln]
+    check(rc == 0 and "0 failures" in out
+          and f"backend: torch:cuda:{kind}" in out,
+          f"cabi: the C suite on the card: rc {rc}, {summary}, "
+          f"{out[-1500:]} {err[-2500:]}")
+    check(drc == 0 and "oracle peak agrees: yes" in dout,
+          f"cabi: the C example on the card: rc {drc}, {dout[-800:]} "
+          f"{derr[-2500:]}")
+    print(f"cabi suite: csrc/test_veles_simd.c unchanged against "
+          f"{os.path.relpath(lib_path, ROOT)}, 17 families, "
+          f"{summary[-1]}, backend torch:cuda:{kind} | "
+          f"examples/c_matched_filter.c: oracle peak agrees | gcc "
+          f"{build_s:.1f} s, both programs {run_s:.1f} s side by side")
+
+    # the C entries, through C, on NumPy buffers
+    t0 = time.perf_counter()
+    lib = cabi.load(lib_path)
+    check(lib.veles_simd_init(None) == 0,
+          f"cabi: veles_simd_init: {lib.veles_simd_last_error()}")
+    backend = lib.veles_simd_backend().decode()
+    check(backend == f"torch:cuda:{kind}", f"cabi: backend {backend}")
+    init_s = time.perf_counter() - t0
+
+    def fp(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    def c_call(fn):
+        rc = fn()
+        check(rc == 0, f"cabi: C call failed: {lib.veles_simd_last_error()}")
+
+    x_head = rng.randn(N_HEAD).astype(np.float32)
+    h_head = rng.randn(K_HEAD).astype(np.float32)
+    y_head = np.zeros(N_HEAD + K_HEAD - 1, np.float32)
+    c_handle = lib.convolve_initialize(N_HEAD, K_HEAD, 0)
+    check(c_handle is not None, "cabi: convolve_initialize")
+    py_handle = cv.convolve_initialize(N_HEAD, K_HEAD)
+    x_st = rng.randn(N_ST).astype(np.float32)
+    frames = 1 + (N_ST - L_ST) // HOP_ST
+    spec = np.zeros((frames, L_ST // 2 + 1, 2), np.float32)
+    x_2d = rng.randn(N_2D, N_2D).astype(np.float32)
+    h_2d = rng.randn(K_2D, K_2D).astype(np.float32)
+    y_2d = np.zeros((N_2D + K_2D - 1,) * 2, np.float32)
+    img = rng.randn(N_2D, N_2D).astype(np.float32)
+    bands = [np.zeros((N_2D // 2, N_2D // 2), np.float32)
+             for _ in range(4)]
+    P = wv.ExtensionType.PERIODIC
+    st = sp.stft_na(x_st, L_ST, HOP_ST)
+    dwt2 = wv.wavelet_apply2d("daub", 8, P, img, simd=False)
+    entries = (
+        ("convolve", f"handle {N_HEAD}x{K_HEAD} auto", "overlap_save", 2,
+         lambda: c_call(lambda: lib.convolve(c_handle, fp(x_head),
+                                             fp(h_head), fp(y_head))),
+         lambda: cv.convolve(py_handle, x_head, h_head).cpu(),
+         lambda: rel_err(y_head, fft_conv64(x_head, h_head))),
+        ("stft", f"{N_ST} samples {L_ST}/{HOP_ST}", "stft", 1,
+         lambda: c_call(lambda: lib.stft(1, fp(x_st), N_ST, L_ST, HOP_ST,
+                                         None, fp(spec))),
+         lambda: sp.stft(x_st, L_ST, HOP_ST).cpu(),
+         lambda: crel_err(spec[..., 0] + 1j * spec[..., 1], st)),
+        ("convolve2d", f"{N_2D}^2 {K_2D}x{K_2D}", "filter_2d", 1,
+         lambda: c_call(lambda: lib.convolve2d(1, fp(x_2d), N_2D, N_2D,
+                                               fp(h_2d), K_2D, K_2D,
+                                               fp(y_2d))),
+         lambda: cv2.convolve2d(x_2d, h_2d).cpu(),
+         lambda: rel_err(y_2d, conv2d64(x_2d, h_2d))),
+        ("wavelet_apply2d", f"{N_2D}^2 daub8 periodic", "filter_bank", 2,
+         lambda: c_call(lambda: lib.wavelet_apply2d(
+             1, 0, 8, 0, fp(img), N_2D, N_2D, *map(fp, bands))),
+         lambda: [b.cpu() for b in wv.wavelet_apply2d("daub", 8, P, img)],
+         lambda: max(rel_err(b, w) for b, w in zip(bands, dwt2))),
+    )
+    for name, shape, kernel, want_launches, c_fn, py_fn, err_fn in entries:
+        ck.reset_launches()
+        c_fn()
+        launches = dict(ck.LAUNCHES)
+        err = err_fn()
+        check(launches[kernel] == want_launches
+              and sum(launches.values()) == want_launches,
+              f"cabi {name}: launches {launches}, want {kernel} "
+              f"{want_launches}")
+        check(err <= ORACLE_TOL, f"cabi {name}: rel err {err:.3e}")
+        c_ms = bm.host_time(c_fn, repeats=CABI_REPEATS) * 1e3
+        py_ms = bm.host_time(py_fn, repeats=CABI_REPEATS) * 1e3
+        print(f"cabi {name} ({shape}) through C: {kernel} x "
+              f"{launches[kernel]}, rel err {err:.2e} <= {ORACLE_TOL:g} "
+              f"vs float64 | host ms from NumPy buffers, result in host "
+              f"memory: C {c_ms:.3f}, Python {py_ms:.3f} "
+              f"(best of {CABI_REPEATS})")
+    lib.convolve_finalize(c_handle)
+    print(f"cabi: phase {time.perf_counter() - t_phase:.1f} s (bridge "
+          f"init in this process {init_s:.1f} s) | card {smi}")
+
+
+# the artifacts phase: a fresh process of the warm pack, and of a stale one
+ARTIFACT_CHILD_TIMEOUT_S = 300
+ARTIFACT_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from veles.simd_tpu_torch import obs, serve
+from veles.simd_tpu_torch.ops import convolve as cv
+from veles.simd_tpu_torch.ops import cuda_kernels as ck
+from veles.simd_tpu_torch.runtime import artifacts as art
+from veles.simd_tpu_torch.utils.config import set_config
+import chip_smoke as cs
+
+set_config(device="cuda")
+obs.enable()
+root = art.enable_persistent_compile_cache()    # $VELES_SIMD_CACHE_DIR
+with serve.Server(workers=1, obs_port=-1) as srv:
+    report = srv.stats()["artifact_preload"]
+out = {"preload": report, "root": root,
+       "stale": obs.counter_value("artifact_stale", op="kernels",
+                                  route="cuda"),
+       "placed": sorted(os.listdir(root)) if os.path.isdir(root) else []}
+if sys.argv[2] == "headline":
+    rng = np.random.RandomState(cs.SEED)
+    x = rng.randn(cs.N_HEAD).astype(np.float32)
+    h = rng.randn(cs.K_HEAD).astype(np.float32)
+    handle = cv.convolve_initialize(cs.N_HEAD, cs.K_HEAD)
+    ck.reset_launches()
+    y = cv.convolve(handle, x, h).cpu().numpy()
+    out["launches"] = dict(ck.LAUNCHES)
+    out["err"] = cs.rel_err(y, cs.fft_conv64(x, h))
+snap = obs.snapshot()
+out["compile"] = {c["name"]: c["value"] for c in snap["counters"]
+                  if c["name"].startswith("compile.")}
+out["nvcc_s"] = sum(h["sum"] for h in snap["histograms"]
+                    if h["name"] == "compile.backend_compile_secs")
+out["library_loaded"] = ck._lib is not None
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def spawn_artifact_child(mode, env):
+    """Start ``ARTIFACT_CHILD`` in ``mode`` (``headline``: start a
+    ``serve.Server``, then run the headline convolution; ``start``:
+    start the server and stop before any kernel) with ``env``; returns
+    the process and its spawn time."""
+    import subprocess
+
+    return (subprocess.Popen([sys.executable, "-c", ARTIFACT_CHILD, ROOT,
+                              mode], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, env=env,
+                             cwd=ROOT),
+            time.perf_counter())
+
+
+def collect_artifact_child(proc, t0, mode):
+    """The child's result and the seconds from its spawn to its result
+    line; the child is waited for (or killed)."""
+    result, spawn_s, tail = None, None, []
+    try:
+        for line in proc.stdout:
+            if line.startswith("RESULT "):
+                spawn_s = time.perf_counter() - t0
+                result = json.loads(line[len("RESULT "):])
+            else:
+                tail = (tail + [line])[-40:]
+        proc.wait(timeout=ARTIFACT_CHILD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0 and result is not None,
+          f"artifacts {mode} child: rc {proc.returncode}, "
+          f"{''.join(tail)[-2500:]}")
+    return result, spawn_s
+
+
+def artifact_child(mode, env):
+    """Run one ``ARTIFACT_CHILD`` alone: its result and its seconds
+    from spawn to result."""
+    return collect_artifact_child(*spawn_artifact_child(mode, env), mode)
+
+
+def artifacts_phase(ck, smi, build_s, build_compiles):
+    """The warm pack: the library this process loaded packed in a
+    private ``on`` store; a fresh process with an empty build root and
+    the store ``readonly`` preloads it at ``serve.Server.start()`` and
+    runs the headline with no nvcc; the MANIFEST's device stamp doctored,
+    a fresh process places nothing and counts ``artifact_stale``."""
+    import hashlib
+    import tempfile
+
+    from veles.simd_tpu_torch.runtime import artifacts as art
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="artifacts-",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        pack = os.path.join(work, "pack")
+        t0 = time.perf_counter()
+        with art.private_artifact_store(pack) as store, \
+                art.artifacts_mode_override("on"):
+            check(art.store_kernel_library() == "stored",
+                  "artifacts: packing the loaded library")
+            keys = store.keys()
+        pack_s = time.perf_counter() - t0
+        check(keys == ["kernels|" + ck._build_dir().name],
+              f"artifacts: pack keys {keys}")
+
+        def snapshot(d):
+            return {name: hashlib.sha256(open(os.path.join(d, name), "rb")
+                                         .read()).hexdigest()
+                    for name in sorted(os.listdir(d))}
+
+        before = snapshot(pack)
+        size = sum(os.path.getsize(os.path.join(pack, n)) for n in before)
+        with open(os.path.join(pack, art.MANIFEST_NAME)) as f:
+            stamp = json.load(f)["device"]
+        print(f"artifacts pack: {keys[0]} ({size} bytes with its "
+              f"MANIFEST, device stamp {stamp!r}) in {pack_s * 1e3:.1f} ms")
+
+        # the stale pack: a copy whose MANIFEST's device stamp names
+        # another card
+        stale_pack = os.path.join(work, "stale_pack")
+        shutil.copytree(pack, stale_pack)
+        path = os.path.join(stale_pack, art.MANIFEST_NAME)
+        with open(path) as f:
+            manifest = json.load(f)
+        manifest["device"] = "NVIDIA B200 sm_100"
+        with open(path, "w") as f:
+            json.dump(manifest, f)
+        # the two children side by side (the stale one stops before any
+        # kernel); tools/time_torch_cold_start.py times a child alone
+        env = dict(os.environ, VELES_SIMD_ARTIFACTS="readonly")
+        warm_child = spawn_artifact_child("headline", dict(
+            env, VELES_SIMD_ARTIFACT_DIR=pack,
+            VELES_SIMD_CACHE_DIR=os.path.join(work, "warm_root")))
+        stale_child = spawn_artifact_child("start", dict(
+            env, VELES_SIMD_ARTIFACT_DIR=stale_pack,
+            VELES_SIMD_CACHE_DIR=os.path.join(work, "stale_root")))
+        warm, warm_s = collect_artifact_child(*warm_child, "headline")
+        stale, stale_s = collect_artifact_child(*stale_child, "start")
+        check(warm["preload"]["loaded"] == 1
+              and warm["preload"]["failed"] == 0,
+              f"artifacts warm child: preload {warm['preload']}")
+        check(warm["compile"] == {"compile.cache_hits": 1},
+              f"artifacts warm child: compile counters {warm['compile']} "
+              "(want one library cache hit, no miss, no nvcc)")
+        check(warm["launches"]["overlap_save"] == 2
+              and warm["err"] <= ORACLE_TOL,
+              f"artifacts warm child: launches {warm['launches']}, rel "
+              f"err {warm['err']:.3e}")
+        check(snapshot(pack) == before,
+              "artifacts: the readonly child changed the store")
+        print(f"artifacts warm child (empty build root, "
+              f"VELES_SIMD_ARTIFACTS=readonly): preload "
+              f"{warm['preload']['loaded']} loaded, "
+              f"{warm['preload']['failed']} failed | compile counters "
+              f"{warm['compile']} (no nvcc) | headline "
+              f"{N_HEAD}x{K_HEAD} overlap_save x "
+              f"{warm['launches']['overlap_save']}, rel err "
+              f"{warm['err']:.2e} | spawn to first result {warm_s:.2f} s "
+              f"(beside the stale child) | store unchanged")
+        check(stale["preload"]["loaded"] == 0 and stale["stale"] >= 1
+              and stale["placed"] == [] and not stale["library_loaded"]
+              and stale["compile"] == {},
+              f"artifacts stale child: {stale}")
+        print(f"artifacts stale child (device stamp doctored to "
+              f"'NVIDIA B200 sm_100'): preload "
+              f"{stale['preload']['loaded']} loaded, artifact_stale "
+              f"{stale['stale']}, nothing placed, no library loaded, no "
+              f"nvcc | {stale_s:.2f} s")
+        cold = ("a cache miss: nvcc built the library in it"
+                if "compile.backend_compile" in build_compiles
+                else "a cache hit (no cold figure in this run)")
+        print(f"artifacts cold: this run's build line, {build_s:.1f} s, "
+              f"was {cold} | warm child spawn to first result "
+              f"{warm_s:.2f} s | phase {time.perf_counter() - t_phase:.1f}"
+              f" s | card {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def autotune_phase(torch, rng, obs, ck, smi):
@@ -3973,7 +4336,7 @@ def main():
     }
     rows = []
     for name, (kern, plain, lib) in timed.items():
-        # device time per call (torch.profiler): the kernels of the
+        # device time per call (CUPTI's records): the kernels of the
         # wavelet and 2D shapes are shorter than their wrappers' host
         # dispatch, so chained CUDA events would time the host
         ms = bm.device_busy_ms(kern, calls=20)
@@ -4012,7 +4375,16 @@ def main():
                 lambda: ck.cascade_bank_cuda(xc_ext, taps, plans, ns, n_cb),
                 calls=20)
     n_breakers = healthy("times", obs, faults, breaker)
-    print("healthy: main, reference, dsp, autotune and times recorded "
+
+    # 6. the C ABI: csrc's C suite against the port, the C entries; and
+    # 7. the artifact store: the warm pack in a fresh process, a stale
+    # one.  After the measurements, so that `times` reads the card
+    # before any C bridge or child process of these phases has run
+    cabi_phase(np.random.RandomState(SEED + 3), bm, ck, smi, kind)
+    artifacts_phase(ck, smi, build_s, compiles)
+    n_breakers = healthy("cabi and artifacts", obs, faults, breaker)
+    print("healthy: main, reference, dsp, autotune, times, cabi and "
+          "artifacts recorded "
           "no fault_* counter, no fault_policy event and no fault "
           f"record; {n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start

@@ -22,7 +22,7 @@ On the CPU (``set_config(device="cpu")``, ``JAX_PLATFORMS=cpu``):
 * subprocess replicas with ``--device cpu``: a round trip over the RPC
   data plane with a pipeline spec, a SIGKILL failing over, a child
   told ``cuda`` where no card is refusing to start, and an armed
-  artifact store refused in both spawn modes;
+  artifact store's warm pack preloaded in both spawn modes;
 * ``tools/lint.py``'s fleet rules (``cluster_router_errors``,
   ``rpc_transport_errors``, ``scaler_control_errors``,
   ``fleet_funnel_errors``) on the port's sources read as the JAX
@@ -429,14 +429,43 @@ def test_subprocess_child_refuses_a_device_it_cannot_reach():
 
 
 @pytest.mark.parametrize("spawn", ["thread", "subprocess"])
-def test_armed_artifact_store_is_refused_in_every_replica(monkeypatch,
-                                                          spawn):
-    monkeypatch.setenv(tserver.ARTIFACTS_ENV, "readonly")
-    group = cluster.ReplicaGroup(1, spawn=spawn, obs_port=-1,
-                                 max_wait_ms=1.0, workers=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        group.start()
-    assert not group._started
+def test_armed_artifact_store_preloads_in_every_replica(tmp_path,
+                                                        monkeypatch,
+                                                        spawn):
+    # a warm pack of a stand-in kernel library (random bytes; nothing on
+    # the CPU loads it) and an empty build root: a thread replica's
+    # Server.start and a subprocess child (before its ready line, with
+    # the store inherited through the environment and the build root
+    # forwarded) each place it where load_library sees a cache hit
+    from veles.simd_tpu_torch.ops import cuda_kernels as ck
+    from veles.simd_tpu_torch.runtime import artifacts as art
+
+    prev = ck.set_build_root()
+    try:
+        ck.set_build_root(tmp_path / "built")
+        out = ck._build_dir()
+        out.mkdir(parents=True)
+        (out / ck._LIB_NAME).write_bytes(b"\x7fELF stand-in" * 32)
+        (out / "build.log").write_text("stand-in build log\n")
+        pack = str(tmp_path / "pack")
+        with art.private_artifact_store(pack), \
+                art.artifacts_mode_override("on"):
+            assert art.store_kernel_library() == "stored"
+        ck.set_build_root(tmp_path / "fresh")
+        placed = ck._build_dir() / ck._LIB_NAME
+        monkeypatch.setenv(art.ARTIFACT_DIR_ENV, pack)
+        monkeypatch.setenv(tserver.ARTIFACTS_ENV, "readonly")
+        group = cluster.ReplicaGroup(1, spawn=spawn, obs_port=-1,
+                                     max_wait_ms=1.0, workers=1)
+        with group:
+            r0 = group.replica("r0")
+            report = (r0.server.stats()["artifact_preload"]
+                      if spawn == "thread" else r0.artifact_preload)
+            assert report == {"loaded": 1, "failed": 0,
+                              "mode": "readonly", "path": pack}
+            assert placed.read_bytes() == b"\x7fELF stand-in" * 32
+    finally:
+        ck.set_build_root(prev)
 
 
 def test_subprocess_replica_refuses_disarmed_endpoint():

@@ -8,6 +8,7 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1369,3 +1370,173 @@ def test_parallel_operands_never_cross_between_cpu_and_card():
     with pytest.raises(ValueError, match="mesh of cuda"):
         par.sharded_convolve(torch.ones(64), torch.ones(3),
                              par.make_mesh({"sp": 8}))
+
+
+# ---------------------------------------------------------------------------
+# the C ABI: the port's libveles_simd.so on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cbridge():
+    """The port's C bridge opened in this process (``cabi.load``): its
+    shim runs in this interpreter, on the card, and its launches count
+    in ``ck.LAUNCHES``."""
+    from veles.simd_tpu_torch import cabi
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available())")
+    if cabi.toolchain() is None:
+        pytest.skip("gcc, python3-config or Python's headers unavailable")
+    lib = cabi.load()
+    assert lib.veles_simd_init(None) == 0, lib.veles_simd_last_error()
+    return lib
+
+
+def _fp(a):
+    import ctypes
+
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def test_cabi_backend_names_the_card(cbridge):
+    assert cbridge.veles_simd_backend().decode() \
+        == f"torch:cuda:{torch.cuda.get_device_name(0)}"
+
+
+@pytest.mark.parametrize("n, k, launches", [(1 << 20, 2047, 2),
+                                            (100000, 257, 2)])
+def test_cabi_convolution_handle_runs_k1(cbridge, n, k, launches):
+    r = np.random.RandomState(k)
+    x, h = r.randn(n).astype(np.float32), r.randn(k).astype(np.float32)
+    y = np.zeros(n + k - 1, np.float32)
+    handle = cbridge.convolve_initialize(n, k, 0)
+    ck.reset_launches()
+    assert cbridge.convolve(handle, _fp(x), _fp(h), _fp(y)) == 0
+    assert ck.LAUNCHES["overlap_save"] == launches
+    cbridge.convolve_finalize(handle)
+    assert _rel(y, _conv64(x, h)) <= 1e-4
+
+
+def test_cabi_stft_runs_k4(cbridge):
+    r = np.random.RandomState(41)
+    x = r.randn(1 << 20).astype(np.float32)
+    frames = 1 + ((1 << 20) - 512) // 128
+    spec = np.zeros((frames, 257, 2), np.float32)
+    ck.reset_launches()
+    assert cbridge.stft(1, _fp(x), 1 << 20, 512, 128, None, _fp(spec)) == 0
+    assert ck.LAUNCHES["stft"] == 1
+    got = spec[..., 0] + 1j * spec[..., 1]
+    want = sp.stft_na(x, 512, 128)
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-4
+
+
+def test_cabi_convolve2d_runs_k5(cbridge):
+    from scipy import signal
+
+    r = np.random.RandomState(42)
+    x = r.randn(512, 512).astype(np.float32)
+    h = r.randn(7, 7).astype(np.float32)
+    y = np.zeros((518, 518), np.float32)
+    ck.reset_launches()
+    assert cbridge.convolve2d(1, _fp(x), 512, 512, _fp(h), 7, 7,
+                              _fp(y)) == 0
+    assert ck.LAUNCHES["filter_2d"] == 1
+    want = signal.convolve2d(x.astype(np.float64), h.astype(np.float64))
+    assert _rel(y, want) <= 1e-4
+
+
+def test_cabi_wavelet_apply2d_rows_run_k2(cbridge):
+    r = np.random.RandomState(43)
+    img = r.randn(512, 512).astype(np.float32)
+    bands = [np.zeros((256, 256), np.float32) for _ in range(4)]
+    ck.reset_launches()
+    assert cbridge.wavelet_apply2d(1, 0, 8, 0, _fp(img), 512, 512,
+                                   *map(_fp, bands)) == 0
+    # the row pass, then the stacked column pass
+    assert ck.LAUNCHES["filter_bank"] == 2
+    want = wv.wavelet_apply2d("daub", 8, wv.ExtensionType.PERIODIC, img,
+                              simd=False)
+    for got, ref in zip(bands, want):
+        assert _rel(got, ref) <= 1e-4
+
+
+def test_cabi_c_suite_passes_on_the_card():
+    import subprocess
+    from pathlib import Path
+
+    from veles.simd_tpu_torch import cabi
+
+    if cabi.toolchain() is None:
+        pytest.skip("gcc, python3-config or Python's headers unavailable")
+    prog = cabi.build_program(Path(__file__).resolve().parent.parent
+                              / "csrc" / "test_veles_simd.c")
+    run = subprocess.run([str(prog)], capture_output=True, text=True,
+                         env=cabi.program_env(), timeout=600)
+    assert run.returncode == 0, (run.stdout[-2000:], run.stderr[-3000:])
+    assert "0 failures" in run.stdout
+    assert f"backend: torch:cuda:{torch.cuda.get_device_name(0)}" \
+        in run.stdout
+
+
+CUPTI_HEADER = "/usr/local/cuda/include/cupti_activity.h"
+
+
+def test_devtrace_offsets_match_the_toolkit_header(tmp_path):
+    # the record fields devtrace reads sit where the CUDA toolkit's
+    # cupti_activity.h puts them, in its newest kernel, copy and
+    # memset records
+    import re
+    import shutil
+    import subprocess
+
+    from veles.simd_tpu_torch.utils import devtrace as dt
+
+    if shutil.which("gcc") is None or not os.path.exists(CUPTI_HEADER):
+        pytest.skip(f"needs gcc and {CUPTI_HEADER}")
+    text = open(CUPTI_HEADER).read()
+    newest = {kind: re.findall(rf"^\}} (CUpti_Activity{name}\d+);", text,
+                               re.M)[-1]
+              for kind, name in (("kernel", "Kernel"), ("memcpy", "Memcpy"),
+                                 ("memset", "Memset"))}
+    lines = [f'printf("{kind} {field} %zu\\n", '
+             f"offsetof({newest[kind]}, {field}));"
+             for kind, fields in dt.OFFSETS.items() for field in fields]
+    src = tmp_path / "offsets.c"
+    src.write_text("#include <stdio.h>\n#include <stddef.h>\n"
+                   "#include <cupti_activity.h>\nint main(void) {\n"
+                   + "\n".join(lines) + "\nreturn 0; }\n")
+    exe = tmp_path / "offsets"
+    subprocess.run(["gcc", f"-I{os.path.dirname(CUPTI_HEADER)}", str(src),
+                    "-o", str(exe)], check=True, timeout=120)
+    out = subprocess.run([str(exe)], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    got = {}
+    for line in out.split("\n"):
+        if line:
+            kind, field, off = line.split()
+            got.setdefault(kind, {})[field] = int(off)
+    assert got == dt.OFFSETS
+
+
+def test_devtrace_reads_each_launch_and_copy():
+    # one record a launch and a copy, named as torch.profiler names
+    # them, each kernel's device time within its chained event time
+    from veles.simd_tpu_torch.utils import devtrace as dt
+
+    a = torch.randn(2048, 2048, device="cuda")
+    host = torch.randn(1 << 20)
+
+    def body():
+        for _ in range(4):
+            a @ a
+        host.to("cuda")
+
+    dt.trace(body)
+    records, _ = dt.trace(body)
+    copies = [r for r in records if r.name.startswith("Memcpy")]
+    kernels = [r for r in records if not r.name.startswith("Mem")]
+    assert len(kernels) == 4 and len({r.name for r in kernels}) == 1
+    assert [r.name for r in copies] == ["Memcpy HtoD (Pageable -> Device)"]
+    event_ms = bm.device_time_ms(lambda: a @ a, iters=20)
+    busy_ms = float(np.median([r.ns for r in kernels])) / 1e6
+    assert 0.5 * event_ms <= busy_ms <= 1.05 * event_ms

@@ -406,8 +406,8 @@ def test_constant_cache_bounds_entries_and_bytes():
 
 
 def test_device_rows_retries_empty_profiler_windows(monkeypatch):
-    # torch.profiler can return a window without device events: the
-    # helper takes another window, up to twelve, then raises
+    # a window can come back without device events: the helper takes
+    # another window, up to twelve, then raises
     got = iter([([], 1.0)] * 3 + [([(5.0, "k", 1.0)], 1.0)] * 3)
     monkeypatch.setattr(tbench, "_profile", lambda fn, calls: next(got))
     assert tbench._device_rows(lambda: None, 3) == [(5.0, "k", 1.0)]
@@ -420,6 +420,29 @@ def test_device_rows_retries_empty_profiler_windows(monkeypatch):
     with pytest.raises(RuntimeError, match="no device time"):
         tbench._device_rows(lambda: None, 3)
     assert len(seen) == 12
+
+
+@pytest.mark.parametrize("calls", [1, 4])
+def test_profile_sums_trace_records_by_name(monkeypatch, calls):
+    # a traced warm-up, then one traced window of ``calls`` calls whose
+    # records are summed by name, per call, largest first
+    from veles.simd_tpu_torch.utils import devtrace
+
+    seen = []
+
+    def fake_trace(fn):
+        seen.append(fn)
+        records = [devtrace.Record("k", 2000), devtrace.Record("k", 4000),
+                   devtrace.Record("Memset", 500)] * calls
+        return records, fn()
+
+    monkeypatch.setattr(devtrace, "trace", fake_trace)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ran = []
+    rows, wall_us = tbench._profile(lambda: ran.append(1), calls)
+    assert len(seen) == 2 and wall_us > 0
+    assert rows == [(6.0, "k", 2.0), (0.5, "Memset", 1.0)]
+    assert len(ran) == 1 + calls
 
 
 def test_device_rows_keeps_the_longest_window(monkeypatch):

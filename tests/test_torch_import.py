@@ -9,6 +9,7 @@ library exports each public name of its JAX twin.
 
 import importlib
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -82,13 +83,19 @@ def test_port_modules_listed():
                  "veles.simd_tpu_torch.parallel.mesh",
                  "veles.simd_tpu_torch.parallel.ops",
                  "veles.simd_tpu_torch.parallel.fourier",
-                 "veles.simd_tpu_torch.parallel.distributed"):
+                 "veles.simd_tpu_torch.parallel.distributed",
+                 "veles.simd_tpu_torch.runtime.artifacts",
+                 "veles.simd_tpu_torch.cshim",
+                 "veles.simd_tpu_torch.cabi"):
         assert name in mods
 
 
 def test_port_imports_without_jax():
+    # the C shim computes on the card unless VELES_SIMD_PLATFORM=cpu,
+    # and its import fails where no card answers: the child sets it
     code = f"""
-import importlib, runpy, sys
+import importlib, os, runpy, sys
+os.environ["VELES_SIMD_PLATFORM"] = "cpu"
 sys.modules["jax"] = None
 sys.path.insert(0, {str(REPO)!r})
 for name in {_port_modules()!r}:
@@ -110,7 +117,8 @@ print("ok")
                                   "tune_overlap_save_torch.py",
                                   "time_torch_autotune_off.py",
                                   "time_torch_obs_off.py",
-                                  "time_torch_profiler_threads.py"])
+                                  "time_torch_profiler_sessions.py",
+                                  "time_torch_cold_start.py"])
 def test_port_tools_import_without_jax(tool):
     code = f"""
 import runpy, sys
@@ -133,7 +141,8 @@ print("ok")
                                   "tune_overlap_save_torch.py",
                                   "time_torch_autotune_off.py",
                                   "time_torch_obs_off.py",
-                                  "time_torch_profiler_threads.py"])
+                                  "time_torch_profiler_sessions.py",
+                                  "time_torch_cold_start.py"])
 def test_port_tools_refuse_to_run_without_a_card(tool):
     # the CPU has no card: the tools exit 2 before measuring anything
     code = f"""
@@ -182,7 +191,8 @@ def test_op_modules_are_listed_in_pairs():
                                   "obs", "serve", "parallel",
                                   "parallel.mesh", "parallel.ops",
                                   "parallel.fourier",
-                                  "parallel.distributed"])
+                                  "parallel.distributed",
+                                  "runtime.artifacts", "runtime"])
 def test_runtime_and_obs_copies_keep_the_jax_all(name):
     # the fault policy, the breakers, the flight recorder, its writer
     # and exporters, the segment packing, obs's standalone half, the
@@ -216,6 +226,48 @@ print(json.dumps(parallel.__all__))
     port_all = json.loads(out.stdout.strip().splitlines()[-1])
     assert port_all == ref.__all__
     assert len(port_all) == 35 and "distributed" in port_all
+
+
+def test_artifacts_all_is_the_jax_all_with_jax_blocked():
+    code = f"""
+import json, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+from veles.simd_tpu_torch.runtime import artifacts
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+assert not bad, bad
+print(json.dumps(artifacts.__all__))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    ref = importlib.import_module("veles.simd_tpu.runtime.artifacts")
+    port_all = json.loads(out.stdout.strip().splitlines()[-1])
+    assert port_all == ref.__all__ and len(port_all) == 20
+
+
+def test_cshim_imports_on_the_cpu_without_jax():
+    # VELES_SIMD_PLATFORM=cpu: the C shim computes on the CPU and
+    # loads nothing of the JAX package; without it and without a card
+    # its import raises (the C bridge's init then returns -1)
+    code = f"""
+import json, os, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+from veles.simd_tpu_torch import cshim
+from veles.simd_tpu_torch.utils.config import get_config
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+print(json.dumps({{"bad": bad, "device": get_config().device,
+                  "backend": cshim.backend_description()}}))
+"""
+    env = dict(os.environ, VELES_SIMD_PLATFORM="cpu")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"bad": [], "device": "cpu", "backend": "torch:cpu"}
 
 
 @pytest.mark.parametrize("name", _ops_with_jax_twins())

@@ -24,13 +24,16 @@ On the CPU (``set_config(device="cpu")``, ``JAX_PLATFORMS=cpu``):
 * what the card changes: one copy back per batch, the capture gate
   (one a process, held by every server in it), a served pipeline
   whose degraded block keeps its state exact, and ``Server.start``
-  refusing an armed artifact store.
+  preloading an armed artifact store's warm pack (the packed kernel
+  library placed under the build root; a stale pack places nothing and
+  the server starts cold).
 
 The same behaviours on the card: ``tests/test_torch_cuda.py -k serve``.
 """
 
 import ast
 import dataclasses
+import json
 import sys
 import threading
 import time
@@ -1029,15 +1032,96 @@ def test_the_trace_device_phase_ends_after_the_copy(monkeypatch,
         assert _phase_drift(t.trace) <= 1e-3
 
 
+@pytest.fixture
+def warm_pack(tmp_path, monkeypatch):
+    """A warm pack bound through ``$VELES_SIMD_ARTIFACT_DIR``: a
+    stand-in kernel library (random bytes where nvcc's output would be;
+    nothing on the CPU loads it) packed in ``on`` mode, and an empty
+    build root for the server to fill.  Yields the pack directory and
+    where the library must land."""
+    from veles.simd_tpu_torch.ops import cuda_kernels as ck
+    from veles.simd_tpu_torch.runtime import artifacts as art
+
+    prev = ck.set_build_root()
+    ck.set_build_root(tmp_path / "built")
+    out = ck._build_dir()
+    out.mkdir(parents=True)
+    (out / ck._LIB_NAME).write_bytes(np.random.RandomState(5).bytes(512))
+    (out / "build.log").write_text("stand-in build log\n")
+    pack = str(tmp_path / "pack")
+    with art.private_artifact_store(pack), art.artifacts_mode_override("on"):
+        assert art.store_kernel_library() == "stored"
+    ck.set_build_root(tmp_path / "fresh")
+    monkeypatch.setenv(art.ARTIFACT_DIR_ENV, pack)
+    try:
+        yield pack, ck._build_dir() / ck._LIB_NAME
+    finally:
+        ck.set_build_root(prev)
+
+
 @pytest.mark.parametrize("mode", ["on", "readonly", " ON "])
-def test_armed_artifact_store_refuses_to_start(monkeypatch, mode):
+def test_armed_artifact_store_preloads_at_start(monkeypatch, warm_pack,
+                                                mode):
+    pack, placed = warm_pack
     monkeypatch.setenv(tserver.ARTIFACTS_ENV, mode)
-    srv = serve.Server(obs_port=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        srv.start()
-    assert not srv._started and srv._threads == []
-    assert srv.obs_port is None
-    srv.stop()
+    srv = serve.Server(obs_port=0, workers=1)
+    assert not placed.exists()
+    srv.start()
+    try:
+        report = srv.stats()["artifact_preload"]
+        assert report == {"loaded": 1, "failed": 0,
+                          "mode": mode.strip().lower(), "path": pack}
+        assert placed.exists()       # load_library's cache-hit path
+        assert srv._started and len(srv._threads) == 1
+        assert srv.obs_port is not None
+        x = _signal(300)
+        y = srv.submit(serve.Request("sosfilt", x, {"sos": SOS})).result(
+            timeout=60.0)
+        assert _rel(y, iir.sosfilt(SOS, x, simd=False)) <= IIR_TOL
+    finally:
+        srv.stop()
+
+
+def test_stale_pack_starts_cold_and_never_raises(monkeypatch, warm_pack):
+    pack, placed = warm_pack
+    path = Path(pack) / "MANIFEST.json"
+    manifest = json.loads(path.read_text())
+    manifest["device"] = "NVIDIA H100 80GB HBM3 sm_90"
+    path.write_text(json.dumps(manifest))
+    monkeypatch.setenv(tserver.ARTIFACTS_ENV, "readonly")
+    obs.enable(compile_listeners=False)
+    obs.reset()
+    try:
+        with serve.Server(workers=1) as srv:
+            report = srv.stats()["artifact_preload"]
+        assert report["loaded"] == 0 and report["failed"] == 1
+        assert obs.counter_value("artifact_stale", op="kernels",
+                                 route="cuda") == 1
+    finally:
+        obs.disable()
+        obs.reset()
+    assert not placed.exists()
+
+
+def test_failed_preload_counts_and_starts_cold(monkeypatch, warm_pack):
+    def broken():
+        raise OSError("pack unreadable")
+
+    monkeypatch.setattr(tserver._artifacts, "preload", broken)
+    monkeypatch.setenv(tserver.ARTIFACTS_ENV, "on")
+    obs.enable(compile_listeners=False)
+    obs.reset()
+    try:
+        with serve.Server(workers=1) as srv:
+            assert srv.stats()["artifact_preload"] is None
+            x = _signal(200)
+            y = srv.submit(serve.Request("sosfilt", x, {"sos": SOS})
+                           ).result(timeout=60.0)
+        assert obs.counter_value("artifact_preload_error") == 1
+    finally:
+        obs.disable()
+        obs.reset()
+    assert _rel(y, iir.sosfilt(SOS, x, simd=False)) <= IIR_TOL
 
 
 @pytest.mark.parametrize("mode", [None, "off", "junk"])

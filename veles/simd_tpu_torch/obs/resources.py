@@ -390,7 +390,12 @@ def instrumented_jit(fn=None, *, op=None, route=None, work=None,
     (defaults: the callable's name, route ``"default"``) and ``work=``,
     a callable of the same arguments returning ``(flops, bytes)``.  The
     JAX keywords (``artifact_key``, ``static_argnames``, ...) are
-    accepted and unused."""
+    accepted and unused: an eager torch callable compiles no program
+    per geometry, so there is nothing for the artifact store to load
+    before a call or export after it (``runtime.artifacts.
+    export_and_store`` answers ``unsupported``); the port's one
+    compiled program, the kernel library, is packed and preloaded
+    whole."""
     if fn is None:
         def deco(f):
             return InstrumentedJit(f, op=op, route=route, work=work,

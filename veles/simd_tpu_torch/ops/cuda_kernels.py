@@ -63,9 +63,13 @@ plain C interface and loaded with ``ctypes``.  The build lands in
 checkout (listed in ``.gitignore``), so a changed source rebuilds and an
 unchanged one is reused within a checkout.  ``$CUDA_HOME`` (default
 ``/usr/local/cuda``) or ``nvcc`` on ``$PATH`` names the compiler;
-:func:`set_build_root` (``utils.profiler.enable_compilation_cache``)
-moves the build root before the first load.  Builds and reuses count
-as the ``compile.*`` metrics of ``obs.compile``.
+:func:`set_build_root` (``runtime.artifacts.
+enable_persistent_compile_cache``) moves the build root before the
+first load.  Builds and reuses count as the ``compile.*`` metrics of
+``obs.compile``.  An armed artifact store (``runtime/artifacts.py``)
+places a packed library under the build root before the first load
+(its cache-hit path, no nvcc), and in ``on`` mode packs the library
+this process loaded.
 """
 
 from __future__ import annotations
@@ -463,7 +467,7 @@ def set_build_root(path=None) -> str:
     ``<hash>`` subdirectories live under it); returns it.  ``path``
     moves it, before the first :func:`load_library` only: afterwards a
     different directory raises ``RuntimeError``
-    (``utils.profiler.enable_compilation_cache``)."""
+    (``runtime.artifacts.enable_persistent_compile_cache``)."""
     global _BUILD_ROOT
     with _lib_lock:
         if path is None:
@@ -630,6 +634,10 @@ def load_library():
                 "csrc/ tile geometry differs from the admission "
                 "constants in cuda_kernels.py")
         _lib = lib
+        # an armed "on" artifact store packs what was loaded, once
+        from veles.simd_tpu_torch.runtime import artifacts
+
+        artifacts.on_library_loaded(out_dir)
         return lib
 
 

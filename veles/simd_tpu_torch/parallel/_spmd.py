@@ -432,8 +432,7 @@ def _body(run, fn, coord, args, results, errors):
 class _Worker:
     """A pooled shard thread: it runs one shard's body a task, then
     returns itself to the idle pool, so a sharded call reuses threads
-    (thousands of short-lived threads leave ``torch.profiler`` losing
-    kernels from its windows)."""
+    and starts none of its own."""
 
     def __init__(self):
         self.tasks = queue.SimpleQueue()

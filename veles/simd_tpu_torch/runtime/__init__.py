@@ -7,14 +7,16 @@ fault-injection harness), the per-``(site, shape-class)`` circuit
 breakers (:mod:`.breaker`; ``parallel.dispatch`` keys them per
 ``(op, mesh class)``), the routing engine with its measured autotuner
 and tune cache (:mod:`.routing`; mesh-stamped entries for the sharded
-Fourier families) and the matmul precision layer (:mod:`.precision`:
-fp32, TF32, bf16, compensated bf16, int8).  The JAX package's fourth
-module, the artifact store (``runtime/artifacts.py``), is not ported
-yet (ROADMAP Queue 1 item 7)."""
+Fourier families), the matmul precision layer (:mod:`.precision`:
+fp32, TF32, bf16, compensated bf16, int8) and the artifact store
+(:mod:`.artifacts`: the nvcc-built kernel library shipped as a stamped
+warm pack, placed under the build root before the first load so a
+fresh process runs no nvcc)."""
 
+from veles.simd_tpu_torch.runtime import artifacts
 from veles.simd_tpu_torch.runtime import breaker
 from veles.simd_tpu_torch.runtime import faults
 from veles.simd_tpu_torch.runtime import precision
 from veles.simd_tpu_torch.runtime import routing
 
-__all__ = ["breaker", "faults", "precision", "routing"]
+__all__ = ["artifacts", "breaker", "faults", "precision", "routing"]

@@ -45,8 +45,10 @@ traffic or the card misbehaves:
 * :mod:`~veles.simd_tpu_torch.serve.scaler` — the SLO-driven autoscaler
   over ``obs.signals()`` that acts only through the group's verbs.
 
-Not ported yet: the artifact store's preload (ROADMAP Queue 1 item 7:
-``Server.start`` refuses an armed store, in every replica).
+The artifact store's warm pack (``runtime/artifacts.py``: the packed
+kernel library) is preloaded by ``Server.start`` when
+``$VELES_SIMD_ARTIFACTS`` arms the store, in every replica, and by a
+subprocess replica before it loads the library.
 
 Knobs (constructor args override the environment):
 ``VELES_SIMD_SERVE_MAX_BATCH``, ``VELES_SIMD_SERVE_MAX_WAIT_MS``,

@@ -108,11 +108,15 @@ parent forwards the kernel library's build directory too
 (``ops.cuda_kernels.set_build_root``), and a ``cuda`` child loads the
 library its parent built and creates its CUDA context before it
 reports ready, so the first request a failover lands there meets a
-loaded library, not an ``nvcc`` build inside the spawn timeout.  A
-child that cannot start reports a typed error line instead of its
-port: an armed artifact store (``$VELES_SIMD_ARTIFACTS``, not ported:
-ROADMAP Queue 1 item 7) raises ``NotImplementedError`` in the parent,
-as it does in a thread replica's ``Server.start``.
+loaded library, not an ``nvcc`` build inside the spawn timeout.  With
+the artifact store armed (``$VELES_SIMD_ARTIFACTS``, inherited from
+the parent's environment) a child preloads the warm pack before it
+loads the library — the packed library is placed under its build
+root, so even a fresh build root runs no nvcc — and its ready line
+carries the ``artifact_preload`` report, as a thread replica's
+``Server.start`` preloads.  A child that cannot start reports a typed
+error line instead of its port, and the parent raises
+``RuntimeError``.
 
 Usage::
 
@@ -324,6 +328,9 @@ class Replica:
         # subprocess mode: seconds from the child's spawn to its ready
         # line (torch import, CUDA context, kernel library, pipelines)
         self.ready_s = None
+        # subprocess mode: the child's warm-pack preload report from its
+        # ready line (None while the artifact store is off)
+        self.artifact_preload = None
         self._launched = None
         # the RPC data plane handle (subprocess mode only): armed in
         # start() once the child reports its port, closed after the
@@ -444,15 +451,13 @@ class Replica:
                 continue
             if isinstance(msg, dict) and msg.get("error"):
                 self.proc.wait()
-                err = (NotImplementedError
-                       if msg.get("kind") == "not_implemented"
-                       else RuntimeError)
-                raise err(f"replica {self.rid} subprocess failed to "
-                          f"start: {msg['error']}")
+                raise RuntimeError(f"replica {self.rid} subprocess "
+                                   f"failed to start: {msg['error']}")
             if isinstance(msg, dict) \
                     and msg.get("port") is not None:
                 self.ready_s = faults.monotonic() - self._launched
                 self.port = int(msg["port"])
+                self.artifact_preload = msg.get("artifact_preload")
                 # arm the data plane: pooled keep-alive connections
                 # into the child's POST /submit route
                 self.rpc = _rpc.RpcClient(obs_http.BIND_HOST,
@@ -1606,10 +1611,10 @@ class FrontRouter:
 def _child_ready(device: str) -> None:
     """Make a child ready for its first request on ``device``: on the
     card, create the CUDA context and load the kernel library (built by
-    the parent, found under the forwarded build root) — the part the
-    JAX package's artifact preload plays, so a failover's first
-    request here meets a loaded library.  Raises where ``cuda`` is
-    asked and no card is present."""
+    the parent, found under the forwarded build root, or placed there
+    by the warm pack's preload), so a failover's first request here
+    meets a loaded library.  Raises where ``cuda`` is asked and no card
+    is present."""
     if device != "cuda":
         return
     import torch
@@ -1661,6 +1666,9 @@ def _replica_main(argv=None) -> int:
                  max_wait_ms=args.max_wait_ms,
                  obs_port=args.obs_port, **kwargs)
     try:
+        # the warm pack goes under the build root before the library's
+        # first load, so that load finds it built (no nvcc)
+        srv._warm_pack()
         _child_ready(args.device)
         if args.pipeline_spec:
             from veles.simd_tpu_torch import pipeline as _pl
@@ -1672,17 +1680,16 @@ def _replica_main(argv=None) -> int:
                 spec = json.loads(raw)
                 srv.register_pipeline(spec["name"],
                                       _pl.pipeline_from_spec(spec))
-        # start() refuses an armed artifact store (not ported: ROADMAP
-        # Queue 1 item 7), as in a thread replica
         srv.start()
     except Exception as e:  # noqa: BLE001 — reported typed, then exit
-        kind = ("not_implemented" if isinstance(e, NotImplementedError)
-                else type(e).__name__)
         print(json.dumps({"error": f"{type(e).__name__}: {e}",
-                          "kind": kind}), flush=True)
+                          "kind": type(e).__name__}), flush=True)
         return 1
-    print(json.dumps({"port": srv.obs_port, "pid": os.getpid(),
-                      "device": args.device}), flush=True)
+    ready = {"port": srv.obs_port, "pid": os.getpid(),
+             "device": args.device}
+    if srv._preload is not None:
+        ready["artifact_preload"] = srv._preload
+    print(json.dumps(ready), flush=True)
     try:
         sys.stdin.read()        # parked until the parent lets go
     except Exception:  # noqa: BLE001 — any stdin failure = shutdown

@@ -6,9 +6,10 @@ no JAX; copied, since the port never loads the JAX package).  The
 open-loop parts of elastic autoscaling — per-tenant SLO burn gauges,
 the :class:`~veles.simd_tpu_torch.serve.cluster.ReplicaGroup` verbs
 (spawn/retire/restart, wedge detection) — all exist; this module is
-the controller that closes the loop.  A replica it spawns starts cold
-in the port (no artifact store yet: ROADMAP Queue 1 item 7; a
-subprocess child loads the kernel library its parent built):
+the controller that closes the loop.  A replica it spawns starts
+warm in the port when the artifact store is armed (its preload places
+the packed kernel library), and a subprocess child loads the kernel
+library its parent built, so no replica it spawns runs nvcc:
 
 * **reads only the typed signals contract** — every input comes from
   :func:`veles.simd_tpu_torch.obs.signals` (SLO burn + burn velocity, queue

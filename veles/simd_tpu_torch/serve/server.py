@@ -83,11 +83,16 @@ What the card changes:
   a process); replays of a captured class and every plain batch share
   the card freely.  Work on the card from outside the servers is the
   caller's to keep off a first pipeline batch;
-* **no artifact store** — the JAX package's ahead-of-time artifact
-  preload is not ported (ROADMAP Queue 1 item 7): :meth:`Server.start`
-  raises ``NotImplementedError`` when ``VELES_SIMD_ARTIFACTS`` arms it
-  (``on`` / ``readonly``), and ``stats()["artifact_preload"]`` is
-  None, in a replica of ``serve.cluster`` too.
+* **the warm pack is the kernel library** — with the artifact store
+  armed (``VELES_SIMD_ARTIFACTS=on|readonly``,
+  :mod:`veles.simd_tpu_torch.runtime.artifacts`), :meth:`Server.start`
+  preloads it before any worker runs: the packed nvcc-built library is
+  placed under the build root, so the first request's kernel loads it
+  without an nvcc build.  Best effort, as in the JAX package: a stale
+  or torn pack counts and places nothing, a failed preload counts
+  ``artifact_preload_error``, and the server starts cold either way;
+  ``stats()["artifact_preload"]`` is the report (None when the store
+  is off), in a replica of ``serve.cluster`` too.
 
 Usage::
 
@@ -134,6 +139,7 @@ from veles.simd_tpu_torch.ops import iir as _iir
 from veles.simd_tpu_torch.ops import resample as _rs
 from veles.simd_tpu_torch.ops import segments as _segments
 from veles.simd_tpu_torch.ops import spectral as _sp
+from veles.simd_tpu_torch.runtime import artifacts as _artifacts
 from veles.simd_tpu_torch.runtime import breaker as _breaker
 from veles.simd_tpu_torch.runtime import faults
 from veles.simd_tpu_torch.serve.admission import (AdmissionController,
@@ -178,11 +184,8 @@ RAGGED_ENV = "VELES_SIMD_SERVE_RAGGED"
 RAGGED_MAX_ENV = "VELES_SIMD_SERVE_RAGGED_MAX"
 DEFAULT_RAGGED_MAX = 2048
 
-# the JAX package's artifact-store switch (runtime/artifacts.py), read
-# with its parsing: the store is not ported, so an armed one refuses
-# to start instead of serving cold
-ARTIFACTS_ENV = "VELES_SIMD_ARTIFACTS"
-_ARTIFACT_MODES = ("off", "on", "readonly")
+# the artifact-store switch start() reads (runtime/artifacts.py)
+ARTIFACTS_ENV = _artifacts.ARTIFACTS_ENV
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -217,14 +220,6 @@ def ragged_max() -> int:
         if v > 0:
             return v
     return DEFAULT_RAGGED_MAX
-
-
-def _artifacts_mode() -> str:
-    """``$VELES_SIMD_ARTIFACTS`` as the JAX package reads it: ``off``
-    (default), ``on`` or ``readonly``; unknown values read as
-    ``off``."""
-    raw = os.environ.get(ARTIFACTS_ENV, "off").strip().lower()
-    return raw if raw in _ARTIFACT_MODES else "off"
 
 
 def env_deadline_ms() -> float | None:
@@ -647,8 +642,8 @@ class Server:
         self._goodput_samples: dict = {}
         self._started = False
         self._stopped = False
-        # the JAX package's warm-pack preload report; the artifact
-        # store is not ported, so it stays None
+        # the warm-pack preload report: set by start() (or
+        # _warm_pack()) when the artifact store is armed, else None
         self._preload = None
 
     # -- lifecycle ---------------------------------------------------------
@@ -657,21 +652,13 @@ class Server:
         """Spawn the worker pool and (when armed via ``obs_port=`` or
         ``$VELES_SIMD_OBS_PORT``; a negative ``obs_port=`` disarms
         even with the env var set) the live scrape endpoint
-        (idempotent).  Raises ``NotImplementedError`` when
-        ``$VELES_SIMD_ARTIFACTS`` arms the artifact store (``on`` /
-        ``readonly``), which is not ported yet."""
+        (idempotent).  With ``$VELES_SIMD_ARTIFACTS`` arming the
+        artifact store, the warm pack is preloaded (:meth:`_warm_pack`)
+        before any worker runs."""
         if self._stopped:
             raise ServerClosed("server already stopped")
         if self._started:
             return self
-        if _artifacts_mode() != "off":
-            # refused before anything starts: an armed store the port
-            # cannot preload must not be ignored
-            raise NotImplementedError(
-                f"{ARTIFACTS_ENV}={_artifacts_mode()}: the artifact "
-                "store (runtime/artifacts.py, the warm-pack preload) is "
-                "not ported yet (ROADMAP Queue 1 item 7); unset it or "
-                "set it to off")
         # the endpoint arms FIRST, before anything else starts: a bind
         # failure (port in use) must raise out of a server with no
         # workers running and _started still False — never a
@@ -684,6 +671,7 @@ class Server:
                                             health=self.stats,
                                             submit=self._rpc_submit)
         self._started = True
+        self._warm_pack()
         for i in range(self.workers):
             t = threading.Thread(target=self._worker, daemon=True,
                                  name=f"veles-serve-worker-{i}")
@@ -708,6 +696,22 @@ class Server:
         obs.gauge("serve_healthy", 1.0,
                   **({"replica": self.name} if self.name else {}))
         return self
+
+    def _warm_pack(self) -> dict | None:
+        """Preload the armed artifact store's warm pack once
+        (:func:`~veles.simd_tpu_torch.runtime.artifacts.preload`: the
+        packed kernel library placed under the build root, so its first
+        load runs no nvcc); returns the report, None while the store is
+        off.  :meth:`start` calls it; a subprocess replica calls it
+        before it loads the library.  Best effort: a failed preload
+        counts ``artifact_preload_error`` and the server starts
+        cold."""
+        if self._preload is None and _artifacts.artifacts_mode() != "off":
+            try:
+                self._preload = _artifacts.preload()
+            except Exception:  # noqa: BLE001 — never block startup
+                obs.count("artifact_preload_error")
+        return self._preload
 
     @property
     def obs_port(self) -> int | None:

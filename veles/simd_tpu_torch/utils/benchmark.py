@@ -7,11 +7,11 @@
   host's enqueue cost overlaps the device work and the marginal per
   launch is device time.
 * :func:`host_time` — best-of-N wall time of a synchronous function.
-* :func:`device_busy_ms` — ``torch.profiler``'s device time per call,
-  summed over its kernels and copies: a kernel's time free of the
-  host's enqueue cost.
-* :func:`device_breakdown` — ``torch.profiler``'s device time per
-  kernel and copy for one call, and the device's idle share;
+* :func:`device_busy_ms` — the device time per call (CUPTI's records,
+  :mod:`~veles.simd_tpu_torch.utils.devtrace`), summed over its
+  kernels and copies: a kernel's time free of the host's enqueue cost.
+* :func:`device_breakdown` — the device time per kernel and copy for
+  one call, and the device's idle share;
   :func:`device_kernels` — the names of those kernels and copies;
   :func:`device_profile` — the busy time and how many kernels and
   copies one call runs.
@@ -106,42 +106,41 @@ def host_time(fn, *, repeats: int = 3, warmup: int = 1) -> float:
 
 
 def _profile(fn, calls: int):
-    """``(rows, wall_us)``: ``torch.profiler``'s device microseconds per
-    call of ``fn`` by kernel or copy, largest first, with their names
-    and launches per call, and the host-clock microseconds per call,
-    over ``calls`` calls after one profiled warm-up."""
-    from torch.profiler import ProfilerActivity, profile
+    """``(rows, wall_us)``: the device microseconds per call of ``fn`` by
+    kernel or copy (:mod:`~veles.simd_tpu_torch.utils.devtrace`'s
+    records, summed by name), largest first, with their names and
+    launches per call, and the host-clock microseconds per call, over
+    ``calls`` calls after one traced warm-up."""
+    from veles.simd_tpu_torch.utils import devtrace
 
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    # the first profiled call in a process also starts CUPTI, which
-    # takes seconds: keep that out of the measured window
-    with profile(activities=activities):
-        fn()
-        torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        # the clock runs inside the profiled window: the profiler's
-        # own start and stop stay out of the wall time
+    # the first trace in a process also starts CUPTI, which takes
+    # seconds: keep that out of the measured window
+    devtrace.trace(fn)
+
+    def window():
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / calls
-    # device-side events only (kernels, copies, memsets): the host ops
-    # that launched them report the same time again
-    rows = sorted(((e.device_time_total / calls, e.key, e.count / calls)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
+        return (time.perf_counter() - t0) * 1e6 / calls
+
+    records, wall_us = devtrace.trace(window)
+    by_name: dict[str, list] = {}
+    for rec in records:
+        total = by_name.setdefault(rec.name, [0, 0])
+        total[0] += rec.ns
+        total[1] += 1
+    rows = sorted(((ns / 1e3 / calls, name, n / calls)
+                   for name, (ns, n) in by_name.items()), reverse=True)
     return rows, wall_us
 
 
 def _device_rows(fn, calls: int, windows: int = 12, keep: int = 3):
-    """:func:`_profile`'s rows from the longest of ``keep`` windows.  A
-    trace can come back empty on its own, four times in a row too (late
-    in a long process), or short (some launches with a fraction of
-    their device time, so that a kernel reads below its bound), but
-    never long: so up to ``windows`` windows, the first ``keep`` that
-    saw device time compared, the longest kept."""
+    """:func:`_profile`'s rows from the longest of ``keep`` windows: up
+    to ``windows`` windows, the first ``keep`` that saw device time
+    compared, the longest kept (``torch.profiler``, which this module
+    read before :mod:`~veles.simd_tpu_torch.utils.devtrace`, lost
+    kernels from windows and never added any)."""
     best, seen = None, 0
     for _ in range(windows):
         rows, _ = _profile(fn, calls)
@@ -154,16 +153,16 @@ def _device_rows(fn, calls: int, windows: int = 12, keep: int = 3):
         if seen == keep:
             break
     if best is None:
-        raise RuntimeError("torch.profiler saw no device time")
+        raise RuntimeError("the trace saw no device time")
     return best
 
 
 def device_busy_ms(fn, *, calls: int = 20, keep: int = 3) -> float:
     """Device milliseconds per call of ``fn``: the sum of its kernels'
-    and copies' device time under ``torch.profiler``, free of the
-    host's enqueue cost (which sets the chained time of a call whose
-    kernels are shorter than its Python dispatch); the longest of
-    ``keep`` windows that saw device time."""
+    and copies' device time in CUPTI's records, free of the host's
+    enqueue cost (which sets the chained time of a call whose kernels
+    are shorter than its Python dispatch); the longest of ``keep``
+    windows that saw device time."""
     return device_profile(fn, calls=calls, keep=keep)[0]
 
 
@@ -173,7 +172,7 @@ def device_breakdown(fn, *, calls: int = 5) -> str:
     the device's idle share of that wall time."""
     rows, wall_us = _profile(fn, calls)
     if not rows:
-        return f"profiler saw no device time ({wall_us:.1f} us wall)"
+        return f"the trace saw no device time ({wall_us:.1f} us wall)"
     busy = sum(row[0] for row in rows)
     parts = [f"{name[:48]} {us:.1f}" for us, name, _ in rows[:6]]
     return (" | ".join(parts) + f" | device busy {busy:.1f} of "
@@ -183,7 +182,7 @@ def device_breakdown(fn, *, calls: int = 5) -> str:
 
 def device_kernels(fn, *, calls: int = 5) -> list[str]:
     """Names of the kernels and copies ``fn`` runs on the device
-    (``torch.profiler``), largest device time first."""
+    (CUPTI's records), largest device time first."""
     return [name for _, name, _ in _device_rows(fn, calls)]
 
 

@@ -76,18 +76,12 @@ def annotate(name: str):
 
 def enable_compilation_cache(cache_dir: str | None = None) -> str:
     """Where the CUDA kernel library is built and reused; returns the
-    directory in use.
+    directory in use.  A delegating shim: the single home of the
+    configuration is
+    :func:`veles.simd_tpu_torch.runtime.artifacts.\
+enable_persistent_compile_cache` (``cache_dir`` or
+    ``$VELES_SIMD_CACHE_DIR`` becomes the build root before the
+    library's first load)."""
+    from veles.simd_tpu_torch.runtime import artifacts
 
-    Before the library's first load, ``cache_dir`` (or
-    ``$VELES_SIMD_CACHE_DIR`` when ``cache_dir`` is None and the
-    variable is set) becomes the build root; without either the root
-    stays ``build/simd_tpu_torch/`` under the checkout.  The library
-    lands in ``<root>/<hash of sources and flags>/``, so an unchanged
-    source is found again by any later process.  After the first load
-    the root cannot move: a different directory raises
-    ``RuntimeError``, the one in use is returned."""
-    from veles.simd_tpu_torch.ops import cuda_kernels
-
-    if cache_dir is None:
-        cache_dir = os.environ.get("VELES_SIMD_CACHE_DIR") or None
-    return cuda_kernels.set_build_root(cache_dir)
+    return artifacts.enable_persistent_compile_cache(cache_dir)
