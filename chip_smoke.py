@@ -274,8 +274,16 @@ without printing a result):
             by side with the first) loads 0, counts ``artifact_stale``,
             places nothing and loads no library; the cold figure is
             this run's ``build:`` line when it was a cache miss
-            (``tools/time_torch_cold_start.py`` times cold and warm
-            processes in turns, each alone).
+            (``tools/cold_start_torch.py`` times cold and warm serving
+            processes in turns, each alone);
+8. bench — ``bench_torch.py``'s configs 4 (the headline, K1 twice a
+            call), 5 (the DWT, K2) and 6 (the STFT routes at 16k x
+            512/64 and 1M x 512/128, K4) through their functions, each
+            after its own check against the oracle, each row finite
+            (one ``bench:`` line a row, with the card), then
+            ``tools/tpu_smoke_torch.run_smoke()`` over every family
+            (one ``bench smoke:`` line a family); any family that
+            fails, or a fault on any of it, fails the phase.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3145,7 +3153,7 @@ def artifacts_phase(ck, smi, build_s, build_compiles):
         with open(path, "w") as f:
             json.dump(manifest, f)
         # the two children side by side (the stale one stops before any
-        # kernel); tools/time_torch_cold_start.py times a child alone
+        # kernel); tools/cold_start_torch.py times a child alone
         env = dict(os.environ, VELES_SIMD_ARTIFACTS="readonly")
         warm_child = spawn_artifact_child("headline", dict(
             env, VELES_SIMD_ARTIFACT_DIR=pack,
@@ -3194,6 +3202,72 @@ def artifacts_phase(ck, smi, build_s, build_compiles):
               f" s | card {smi}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# bench_torch.py's configs the bench phase runs: 4 (the headline),
+# 5 (the DWT) and 6 (the STFT routes)
+BENCH_CONFIGS = ("bench_convolve_1m", "bench_dwt", "bench_stft")
+
+
+def bench_phase(obs, faults, breaker, smi):
+    """``bench_torch.py``'s configs 4, 5 and 6 through their functions
+    (each raises when its own check against the oracle fails), every
+    row finite and on its kernels, then the port's correctness smoke
+    over every family; the healthy paths record no fault."""
+    import bench_torch
+    from tools import tpu_smoke_torch
+
+    t_phase = time.perf_counter()
+    for i, name in enumerate(BENCH_CONFIGS):
+        obs.reset()
+        t0 = time.perf_counter()
+        row = getattr(bench_torch, name)(np.random.RandomState(SEED + i))
+        took = time.perf_counter() - t0
+        check(all(np.isfinite(row[k]) and row[k] > 0
+                  for k in ("value", "baseline")),
+              f"bench {name}: row {row}")
+        if name == "bench_convolve_1m":
+            check(row["oracle_rel_err"] <= bench_torch.HEADLINE_TOL
+                  and row["launches"] == {"overlap_save": 2},
+                  f"bench headline: {row['oracle_rel_err']:.3e}, "
+                  f"launches {row['launches']}")
+            roof = row["roofline"]
+            extra = (f"busy {row['device_busy_ms']:.4f} ms | direct-form "
+                     f"equivalent {roof['pct_of_roofline']:.0f}% of the "
+                     f"fp32 peak, {roof['pct_of_least_work_bound']:.1f}% "
+                     f"of the least-work bound | launches "
+                     f"{row['launches']}")
+        elif name == "bench_dwt":
+            check(row["launches"].get("filter_bank", 0) >= 1,
+                  f"bench dwt: launches {row['launches']}")
+            extra = f"launches {row['launches']}"
+        else:
+            block = row["stft_1m_512_128"]
+            check(block["launches"].get("stft", 0) >= 1
+                  and np.isfinite(block["msamples_per_s"]),
+                  f"bench stft 1M x 512/128: {block}")
+            extra = (f"route {row['stft_route']} (xla_fft "
+                     f"{row['xla_fft_msamples_per_s']:.1f} Ms/s) | 1M x "
+                     f"512/128 {block['route']} "
+                     f"{block['msamples_per_s']:.1f} Ms/s (xla_fft "
+                     f"{block['xla_fft_msamples_per_s']:.1f}), launches "
+                     f"{block['launches']}")
+        healthy(f"bench {name}", obs, faults, breaker)
+        print(f"bench: config {row['metric']}: {row['value']:.1f} "
+              f"{row['unit']} (x{row['value'] / row['baseline']:.1f} over "
+              f"the NumPy oracle's {row['baseline']:.1f}) | {extra} | "
+              f"{took:.1f} s | card {smi}")
+    obs.reset()
+    lines = []
+    ok = tpu_smoke_torch.run_smoke(emit=lines.append)
+    for line in lines:
+        print("bench smoke: " + line)
+    failed = [line for line in lines if not line.endswith(" ok")]
+    check(ok and len(lines) == len(tpu_smoke_torch.FAMILIES)
+          and not failed, f"bench smoke: {failed or lines}")
+    healthy("bench smoke", obs, faults, breaker)
+    print(f"bench: {len(lines)} smoke families passed | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | card {smi}")
 
 
 def autotune_phase(torch, rng, obs, ck, smi):
@@ -4383,8 +4457,11 @@ def main():
     cabi_phase(np.random.RandomState(SEED + 3), bm, ck, smi, kind)
     artifacts_phase(ck, smi, build_s, compiles)
     n_breakers = healthy("cabi and artifacts", obs, faults, breaker)
-    print("healthy: main, reference, dsp, autotune, times, cabi and "
-          "artifacts recorded "
+    # 8. bench_torch.py's configs 4-6 and the port's smoke
+    bench_phase(obs, faults, breaker, smi)
+    n_breakers = healthy("bench", obs, faults, breaker)
+    print("healthy: main, reference, dsp, autotune, times, cabi, "
+          "artifacts and bench recorded "
           "no fault_* counter, no fault_policy event and no fault "
           f"record; {n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start

@@ -1540,3 +1540,41 @@ def test_devtrace_reads_each_launch_and_copy():
     event_ms = bm.device_time_ms(lambda: a @ a, iters=20)
     busy_ms = float(np.median([r.ns for r in kernels])) / 1e6
     assert 0.5 * event_ms <= busy_ms <= 1.05 * event_ms
+
+
+def test_chained_timer_is_in_seconds_on_the_card():
+    # utils.benchmark keeps the JAX units: device_time_chained and
+    # device_time in seconds, device_time_ms in milliseconds, each over
+    # the same 2048^3 product (its kernel outlasts its dispatch)
+    a = torch.randn(2048, 2048, device="cuda")
+    s = bm.device_time_chained(lambda v: bm.rms_normalize(v @ a), a)
+    burst_s = bm.device_time(lambda: a @ a)
+    ms = bm.device_time_ms(lambda: a @ a, iters=20)
+    assert 1e-5 < s < 1e-2 and 1e-5 < burst_s < 1e-2
+    assert 0.5 < ms / (s * 1e3) < 2.0, (ms, s)
+
+
+def _port_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from tools import tpu_smoke_torch
+
+    return tpu_smoke_torch
+
+
+@pytest.mark.parametrize("family", ["arithmetic", "mathfun", "matrix",
+                                    "convolve", "convolve2d",
+                                    "streaming", "correlate",
+                                    "synthesis", "wavelet", "spectral",
+                                    "resample", "iir", "filters",
+                                    "waveforms", "normalize",
+                                    "detect_peaks", "pallas1d",
+                                    "parallel", "serve", "pallas2d"])
+def test_port_smoke_family_passes_on_the_card(family):
+    smoke = _port_smoke()
+    assert family in dict(smoke.FAMILIES)
+    lines = []
+    assert smoke.run_smoke(emit=lines.append, families=[family]), lines
+    assert len(lines) == 1 and lines[0].endswith(" ok"), lines

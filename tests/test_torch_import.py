@@ -1,8 +1,8 @@
 """The PyTorch port imports without JAX and without the JAX package.
 
-Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``, and
-the port's tools) is imported in a fresh interpreter where ``import
-jax`` fails; afterwards no
+Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``,
+``bench_torch.py`` and the port's tools) is imported in a fresh
+interpreter where ``import jax`` fails; afterwards no
 ``veles.simd_tpu`` module may be loaded.  Every port module of the op
 library exports each public name of its JAX twin.
 """
@@ -118,7 +118,11 @@ print("ok")
                                   "time_torch_autotune_off.py",
                                   "time_torch_obs_off.py",
                                   "time_torch_profiler_sessions.py",
-                                  "time_torch_cold_start.py"])
+                                  "time_torch_bench_headline.py",
+                                  "cold_start_torch.py",
+                                  "warm_pack_torch.py",
+                                  "loadgen_torch.py",
+                                  "tpu_smoke_torch.py"])
 def test_port_tools_import_without_jax(tool):
     code = f"""
 import runpy, sys
@@ -142,7 +146,7 @@ print("ok")
                                   "time_torch_autotune_off.py",
                                   "time_torch_obs_off.py",
                                   "time_torch_profiler_sessions.py",
-                                  "time_torch_cold_start.py"])
+                                  "time_torch_bench_headline.py"])
 def test_port_tools_refuse_to_run_without_a_card(tool):
     # the CPU has no card: the tools exit 2 before measuring anything
     code = f"""
@@ -159,6 +163,95 @@ sys.exit(ns["main"]())
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 2, out.stderr
     assert "no CUDA card" in out.stderr
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("bench_torch.py", []),
+    ("bench_torch.py", ["--check"]),
+    ("tools/tpu_smoke_torch.py", []),
+    ("tools/loadgen_torch.py", ["--smoke"]),
+    ("tools/warm_pack_torch.py", []),
+    ("tools/cold_start_torch.py", []),
+])
+def test_measuring_tools_refuse_to_run_without_a_card(script, argv):
+    # bench_torch.py and the tools it drives probe for a card (a
+    # subprocess, require_reachable_device) and exit 2 without one,
+    # with JAX blocked, before measuring anything
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = [{script!r}] + {argv!r}
+sys.path.insert(0, {str(REPO)!r})
+ns = runpy.run_path({str(REPO / script)!r}, run_name="tool")
+sys.exit(ns["main"]())
+"""
+    env = dict(os.environ, VELES_SIMD_DEVICE_WAIT="0")
+    env.pop("VELES_SIMD_PLATFORM", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2, (out.stdout[-2000:], out.stderr[-2000:])
+    assert "no CUDA card" in out.stderr
+    assert "TPU-CHECK" not in out.stderr and not out.stdout.strip()
+
+
+@pytest.mark.parametrize("script", ["tools/warm_pack_torch.py",
+                                    "tools/cold_start_torch.py"])
+def test_kernel_library_tools_refuse_the_cpu(script):
+    # the warm pack is the CUDA kernel library: VELES_SIMD_PLATFORM=cpu
+    # has none to pack or to start cold from
+    env = dict(os.environ, VELES_SIMD_PLATFORM="cpu")
+    out = subprocess.run([sys.executable, str(REPO / script)], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 2, out.stderr[-2000:]
+    assert "CUDA kernel library" in out.stderr
+
+
+def test_bench_torch_imports_without_jax():
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+ns = runpy.run_path({str(REPO / "bench_torch.py")!r}, run_name="bench")
+assert callable(ns["main"]) and callable(ns["bench_convolve_1m"])
+import tools.tpu_smoke_torch, tools.loadgen_torch, tools.cold_start_torch
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_benchmark_all_covers_the_jax_all_with_jax_blocked():
+    # utils.benchmark holds every generic name of the JAX module's
+    # __all__; only the TPU-rate names have no port
+    not_applicable = {
+        "mxu_peak_tflops", "mxu_f32_bound_tflops", "mxu_int8_peak_tops",
+        "MXU_PEAK_TFLOPS_BF16", "MXU_PEAK_TOPS_INT8", "MXU_F32_PASSES",
+        "hbm_bw_gbps", "HBM_BW_GBPS", "ici_bw_gbps", "ICI_BW_GBPS",
+        "xla_fft_eff_gflops", "XLA_FFT_EFF_GFLOPS", "a2a_ici_bytes"}
+    code = f"""
+import json, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+from veles.simd_tpu_torch.utils import benchmark
+missing = [n for n in benchmark.__all__ if not hasattr(benchmark, n)]
+assert not missing, missing
+print(json.dumps(benchmark.__all__))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    port_all = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    ref = importlib.import_module("veles.simd_tpu.utils.benchmark")
+    assert not_applicable <= set(ref.__all__)
+    assert not port_all & not_applicable
+    assert set(ref.__all__) - not_applicable <= port_all, \
+        sorted(set(ref.__all__) - not_applicable - port_all)
 
 
 def _ops_with_jax_twins():

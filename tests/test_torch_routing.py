@@ -383,11 +383,62 @@ class TestMeasuredAutotune:
         got = fam.select(runners={"a": lambda: bump("a"),
                                   "b": lambda: bump("b")},
                          probe_operand=x, n=8)
-        # one warm-up, then bursts of 2 and 2 + iters calls
-        assert calls == {"a": 1 + 2 + 5, "b": 1 + 2 + 5}
+        # one warm-up, then pairs of bursts of 2 and 2 + iters calls:
+        # one pair, or more where a pair did not resolve its marginal
+        for n in calls.values():
+            pairs, rest = divmod(n - 1, 2 + 5)
+            assert rest == 0 and 1 <= pairs <= routing.PROBE_PAIRS, calls
         entry = routing.tune_cache().entry("probe_fam", {"n": 8})
         assert entry["route"] == got
         assert all(t > 0 for t in entry["timings_us"].values())
+
+    @pytest.mark.parametrize("stalled_pairs", [1, routing.PROBE_PAIRS])
+    def test_host_probe_never_stores_an_unresolved_marginal(
+            self, fresh_cache, autotune_on, telemetry, monkeypatch,
+            stalled_pairs):
+        # an injected clock: every call takes 1 us, but the short burst
+        # of a stalled pair also waits 50 us, longer than the long
+        # burst, so its difference is negative; the JAX engine's floor
+        # would store it as 1e-9 s, 0.0 us in the pack, and it would win
+        monkeypatch.setenv(routing.AUTOTUNE_ITERS_ENV, "3")
+        fam = _family()
+        now = [0.0]
+        stalls = {"a": stalled_pairs, "b": 0}
+        bursts = {"a": 0, "b": 0}
+
+        def clock():
+            return now[0]
+
+        def timer(thunk, name):
+            def call():
+                now[0] += 1e-6
+                return thunk()
+
+            def stalling():
+                # four reads a pair: the short burst's start and end,
+                # then the long one's; the stall lands inside the short
+                bursts[name] += 1
+                pair, read = divmod(bursts[name] - 1, 4)
+                if read == 1 and pair < stalls[name]:
+                    now[0] += 50e-6
+                return clock()
+
+            return routing._host_probe(call, clock=stalling)
+
+        with routing.probe_timer(timer):
+            got = fam.select(runners={"a": lambda: 1, "b": lambda: 1},
+                             probe_operand=torch.zeros(16), n=8)
+        entry = routing.tune_cache().entry("probe_fam", {"n": 8})
+        if stalled_pairs == routing.PROBE_PAIRS:
+            # "a" never resolved: the round is inconclusive, the static
+            # prior answers and nothing reaches the tune cache
+            assert got == "a" and entry is None
+            assert obs.counter_value("autotune_probe_unresolved",
+                                     family="probe_fam", route="a") == 1
+        else:
+            # the second pair resolved: 1 us a call for both routes
+            assert entry["timings_us"] == {"a": 1.0, "b": 1.0}
+            assert bursts["a"] == 8 and bursts["b"] == 4
 
     def test_card_probe_never_falls_back_to_the_host_clock(self):
         # a card operand without a usable CUDA runtime: the probe fails

@@ -30,7 +30,6 @@ card: importing this module probes for one
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
@@ -38,9 +37,9 @@ import torch
 from veles.simd_tpu_torch.utils import platform as _platform
 from veles.simd_tpu_torch.utils.config import set_config
 
-PLATFORM_ENV = "VELES_SIMD_PLATFORM"
+PLATFORM_ENV = _platform.PLATFORM_ENV
 
-if os.environ.get(PLATFORM_ENV, "").strip().lower() == "cpu":
+if _platform.requested_device() == "cpu":
     set_config(device="cpu")
 else:
     set_config(device="cuda")

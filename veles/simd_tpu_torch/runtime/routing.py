@@ -47,6 +47,14 @@ Where the port differs from the JAX engine, on purpose:
   events on the operand's current stream for a card operand, and with
   the host clock for a host one.  A card probe that cannot synchronise
   raises; it never falls back to the host clock.
+* **A marginal that does not resolve is no time.**  The JAX engine
+  floors a non-positive burst difference at 1e-9 s, so a probe that
+  noise drove to zero (a stalled short burst on a loaded host) stored
+  0 µs and won.  Here a pair whose marginal is at or under the tune
+  cache's resolution (:data:`PROBE_RESOLUTION_S`, the 0.1 µs it keeps)
+  is measured again, up to :data:`PROBE_PAIRS` pairs; a candidate that
+  never resolves makes the round inconclusive, as a card's transient
+  failure does (``autotune_probe_unresolved``; nothing is stored).
 * **No probe under capture**: while a CUDA graph is being captured on
   the current stream or under ``torch.compiler.is_compiling()``
   (the JAX engine's tracer check) the engine returns the static prior.
@@ -265,14 +273,38 @@ def _probe_iters() -> int:
 # probe timer (injectable — the CPU tests run a deterministic fake)
 # ---------------------------------------------------------------------------
 
+# the least marginal a probe records: the tune cache keeps tenths of a
+# microsecond, so anything at or under this would store as 0 us
+PROBE_RESOLUTION_S = 1e-7
+# burst pairs a probe measures before it gives up on an unresolved
+# marginal
+PROBE_PAIRS = 3
+
+
+class ProbeUnresolved(RuntimeError):
+    """No burst pair of a probe resolved a marginal above
+    :data:`PROBE_RESOLUTION_S`."""
+
+
 def _burst_difference(burst) -> float:
     """Marginal seconds per call from two bursts of different lengths:
-    the fixed cost of a burst (first launch, the final wait) cancels."""
+    the fixed cost of a burst (first launch, the final wait) cancels.
+    A pair at or under :data:`PROBE_RESOLUTION_S` is measured again, up
+    to :data:`PROBE_PAIRS` pairs; then :class:`ProbeUnresolved`."""
     lo = 2
     hi = lo + _probe_iters()
-    t_lo = burst(lo)
-    t_hi = burst(hi)
-    return max((t_hi - t_lo) / (hi - lo), 1e-9)
+    seen = []
+    for _ in range(PROBE_PAIRS):
+        t_lo = burst(lo)
+        t_hi = burst(hi)
+        per_call = (t_hi - t_lo) / (hi - lo)
+        if per_call > PROBE_RESOLUTION_S:
+            return per_call
+        seen.append(per_call)
+    raise ProbeUnresolved(
+        f"{PROBE_PAIRS} burst pairs ({lo} and {hi} calls) left no "
+        f"marginal above {PROBE_RESOLUTION_S * 1e6:.1f} us: "
+        + ", ".join(f"{t * 1e6:.3f} us" for t in seen))
 
 
 def _cuda_probe(thunk, dev) -> float:
@@ -302,16 +334,17 @@ def _cuda_probe(thunk, dev) -> float:
         return _burst_difference(burst)
 
 
-def _host_probe(thunk) -> float:
+def _host_probe(thunk, clock=time.perf_counter) -> float:
     """Seconds per call of ``thunk`` on the host clock (CPU tensors
-    compute synchronously)."""
+    compute synchronously); ``clock`` is the clock read around each
+    burst."""
     thunk()
 
     def burst(k):
-        t0 = time.perf_counter()
+        t0 = clock()
         for _ in range(k):
             thunk()
-        return time.perf_counter() - t0
+        return clock() - t0
 
     return _burst_difference(burst)
 
@@ -909,6 +942,11 @@ class Family:
         while True:
             try:
                 return probe(thunk, name) * 1e6, False
+            except ProbeUnresolved:
+                # noise, not a time: the round stores nothing
+                obs.count("autotune_probe_unresolved",
+                          family=self.name, route=name)
+                return None, True
             except Exception as e:  # noqa: BLE001 — classified below
                 # a program fault, HBM exhaustion or a build failure
                 # must surface, never hide behind the other candidate

@@ -1,12 +1,21 @@
 """Device timing and roofline bounds on the card (the port's
-``veles.simd_tpu.utils.benchmark``, reduced).
+``veles.simd_tpu.utils.benchmark``).
 
-* :func:`device_time_ms` — the counterpart of the JAX package's
-  ``device_time_chained``: ``iters`` launches queued back to back on
-  the current stream between two CUDA events, after a warm-up, so the
-  host's enqueue cost overlaps the device work and the marginal per
-  launch is device time.
+* :func:`device_time_chained` — the JAX package's primary timer, in
+  seconds: ``step`` (an ``x -> x`` function) run ``k`` times back to
+  back on the current stream, the marginal per step between two trip
+  counts.  The card has no ``fori_loop``: the loop is eager, so each
+  step's host dispatch lies inside the window, and the result is
+  *chained* time — the device's when its kernels outlast the host's
+  enqueue, the host's otherwise — not device busy time
+  (:func:`device_busy_ms` reads that).
+* :func:`device_time` — the JAX package's burst timer, in seconds: the
+  marginal per call between bursts of 1 and ``burst`` calls on the
+  host clock, each burst waited for.
+* :func:`device_time_ms` — milliseconds per call over ``iters`` calls
+  queued between two CUDA events, after a warm-up.
 * :func:`host_time` — best-of-N wall time of a synchronous function.
+* :func:`rms_normalize` — keeps a chained GEMM step bounded.
 * :func:`device_busy_ms` — the device time per call (CUPTI's records,
   :mod:`~veles.simd_tpu_torch.utils.devtrace`), summed over its
   kernels and copies: a kernel's time free of the host's enqueue cost.
@@ -21,6 +30,12 @@
 * :func:`gemm_work` and :func:`gemm_bound` — the same for a GEMM at
   one of the precision layer's schemes, each against the peak of the
   units its passes run on.
+* The JAX package's roofline attributions, with the H100's rates
+  (:data:`GEMM_PEAK_TFLOPS` at each precision in place of the MXU's):
+  :func:`conv_roofline`, :func:`stft_roofline`, :func:`gemm_roofline`,
+  :func:`dft_matmul_roofline`, :func:`analytical_roofline` and
+  :func:`roofline_disagreement_pct`.  Their dict keys are the JAX
+  package's, so readers of either package's bench rows parse both.
 * :func:`a2a_bytes`, :func:`ct_dft_flops`, :func:`rfft_flops` and
   :func:`mesh_copy_gbps` — the sharded Fourier route's cost model
   (``parallel/fourier.py``): the JAX package's counts, the copy rate
@@ -32,7 +47,9 @@ without sparsity): 67 TFLOP/s fp32 without the tensor cores, 495
 TFLOP/s TF32, 989 TFLOP/s bf16, 1979 TOP/s int8 on the tensor cores,
 3.35 TB/s of HBM3, 450 GB/s each way over NVLink 4.  A card set below
 700 W runs slower under load; callers print its power limit beside
-every bound.
+every bound.  The JAX module's TPU rates (``mxu_*``, ``MXU_*``,
+``hbm_bw_gbps``, ``ICI_*``, ``xla_fft_eff_gflops``, ``a2a_ici_bytes``)
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,10 +57,12 @@ from __future__ import annotations
 import math
 import os
 import time
+import warnings
 
 import torch
 
-__all__ = ["device_time_ms", "host_time", "device_busy_ms",
+__all__ = ["device_time", "device_time_chained", "device_time_ms",
+           "host_time", "rms_normalize", "device_busy_ms",
            "device_breakdown", "device_kernels", "device_profile",
            "fp32_bound", "conv_work",
            "conv2d_work", "stft_work", "filter_bank_work",
@@ -51,7 +70,10 @@ __all__ = ["device_time_ms", "host_time", "device_busy_ms",
            "gemm_bound", "a2a_bytes", "ct_dft_flops", "rfft_flops",
            "mesh_copy_gbps", "H100_NVLINK_GBPS", "H100_FP32_TFLOPS",
            "H100_TF32_TFLOPS", "H100_BF16_TFLOPS",
-           "H100_INT8_TOPS", "H100_HBM_TBPS", "GEMM_PEAK_TFLOPS"]
+           "H100_INT8_TOPS", "H100_HBM_TBPS", "GEMM_PEAK_TFLOPS",
+           "conv_roofline", "stft_roofline", "analytical_roofline",
+           "gemm_roofline", "roofline_disagreement_pct",
+           "dft_matmul_roofline", "ROOFLINE_DISAGREEMENT_WARN_PCT"]
 
 H100_FP32_TFLOPS = 67.0
 H100_TF32_TFLOPS = 495.0
@@ -74,6 +96,133 @@ GEMM_PEAK_TFLOPS = {
     "bf16_comp": H100_BF16_TFLOPS / 3,
     "int8": H100_INT8_TOPS,
 }
+
+
+def _leaves(out):
+    """The leaves of ``out`` (nested dicts, lists and tuples), ``None``
+    dropped."""
+    if isinstance(out, dict):
+        for v in out.values():
+            yield from _leaves(v)
+    elif isinstance(out, (list, tuple)):
+        for v in out:
+            yield from _leaves(v)
+    elif out is not None:
+        yield out
+
+
+def _sync(out):
+    """Force completion of ``out`` (a tensor, or dicts, lists and tuples
+    of them).  Leaves that are not tensors (Python scalars, strings,
+    host metadata riding along in a result dict) and empty containers
+    have nothing to wait on and are skipped; a card tensor waits for
+    its device, a host tensor is complete already."""
+    tensors = [leaf for leaf in _leaves(out)
+               if isinstance(leaf, torch.Tensor)]
+    if tensors and tensors[-1].device.type == "cuda":
+        torch.cuda.synchronize(tensors[-1].device)
+
+
+def device_time(fn, *, burst: int = 8, repeats: int = 3,
+                warmup: int = 2) -> float:
+    """Marginal seconds per call of ``fn`` (which returns a tensor or a
+    container of them): the best of ``repeats`` bursts of 1 and of
+    ``burst`` calls on the host clock, each burst waited for, the
+    fixed cost of a burst cancelled by the difference."""
+    for _ in range(warmup):
+        _sync(fn())
+
+    def burst_time(k):
+        best = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = None
+            for _ in range(k):
+                out = fn()
+            _sync(out)
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    t1 = burst_time(1)
+    tk = burst_time(burst)
+    per_op = (tk - t1) / (burst - 1)
+    # degenerate case (dispatch-dominated tiny op): fall back to t1
+    return max(per_op, 1e-9) if per_op > 0 else t1
+
+
+def device_time_chained(step, x0, *, iters: int = 256, base: int = 8,
+                        repeats: int = 3, min_window: float = 0.04,
+                        max_iters: int = 1 << 15) -> float:
+    """Seconds per step of ``step`` (an ``x -> x`` function), the
+    marginal between two trip counts of a chain of steps:
+
+        per_step = (T(k) - T(base)) / (k - base)
+
+    so the fixed cost of a chain (the first launch, the final wait)
+    cancels.  ``k`` starts at ``iters`` and quadruples until the window
+    ``T(k) - T(base)`` clears ``min_window`` seconds; a chain that never
+    clears it by ``max_iters`` returns NaN with a ``RuntimeWarning`` (a
+    number under the clock's noise must not pass for a measurement).
+
+    The card has no ``fori_loop``: the chain runs eagerly, each step's
+    output the next one's input, and a card operand's chain is timed
+    with CUDA events on the current stream (best of ``repeats``), a
+    host operand's on the host clock.  Each step's host dispatch lies
+    inside the window, so the result is chained time: the device's
+    when a step's kernels outlast its dispatch, the host's otherwise.
+    It is not device busy time (:func:`device_busy_ms`).  ``step`` must
+    keep the shape and dtype and keep values bounded (it runs up to
+    ``max_iters`` times)."""
+    cuda = isinstance(x0, torch.Tensor) and x0.device.type == "cuda"
+
+    def chain(k):
+        v = x0
+        for _ in range(k):
+            v = step(v)
+        return v
+
+    def timed(k):
+        best = float("inf")
+        for _ in range(repeats):
+            if cuda:
+                with torch.cuda.device(x0.device):
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    chain(k)
+                    end.record()
+                    end.synchronize()
+                    t = start.elapsed_time(end) * 1e-3
+            else:
+                t0 = time.perf_counter()
+                _sync(chain(k))
+                t = time.perf_counter() - t0
+            best = min(best, t)
+        return best
+
+    _sync(chain(base))      # warm: kernel builds, plans, caches
+    tb = timed(base)
+    k = max(iters, base * 2)
+    while True:
+        tk = timed(k)
+        if tk - tb >= min_window or k >= max_iters:
+            if tk - tb < min_window:
+                warnings.warn(
+                    f"device_time_chained: marginal window {tk - tb:.4f}s "
+                    f"below {min_window}s at max_iters={max_iters}; the "
+                    "estimate is clock noise (step too fast); returning "
+                    "NaN", RuntimeWarning, stacklevel=2)
+                return float("nan")
+            return max((tk - tb) / (k - base), 1e-9)
+        k = min(k * 4, max_iters)
+
+
+def rms_normalize(p, eps: float = 1e-30):
+    """``p`` over its root mean square: keeps a chained GEMM or gemv
+    step bounded over hundreds of steps (the reduction is negligible
+    next to the product it stabilizes)."""
+    return p / (torch.sqrt(torch.mean(p * p)) + eps)
 
 
 def device_time_ms(fn, *, iters: int = 50, warmup: int = 3) -> float:
@@ -208,13 +357,18 @@ def gemm_bound(flops: float, nbytes: float,
     """:func:`fp32_bound` for a GEMM at ``precision`` (a key of
     :data:`GEMM_PEAK_TFLOPS`): its operations over that precision's
     ceiling."""
+    return _bound(flops, nbytes, _peak_tflops(precision))
+
+
+def _peak_tflops(precision: str) -> float:
+    """:data:`GEMM_PEAK_TFLOPS` at ``precision``; ValueError for a
+    precision it lacks."""
     try:
-        peak = GEMM_PEAK_TFLOPS[precision]
+        return GEMM_PEAK_TFLOPS[precision]
     except KeyError:
         raise ValueError(f"precision must be one of "
                          f"{sorted(GEMM_PEAK_TFLOPS)}, got "
                          f"{precision!r}") from None
-    return _bound(flops, nbytes, peak)
 
 
 def gemm_work(h1: int, w1: int, w2: int,
@@ -240,6 +394,125 @@ def rfft_flops(n: int) -> float:
     ``5 n log2 n`` of a complex one (the split-radix estimate)."""
     n = int(n)
     return 2.5 * n * math.log2(n)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's roofline attributions, against the H100's peaks
+# ---------------------------------------------------------------------------
+
+# the stft routes by formulation: dense real-DFT products (the JAX
+# package's fused Pallas kernel is one), and FFTs (cuFFT, and K4, the
+# port's kernel, a block FFT in shared memory)
+_STFT_MATMUL_ROUTES = ("rdft_matmul", "pallas_fused")
+_STFT_FFT_ROUTES = ("xla_fft", "cuda_fused")
+
+
+def conv_roofline(samples_per_s: float, h_length: int,
+                  precision: str = "highest") -> dict:
+    """Roofline attribution of a 1D-convolution rate: effective
+    TFLOP/s at 2·h FLOPs per output sample and its share of the peak
+    at ``precision`` (:data:`GEMM_PEAK_TFLOPS`).
+
+    2·h is the direct form's work, the JAX package's count, kept so
+    the figure means what it meant there: a *direct-form equivalent*
+    rate.  An FFT route (K1, the overlap-save kernel, is one) does far
+    less work, so ``pct_of_roofline`` can read above 100 % and is no
+    share of a peak; the least-work bound is :func:`conv_work` with
+    :func:`fp32_bound`."""
+    bound = _peak_tflops(precision)
+    eff = 2.0 * int(h_length) * samples_per_s / 1e12
+    return {"tflops_effective": eff,
+            "roofline_bound_tflops": bound,
+            "pct_of_roofline": 100.0 * eff / bound,
+            "precision": precision}
+
+
+def stft_roofline(frames_per_s: float, frame_length: int,
+                  precision: str = "highest",
+                  route: str = "rdft_matmul") -> dict:
+    """Roofline attribution of an STFT frame rate, with the useful-FLOP
+    constant of the formulation the route runs: ``4 * L * bins`` a frame
+    for the dense real-DFT routes (``rdft_matmul``, and the JAX
+    package's ``pallas_fused``), :func:`rfft_flops` for the FFT routes
+    (``xla_fft``, and ``cuda_fused``, the port's kernel, an FFT).
+    Same dict shape as :func:`conv_roofline`."""
+    L = int(frame_length)
+    if route in _STFT_MATMUL_ROUTES:
+        flops_per_frame = 4.0 * L * (L // 2 + 1)
+    elif route in _STFT_FFT_ROUTES:
+        flops_per_frame = rfft_flops(L)
+    else:
+        raise ValueError(f"unknown stft route {route!r}")
+    bound = _peak_tflops(precision)
+    eff = flops_per_frame * frames_per_s / 1e12
+    return {"tflops_effective": eff,
+            "roofline_bound_tflops": bound,
+            "pct_of_roofline": 100.0 * eff / bound,
+            "flops_per_frame": flops_per_frame,
+            "route": route,
+            "precision": precision}
+
+
+def gemm_roofline(flops: float, t_seconds: float,
+                  precision: str = "highest") -> dict:
+    """Roofline attribution of one GEMM: ``flops`` (the 2mnk useful
+    count) in ``t_seconds`` against the peak at ``precision`` (a
+    ``bf16_comp`` rate divides by its own three-pass ceiling).  Same
+    dict shape as :func:`conv_roofline`."""
+    bound = _peak_tflops(precision)
+    eff = float(flops) / float(t_seconds) / 1e12
+    return {"tflops_effective": eff,
+            "roofline_bound_tflops": bound,
+            "pct_of_roofline": 100.0 * eff / bound,
+            "precision": precision}
+
+
+def dft_matmul_roofline(samples_per_s: float, n1: int, n2: int,
+                        precision: str = "highest") -> dict:
+    """Roofline attribution of a factorized matmul-DFT sample rate
+    (:func:`ct_dft_flops` a transform) against the peak at
+    ``precision``.  Same dict shape as :func:`conv_roofline`."""
+    n = int(n1) * int(n2)
+    bound = _peak_tflops(precision)
+    eff = ct_dft_flops(n, n1, n2) / n * samples_per_s / 1e12
+    return {"tflops_effective": eff,
+            "roofline_bound_tflops": bound,
+            "pct_of_roofline": 100.0 * eff / bound,
+            "flops_per_sample": ct_dft_flops(n, n1, n2) / n,
+            "precision": precision}
+
+
+def analytical_roofline(flops: float, t_seconds: float,
+                        precision: str = "highest") -> dict:
+    """Roofline attribution from the count the resource axis recorded
+    for the route that ran: ``flops`` is a row of ``obs.resources()``
+    (``instrumented_jit`` on the kernel wrappers), which is the
+    function's least work from this module's ``*_work`` functions —
+    not a compiler's cost model, which the JAX package read.  Effective
+    TFLOP/s in ``t_seconds`` against the peak at ``precision``.  The
+    JAX keys are kept (``xla_flops`` holds the count), so readers of
+    either package's rows parse both."""
+    bound = _peak_tflops(precision)
+    eff = float(flops) / float(t_seconds) / 1e12
+    return {"tflops_analytical": eff,
+            "roofline_bound_tflops": bound,
+            "analytical_pct_of_roofline": 100.0 * eff / bound,
+            "xla_flops": float(flops),
+            "precision": precision}
+
+
+# analytical-vs-measured disagreement above this % is worth a warning
+ROOFLINE_DISAGREEMENT_WARN_PCT = 15.0
+
+
+def roofline_disagreement_pct(measured_pct: float,
+                              analytical_pct: float) -> float:
+    """Relative disagreement (%) between the measured and analytical
+    roofline figures, normalized by the measured one."""
+    if not measured_pct:
+        return float("inf") if analytical_pct else 0.0
+    return 100.0 * abs(analytical_pct - measured_pct) / abs(
+        measured_pct)
 
 
 def conv_work(rows: int, n: int, k: int) -> tuple[float, float]:

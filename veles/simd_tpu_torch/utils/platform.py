@@ -189,6 +189,31 @@ def require_reachable_device(timeout: float = 120.0,
         time.sleep(min(30.0, remaining))
 
 
+PLATFORM_ENV = "VELES_SIMD_PLATFORM"
+
+
+def requested_device() -> str:
+    """The device a process's caller asked for: ``"cpu"`` when
+    ``$VELES_SIMD_PLATFORM`` is ``cpu``, else ``"cuda"``."""
+    if os.environ.get(PLATFORM_ENV, "").strip().lower() == "cpu":
+        return "cpu"
+    return "cuda"
+
+
+def select_device(wait: float | None = None) -> str:
+    """Set ``Config.device`` to :func:`requested_device` for an entry
+    point (a tool, ``bench_torch.py``) and return it; for the card,
+    :func:`require_reachable_device` exits with code 2 when none
+    answers (``wait`` as there)."""
+    from veles.simd_tpu_torch.utils.config import set_config
+
+    device = requested_device()
+    set_config(device=device)
+    if device == "cuda":
+        require_reachable_device(wait=wait)
+    return device
+
+
 @contextlib.contextmanager
 def init_deadline(seconds: float | None = None,
                   what: str = "CUDA init"):
@@ -255,6 +280,15 @@ def on_cuda() -> bool:
     return get_config().device == "cuda" and torch.cuda.is_available()
 
 
+def _sharable(arr: np.ndarray) -> np.ndarray:
+    """``arr``, or a copy of it where torch cannot share its memory: a
+    read-only array, or a view with a negative stride (``x[::-1]``,
+    which NumPy callers of the JAX package pass)."""
+    if not arr.flags.writeable or any(st < 0 for st in arr.strides):
+        return arr.copy()
+    return arr
+
+
 def as_tensor(x) -> torch.Tensor:
     """``x`` as a tensor of its own dtype, 64-bit NumPy types narrowed
     to 32 bits as ``jnp.asarray`` narrows them: a tensor stays as it
@@ -263,9 +297,7 @@ def as_tensor(x) -> torch.Tensor:
         return x
     arr = np.asarray(x)
     arr = arr.astype(_X32.get(arr.dtype, arr.dtype), copy=False)
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    return torch.as_tensor(arr, device=device())
+    return torch.as_tensor(_sharable(arr), device=device())
 
 
 def as_f32(x) -> torch.Tensor:
@@ -276,9 +308,7 @@ def as_f32(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
     arr = np.asarray(x, np.float32)
-    if not arr.flags.writeable:     # torch cannot share read-only memory
-        arr = arr.copy()
-    return torch.as_tensor(arr, device=device())
+    return torch.as_tensor(_sharable(arr), device=device())
 
 
 def as_c64(x) -> torch.Tensor:
@@ -289,9 +319,7 @@ def as_c64(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.complex64)
     arr = np.asarray(x, np.complex64)
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    return torch.as_tensor(arr, device=device())
+    return torch.as_tensor(_sharable(arr), device=device())
 
 
 def smi_line() -> str:
