@@ -284,6 +284,25 @@ without printing a result):
             ``tools/tpu_smoke_torch.run_smoke()`` over every family
             (one ``bench smoke:`` line a family); any family that
             fails, or a fault on any of it, fails the phase.
+9. suite — ``tools/benchmark_suite_torch.py``'s sections through their
+            functions: the rows that reach a kernel at the JAX tool's
+            full sizes (convolve 1M x 2047 and its precision=high row,
+            K1; batched 256 x 4096 x 129 and the DWT orders, K2; the
+            L3 cascade fused row, K3; stft 2^20 at 1024/256, K4 where
+            its route is ``cuda_fused``; the 2D rows, K5), the rest at
+            ``--quick`` sizes; each row held to its NumPy oracle before
+            it is timed, one ``suite [...]`` line a row (chained
+            Msamples/s, busy ms, launches); the phase fails unless K1,
+            K2, K3 and K5 launched (and K4 where routed).
+10. chaos — ``tools/chaos_torch.py``'s four campaigns in-process at the
+            JAX tool's default sizes: the single server (the mesh 8
+            shards of the card), the replicas as threads, the replicas
+            as subprocess children (the kill a SIGKILL of a child on
+            the card) and the scale ramp; one ``chaos <campaign>:``
+            line each (held/total invariants, its rows, its seconds);
+            any invariant that does not hold fails the phase.  Past
+            ``CHAOS_SMOKE_AFTER_S`` of the run the subprocess and scale
+            campaigns run at ``--smoke``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3204,6 +3223,119 @@ def artifacts_phase(ck, smi, build_s, build_compiles):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# the suite phase: the JAX suite's full sizes for the rows that reach a
+# kernel, --quick for the others (tools/benchmark_suite.py)
+def suite_sizes(bs):
+    return dict(bs.QUICK, conv_sizes=bs.QUICK["conv_sizes"] + ((1 << 20,
+                                                               2047),),
+                conv_high=bs.FULL["conv_high"], stft=bs.FULL["stft"])
+
+
+# the kernel a suite row must have launched, by row name
+SUITE_KERNELS = (("convolve 1048576x2047 [overlap_save]", "overlap_save"),
+                 ("convolve 1048576x2047 [overlap_save, precision=high]",
+                  "overlap_save"),
+                 ("convolve batched 256x4096x129", "filter_bank"),
+                 ("dwt daub8 64x512", "filter_bank"),
+                 ("dwt cascade L3 fused 512x4096", "cascade_bank"),
+                 ("conv2d 8x512x512 k=9", "filter_2d"),
+                 ("conv2d 64x128x128 k=5", "filter_2d"))
+
+
+def suite_phase(obs, faults, breaker, smi):
+    """``tools/benchmark_suite_torch.py``'s sections (``run`` at
+    :func:`suite_sizes`): each row held to its NumPy oracle before it
+    is timed (the tool raises otherwise), its line printed with a
+    ``suite`` prefix; K1, K2, K3 and K5 launched by their rows, K4 by
+    the STFT row where its route is ``cuda_fused``."""
+    import contextlib
+    import io
+
+    from tools import benchmark_suite_torch as bs
+
+    t_phase = time.perf_counter()
+    obs.reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rows = bs.run(suite_sizes(bs), np.random.RandomState(SEED + 4))
+    for line in out.getvalue().splitlines():
+        print("suite " + line)
+    by_name = {r["name"]: r for r in rows}
+    launched = set()
+    for prefix, kernel in SUITE_KERNELS:
+        row = next((r for name, r in by_name.items()
+                    if name.startswith(prefix)), None)
+        check(row is not None and row["launches"].get(kernel, 0) >= 1,
+              f"suite {prefix}: no {kernel} launch "
+              f"({row and row['launches']})")
+        launched.add(kernel)
+    stft = next(r for r in rows if r["name"].startswith("stft "))
+    if stft["route"] == "cuda_fused":
+        check(stft["launches"].get("stft", 0) >= 1,
+              f"suite {stft['name']}: route cuda_fused, launches "
+              f"{stft['launches']}")
+        launched.add("stft")
+    checked = [r for r in rows if r.get("rel_err") is not None]
+    check(all(np.isfinite(r["t_peak"]) for r in rows if "t_peak" in r),
+          "suite: a chained time did not resolve on the card")
+    slowest = sorted((r for r in rows if "wall_s" in r),
+                     key=lambda r: -r["wall_s"])[:3]
+    print(f"suite: {len(checked)} rows held to their oracles | kernels "
+          f"{sorted(launched)} launched by their rows | stft 1024/256 "
+          f"route {stft['route']} | slowest rows " + ", ".join(
+              f"{r['name']} {r['wall_s']:.1f} s" for r in slowest)
+          + f" | phase {time.perf_counter() - t_phase:.1f} s | card {smi}")
+
+
+# past this many seconds of chip_smoke the chaos phase runs the
+# subprocess and scale campaigns at --smoke (the run's limit is 1200 s)
+CHAOS_SMOKE_AFTER_S = 700.0
+
+CHAOS_CAMPAIGNS = (("single", []), ("replicas thread", ["--replicas"]),
+                   ("replicas subprocess", ["--replicas", "--spawn",
+                                            "subprocess"]),
+                   ("scale", ["--scale"]))
+
+
+def chaos_phase(obs, faults, breaker, smi, elapsed_s):
+    """``tools/chaos_torch.py``'s four campaigns in this process, at
+    the JAX tool's default sizes (``--smoke`` for the subprocess and
+    scale ones past :data:`CHAOS_SMOKE_AFTER_S`); any invariant that
+    does not hold fails the phase.  The state the campaigns leave
+    (breakers, fault history, telemetry) is reset after them."""
+    from tools import chaos_torch
+
+    t_phase = time.perf_counter()
+    smoke_late = elapsed_s > CHAOS_SMOKE_AFTER_S
+    work = os.path.join(ROOT, "build", "chaos_smoke")
+    os.makedirs(work, exist_ok=True)
+    try:
+        for label, argv in CHAOS_CAMPAIGNS:
+            late = smoke_late and label in ("replicas subprocess", "scale")
+            args = chaos_torch.parse_args(
+                argv + (["--smoke"] if late else []) + [
+                    "--details", os.path.join(
+                        work, label.replace(" ", "_") + ".json")])
+            t0 = time.perf_counter()
+            invariants, rows, _ = chaos_torch.campaign(args)
+            took = time.perf_counter() - t0
+            held = sum(1 for ok in invariants.values() if ok)
+            print(f"chaos {label}{' (--smoke)' if late else ''}: "
+                  f"{held}/{len(invariants)} invariants | " + " | ".join(
+                      f"{r['metric']} {r['value']}" for r in rows)
+                  + f" | {took:.1f} s")
+            bad = sorted(k for k, ok in invariants.items() if not ok)
+            check(not bad, f"chaos {label}: invariants failed {bad}")
+    finally:
+        faults.set_fault_plan(None)
+        shutil.rmtree(work, ignore_errors=True)
+    obs.reset()
+    breaker.reset()
+    faults.reset_fault_history()
+    print(f"chaos: 4 campaigns green | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | card {smi}")
+
+
 # bench_torch.py's configs the bench phase runs: 4 (the headline),
 # 5 (the DWT) and 6 (the STFT routes)
 BENCH_CONFIGS = ("bench_convolve_1m", "bench_dwt", "bench_stft")
@@ -4460,8 +4592,15 @@ def main():
     # 8. bench_torch.py's configs 4-6 and the port's smoke
     bench_phase(obs, faults, breaker, smi)
     n_breakers = healthy("bench", obs, faults, breaker)
+    # 9. the suite: tools/benchmark_suite_torch.py's rows on the card
+    suite_phase(obs, faults, breaker, smi)
+    n_breakers = healthy("suite", obs, faults, breaker)
+    # 10. the chaos campaigns (fault plans, so healthy after its reset)
+    chaos_phase(obs, faults, breaker, smi,
+                time.perf_counter() - t_start)
+    healthy("chaos (after its reset)", obs, faults, breaker)
     print("healthy: main, reference, dsp, autotune, times, cabi, "
-          "artifacts and bench recorded "
+          "artifacts, bench and suite recorded "
           "no fault_* counter, no fault_policy event and no fault "
           f"record; {n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start

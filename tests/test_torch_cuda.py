@@ -1578,3 +1578,114 @@ def test_port_smoke_family_passes_on_the_card(family):
     lines = []
     assert smoke.run_smoke(emit=lines.append, families=[family]), lines
     assert len(lines) == 1 and lines[0].endswith(" ok"), lines
+
+
+# ---------------------------------------------------------------------------
+# the benchmark generator and the chaos campaigns on the card
+# ---------------------------------------------------------------------------
+
+def _tools_path():
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    for p in (str(root), str(root / "tools")):
+        if p not in sys.path:
+            sys.path.insert(0, p)
+    return root
+
+
+@pytest.mark.parametrize("kernel", ["overlap_save", "filter_bank",
+                                    "cascade_bank", "stft", "filter_2d"])
+def test_suite_kernel_rows_launch_their_kernels(kernel):
+    _tools_path()
+    import benchmark_suite_torch as bs
+
+    rng = np.random.RandomState(61)
+    if kernel == "overlap_save":
+        rows = bs.section_convolve(rng, ((1 << 20, 2047),))
+        assert rows[0]["launches"] == {"overlap_save": 2}
+        assert rows[0]["route"] == "cuda_fused"
+    elif kernel == "filter_bank":
+        rows = (bs.section_convolve_batched(rng, 256, 4096, 129)
+                + bs.section_dwt(rng, 64, 512, orders=(8,)))
+        for row in rows:
+            assert row["launches"].get("filter_bank", 0) >= 1, row
+    elif kernel == "cascade_bank":
+        fused = bs.section_cascade(rng, 512, 4096)[0]
+        assert fused["launches"] == {"cascade_bank": 1}
+    elif kernel == "stft":
+        rows = bs.section_stft(rng, 1 << 20)
+        row = rows[0]
+        if row["route"] == "cuda_fused":
+            assert row["launches"] == {"stft": 1}
+        else:
+            assert "stft" not in row["launches"]
+    else:
+        rows = bs.section_conv2d(rng, 8, 512, (9,), (64, 128, 5))
+        for row in rows:
+            assert row["route"] == "direct"
+            assert row["launches"] == {"filter_2d": 1}, row
+    for row in rows if kernel != "cascade_bank" else [fused]:
+        if "launches" in row:       # not the conv-roofline row
+            assert row["rel_err"] is not None and row["busy_ms"] > 0
+
+
+def test_chaos_replicas_subprocess_smoke_is_green_on_the_card(tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    root = _tools_path()
+    env = dict(os.environ, VELES_SIMD_FAULT_BACKOFF="0")
+    env.pop("VELES_SIMD_PLATFORM", None)
+    out = subprocess.run(
+        [sys.executable, str(root / "tools" / "chaos_torch.py"),
+         "--replicas", "--spawn", "subprocess", "--smoke"], cwd=tmp_path,
+        env=env, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    entries = json.loads(
+        (tmp_path / "REPLICA_RPC_DETAILS_torch.json").read_text())
+    tail = entries[-1]
+    assert tail["spawn"] == "subprocess"
+    assert len(tail["replica_invariants"]) == 31
+    assert all(tail["replica_invariants"].values())
+
+
+def test_chaos_degraded_answers_match_the_float64_oracle(monkeypatch):
+    _tools_path()
+    import chaos_torch
+
+    from veles.simd_tpu_torch import obs, serve
+    from veles.simd_tpu_torch import parallel as par
+    from veles.simd_tpu_torch.runtime import breaker, faults
+
+    monkeypatch.setenv("VELES_SIMD_FAULT_BACKOFF", "0")
+    r = np.random.RandomState(62)
+    obs.enable()
+    breaker.reset()
+    faults.set_fault_plan(
+        f"serve.dispatch@{chaos_torch.POISON_OP}:device_lost:9999,"
+        "parallel.sharded_matmul:device_lost:9999")
+    try:
+        items = chaos_torch._poison_requests(r, 6, 60000.0)
+        with serve.Server(max_batch=4, max_wait_ms=5.0) as srv:
+            tickets = [srv.submit(req) for _, req in items]
+            answers = [t.result(timeout=120.0) for t in tickets]
+        mesh = par.make_mesh({"sp": 8})
+        a = r.randn(32, 64).astype(np.float32)
+        b = r.randn(64, 16).astype(np.float32)
+        got = par.sharded_matmul(a, b, mesh, axis="sp").cpu().numpy()
+        assert obs.counter_value("mesh_degrade", op="sharded_matmul") >= 1
+    finally:
+        faults.set_fault_plan(None)
+        faults.reset_fault_history()
+        breaker.reset()
+        obs.reset()
+    assert {t.status for t in tickets} == {"degraded"}
+    for (_, req), y in zip(items, answers):
+        want = iir.sosfilt_na(req.params["sos"],
+                              req.x.astype(np.float64))
+        assert _rel(y, want) <= 2e-5
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    assert _rel(got, want) <= 2e-3

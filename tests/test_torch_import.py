@@ -122,7 +122,12 @@ print("ok")
                                   "cold_start_torch.py",
                                   "warm_pack_torch.py",
                                   "loadgen_torch.py",
-                                  "tpu_smoke_torch.py"])
+                                  "tpu_smoke_torch.py",
+                                  "benchmark_suite_torch.py",
+                                  "obs_query_torch.py",
+                                  "chaos_torch.py",
+                                  "obs_report_torch.py",
+                                  "obs_dash_torch.py"])
 def test_port_tools_import_without_jax(tool):
     code = f"""
 import runpy, sys
@@ -172,6 +177,8 @@ sys.exit(ns["main"]())
     ("tools/loadgen_torch.py", ["--smoke"]),
     ("tools/warm_pack_torch.py", []),
     ("tools/cold_start_torch.py", []),
+    ("tools/benchmark_suite_torch.py", []),
+    ("tools/chaos_torch.py", ["--smoke"]),
 ])
 def test_measuring_tools_refuse_to_run_without_a_card(script, argv):
     # bench_torch.py and the tools it drives probe for a card (a

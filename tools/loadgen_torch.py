@@ -812,27 +812,83 @@ def _overhead_schedule(n: int, rng) -> list:
             for _ in range(n)]
 
 
+# rounds of the overhead rows' interleave: each round runs the armed
+# arm, the disarmed arm and a second disarmed arm (the A/A arm), in an
+# order rotated round by round so slow host drift falls on every arm
+OVERHEAD_ROUNDS = 10
+
+
+def _ab_rounds(burst, set_mode, rounds: int = OVERHEAD_ROUNDS) -> dict:
+    """The overhead rows' A/B in one process, with an A/A arm.
+
+    ``burst(arm)`` runs one burst and returns ``(answered, wall_s)``;
+    ``set_mode(armed)`` switches the measured feature.  Each round runs
+    three arms — ``on`` (armed), ``off`` and ``off2`` (both disarmed)
+    — in a rotated order, so slow drift falls on every arm.
+
+    ``ratio`` is the MEDIAN over rounds of each round's ``on/off``
+    ratio of requests per CPU second of this process
+    (``time.process_time``): what the feature costs the host, which
+    other processes' load does not move.  The same ratio on wall time
+    (``wall_ratio``) is what a caller waits, and moves with the host:
+    under six CPU-bound processes on eight cores the wall A/A arm read
+    0.88 and the wall A/B 0.66 in one run, where the CPU-time ratio
+    holds.  ``aa_ratio`` and ``aa_wall_ratio`` are the ``off2/off``
+    medians, the measurement's own noise.  The pooled rates are kept
+    for the telemetry."""
+    arms = ("on", "off", "off2")
+    pooled = {a: [0, 0.0] for a in arms}
+    ratios = {"ab": [], "aa": [], "ab_wall": [], "aa_wall": []}
+    for r in range(rounds):
+        cpu_rate, wall_rate = {}, {}
+        for arm in arms[r % 3:] + arms[:r % 3]:
+            set_mode(arm == "on")
+            c0 = time.process_time()
+            done, wall = burst(arm)
+            cpu = time.process_time() - c0
+            pooled[arm][0] += done
+            pooled[arm][1] += wall
+            cpu_rate[arm] = done / cpu if cpu > 0 else None
+            wall_rate[arm] = done / wall if wall > 0 else None
+        for key, rate in (("", cpu_rate), ("_wall", wall_rate)):
+            if rate["on"] and rate["off"]:
+                ratios["ab" + key].append(rate["on"] / rate["off"])
+            if rate["off2"] and rate["off"]:
+                ratios["aa" + key].append(rate["off2"] / rate["off"])
+    med = {k: (float(np.median(v)) if v else None)
+           for k, v in ratios.items()}
+    rates = {a: (n / w if w > 0 else None)
+             for a, (n, w) in pooled.items()}
+    return {"ratio": med["ab"], "aa_ratio": med["aa"],
+            "wall_ratio": med["ab_wall"], "aa_wall_ratio": med["aa_wall"],
+            "rates": rates, "rounds": rounds}
+
+
+def _ab_telemetry(ab: dict) -> dict:
+    return {k: (round(ab[k], 4) if ab[k] is not None else None)
+            for k in ("aa_ratio", "wall_ratio", "aa_wall_ratio")}
+
+
 def overhead_row(args, rng) -> dict:
     """The tracing-overhead bench row: one warmed shape class at
     ``max_batch=1`` (every request its own batch — the dispatch-bound
     regime where per-request tracing cost is largest, i.e. the honest
     worst case) through ONE live server, telemetry enabled
-    throughout, alternating mini-bursts with the REQUEST AXIS armed
-    vs disarmed (``obs.configure(request_axis=...)`` — exactly the
+    throughout, alternating bursts with the REQUEST AXIS armed vs
+    disarmed (``obs.configure(request_axis=...)`` — exactly the
     request axis's cost: trace minting, lifecycle edges, terminal
     accounting, SLO updates, exemplar retention; the scrape endpoint
-    stays armed on both sides, idle listeners are free) and pooling
-    each mode's wall time.  The fine interleave cancels host drift
-    that run-sized A/B pairs cannot (wall-clock throughput on a
-    shared host swings 2x in seconds).  Value =
-    pooled traced/untraced throughput (1.0 = the request axis is
-    free); ``bench_regress`` gates the row at 5% noise
+    stays armed on both sides, idle listeners are free).  The fine
+    interleave (:func:`_ab_rounds`: rotated rounds with an A/A arm,
+    the median of the rounds' ratios) cancels host drift that
+    run-sized A/B pairs cannot (wall-clock throughput on a shared
+    host swings 2x in seconds).  Value = traced/untraced requests per
+    CPU second (1.0 = the request axis is free), the wall-time ratio
+    and the A/A arm's in the telemetry; ``bench_regress`` gates the
+    row at 5% noise
     (``DEFAULT_NOISE``) — the request axis's overhead budget."""
     n = int(args.overhead_requests)
-    bursts = 10
-    m = max(10, n // (bursts // 2))
-    wall = {True: 0.0, False: 0.0}
-    done = {True: 0, False: 0}
+    m = max(10, n // 5)
     try:
         obs.enable()
         srv = serve.Server(max_batch=1, max_wait_ms=0.5,
@@ -840,86 +896,89 @@ def overhead_row(args, rng) -> dict:
                            queue_depth=max(1024, m),
                            tenant_depth=max(1024, m), obs_port=0)
         with srv:
-            # warm BOTH modes: the first bursts compile the handle,
-            # pay the one-time per-(op, route) resource record,
+            def burst(_arm):
+                rep = run_load(srv, _overhead_schedule(m, rng),
+                               verify=0)
+                return rep["ok"] + rep["degraded"], rep["wall_s"]
+
+            def set_mode(armed):
+                obs.configure(request_axis=armed)
+
+            # warm BOTH modes: the first bursts pay the handle's first
+            # call, the one-time per-(op, route) resource record,
             # and allocate the first span/histogram classes — all
             # one-offs, none of them the steady-state cost this row
             # budgets
             for warm in (False, True):
-                obs.configure(request_axis=warm)
-                run_load(srv, _overhead_schedule(m, rng), verify=0)
+                set_mode(warm)
+                burst(warm)
             # fence the collector out of the bursts: late in a long
             # process (a chaos campaign, a full test run) the heap
-            # carries hundreds of MB of live compile caches, and one
-            # gen-2 sweep landing inside a ~tens-of-ms burst skews
-            # that mode's pooled wall time far more than the <5%
-            # effect being measured — collect now, then keep
-            # automatic collection off for the measured window
+            # carries hundreds of MB of live caches, and one gen-2
+            # sweep landing inside a ~tens-of-ms burst skews that
+            # mode's wall time far more than the <5% effect being
+            # measured — collect now, then keep automatic collection
+            # off for the measured window
             import gc
             gc.collect()
             gc.disable()
             try:
-                for k in range(bursts):
-                    traced = bool(k % 2)
-                    obs.configure(request_axis=traced)
-                    rep = run_load(srv, _overhead_schedule(m, rng),
-                                   verify=0)
-                    wall[traced] += rep["wall_s"]
-                    done[traced] += rep["ok"] + rep["degraded"]
+                ab = _ab_rounds(burst, set_mode)
             finally:
                 gc.enable()
             scrape_endpoint(srv.obs_port)
     finally:
         obs.configure(request_axis=True)
-    rates = {mode: (done[mode] / wall[mode] if wall[mode] else None)
-             for mode in (True, False)}
-    ratio = (rates[True] / rates[False]
-             if rates[True] and rates[False] else None)
+    ratio, rates = ab["ratio"], ab["rates"]
     return {"metric": "serve tracing overhead",
             "value": round(ratio, 4) if ratio is not None else None,
-            "unit": "traced/untraced throughput",
+            "unit": "traced/untraced requests a CPU second",
             "vs_baseline": None,
             "telemetry": {
-                "traced_rps": (round(rates[True], 1)
-                               if rates[True] else None),
-                "untraced_rps": (round(rates[False], 1)
-                                 if rates[False] else None),
-                "bursts": bursts, "burst_requests": m,
+                "traced_rps": (round(rates["on"], 1)
+                               if rates["on"] else None),
+                "untraced_rps": (round(rates["off"], 1)
+                                 if rates["off"] else None),
+                **_ab_telemetry(ab),
+                "rounds": ab["rounds"], "burst_requests": m,
             }}
 
 
 def journal_overhead_row(args, rng) -> dict:
     """The journal-overhead bench row: the same fine A/B
-    interleave as :func:`overhead_row` — one warmed shape class at
-    ``max_batch=1``, telemetry AND the request axis armed on both
-    sides — but the toggled variable is the durable event journal
-    (``obs.configure(journal_dir=...)`` to a throwaway pack vs
-    disarmed).  Healthy steady-state traffic emits no decision events
-    (the journal is an EVENT journal, not a request log), so each
-    timed burst also drives one ``obs.record_decision`` per request
-    through the real funnel — the worst-case event rate the history
-    axis budgets (a breaker/fault/lifecycle edge for every request).
-    The armed side pays the journal's full cost for each: stamping, JSON
-    encoding, the locked line-atomic append + flush.  Value = pooled
-    armed/disarmed throughput (1.0 = history is free);
-    ``bench_regress`` gates the row at 5% noise via its "journal
-    overhead" entry — the same contract as the tracing-overhead
-    row."""
+    interleave as :func:`overhead_row` (:func:`_ab_rounds`) — one
+    warmed shape class at ``max_batch=1``, telemetry AND the request
+    axis armed on both sides — but the toggled variable is the durable
+    event journal (``obs.configure(journal_dir=...)`` to a throwaway
+    pack vs disarmed).  Healthy steady-state traffic emits no decision
+    events (the journal is an EVENT journal, not a request log), so
+    each timed burst also drives one ``obs.record_decision`` per
+    request through the real funnel — the worst-case event rate the
+    history axis budgets (a breaker/fault/lifecycle edge for every
+    request).  The armed side pays the journal's full cost for each:
+    stamping, JSON encoding, the locked line-atomic append + flush.
+    Value = armed/disarmed requests per CPU second (1.0 = history is
+    free), the wall-time ratio and the A/A arm's in the telemetry;
+    ``bench_regress`` gates the row
+    at 5% noise via its "journal overhead" entry — the same contract
+    as the tracing-overhead row."""
     n = int(args.overhead_requests)
-    bursts = 10
-    m = max(10, n // (bursts // 2))
-    wall = {True: 0.0, False: 0.0}
-    done = {True: 0, False: 0}
+    m = max(10, n // 5)
     pack = tempfile.mkdtemp(prefix="veles-journal-ab-")
-    journal_stats = None
+    journal_stats = {}
 
-    def _burst(mode):
+    def burst(arm):
         t0 = time.perf_counter()
         rep = run_load(srv, _overhead_schedule(m, rng), verify=0)
         for i in range(m):
             obs.record_decision("journal_probe", "tick", seq=i)
-        wall[mode] += time.perf_counter() - t0
-        done[mode] += rep["ok"] + rep["degraded"]
+        wall = time.perf_counter() - t0
+        if arm == "on":     # the armed journal's own account
+            journal_stats.update(obs.journal_stats() or {})
+        return rep["ok"] + rep["degraded"], wall
+
+    def set_mode(armed):
+        obs.configure(journal_dir=pack if armed else "")
 
     try:
         obs.enable()
@@ -928,43 +987,36 @@ def journal_overhead_row(args, rng) -> dict:
                            queue_depth=max(1024, m),
                            tenant_depth=max(1024, m), obs_port=0)
         with srv:
-            # warm both modes (handle compile, first segment open)
+            # warm both modes (the handle's first call, first segment
+            # open)
             for warm in (False, True):
-                obs.configure(journal_dir=pack if warm else "")
-                _burst(warm)
-            wall = {True: 0.0, False: 0.0}
-            done = {True: 0, False: 0}
+                set_mode(warm)
+                burst(warm)
             import gc
             gc.collect()
             gc.disable()       # same collector fence as overhead_row
             try:
-                for k in range(bursts):
-                    armed = bool(k % 2)
-                    obs.configure(journal_dir=pack if armed else "")
-                    _burst(armed)
+                ab = _ab_rounds(burst, set_mode)
             finally:
                 gc.enable()
-            journal_stats = obs.journal_stats()
     finally:
         obs.configure(journal_dir="")
         shutil.rmtree(pack, ignore_errors=True)
-    rates = {mode: (done[mode] / wall[mode] if wall[mode] else None)
-             for mode in (True, False)}
-    ratio = (rates[True] / rates[False]
-             if rates[True] and rates[False] else None)
+    ratio, rates = ab["ratio"], ab["rates"]
     telemetry = {
-        "armed_rps": (round(rates[True], 1)
-                      if rates[True] else None),
-        "disarmed_rps": (round(rates[False], 1)
-                         if rates[False] else None),
-        "bursts": bursts, "burst_requests": m,
+        "armed_rps": (round(rates["on"], 1)
+                      if rates["on"] else None),
+        "disarmed_rps": (round(rates["off"], 1)
+                         if rates["off"] else None),
+        **_ab_telemetry(ab),
+        "rounds": ab["rounds"], "burst_requests": m,
     }
     if journal_stats:
         telemetry["journal_records"] = journal_stats.get("records")
         telemetry["journal_dropped"] = journal_stats.get("dropped")
     return {"metric": "journal overhead",
             "value": round(ratio, 4) if ratio is not None else None,
-            "unit": "armed/disarmed throughput",
+            "unit": "armed/disarmed requests a CPU second",
             "vs_baseline": None,
             "telemetry": telemetry}
 
