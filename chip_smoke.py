@@ -294,6 +294,28 @@ without printing a result):
             it is timed, one ``suite [...]`` line a row (chained
             Msamples/s, busy ms, launches); the phase fails unless K1,
             K2, K3 and K5 launched (and K4 where routed).
+9b. examples — each of ``examples/*_torch.py`` (the JAX examples'
+            twins) through its ``run()`` at the JAX example's sizes:
+            every check held (the matched filter's pulse at 424242,
+            both resonances, the template at (55, 215), the SNR gain,
+            the round trips, the zoom pair, the Kaiser spec, the sharded
+            spot checks), K5 launched by the image filter (the other
+            examples reach no kernel: the matched filter's stream stage
+            is the block matmul, the rest run single rows under K2's
+            row gate); one ``examples <name>:``
+            line each (checks, wall seconds, busy ms a block where the
+            example streams, the launches of K1-K5), after the
+            example's own lines; no fault recorded;
+9c. tools — ``tools/bench_multichip_torch.py --quick`` on 8 shards of
+            ``cuda:0`` (each row held to ``np.fft`` before it is timed;
+            the mesh's cost on one card), ``tools/tune_conv2d_torch.py
+            --quick`` (every candidate held to float64; the 2D kernel
+            launched once and held in each cell its gate admits; the
+            winner table and the area cut) and
+            ``tools/profile_overlap_save_torch.py`` at 1,048,576 x 2047
+            (every route held to float64, K1 twice a call, each route's
+            busy ms and share of the least-work bound); no fault
+            recorded.
 10. chaos — ``tools/chaos_torch.py``'s four campaigns in-process at the
             JAX tool's default sizes: the single server (the mesh 8
             shards of the card), the replicas as threads, the replicas
@@ -3287,6 +3309,161 @@ def suite_phase(obs, faults, breaker, smi):
           + f" | phase {time.perf_counter() - t_phase:.1f} s | card {smi}")
 
 
+# the port's twins of the JAX examples (examples/<name>_torch.py), in
+# the README's order
+EXAMPLES = ("matched_filter", "sensor_pipeline", "image_filter",
+            "wavelet_denoise", "wavelet_multires", "spectral_zoom",
+            "kaiser_design", "sharded_longsignal")
+# the kernels each example must launch on the card: the 9 x 9 blur, the
+# Sobel passes and the 16 x 16 template take K5.  The matched filter's
+# stream stage runs the block matmul (as the JAX stage runs XLA's, never
+# the Pallas kernel), and the other examples' single rows sit under
+# K2's row gate: they launch no kernel of csrc/
+EXAMPLE_KERNELS = {"image_filter": ("filter_2d",)}
+KERNEL_LABELS = (("K1", "overlap_save"), ("K2", "filter_bank"),
+                 ("K3", "cascade_bank"), ("K4", "stft"),
+                 ("K5", "filter_2d"))
+
+
+def kernel_counts(launches):
+    """``K1 n K2 n ...``: the launches of each of the five kernels."""
+    return " ".join(f"{label} {launches.get(name, 0)}"
+                    for label, name in KERNEL_LABELS)
+
+
+def load_example(name):
+    """``examples/<name>_torch.py`` as a module (its steps and ``run``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, ck, obs, faults, breaker, smi):
+    """Each of the port's examples through its ``run()`` at the JAX
+    example's sizes on the card: every check held, the kernels of
+    :data:`EXAMPLE_KERNELS` launched, no fault recorded; one line an
+    example (its checks, wall seconds, busy ms a block where it times
+    a stream, the launches of each kernel), after its own lines."""
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        mod = load_example(name)
+        obs.reset()
+        lines = []
+        t0 = time.perf_counter()
+        with ck.count_launches() as launches:
+            res = mod.run(emit=lines.append)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in lines:
+            print(f"example {name}: {line}")
+        checks = res["checks"]
+        failed = sorted(k for k, ok in checks.items() if not ok)
+        check(not failed, f"examples {name}: checks failed {failed}")
+        for kernel in EXAMPLE_KERNELS.get(name, ()):
+            check(launches.get(kernel, 0) >= 1,
+                  f"examples {name}: no {kernel} launch ({launches})")
+        healthy(f"examples {name}", obs, faults, breaker)
+        busy = res.get("busy_ms_a_block")
+        extra = ""
+        if name == "matched_filter":
+            extra = (f" | route {res['route']}, launches a block "
+                     f"{res['launches_a_block']} | fused "
+                     f"{res['fused_blocks_s']:.1f} blocks/s, unfused "
+                     f"{res['unfused_blocks_s']:.1f}")
+        print(f"examples {name}: checks {len(checks)}/{len(checks)} held "
+              f"({', '.join(checks)}) | wall {wall:.2f} s | busy "
+              + ("not timed" if busy is None else f"{busy:.4f} ms a block")
+              + f" | launches {kernel_counts(launches)}{extra}")
+    print(f"examples: {len(EXAMPLES)} examples, every check held | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | card {smi}")
+
+
+# the 2D sweep's batch sizes in the tools phase (the tool's default)
+TUNE_ROWS = (1, 8)
+
+
+def tools_phase(torch, ck, obs, faults, breaker, smi):
+    """The port's measuring tools on the card through their functions:
+    ``bench_multichip_torch`` at ``--quick`` on 8 shards of ``cuda:0``
+    (every row held to ``np.fft`` before it is timed), the
+    ``tune_conv2d_torch --quick`` sweep (every candidate held to
+    float64, the 2D kernel launched and held within the tolerance in
+    every cell its gate admits), and ``profile_overlap_save_torch`` at
+    1,048,576 x 2047 (every route held to float64, K1 twice a call)."""
+    from tools import bench_multichip_torch as bmc
+    from tools import profile_overlap_save_torch as pos
+    from tools import tune_conv2d_torch as tc2
+
+    t_phase = time.perf_counter()
+    obs.reset()
+    lines = []
+    t0 = time.perf_counter()
+    entries = bmc.run_bench(PAR_SHARDS, None, quick=True,
+                            emit=lines.append)
+    for line in lines:
+        print(f"tools multichip: {line}")
+    rows, tail = entries[:-1], entries[-1]
+    check(len(rows) == 3 and not any("flagged" in r for r in rows)
+          and tail["n_devices"] == PAR_SHARDS
+          and tail["distinct_cards"] == 1,
+          f"tools multichip: rows {[r['metric'] for r in rows]}, tail "
+          f"{tail}")
+    healthy("tools multichip", obs, faults, breaker)
+    print(f"tools multichip: {len(rows)} rows held to np.fft | "
+          + " | ".join(f"{r['metric']} {r['value']:.1f} Ms/s (x"
+                       f"{r['vs_baseline']:.2f}) route {r['route']}"
+                       for r in rows)
+          + f" | {tail['note']} | {time.perf_counter() - t0:.1f} s")
+
+    obs.reset()
+    t0 = time.perf_counter()
+    results = tc2.sweep(tc2.QUICK["images"], tc2.QUICK["kernels"],
+                        TUNE_ROWS, emit=lambda line: print(
+                            "tools tune_conv2d: " + line))
+    k5 = [(key, c["cands"]["cuda_direct"]) for key, c in results.items()
+          if "cuda_direct" in c["cands"]]
+    check(k5 and all(c["ok"] and c["launches"] == {"filter_2d": 1}
+                     for _, c in k5),
+          f"tools tune_conv2d: 2D kernel candidates {k5}")
+    check(all(c["winner"] for c in results.values()),
+          "tools tune_conv2d: a cell with no valid candidate")
+    healthy("tools tune_conv2d", obs, faults, breaker)
+    cut, miss, cells = tc2.crossover(results)
+    wins = {}
+    for c in results.values():
+        wins[c["winner"]] = wins.get(c["winner"], 0) + 1
+    print(f"tools tune_conv2d: {len(results)} cells, every candidate held "
+          f"to float64 | 2D kernel in {len(k5)} cells, 1 launch each, "
+          f"max err {max(c['err'] for _, c in k5):.1e} | winners {wins} | "
+          f"best direct-vs-fft area cut {cut} ({miss} of {cells} "
+          f"misclassified) | {time.perf_counter() - t0:.1f} s")
+
+    obs.reset()
+    t0 = time.perf_counter()
+    prof = pos.profile(N_HEAD, K_HEAD, emit=lambda line: print(
+        "tools profile_overlap_save: " + line))
+    by = {r["name"]: r for r in prof}
+    check(by["cuda_fused"]["launches"] == {"overlap_save": 2},
+          f"tools profile_overlap_save: K1 launches "
+          f"{by['cuda_fused']['launches']}, want 2 a call")
+    check(all(r["busy_ms"] and r["busy_ms"] >= r["least_work_bound_ms"]
+              for r in prof),
+          "tools profile_overlap_save: a busy time missing or under its "
+          "bound")
+    healthy("tools profile_overlap_save", obs, faults, breaker)
+    print("tools profile_overlap_save: " + " | ".join(
+        f"{r['name']} busy {r['busy_ms']:.4f} ms, "
+        f"{r['pct_of_least_work_bound']:.1f}% of the least-work bound, "
+        f"launches {r['launches'] or 0}" for r in prof)
+        + f" | {time.perf_counter() - t0:.1f} s")
+    print(f"tools: multichip, tune_conv2d, profile_overlap_save held | "
+          f"phase {time.perf_counter() - t_phase:.1f} s | card {smi}")
+
+
 # past this many seconds of chip_smoke the chaos phase runs the
 # subprocess and scale campaigns at --smoke (the run's limit is 1200 s)
 CHAOS_SMOKE_AFTER_S = 700.0
@@ -4595,12 +4772,16 @@ def main():
     # 9. the suite: tools/benchmark_suite_torch.py's rows on the card
     suite_phase(obs, faults, breaker, smi)
     n_breakers = healthy("suite", obs, faults, breaker)
+    # 9b. the examples and 9c. the tuning and profiling tools
+    examples_phase(torch, ck, obs, faults, breaker, smi)
+    tools_phase(torch, ck, obs, faults, breaker, smi)
+    n_breakers = healthy("examples and tools", obs, faults, breaker)
     # 10. the chaos campaigns (fault plans, so healthy after its reset)
     chaos_phase(obs, faults, breaker, smi,
                 time.perf_counter() - t_start)
     healthy("chaos (after its reset)", obs, faults, breaker)
     print("healthy: main, reference, dsp, autotune, times, cabi, "
-          "artifacts, bench and suite recorded "
+          "artifacts, bench, suite, examples and tools recorded "
           "no fault_* counter, no fault_policy event and no fault "
           f"record; {n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start

@@ -1689,3 +1689,83 @@ def test_chaos_degraded_answers_match_the_float64_oracle(monkeypatch):
         assert _rel(y, want) <= 2e-5
     want = a.astype(np.float64) @ b.astype(np.float64)
     assert _rel(got, want) <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the examples and the tuning and profiling tools on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("matched_filter", "sensor_pipeline", "image_filter",
+            "wavelet_denoise", "wavelet_multires", "spectral_zoom",
+            "kaiser_design", "sharded_longsignal")
+
+
+def _example(name):
+    import importlib.util
+
+    root = _tools_path()
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", root / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_checks_hold_on_the_card(name):
+    # each example at the JAX example's sizes: every check holds, the
+    # 2D examples' calls reach the 2D kernel, and the streaming ones
+    # time their blocks on the device
+    with ck.count_launches() as launches:
+        res = _example(name).run(emit=lambda line: None)
+        torch.cuda.synchronize()
+    assert all(res["checks"].values()), res["checks"]
+    if name in ("matched_filter", "sensor_pipeline"):
+        assert res["busy_ms_a_block"] > 0
+        assert res["fused_blocks_s"] > 0 and res["unfused_blocks_s"] > 0
+    if name == "image_filter":
+        assert res["blur_and_edges"]["launches"]["blur"] == {"filter_2d": 1}
+        assert res["template"]["launches"] == {"filter_2d": 1}
+        assert launches == {"filter_2d": 4}
+
+
+def test_multichip_rows_hold_on_the_card(tmp_path):
+    _tools_path()
+    import bench_multichip_torch as bmc
+
+    entries = bmc.run_bench(8, str(tmp_path / "m.json"), quick=True,
+                            emit=lambda line: None)
+    rows, tail = entries[:-1], entries[-1]
+    assert len(rows) == 3 and not any("flagged" in r for r in rows)
+    assert tail["device"] == "cuda:0" and tail["distinct_cards"] == 1
+    for r in rows:
+        assert all(b is not None and b > 0 for b in r["busy_ms"].values())
+
+
+def test_tune_conv2d_runs_the_2d_kernel_on_the_card():
+    _tools_path()
+    import tune_conv2d_torch as tc2
+
+    results = tc2.sweep([(128, 128)], [(3, 3), (33, 33)], [1, 8],
+                        emit=lambda line: None)
+    for (rows, n0, n1, k0, k1), cell in results.items():
+        assert cell["winner"] is not None
+        if k0 == 3:
+            c = cell["cands"]["cuda_direct"]
+            assert c["ok"] and c["launches"] == {"filter_2d": 1}
+            assert c["busy_ms"] > 0
+        else:
+            assert "cuda_direct" not in cell["cands"]
+        assert all(c["ok"] for c in cell["cands"].values())
+
+
+def test_profile_overlap_save_routes_on_the_card():
+    _tools_path()
+    import profile_overlap_save_torch as pos
+
+    rows = {r["name"]: r for r in pos.profile(1 << 20, 2047,
+                                              emit=lambda line: None)}
+    assert rows["cuda_fused"]["launches"] == {"overlap_save": 2}
+    for r in rows.values():
+        assert r["rel_err"] <= pos.TOL
+        assert r["busy_ms"] >= r["least_work_bound_ms"] > 0

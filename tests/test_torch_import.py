@@ -1,7 +1,7 @@
 """The PyTorch port imports without JAX and without the JAX package.
 
 Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``,
-``bench_torch.py`` and the port's tools) is imported in a fresh
+``bench_torch.py``, the port's tools and examples) is imported in a fresh
 interpreter where ``import jax`` fails; afterwards no
 ``veles.simd_tpu`` module may be loaded.  Every port module of the op
 library exports each public name of its JAX twin.
@@ -18,6 +18,10 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "veles" / "simd_tpu_torch"
+# the port's twins of the JAX examples (examples/<name>_torch.py)
+EXAMPLES = ("matched_filter", "sensor_pipeline", "image_filter",
+            "wavelet_denoise", "wavelet_multires", "spectral_zoom",
+            "kaiser_design", "sharded_longsignal")
 
 
 def _port_modules():
@@ -127,7 +131,12 @@ print("ok")
                                   "obs_query_torch.py",
                                   "chaos_torch.py",
                                   "obs_report_torch.py",
-                                  "obs_dash_torch.py"])
+                                  "obs_dash_torch.py",
+                                  "bench_multichip_torch.py",
+                                  "tune_conv2d_torch.py",
+                                  "profile_overlap_save_torch.py",
+                                  "check_wavelet_parity_torch.py",
+                                  "gen_docs_torch.py"])
 def test_port_tools_import_without_jax(tool):
     code = f"""
 import runpy, sys
@@ -179,7 +188,10 @@ sys.exit(ns["main"]())
     ("tools/cold_start_torch.py", []),
     ("tools/benchmark_suite_torch.py", []),
     ("tools/chaos_torch.py", ["--smoke"]),
-])
+    ("tools/bench_multichip_torch.py", ["--quick"]),
+    ("tools/tune_conv2d_torch.py", ["--quick"]),
+    ("tools/profile_overlap_save_torch.py", []),
+] + [(f"examples/{name}_torch.py", []) for name in EXAMPLES])
 def test_measuring_tools_refuse_to_run_without_a_card(script, argv):
     # bench_torch.py and the tools it drives probe for a card (a
     # subprocess, require_reachable_device) and exit 2 without one,
@@ -212,6 +224,57 @@ def test_kernel_library_tools_refuse_the_cpu(script):
                          timeout=300)
     assert out.returncode == 2, out.stderr[-2000:]
     assert "CUDA kernel library" in out.stderr
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_port_examples_import_without_jax(name):
+    # each example's steps, run() and main() load nothing of JAX
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+ns = runpy.run_path({str(REPO / "examples" / (name + "_torch.py"))!r},
+                    run_name="example")
+assert callable(ns["main"]) and callable(ns["run"])
+assert isinstance(ns["SIZES"], dict)
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("script,argv,expect", [
+    ("tools/check_wavelet_parity_torch.py", ["--orders", "4"], "[ok]"),
+    ("tools/gen_docs_torch.py", None, "# `veles.simd_tpu_torch.cshim`"),
+])
+def test_cpu_tools_run_without_a_card(script, argv, expect):
+    # the stated exceptions: the symlet check is host arithmetic and
+    # the API pages import the port on the CPU, so neither exits 2
+    # without a card or VELES_SIMD_PLATFORM (the pages are rendered,
+    # not written, here)
+    call = ("sys.exit(ns['main']())" if argv is not None else
+            "print(ns['render_module']('veles.simd_tpu_torch.cshim'))")
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = [{script!r}] + {argv or []!r}
+sys.path.insert(0, {str(REPO)!r})
+import torch
+torch.cuda.is_available = lambda: False
+ns = runpy.run_path({str(REPO / script)!r}, run_name="tool")
+{call}
+"""
+    env = dict(os.environ, VELES_SIMD_DEVICE_WAIT="0")
+    env.pop("VELES_SIMD_PLATFORM", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert expect in out.stdout
 
 
 def test_bench_torch_imports_without_jax():

@@ -185,6 +185,23 @@ def test_cpu_path_launches_nothing():
                            "cascade_bank": 0, "filter_2d": 0, "stft": 0}
 
 
+def test_count_launches_reads_the_counts_without_resetting():
+    # the counts the wrappers add inside the block, and nothing reset
+    ck.reset_launches()
+    ck._count("stft", 3)
+    with ck.count_launches() as made:
+        ck._count("overlap_save", 2)
+        ck._count("filter_2d", 1)
+        assert made == {}
+    assert made == {"overlap_save": 2, "filter_2d": 1}
+    assert ck.LAUNCHES == {"overlap_save": 2, "filter_bank": 0,
+                           "cascade_bank": 0, "filter_2d": 1, "stft": 3}
+    with ck.count_launches() as none:
+        ck.stft_cuda(torch.ones(2, 600), torch.ones(256), 256, 128)
+    assert none == {}
+    ck.reset_launches()
+
+
 @pytest.mark.parametrize("rows,launches", [
     (1, 1), (65535, 1), (65536, 2), (70000, 2), (3 * 65535 + 1, 4)])
 def test_launch_count_follows_the_grid_row_limit(rows, launches):

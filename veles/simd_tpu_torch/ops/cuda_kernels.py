@@ -74,6 +74,7 @@ this process loaded.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -106,8 +107,8 @@ __all__ = [
     "stft_fft_length", "stft_frames_per_block", "stft_smem_bytes",
     "fits_smem_stft",
     "should_route", "on_card", "CudaError", "KernelBuildError",
-    "LAUNCHES", "reset_launches", "load_library", "build_log",
-    "set_build_root",
+    "LAUNCHES", "reset_launches", "count_launches", "load_library",
+    "build_log", "set_build_root",
     "OS_MIN_H", "DIRECT_MAX_H", "MIN_ROWS", "MAX_AREA_2D", "OS_MAX_FFT",
     "FB_TILE", "FB_MMA_TILE", "FB_MMA_MIN_K", "CB_MAX_SPLIT", "F2D_TILE",
     "STFT_MIN_FRAMES",
@@ -415,6 +416,22 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def count_launches():
+    """Yield a dict that holds, when the block ends, the launches of
+    each kernel made inside it (the kernels that launched only); the
+    counts themselves are read, not reset."""
+    with _launch_lock:
+        before = dict(LAUNCHES)
+    made: dict = {}
+    try:
+        yield made
+    finally:
+        with _launch_lock:
+            made.update({k: v - before[k] for k, v in LAUNCHES.items()
+                         if v != before[k]})
 
 
 # ---- the built library -----------------------------------------------------

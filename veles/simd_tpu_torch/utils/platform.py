@@ -42,7 +42,7 @@ __all__ = ["probe_device_count", "require_reachable_device",
            "init_deadline", "to_host", "to_device", "probe_history",
            "reset_probe_history",
            "device", "on_cuda", "as_tensor", "as_f32", "as_c64",
-           "smi_line"]
+           "smi_line", "device_line"]
 
 # Device-reachability probe records (require_reachable_device's retry
 # loop), retained for the flight recorder regardless of telemetry.
@@ -332,3 +332,14 @@ def smi_line() -> str:
         [exe, "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def device_line() -> str:
+    """What an entry point computes on, for its ``device:`` line: the
+    card's name and power limit (:func:`smi_line`, else
+    ``torch.cuda.get_device_name``) when the configured device is a
+    card, else ``"cpu"``."""
+    if not on_cuda():
+        return "cpu"
+    smi = smi_line()
+    return smi if smi != "not measured" else torch.cuda.get_device_name(0)
