@@ -316,6 +316,21 @@ without printing a result):
             (every route held to float64, K1 twice a call, each route's
             busy ms and share of the least-work bound); no fault
             recorded.
+9d. train — ``graft_entry_torch.py`` (the twin of
+            ``__graft_entry__.py``): ``entry()``'s forward (8 x 4096,
+            129 taps, 64 features) within 1e-4 of max|feats| of a
+            float64 CPU run, its peak mask exact wherever both
+            neighbour differences clear 1e-5 of max|filt| (the bits
+            under it counted); ten ``train_step``s at that width, each
+            loss and update within 1e-4 of a float64 CPU autograd step
+            from the same parameters, the loss lower after them; one
+            ``sharded_train_step`` on 8 shards of ``cuda:0`` (dp 2, sp
+            2, tp 2) within 1e-5 of the single-card step;
+            ``dryrun_multichip(8)`` with every check; busy ms a step
+            (CUPTI), chained ms a step (CUDA events), the idle share,
+            kernels a step, and K1-K5 launches of the step (none: the
+            filter is cuFFT, the GEMM an fp32 matmul); no fault
+            recorded.
 10. chaos — ``tools/chaos_torch.py``'s four campaigns in-process at the
             JAX tool's default sizes: the single server (the mesh 8
             shards of the card), the replicas as threads, the replicas
@@ -410,6 +425,11 @@ ROWS_PSOS, N_PSOS = 8, 1 << 20
 # come back empty late in the process, so it takes 20 a window and the
 # longest of 3 windows (utils.benchmark's default)
 PAR_ITERS, PAR_CALLS, PAR_SINGLE_CALLS = 3, 3, 20
+# the train phase: graft_entry_torch.py's steps at entry()'s width; the
+# peak mask is exact wherever both neighbour differences clear this
+# share of max|filt| (cuFFT and the CPU's FFT round differently)
+TRAIN_STEPS = 10
+TRAIN_MASK_MARGIN = 1e-5
 DAUB8_LO = np.array([-0.010597401784997278, 0.032883011666982945,
                      0.030841381835986965, -0.18703481171888114,
                      -0.02798376941698385, 0.6308807679295904,
@@ -3331,15 +3351,20 @@ def kernel_counts(launches):
                     for label, name in KERNEL_LABELS)
 
 
-def load_example(name):
-    """``examples/<name>_torch.py`` as a module (its steps and ``run``)."""
+def load_script(*parts):
+    """The checkout's script at ``ROOT/<parts>`` as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
+        os.path.splitext(parts[-1])[0], os.path.join(ROOT, *parts))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_example(name):
+    """``examples/<name>_torch.py`` as a module (its steps and ``run``)."""
+    return load_script("examples", f"{name}_torch.py")
 
 
 def examples_phase(torch, ck, obs, faults, breaker, smi):
@@ -3462,6 +3487,151 @@ def tools_phase(torch, ck, obs, faults, breaker, smi):
         + f" | {time.perf_counter() - t0:.1f} s")
     print(f"tools: multichip, tune_conv2d, profile_overlap_save held | "
           f"phase {time.perf_counter() - t_phase:.1f} s | card {smi}")
+
+
+def mask_check(ge, mask, p64, x64):
+    """``(bits that differ where a neighbour difference is under the
+    margin, bits compared)``; fails on any other differing bit: the
+    card's mask against the float64 CPU mask, exact wherever
+    ``min(|d1|, |d2|) >= TRAIN_MASK_MARGIN * max|filt|``."""
+    import torch
+
+    filt = ge._filtered(p64["filter"], x64)
+    mask64 = ge._pipeline(p64, x64)[1]
+    d1 = (filt[..., 1:-1] - filt[..., :-2]).abs()
+    d2 = (filt[..., 1:-1] - filt[..., 2:]).abs()
+    sure = torch.ones_like(mask64)
+    sure[..., 1:-1] = (torch.minimum(d1, d2)
+                       >= TRAIN_MASK_MARGIN * filt.abs().max())
+    differ = mask.cpu() != mask64
+    check(not bool((differ & sure).any()),
+          f"train: {int((differ & sure).sum())} peak-mask bits differ "
+          f"clear of the margin")
+    return int((differ & ~sure).sum()), int(mask64.numel())
+
+
+def train_phase(torch, ck, bm, obs, faults, breaker, smi):
+    """The flagship step (``graft_entry_torch.py``) on the card:
+    ``entry()``'s forward against a float64 CPU run of the same
+    ``_pipeline`` (the mask exact clear of the margin), ten
+    ``train_step``s each against a float64 CPU autograd step from the
+    same parameters and the loss lower after them, one
+    ``sharded_train_step`` at full width on 8 shards of ``cuda:0``
+    against the single-card step, then ``dryrun_multichip(8)`` with
+    every check; the step's busy and chained ms, idle share, kernels a
+    step, and its K1-K5 launches (none: it reaches no csrc kernel)."""
+    import contextlib
+    import io
+
+    from veles.simd_tpu_torch import parallel as par
+
+    ge = load_script("graft_entry_torch.py")
+    t_phase = time.perf_counter()
+    obs.reset()
+
+    def f64(params):
+        return {k: v.detach().cpu().double() for k, v in params.items()}
+
+    fn, (params, x) = ge.entry()
+    x64 = x.cpu().double()
+    p64 = f64(params)
+    rng = np.random.RandomState(SEED + 4)
+    target = torch.as_tensor(rng.randn(
+        x.shape[0], params["proj"].shape[0]).astype(np.float32),
+        device=x.device)
+    t64 = target.cpu().double()
+    with ck.count_launches() as launches:
+        feats, mask = fn(params, x)
+        torch.cuda.synchronize()
+        err_f = rel_err(feats.cpu(), ge._pipeline(p64, x64)[0])
+        check(err_f <= ORACLE_TOL, f"train forward: {err_f:.2e} of max|"
+              f"feats| against float64")
+        loose, bits = mask_check(ge, mask, p64, x64)
+        print(f"train forward: entry() {tuple(x.shape)} x "
+              f"{tuple(params['filter'].shape)} taps -> feats "
+              f"{tuple(feats.shape)}, mask {tuple(mask.shape)} | err "
+              f"{err_f:.2e} of max|feats| vs float64 | mask exact clear "
+              f"of {TRAIN_MASK_MARGIN:g} x max|filt|, {loose} of {bits} "
+              f"bits differ under it | card {smi}")
+
+        losses, errs, steps = [], [], []
+        p = params
+        for _ in range(TRAIN_STEPS):
+            q64 = f64(p)
+            loss, new = ge.train_step(p, x, target)
+            loss64, new64 = ge.train_step(q64, x64, t64)
+            errs.append(max([abs(float(loss) - float(loss64))
+                             / abs(float(loss64))]
+                            + [rel_err(new[k].cpu(), new64[k])
+                               for k in new]))
+            steps.append(max(rel_err(q64[k] - new[k].cpu().double(),
+                                     q64[k] - new64[k]) for k in new))
+            check(errs[-1] <= ORACLE_TOL,
+                  f"train step {len(losses)}: {errs[-1]:.2e} against "
+                  f"the float64 step")
+            losses.append(float(loss))
+            p = new
+        with torch.no_grad():
+            final = float(ge.loss_fn(p, x, target))
+        check(final < losses[0], f"train: loss {losses[0]:.6f} -> "
+              f"{final:.6f} after {TRAIN_STEPS} steps")
+        print(f"train steps: {TRAIN_STEPS} SGD steps at lr 0.01 | loss "
+              + " ".join(f"{v:.6f}" for v in losses)
+              + f" -> {final:.6f} | worst loss/param err {max(errs):.2e} "
+              f"vs float64 | worst step (lr x grad) err {max(steps):.2e} "
+              f"of its max | card {smi}")
+
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = par.make_mesh({"dp": 2, "sp": 2, "tp": 2},
+                             devices=[dev] * PAR_SHARDS)
+        t0 = time.perf_counter()
+        loss_m, new_m = ge.sharded_train_step(params, x, target, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loss1, new1 = ge.train_step(params, x, target)
+        err_m = max([abs(float(loss_m) - float(loss1)) / abs(float(loss1))]
+                    + [rel_err(new_m[k].cpu(), new1[k].cpu())
+                       for k in new1])
+        check(err_m <= PARITY_TOL, f"train sharded: {err_m:.2e} against "
+              f"the single-card step")
+        print(f"train sharded: sharded_train_step {mesh} at full width | "
+              f"loss {float(loss_m):.6f} | err {err_m:.2e} of max vs the "
+              f"single-card step | wall {wall:.3f} s (first call) | "
+              f"card {smi}")
+    check(not launches, f"train: the step launched a csrc kernel: "
+          f"{launches}")
+
+    state = [params]
+
+    def step():
+        state[0] = ge.train_step(state[0], x, target)[1]
+
+    busy, kernels = bm.device_profile(step)
+    chained = bm.device_time_ms(step)
+    with ck.count_launches() as timed:
+        step()
+        torch.cuda.synchronize()
+    check(not timed, f"train: the timed step launched {timed}")
+    print(f"train time: busy {busy:.4f} ms a step (CUPTI) | chained "
+          f"{chained:.4f} ms a step (CUDA events) | idle share "
+          f"{max(0.0, 1.0 - busy / chained):.3f} | kernels {kernels:.0f} "
+          f"a step | launches {kernel_counts(launches)} | card {smi}")
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with ck.count_launches() as dry, contextlib.redirect_stdout(out):
+        loss_d = ge.dryrun_multichip(PAR_SHARDS)
+        torch.cuda.synchronize()
+    line = out.getvalue().strip().splitlines()[-1]
+    check(np.isfinite(loss_d) and line.endswith(" ok"),
+          f"train dryrun: {line}")
+    healthy("train", obs, faults, breaker)
+    print(f"train dryrun: {line} | every check held | "
+          f"{time.perf_counter() - t0:.1f} s | launches "
+          f"{kernel_counts(dry)}")
+    print(f"train: forward, {TRAIN_STEPS} steps, the sharded step and "
+          f"the dry run held | phase {time.perf_counter() - t_phase:.1f} "
+          f"s | card {smi}")
 
 
 # past this many seconds of chip_smoke the chaos phase runs the
@@ -4776,12 +4946,15 @@ def main():
     examples_phase(torch, ck, obs, faults, breaker, smi)
     tools_phase(torch, ck, obs, faults, breaker, smi)
     n_breakers = healthy("examples and tools", obs, faults, breaker)
+    # 9d. the flagship step and its training step (graft_entry_torch.py)
+    train_phase(torch, ck, bm, obs, faults, breaker, smi)
+    n_breakers = healthy("train", obs, faults, breaker)
     # 10. the chaos campaigns (fault plans, so healthy after its reset)
     chaos_phase(obs, faults, breaker, smi,
                 time.perf_counter() - t_start)
     healthy("chaos (after its reset)", obs, faults, breaker)
     print("healthy: main, reference, dsp, autotune, times, cabi, "
-          "artifacts, bench, suite, examples and tools recorded "
+          "artifacts, bench, suite, examples, tools and train recorded "
           "no fault_* counter, no fault_policy event and no fault "
           f"record; {n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start

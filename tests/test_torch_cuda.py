@@ -1700,15 +1700,18 @@ EXAMPLES = ("matched_filter", "sensor_pipeline", "image_filter",
             "kaiser_design", "sharded_longsignal")
 
 
-def _example(name):
+def _script(*parts):
     import importlib.util
 
-    root = _tools_path()
-    spec = importlib.util.spec_from_file_location(
-        f"{name}_torch", root / "examples" / f"{name}_torch.py")
+    path = _tools_path().joinpath(*parts)
+    spec = importlib.util.spec_from_file_location(path.stem, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _example(name):
+    return _script("examples", f"{name}_torch.py")
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
@@ -1769,3 +1772,75 @@ def test_profile_overlap_save_routes_on_the_card():
     for r in rows.values():
         assert r["rel_err"] <= pos.TOL
         assert r["busy_ms"] >= r["least_work_bound_ms"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the flagship step and its training step (graft_entry_torch.py)
+# ---------------------------------------------------------------------------
+
+def _graft_entry():
+    return _script("graft_entry_torch.py")
+
+
+def _f64(params):
+    return {k: v.detach().cpu().double() for k, v in params.items()}
+
+
+def _step_inputs(ge):
+    _, (params, x) = ge.entry()
+    target = _t(np.random.RandomState(7).randn(x.shape[0], 64))
+    return params, x, target
+
+
+def test_graft_entry_forward_and_train_step_against_float64():
+    # the forward and one SGD step on the card, each against a float64
+    # CPU run from the same inputs; the peak mask exact wherever both
+    # neighbour differences clear 1e-5 of max|filt|; no csrc kernel
+    ge = _graft_entry()
+    params, x, target = _step_inputs(ge)
+    assert x.device.type == "cuda"
+    p64, x64, t64 = _f64(params), x.cpu().double(), target.cpu().double()
+    with ck.count_launches() as launches:
+        feats, mask = ge._pipeline(params, x)
+        loss, new = ge.train_step(params, x, target)
+        torch.cuda.synchronize()
+    assert not launches
+    feats64, mask64 = ge._pipeline(p64, x64)
+    assert _rel(feats.cpu(), feats64) <= 1e-4
+    filt = ge._filtered(p64["filter"], x64)
+    d = torch.minimum((filt[..., 1:-1] - filt[..., :-2]).abs(),
+                      (filt[..., 1:-1] - filt[..., 2:]).abs())
+    sure = d >= 1e-5 * filt.abs().max()
+    differ = mask.cpu()[..., 1:-1] != mask64[..., 1:-1]
+    assert not bool((differ & sure).any())
+    assert not bool(mask.cpu()[..., [0, -1]].any())
+    loss64, new64 = ge.train_step(p64, x64, t64)
+    assert abs(float(loss) - float(loss64)) <= 1e-4 * float(loss64)
+    for k in new64:
+        assert new[k].device.type == "cuda"
+        assert _rel(new[k].cpu(), new64[k]) <= 1e-4
+
+
+def test_graft_entry_sharded_step_equals_the_card_step():
+    # dp 2 x sp 2 x tp 2 over 8 shards of cuda:0 at full width
+    from veles.simd_tpu_torch import parallel as par
+
+    ge = _graft_entry()
+    params, x, target = _step_inputs(ge)
+    mesh = par.make_mesh({"dp": 2, "sp": 2, "tp": 2},
+                         devices=["cuda:0"] * 8)
+    loss, new = ge.sharded_train_step(params, x, target, mesh)
+    loss1, new1 = ge.train_step(params, x, target)
+    assert abs(float(loss) - float(loss1)) <= TOL * float(loss1)
+    for k in new1:
+        assert new[k].device == torch.device("cuda", 0)
+        assert _rel(new[k].cpu(), new1[k].cpu()) <= TOL
+
+
+def test_graft_entry_dryrun_on_eight_shards_of_the_card(capsys):
+    ge = _graft_entry()
+    loss = ge.dryrun_multichip(8)
+    assert np.isfinite(loss)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line == (f"dryrun_multichip: mesh dp=2 sp=2 tp=2 "
+                    f"loss={loss:.4f} ok")

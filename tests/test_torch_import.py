@@ -1,7 +1,8 @@
 """The PyTorch port imports without JAX and without the JAX package.
 
 Every module of ``veles.simd_tpu_torch`` (and ``chip_smoke.py``,
-``bench_torch.py``, the port's tools and examples) is imported in a fresh
+``bench_torch.py``, ``graft_entry_torch.py``, the port's tools and
+examples) is imported in a fresh
 interpreter where ``import jax`` fails; afterwards no
 ``veles.simd_tpu`` module may be loaded.  Every port module of the op
 library exports each public name of its JAX twin.
@@ -105,6 +106,8 @@ sys.path.insert(0, {str(REPO)!r})
 for name in {_port_modules()!r}:
     importlib.import_module(name)
 runpy.run_path({str(REPO / "chip_smoke.py")!r}, run_name="chip_smoke")
+runpy.run_path({str(REPO / "graft_entry_torch.py")!r},
+               run_name="graft_entry_torch")
 bad = sorted(m for m in sys.modules
              if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
 assert not bad, bad
@@ -191,6 +194,7 @@ sys.exit(ns["main"]())
     ("tools/bench_multichip_torch.py", ["--quick"]),
     ("tools/tune_conv2d_torch.py", ["--quick"]),
     ("tools/profile_overlap_save_torch.py", []),
+    ("graft_entry_torch.py", []),
 ] + [(f"examples/{name}_torch.py", []) for name in EXAMPLES])
 def test_measuring_tools_refuse_to_run_without_a_card(script, argv):
     # bench_torch.py and the tools it drives probe for a card (a
@@ -287,6 +291,33 @@ assert callable(ns["main"]) and callable(ns["bench_convolve_1m"])
 import tools.tpu_smoke_torch, tools.loadgen_torch, tools.cold_start_torch
 bad = sorted(m for m in sys.modules
              if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_graft_entry_torch_imports_without_jax():
+    # the flagship step's twin defines the JAX file's functions and
+    # its own weight moves, and loads neither JAX, the JAX package nor
+    # __graft_entry__
+    code = f"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+ns = runpy.run_path({str(REPO / "graft_entry_torch.py")!r},
+                    run_name="graft_entry_torch")
+for name in ("_pipeline", "entry", "params_from_jax", "params_to_numpy",
+             "loss_fn", "train_step", "_factor_axes",
+             "sharded_train_step", "dryrun_multichip", "_dryrun_body",
+             "main"):
+    assert callable(ns[name]), name
+bad = sorted(m for m in sys.modules
+             if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu.")
+             or m == "__graft_entry__")
 assert not bad, bad
 print("ok")
 """
