@@ -213,3 +213,111 @@ clean:
 	$(MAKE) -C csrc clean
 	rm -f tests.log test_results_*.xml COLD_START_DETAILS.json
 	rm -rf warm_pack
+
+# --- the PyTorch/CUDA port (veles/simd_tpu_torch/) -------------------------
+# The -torch twin of each target above that drives a JAX tool: the same
+# flags and environment, the port's tool (tools/*_torch.py,
+# bench_torch.py).  The port computes on the CUDA card unless
+# VELES_SIMD_PLATFORM=cpu.  No twin: bench-regress (the JAX bench's
+# history gate; the port's benchmark has none yet), cshim (csrc's own
+# build: the port builds its C library at first use,
+# veles/simd_tpu_torch/cabi), install and install-hooks (one package,
+# one hook).  cabi-check-torch is cshim-check's twin (the C suite
+# against the port; CABI_PLATFORM=cpu runs it on the CPU), chip-smoke
+# the port's proof run on the card.
+
+.PHONY: tests-torch tests-quick-torch benchmarks-torch bench-torch \
+        bench-multichip-torch bench-serve-torch bench-goodput-torch \
+        bench-rpc-torch serve-smoke-torch \
+        chaos-smoke-torch chaos-replicas-torch chaos-replicas-rpc-torch \
+        chaos-scale-torch cabi-check-torch wavelet-tables-torch \
+        lint-torch docs-torch obs-report-torch obs-dash-torch \
+        obs-query-torch autotune-pack-torch warm-pack-torch \
+        cold-start-torch chip-smoke
+
+tests-torch:
+	$(PYTHON) tools/run_tests_torch.py
+
+tests-quick-torch:
+	VELES_SIMD_PLATFORM=cpu $(PYTHON) -m pytest tests/test_torch_*.py -q \
+		-m "not slow"
+
+benchmarks-torch:
+	$(PYTHON) tools/benchmark_suite_torch.py
+
+bench-torch:
+	$(PYTHON) bench_torch.py --all
+
+bench-multichip-torch:
+	$(PYTHON) tools/bench_multichip_torch.py
+
+bench-serve-torch:
+	$(PYTHON) tools/loadgen_torch.py --details SERVE_DETAILS_torch.json
+
+bench-goodput-torch:
+	VELES_SIMD_PLATFORM=cpu $(PYTHON) tools/loadgen_torch.py --saturation \
+		--details GOODPUT_DETAILS_torch.json
+
+bench-rpc-torch:
+	VELES_SIMD_PLATFORM=cpu $(PYTHON) tools/loadgen_torch.py \
+		--rpc-overhead --details RPC_DETAILS_torch.json
+
+serve-smoke-torch:
+	VELES_SIMD_PLATFORM=cpu $(PYTHON) tools/loadgen_torch.py --smoke
+
+chaos-smoke-torch:
+	VELES_SIMD_PLATFORM=cpu VELES_SIMD_FAULT_BACKOFF=0 \
+		$(PYTHON) tools/chaos_torch.py --smoke
+
+chaos-replicas-torch:
+	VELES_SIMD_PLATFORM=cpu VELES_SIMD_FAULT_BACKOFF=0 \
+		$(PYTHON) tools/chaos_torch.py --replicas --smoke
+
+chaos-replicas-rpc-torch:
+	VELES_SIMD_PLATFORM=cpu VELES_SIMD_FAULT_BACKOFF=0 \
+		$(PYTHON) tools/chaos_torch.py --replicas --spawn subprocess --smoke
+
+chaos-scale-torch:
+	VELES_SIMD_PLATFORM=cpu VELES_SIMD_FAULT_BACKOFF=0 \
+		$(PYTHON) tools/chaos_torch.py --scale --smoke
+
+CABI_PLATFORM ?=
+cabi-check-torch:
+	$(PYTHON) -c "import subprocess, sys; \
+	from veles.simd_tpu_torch import cabi; \
+	prog = cabi.build_program('csrc/test_veles_simd.c'); \
+	env = cabi.program_env('$(CABI_PLATFORM)' or None); \
+	sys.exit(subprocess.run([str(prog)], env=env).returncode)"
+
+wavelet-tables-torch:
+	$(PYTHON) tools/gen_wavelet_tables_torch.py
+
+lint-torch:
+	$(PYTHON) tools/lint_torch.py
+
+docs-torch:
+	$(PYTHON) tools/gen_docs_torch.py
+
+SNAPSHOT_TORCH ?= BENCH_DETAILS_torch.json
+obs-report-torch:
+	$(PYTHON) tools/obs_report_torch.py $(SNAPSHOT_TORCH)
+
+obs-dash-torch:
+	$(PYTHON) tools/obs_dash_torch.py $(if $(OBS_PORT),--port $(OBS_PORT),)
+
+obs-query-torch:
+	$(PYTHON) tools/obs_query_torch.py $(JOURNAL) $(QUERY)
+
+PACK_TORCH ?= autotune_pack_torch.json
+autotune-pack-torch:
+	$(PYTHON) tools/autotune_pack_torch.py --out $(PACK_TORCH)
+
+WARM_PACK_TORCH ?= warm_pack_torch
+warm-pack-torch:
+	$(PYTHON) tools/warm_pack_torch.py --dir $(WARM_PACK_TORCH)
+
+cold-start-torch:
+	$(PYTHON) tools/cold_start_torch.py
+
+chip-smoke:
+	$(PYTHON) chip_smoke.py

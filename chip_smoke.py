@@ -3634,6 +3634,134 @@ def train_phase(torch, ck, bm, obs, faults, breaker, smi):
           f"s | card {smi}")
 
 
+# the devtools phase: the orders it regenerates and the DWT it runs
+# each through K2 (rows x samples, periodic extension)
+DEVTOOLS_ORDERS = (("daub", 8), ("sym", 8), ("coif", 6))
+DEVTOOLS_ROWS, DEVTOOLS_N = 512, 4096
+# a regenerated filter's DWT against the committed filter's, relative
+# to max|y| (the rows differ by at most their drift bound, 1e-9 here,
+# far under float32's rounding of the taps)
+DEVTOOLS_FILTER_TOL = 1e-6
+
+
+def devtools_phase(torch, ck, obs, faults, breaker, smi):
+    """The port's developer gate on the card's machine:
+    ``tools/lint_torch.py`` on the checkout (rc 0) and
+    ``tools/gen_wavelet_tables_torch.py --orders daub8,sym8,coif6
+    --derived`` into a scratch table, in two processes at once; each
+    regenerated row held to the committed one within its drift bound;
+    then a 512 x 4096 periodic DWT with each regenerated filter through
+    K2 (``filter_bank_cuda``, one launch a call), held within 1e-6 of
+    max|y| to the same DWT with the committed filter
+    (``wavelet.wavelet_apply``, K2 too) and within 1e-4 to float64."""
+    import subprocess
+    import tempfile
+
+    from veles.simd_tpu_torch.ops import wavelet as wv
+    from veles.simd_tpu_torch.ops import wavelet_coeffs as wc
+
+    gen = load_script("tools", "gen_wavelet_tables_torch.py")
+    t_phase = time.perf_counter()
+    obs.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        table = os.path.join(tmp, "derived.npz")
+        keys = [f"{fam}{order}" for fam, order in DEVTOOLS_ORDERS]
+        procs = {
+            "lint": subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "tools",
+                                              "lint_torch.py")],
+                cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True),
+            "tables": subprocess.Popen(
+                [sys.executable, os.path.join(
+                    ROOT, "tools", "gen_wavelet_tables_torch.py"),
+                 "--orders", ",".join(keys), "--derived",
+                 "--out", table, "--reference", tmp],
+                cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)}
+        outs = {}
+        try:
+            for name, proc in procs.items():
+                outs[name] = proc.communicate(timeout=120)[0]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tools_s = time.perf_counter() - t_phase
+        lint_tail = outs["lint"].strip().splitlines()[-1:] or [""]
+        check(procs["lint"].returncode == 0,
+              f"devtools lint: rc {procs['lint'].returncode}: "
+              f"{outs['lint'][-2000:]}")
+        print(f"devtools lint: tools/lint_torch.py rc 0 | {lint_tail[0]} "
+              f"| card {smi}")
+        check(procs["tables"].returncode == 0,
+              f"devtools tables: rc {procs['tables'].returncode}: "
+              f"{outs['tables'][-2000:]}")
+        derived = gen.load_table(table)
+    committed = gen.load_table(wc._TABLE_PATH)
+    drifts = []
+    for family, order in DEVTOOLS_ORDERS:
+        key = f"{family}{order}"
+        bound = gen.published_drift_bound(order, family)
+        drift = float(np.max(np.abs(derived[key] - committed[key])))
+        check(drift < bound, f"devtools tables: {key} drifts {drift:.2e} "
+              f"from the committed row, bound {bound:.0e}")
+        drifts.append(f"{key} {drift:.1e} < {bound:.0e}")
+    print(f"devtools tables: gen_wavelet_tables_torch.py --orders "
+          f"{','.join(keys)} --derived rc 0 | derived vs "
+          f"committed: {' | '.join(drifts)} | both tools {tools_s:.1f} s "
+          f"(in parallel)")
+
+    rng = np.random.RandomState(SEED + 5)
+    x_np = rng.randn(DEVTOOLS_ROWS, DEVTOOLS_N).astype(np.float32)
+    x = torch.as_tensor(x_np, device="cuda")
+    half = DEVTOOLS_N // 2
+    for family, order in DEVTOOLS_ORDERS:
+        key = f"{family}{order}"
+        lo64 = derived[key]
+        hi64 = wc.qmf_highpass(lo64)
+        taps = torch.as_tensor(np.stack([hi64, lo64]).astype(np.float32),
+                               device="cuda")
+        x_ext = wv._extend(x, "periodic", order).contiguous()
+        with ck.count_launches() as regen:
+            got = ck.filter_bank_cuda(x_ext, taps, 2, 1, half)
+            torch.cuda.synchronize()
+        check(regen == {"filter_bank": 1},
+              f"devtools dwt {key}: launches {regen}, want K2 once")
+        with ck.count_launches() as comm:
+            want = wv.wavelet_apply(family, order, "periodic", x)
+            torch.cuda.synchronize()
+        check(comm == {"filter_bank": 1},
+              f"devtools dwt {key}: the committed filter's DWT launched "
+              f"{comm}")
+        got_np = np.stack([g.cpu().numpy() for g in got])
+        want_np = np.stack([w.cpu().numpy() for w in want])
+        err_c = rel_err(got_np, want_np)
+        ext64 = np.concatenate([x_np, x_np[:, :order]], axis=1).astype(
+            np.float64)
+        win = np.lib.stride_tricks.sliding_window_view(
+            ext64, order, axis=1)[:, ::2][:, :half]
+        want64 = np.stack([win @ hi64, win @ lo64])
+        err_64 = rel_err(got_np, want64)
+        check(err_c <= DEVTOOLS_FILTER_TOL,
+              f"devtools dwt {key}: {err_c:.2e} of max|y| against the "
+              f"committed filter's DWT")
+        check(err_64 <= ORACLE_TOL,
+              f"devtools dwt {key}: {err_64:.2e} of max|y| against "
+              f"float64")
+        print(f"devtools dwt {key}: {DEVTOOLS_ROWS} x {DEVTOOLS_N} "
+              f"periodic, the regenerated filter through K2 "
+              f"(filter_bank_cuda, {regen['filter_bank']} launch) | vs "
+              f"the committed filter (wavelet_apply, K2 "
+              f"{comm['filter_bank']}) {err_c:.2e} of max|y| | vs "
+              f"float64 {err_64:.2e} | card {smi}")
+    healthy("devtools", obs, faults, breaker)
+    print(f"devtools: lint rc 0, {len(DEVTOOLS_ORDERS)} rows within "
+          f"their bounds, {len(DEVTOOLS_ORDERS)} DWTs through K2 held | "
+          f"phase {time.perf_counter() - t_phase:.1f} s | card {smi}")
+
+
 # past this many seconds of chip_smoke the chaos phase runs the
 # subprocess and scale campaigns at --smoke (the run's limit is 1200 s)
 CHAOS_SMOKE_AFTER_S = 700.0
@@ -4949,12 +5077,16 @@ def main():
     # 9d. the flagship step and its training step (graft_entry_torch.py)
     train_phase(torch, ck, bm, obs, faults, breaker, smi)
     n_breakers = healthy("train", obs, faults, breaker)
+    # 9e. the developer gate: lint, the table generator, K2 on its rows
+    devtools_phase(torch, ck, obs, faults, breaker, smi)
+    n_breakers = healthy("devtools", obs, faults, breaker)
     # 10. the chaos campaigns (fault plans, so healthy after its reset)
     chaos_phase(obs, faults, breaker, smi,
                 time.perf_counter() - t_start)
     healthy("chaos (after its reset)", obs, faults, breaker)
     print("healthy: main, reference, dsp, autotune, times, cabi, "
-          "artifacts, bench, suite, examples, tools and train recorded "
+          "artifacts, bench, suite, examples, tools, train and devtools "
+          "recorded "
           "no fault_* counter, no fault_policy event and no fault "
           f"record; {n_breakers} breakers, all closed and never failed")
     elapsed = time.perf_counter() - t_start

@@ -1844,3 +1844,42 @@ def test_graft_entry_dryrun_on_eight_shards_of_the_card(capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line == (f"dryrun_multichip: mesh dp=2 sp=2 tp=2 "
                     f"loss={loss:.4f} ok")
+
+
+@pytest.mark.parametrize("key", ["daub8", "sym8", "coif6"])
+def test_regenerated_filters_run_through_k2(key, tmp_path):
+    # chip_smoke's devtools check: the generator's derived row for the
+    # order, a 512 x 4096 periodic DWT with it through K2 (one launch),
+    # within 1e-6 of max|y| of the committed filter's DWT (K2 too) and
+    # within 1e-4 of float64
+    from veles.simd_tpu_torch.ops import wavelet as wv
+    from veles.simd_tpu_torch.ops import wavelet_coeffs as wc
+
+    _tools_path()
+    import gen_wavelet_tables_torch as gen
+
+    out = tmp_path / "derived.npz"
+    assert gen.main(["--orders", key, "--derived", "--out", str(out),
+                     "--reference", str(tmp_path)]) == 0
+    lo64 = gen.load_table(str(out))[key]
+    family, order = key.rstrip("0123456789"), int(key[-1])
+    hi64 = wc.qmf_highpass(lo64)
+    r = np.random.RandomState(order)
+    x_np = r.randn(512, 4096).astype(np.float32)
+    x = _t(x_np)
+    taps = _t(np.stack([hi64, lo64]))
+    with ck.count_launches() as launches:
+        got = ck.filter_bank_cuda(
+            wv._extend(x, "periodic", order).contiguous(), taps, 2, 1, 2048)
+        torch.cuda.synchronize()
+    assert launches == {"filter_bank": 1}
+    with ck.count_launches() as committed:
+        want = wv.wavelet_apply(family, order, "periodic", x)
+        torch.cuda.synchronize()
+    assert committed == {"filter_bank": 1}
+    got = np.stack([g.cpu().numpy() for g in got])
+    assert _rel(got, np.stack([w.cpu().numpy() for w in want])) <= 1e-6
+    ext = np.concatenate([x_np, x_np[:, :order]], axis=1).astype(np.float64)
+    win = np.lib.stride_tricks.sliding_window_view(
+        ext, order, axis=1)[:, ::2][:, :2048]
+    assert _rel(got, np.stack([win @ hi64, win @ lo64])) <= 1e-4

@@ -120,6 +120,20 @@ print("ok")
     assert out.stdout.strip().endswith("ok")
 
 
+def _jax_tools():
+    """Module names of the JAX package's tools (``tools/*.py`` with no
+    ``torch`` in the name)."""
+    return sorted(p.stem for p in (REPO / "tools").glob("*.py")
+                  if "torch" not in p.stem)
+
+
+# the developer gate's tools keep their own copy of what they need of
+# their JAX twins; an older port tool may share a JAX tool module that
+# loads nothing of JAX (``gen_docs_torch.py`` reads ``gen_docs.MODULES``)
+OWN_COPY_TOOLS = ("lint_torch.py", "linecov_torch.py", "run_tests_torch.py",
+                  "gen_wavelet_tables_torch.py")
+
+
 @pytest.mark.parametrize("tool", ["autotune_pack_torch.py",
                                   "tune_overlap_save_torch.py",
                                   "time_torch_autotune_off.py",
@@ -139,8 +153,14 @@ print("ok")
                                   "tune_conv2d_torch.py",
                                   "profile_overlap_save_torch.py",
                                   "check_wavelet_parity_torch.py",
-                                  "gen_docs_torch.py"])
+                                  "time_torch_spectral_obs.py",
+                                  "gen_docs_torch.py",
+                                  "lint_torch.py",
+                                  "linecov_torch.py",
+                                  "run_tests_torch.py",
+                                  "gen_wavelet_tables_torch.py"])
 def test_port_tools_import_without_jax(tool):
+    banned = _jax_tools() if tool in OWN_COPY_TOOLS else []
     code = f"""
 import runpy, sys
 sys.modules["jax"] = None
@@ -150,6 +170,9 @@ assert callable(ns["main"])
 bad = sorted(m for m in sys.modules
              if m == "veles.simd_tpu" or m.startswith("veles.simd_tpu."))
 assert not bad, bad
+# nor, for the developer gate's tools, a JAX tool module
+jax_tools = sorted(m for m in {banned!r} if m in sys.modules)
+assert not jax_tools, jax_tools
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -46,7 +46,8 @@ BUILDS = {
         ("filter_2d.cu", "if (j0 + c < n_out1) orow[j0 + c] = acc[ry][c];",
          "if (j0 + c < n_out1 && acc[ry][c] == 1234.5f) "
          "orow[j0 + c] = acc[ry][c];"),
-        ("filter_bank.cu", "for (int m = lane; m < lim; m += 32) oc[m] = wo[m];",
+        ("filter_bank.cu",
+         "for (int m = lane; m < lim; m += 32) oc[m] = wo[m];",
          "for (int m = lane; m < lim; m += 32) "
          "if (wo[m] == 1234.5f) oc[m] = wo[m];")),
 }
@@ -65,7 +66,8 @@ __global__ void mma_loop(float* out, int iters) {
                    : "+f"(acc[c][0]), "+f"(acc[c][1]), "+f"(acc[c][2]),
                      "+f"(acc[c][3]) : "r"(a));
   float s = 0.f;
-  for (int c = 0; c < 8; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  for (int c = 0; c < 8; ++c)
+    s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 // 16 independent FFMA chains a thread, `iters` times

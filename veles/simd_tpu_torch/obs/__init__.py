@@ -209,6 +209,23 @@ def install_compile_listeners() -> bool:
     return _compile.install()
 
 
+def compile_event(event: str) -> None:
+    """One of the port's compile events (``obs.compile.EVENT_COUNTERS``),
+    counted once the compile listeners are installed.  With
+    :func:`compile_timer`, the port's own facade names (not in the JAX
+    package's ``__all__``): the compile sites of ``ops/`` and
+    ``pipeline/`` announce themselves through them."""
+    _compile.record_event(event)
+
+
+def compile_timer(event: str):
+    """``with obs.compile_timer(event) as t:`` times a compile (the
+    nvcc build, a graph capture) and records it as the duration
+    ``event`` (``obs.compile.DURATION_METRICS``); ``t.seconds`` holds
+    the time after the block."""
+    return _compile.timed(event)
+
+
 def count(name: str, n: int = 1, **labels) -> None:
     """Increment counter ``name`` (no-op while disabled)."""
     if not _enabled:

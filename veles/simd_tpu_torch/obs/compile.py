@@ -19,9 +19,18 @@ Nothing listens until :func:`install` (``obs.enable()`` calls it);
 afterwards each event goes through the gated ``obs.count`` /
 ``obs.observe`` helpers, so ``obs.disable()`` silences it with one
 flag check.
+
+Both compile sites sit in compute modules, which may not read a clock
+or import this module (``tools/lint_torch.py``): they announce their
+events through the facade's ``obs.compile_event(event)`` and ``with
+obs.compile_timer(event) as t:`` (:func:`timed`; ``t.seconds`` after
+the block), and the clock stays here.
 """
 
 from __future__ import annotations
+
+import contextlib
+import time
 
 __all__ = ["install", "installed", "EVENT_COUNTERS", "DURATION_METRICS"]
 
@@ -82,3 +91,25 @@ def record_duration(event: str, duration_secs: float) -> None:
     if counter is not None:
         obs.count(counter)
     obs.observe(hist, duration_secs)
+
+
+class _Timing:
+    """What :func:`timed` yields: ``seconds`` is None until the block
+    has completed."""
+
+    __slots__ = ("seconds",)
+
+    def __init__(self):
+        self.seconds = None
+
+
+@contextlib.contextmanager
+def timed(event: str):
+    """Time the block and record it as the duration ``event`` (a key
+    of :data:`DURATION_METRICS`) when it completes; a block that raises
+    records nothing, as a failed build announced nothing before."""
+    timing = _Timing()
+    t0 = time.perf_counter()
+    yield timing
+    timing.seconds = time.perf_counter() - t0
+    record_duration(event, timing.seconds)

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32
 
@@ -357,11 +358,15 @@ def batched_stft(x, frame_length: int, hop: int, window=None,
             "rdft_matmul_bf16_comp": "bf16_comp"}.get(route)
 
     def build():
-        if rdft is None:
-            return functools.partial(sp._stft_xla,
-                                     frame_length=frame_length, hop=hop)
-        return functools.partial(sp._stft_rdft, frame_length=frame_length,
-                                 hop=hop, precision=rdft)
+        # one instrumented handle a class, as the JAX package compiles
+        # one: the ("batched_stft", route) row of obs.resources(); the
+        # spectral core it calls records nothing inside it
+        core = sp._stft_xla if rdft is None else sp._STFT_RDFT_CORES[rdft]
+        return obs.instrumented_jit(
+            functools.partial(core, frame_length=frame_length, hop=hop),
+            op="batched_stft", route=route,
+            work=lambda xb, operand: bm.stft_work(
+                rows, n, frame_length, hop))
 
     with obs.span("batched.stft.dispatch"):
         handle = _get_handle(key, build)

@@ -100,6 +100,12 @@ _CONV2D_FAMILY = routing.family("convolve2d", (
 ))
 
 
+def _direct2d_geom(x_shape, k0: int, k1: int, cuda: bool) -> dict:
+    """The ``convolve2d`` table's geometry of a call."""
+    return dict(k0=int(k0), k1=int(k1), rows=_images(x_shape),
+                n0=int(x_shape[-2]), n1=int(x_shape[-1]), cuda=bool(cuda))
+
+
 def _use_cuda_direct2d(x_shape, k0: int, k1: int, cuda: bool) -> bool:
     """Route the direct form through the 2D kernel — a thin delegate
     into the ``convolve2d`` table: rejection memory first (a demoted
@@ -107,17 +113,18 @@ def _use_cuda_direct2d(x_shape, k0: int, k1: int, cuda: bool) -> bool:
     plan (which opens the gate on the CPU), then the env opt-out and
     the kernel gates.  Tests monkeypatch this gate."""
     return _CONV2D_FAMILY.route_allowed(
-        "direct", k0=int(k0), k1=int(k1), rows=_images(x_shape),
-        n0=int(x_shape[-2]), n1=int(x_shape[-1]), cuda=bool(cuda))
+        "direct", **_direct2d_geom(x_shape, k0, k1, cuda))
 
 
 def select_algorithm2d(k0: int, k1: int, x_shape=None) -> str:
     """``'direct'`` when the 2D kernel will take the shape on the
     configured device, else ``'fft'`` — the JAX package's rule, with the
-    card in place of the TPU."""
+    card in place of the TPU; it answers from the ``convolve2d`` table,
+    as :func:`_use_cuda_direct2d` does."""
     shape = x_shape if x_shape is not None else (1, 1)
-    return ("direct" if _use_cuda_direct2d(shape, k0, k1, on_cuda())
-            else "fft")
+    return ("direct" if _CONV2D_FAMILY.route_allowed(
+        "direct", **_direct2d_geom(shape, k0, k1, on_cuda()))
+        else "fft")
 
 
 def _images(x_shape) -> int:

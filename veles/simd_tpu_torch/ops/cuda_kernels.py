@@ -82,14 +82,12 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from veles.simd_tpu_torch import obs
-from veles.simd_tpu_torch.obs import compile as _compile
 from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.cache import ConstantCache
 
@@ -559,13 +557,11 @@ def load_library():
         out_dir = _build_dir()
         path = out_dir / _LIB_NAME
         if path.exists():
-            _compile.record_event("/veles/cuda/library_cache_hits")
+            obs.compile_event("/veles/cuda/library_cache_hits")
         else:
-            _compile.record_event("/veles/cuda/library_cache_misses")
-            t0 = time.perf_counter()
-            path = _build(out_dir)
-            _compile.record_duration("/veles/cuda/nvcc_build_duration",
-                                     time.perf_counter() - t0)
+            obs.compile_event("/veles/cuda/library_cache_misses")
+            with obs.compile_timer("/veles/cuda/nvcc_build_duration"):
+                path = _build(out_dir)
         lib = ctypes.CDLL(str(path))
         lib.veles_os_fft_length.argtypes = [_I, _L]
         lib.veles_os_fft_length.restype = _I

@@ -69,6 +69,16 @@ hands the engine its routes' calls, forced, as probe runners, keyed by
 the JAX package's geometry classes; ``batched_stft`` consults the
 tune cache through :func:`_stft_route_for` and never probes.
 
+Each route core of the four tables is an ``obs.instrumented_jit``
+with the JAX package's ``op=``/``route=`` labels, so
+``obs.resources()`` has a row for every route a call ran, as the JAX
+package's has; the fused kernel's row is its wrapper's (``("cuda",
+"stft")``).  A core's ``work=`` is the function's least work at the
+call's shape (``utils.benchmark.stft_work`` and this module's
+``_istft_work``/``_hilbert_work``/``_cwt_work``), the same for every
+route of one op, so a row's roofline share says how near its route
+comes to the function's least time.
+
 All entry points accept leading batch dimensions.  Results are tensors
 (complex64 spectra) on the device; ``simd=False`` runs the NumPy
 float64 oracle twins (``*_na``) and returns NumPy as the JAX package
@@ -87,6 +97,7 @@ from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import cuda_kernels as _ck
 from veles.simd_tpu_torch.runtime import faults, routing
 from veles.simd_tpu_torch.runtime import precision as prx
+from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.cache import ConstantCache
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import (as_c64, as_f32, device,
@@ -474,17 +485,83 @@ def hermitian_extend(spec, n: int):
 # ---------------------------------------------------------------------------
 
 
+def _lead_rows(t, core_dims=1) -> int:
+    """Rows of ``t`` before its last ``core_dims`` dimensions."""
+    return int(np.prod(tuple(t.shape)[:t.dim() - core_dims]))
+
+
+def _stft_work(x, operand, frame_length, hop):
+    """``work=`` of the stft cores: :func:`utils.benchmark.stft_work`
+    at the call's shape (the function's least work)."""
+    return _bm.stft_work(_lead_rows(x), x.shape[-1], frame_length, hop)
+
+
+def _istft_work(spec, operand, env_inv, n, frame_length, hop):
+    """``work=`` of the istft cores: the function's least work — per
+    frame an inverse real FFT, the window's multiplies and the
+    overlap-add's adds, then one envelope multiply a sample; the bytes
+    read the spectrum, the window and the envelope once and write the
+    signal once."""
+    rows, L, n = _lead_rows(spec, 2), int(frame_length), int(n)
+    frames = int(spec.shape[-2])
+    flops = rows * (frames * (_bm.rfft_flops(L) + 2 * L) + n)
+    nbytes = 8.0 * rows * frames * (L // 2 + 1) + 4.0 * (L + n + rows * n)
+    return flops, nbytes
+
+
+def _hilbert_work(x, operand):
+    """``work=`` of the hilbert cores: a real forward FFT, the analytic
+    multiplier and a complex inverse FFT a row (``5 n log2 n``); the
+    bytes read the signal and the multiplier and write the complex64
+    analytic signal once."""
+    rows, n = _lead_rows(x), int(x.shape[-1])
+    flops = rows * (_bm.rfft_flops(n) + 2 * n + 2 * _bm.rfft_flops(n))
+    return flops, 4.0 * (rows * n + n) + 8.0 * rows * n
+
+
+def _cwt_work(x, hat):
+    """``work=`` of the morlet_cwt cores: one real forward FFT a row,
+    then per scale the wavelet's multiplies and a complex inverse FFT;
+    the bytes read the signal and the ``[S, n]`` bank and write the
+    complex64 ``[S, n]`` result of each row once."""
+    rows, n, scales = _lead_rows(x), int(x.shape[-1]), int(hat.shape[0])
+    flops = rows * (_bm.rfft_flops(n)
+                    + scales * (2 * n + 2 * _bm.rfft_flops(n)))
+    nbytes = 4.0 * (rows * n + scales * n) + 8.0 * rows * scales * n
+    return flops, nbytes
+
+
+@functools.partial(obs.instrumented_jit, op="stft", route="xla_fft",
+                   work=_stft_work)
 def _stft_xla(x, window, frame_length, hop):
     frames = _take_frames(x, frame_length, hop)
     return torch.fft.rfft(frames * window, dim=-1)
 
 
-def _stft_rdft(x, basis, frame_length, hop, precision="highest"):
+def _stft_rdft_body(x, basis, frame_length, hop, precision):
+    """The rdft routes' body: the precision knob is the only difference
+    between ``rdft_matmul`` and its ``bf16_comp`` variant."""
     frames = _take_frames(x, frame_length, hop)
     out = prx.p_einsum("...fl,lb->...fb", frames, basis,
                        precision=precision)
     bins = frame_length // 2 + 1
     return torch.complex(out[..., :bins], out[..., bins:])
+
+
+@functools.partial(obs.instrumented_jit, op="stft",
+                   route="rdft_matmul", work=_stft_work)
+def _stft_rdft(x, basis, frame_length, hop):
+    return _stft_rdft_body(x, basis, frame_length, hop, "highest")
+
+
+@functools.partial(obs.instrumented_jit, op="stft",
+                   route="rdft_matmul_bf16_comp", work=_stft_work)
+def _stft_rdft_comp(x, basis, frame_length, hop):
+    return _stft_rdft_body(x, basis, frame_length, hop, "bf16_comp")
+
+
+# the basis-matmul cores by matmul precision
+_STFT_RDFT_CORES = {"highest": _stft_rdft, "bf16_comp": _stft_rdft_comp}
 
 
 # (frame_length, hop) classes whose fused STFT launch the card
@@ -680,11 +757,20 @@ def _run_stft_xla(x, window, frame_length, hop):
                      hop)
 
 
-def _run_stft_rdft(x, window, frame_length, hop, precision="highest"):
-    basis = _device_basis("rdft_fwd", frame_length, window,
-                          lambda: _rdft_basis(frame_length, window),
-                          x.device)
-    return _stft_rdft(x, basis, frame_length, hop, precision=precision)
+def _stft_basis(x, window, frame_length):
+    return _device_basis("rdft_fwd", frame_length, window,
+                         lambda: _rdft_basis(frame_length, window),
+                         x.device)
+
+
+def _run_stft_rdft(x, window, frame_length, hop):
+    return _stft_rdft(x, _stft_basis(x, window, frame_length),
+                      frame_length, hop)
+
+
+def _run_stft_rdft_comp(x, window, frame_length, hop):
+    return _stft_rdft_comp(x, _stft_basis(x, window, frame_length),
+                           frame_length, hop)
 
 
 def _run_stft_cuda(x, window, frame_length, hop, forced=False,
@@ -720,8 +806,7 @@ def _run_stft_cuda(x, window, frame_length, hop, forced=False,
 
 _STFT_ROUTES = {"xla_fft": _run_stft_xla,
                 "rdft_matmul": _run_stft_rdft,
-                "rdft_matmul_bf16_comp": functools.partial(
-                    _run_stft_rdft, precision="bf16_comp"),
+                "rdft_matmul_bf16_comp": _run_stft_rdft_comp,
                 "cuda_fused": _run_stft_cuda}
 
 
@@ -797,8 +882,8 @@ def stft_stream_step(x_ext, frame_length: int, hop: int, window,
         operand = _stft_stream_operand(frame_length, window, route,
                                        x_ext.device)
     if route in _STFT_STREAM_RDFT:
-        return _stft_rdft(x_ext, operand, frame_length, hop,
-                          precision=_STFT_STREAM_RDFT[route])
+        core = _STFT_RDFT_CORES[_STFT_STREAM_RDFT[route]]
+        return core(x_ext, operand, frame_length, hop)
     return _stft_xla(x_ext, operand, frame_length, hop)
 
 
@@ -933,27 +1018,60 @@ def _overlap_add(frames, n, frame_length, hop):
     return out.reshape(lead + (int(n),))
 
 
-def _run_istft_xla(spec, window, env_inv, n, frame_length, hop):
-    frames = (torch.fft.irfft(spec, frame_length, dim=-1)
-              * _device_window(window, spec.device))
+@functools.partial(obs.instrumented_jit, op="istft", route="xla_fft",
+                   work=_istft_work)
+def _istft_xla(spec, window, env_inv, n, frame_length, hop):
+    frames = torch.fft.irfft(spec, frame_length, dim=-1) * window
     return _overlap_add(frames, n, frame_length, hop) * env_inv
 
 
-def _run_istft_rdft(spec, window, env_inv, n, frame_length, hop,
-                    precision="highest"):
-    inv_basis = _device_basis(
-        "rdft_inv", frame_length, window,
-        lambda: _rdft_inv_basis(frame_length, window), spec.device)
+def _istft_rdft_body(spec, inv_basis, env_inv, n, frame_length, hop,
+                     precision):
     parts = torch.cat([spec.real, spec.imag], dim=-1)
     frames = prx.p_einsum("...fb,bl->...fl", parts, inv_basis,
                           precision=precision)
     return _overlap_add(frames, n, frame_length, hop) * env_inv
 
 
+@functools.partial(obs.instrumented_jit, op="istft",
+                   route="rdft_matmul", work=_istft_work)
+def _istft_rdft(spec, inv_basis, env_inv, n, frame_length, hop):
+    return _istft_rdft_body(spec, inv_basis, env_inv, n, frame_length,
+                            hop, "highest")
+
+
+@functools.partial(obs.instrumented_jit, op="istft",
+                   route="rdft_matmul_bf16_comp", work=_istft_work)
+def _istft_rdft_comp(spec, inv_basis, env_inv, n, frame_length, hop):
+    return _istft_rdft_body(spec, inv_basis, env_inv, n, frame_length,
+                            hop, "bf16_comp")
+
+
+def _istft_basis(spec, window, frame_length):
+    return _device_basis(
+        "rdft_inv", frame_length, window,
+        lambda: _rdft_inv_basis(frame_length, window), spec.device)
+
+
+def _run_istft_xla(spec, window, env_inv, n, frame_length, hop):
+    return _istft_xla(spec, _device_window(window, spec.device),
+                      env_inv, n, frame_length, hop)
+
+
+def _run_istft_rdft(spec, window, env_inv, n, frame_length, hop):
+    return _istft_rdft(spec, _istft_basis(spec, window, frame_length),
+                       env_inv, n, frame_length, hop)
+
+
+def _run_istft_rdft_comp(spec, window, env_inv, n, frame_length, hop):
+    return _istft_rdft_comp(spec, _istft_basis(spec, window,
+                                               frame_length),
+                            env_inv, n, frame_length, hop)
+
+
 _ISTFT_ROUTES = {"xla_fft": _run_istft_xla,
                  "rdft_matmul": _run_istft_rdft,
-                 "rdft_matmul_bf16_comp": functools.partial(
-                     _run_istft_rdft, precision="bf16_comp")}
+                 "rdft_matmul_bf16_comp": _run_istft_rdft_comp}
 
 
 def istft(spec, n: int, frame_length: int, hop: int, window=None,
@@ -1021,13 +1139,13 @@ def istft(spec, n: int, frame_length: int, hop: int, window=None,
     obs.record_decision(
         "istft", path, n=int(n), frame_length=int(frame_length),
         hop=int(hop))
-    def run():
-        spec_t = as_c64(spec)
-        return _ISTFT_ROUTES[chosen](
-            spec_t, window, _to_device(env_inv, spec_t.device), int(n),
-            int(frame_length), int(hop))
-
     with obs.span("istft.dispatch", route=chosen, path=path):
+        def run():
+            spec_t = as_c64(spec)
+            return _ISTFT_ROUTES[chosen](
+                spec_t, window, _to_device(env_inv, spec_t.device),
+                int(n), int(frame_length), int(hop))
+
         # forced routes and card operands retry but never degrade
         # (see stft); breaker-gated per (route, frame, hop) class
         return faults.breaker_guarded(
@@ -1104,13 +1222,42 @@ def _hilbert_basis(n: int) -> np.ndarray:
     return _cached_host(("hilbert_matmul", int(n)), build)
 
 
-def _run_hilbert_matmul(x, precision="highest"):
-    n = int(x.shape[-1])
-    basis = _cached_device(("hilbert_matmul", n), x.device,
-                           lambda: _to_device(_hilbert_basis(n), x.device))
+@functools.partial(obs.instrumented_jit, op="hilbert", route="xla_fft",
+                   work=_hilbert_work)
+def _hilbert_xla(x, mult):
+    return torch.fft.ifft(torch.fft.fft(x, dim=-1) * mult, dim=-1)
+
+
+def _hilbert_matmul_body(x, basis, precision):
     re = prx.p_einsum("...n,nm->...m", x, basis[0], precision=precision)
     im = prx.p_einsum("...n,nm->...m", x, basis[1], precision=precision)
     return torch.complex(re, im)
+
+
+@functools.partial(obs.instrumented_jit, op="hilbert",
+                   route="matmul_dft", work=_hilbert_work)
+def _hilbert_matmul(x, basis):
+    return _hilbert_matmul_body(x, basis, "highest")
+
+
+@functools.partial(obs.instrumented_jit, op="hilbert",
+                   route="matmul_dft_bf16_comp", work=_hilbert_work)
+def _hilbert_matmul_comp(x, basis):
+    return _hilbert_matmul_body(x, basis, "bf16_comp")
+
+
+def _hilbert_operand(x):
+    n = int(x.shape[-1])
+    return _cached_device(("hilbert_matmul", n), x.device,
+                          lambda: _to_device(_hilbert_basis(n), x.device))
+
+
+def _run_hilbert_matmul(x):
+    return _hilbert_matmul(x, _hilbert_operand(x))
+
+
+def _run_hilbert_matmul_comp(x):
+    return _hilbert_matmul_comp(x, _hilbert_operand(x))
 
 
 def _run_hilbert_xla(x):
@@ -1118,12 +1265,11 @@ def _run_hilbert_xla(x):
     mult = _cached_device(
         ("analytic_mult", n), x.device,
         lambda: _to_device(_analytic_multiplier(n), x.device))
-    return torch.fft.ifft(torch.fft.fft(x, dim=-1) * mult, dim=-1)
+    return _hilbert_xla(x, mult)
 
 
 _HILBERT_ROUTES = {"matmul_dft": _run_hilbert_matmul,
-                   "matmul_dft_bf16_comp": functools.partial(
-                       _run_hilbert_matmul, precision="bf16_comp"),
+                   "matmul_dft_bf16_comp": _run_hilbert_matmul_comp,
                    "xla_fft": _run_hilbert_xla}
 
 
@@ -1230,14 +1376,16 @@ def _cwt_basis(n: int):
     return _cached_host(("cwt_matmul", int(n)), build)
 
 
-def _run_cwt_matmul(x, hat, precision="highest"):
-    n = int(x.shape[-1])
-    fwd, ic, is_ = _cached_device(
-        ("cwt_matmul", n), x.device,
-        lambda: tuple(_to_device(a, x.device) for a in _cwt_basis(n)))
-    K = ic.shape[0]
-    hat = _to_device(hat[:, 1:1 + K].astype(np.float32), x.device)
+@functools.partial(obs.instrumented_jit, op="morlet_cwt",
+                   route="xla_fft", work=_cwt_work)
+def _cwt_xla(x, hat):
+    spec = torch.fft.fft(x, dim=-1)
+    return torch.fft.ifft(spec[..., None, :] * hat, dim=-1)
+
+
+def _cwt_matmul_body(x, fwd, hat, ic, is_, precision):
     e = functools.partial(prx.p_einsum, precision=precision)
+    K = ic.shape[0]
     xf = e("...n,nk->...k", x, fwd)
     a = xf[..., None, :K] * hat          # [..., S, K] Re X * hat
     b = xf[..., None, K:] * hat          # [..., S, K] Im X * hat
@@ -1248,26 +1396,64 @@ def _run_cwt_matmul(x, hat, precision="highest"):
     return torch.complex(out_re, out_im)
 
 
-def _run_cwt_xla(x, hat):
-    hat = _to_device(hat.astype(np.float32), x.device)
-    spec = torch.fft.fft(x, dim=-1)
-    return torch.fft.ifft(spec[..., None, :] * hat, dim=-1)
+def _cwt_matmul_work(x, fwd, hat, ic, is_):
+    # the bank's positive-frequency columns, [S, K]: S is its rows
+    return _cwt_work(x, hat)
 
 
-def _run_cwt_ct(x, hat):
+@functools.partial(obs.instrumented_jit, op="morlet_cwt",
+                   route="matmul_dft", work=_cwt_matmul_work)
+def _cwt_matmul(x, fwd, hat, ic, is_):
+    return _cwt_matmul_body(x, fwd, hat, ic, is_, "highest")
+
+
+@functools.partial(obs.instrumented_jit, op="morlet_cwt",
+                   route="matmul_dft_bf16_comp", work=_cwt_matmul_work)
+def _cwt_matmul_comp(x, fwd, hat, ic, is_):
+    return _cwt_matmul_body(x, fwd, hat, ic, is_, "bf16_comp")
+
+
+def _cwt_matmul_operands(x, hat):
     n = int(x.shape[-1])
-    n1, n2 = ct_factor(n)
-    parts = ct_basis_device(n1, n2, x.device)
-    hat = _to_device(hat.astype(np.float32), x.device)
+    fwd, ic, is_ = _cached_device(
+        ("cwt_matmul", n), x.device,
+        lambda: tuple(_to_device(a, x.device) for a in _cwt_basis(n)))
+    K = ic.shape[0]
+    hatp = _to_device(hat[:, 1:1 + K].astype(np.float32), x.device)
+    return x, fwd, hatp, ic, is_
+
+
+def _run_cwt_matmul(x, hat):
+    return _cwt_matmul(*_cwt_matmul_operands(x, hat))
+
+
+def _run_cwt_matmul_comp(x, hat):
+    return _cwt_matmul_comp(*_cwt_matmul_operands(x, hat))
+
+
+def _run_cwt_xla(x, hat):
+    return _cwt_xla(x, _to_device(hat.astype(np.float32), x.device))
+
+
+@functools.partial(obs.instrumented_jit, op="morlet_cwt",
+                   route="ct_matmul",
+                   work=lambda x, hat, parts, n1, n2: _cwt_work(x, hat))
+def _cwt_ct(x, hat, parts, n1, n2):
     fre, fim = ct_apply(x, n1, n2, parts)
     prod = torch.complex(fre, fim)[..., None, :] * hat   # hat real [S, n]
     re, im = ct_apply(prod, n1, n2, parts, inverse=True)
     return torch.complex(re, im)
 
 
+def _run_cwt_ct(x, hat):
+    n = int(x.shape[-1])
+    n1, n2 = ct_factor(n)
+    return _cwt_ct(x, _to_device(hat.astype(np.float32), x.device),
+                   ct_basis_device(n1, n2, x.device), n1, n2)
+
+
 _CWT_ROUTES = {"matmul_dft": _run_cwt_matmul,
-               "matmul_dft_bf16_comp": functools.partial(
-                   _run_cwt_matmul, precision="bf16_comp"),
+               "matmul_dft_bf16_comp": _run_cwt_matmul_comp,
                "ct_matmul": _run_cwt_ct,
                "xla_fft": _run_cwt_xla}
 

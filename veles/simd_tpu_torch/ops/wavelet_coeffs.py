@@ -355,6 +355,16 @@ def _asymmetry(h: np.ndarray) -> float:
 
 
 def _gen_coiflet(order: int) -> np.ndarray:
+    """The order-``order`` coiflet (Σ = √2), a fresh array."""
+    return _coiflet_solution(int(order)).copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _coiflet_solution(order: int) -> np.ndarray:
+    """The solve behind :func:`_gen_coiflet`, memoized: each order
+    continues from the one below it, so a whole regeneration (orders 6
+    to 30) solves every order once instead of once per order above
+    it."""
     from scipy.optimize import least_squares
 
     K = order // 6
@@ -367,7 +377,7 @@ def _gen_coiflet(order: int) -> np.ndarray:
     if K > 1:
         # continuation: the published coiflet family varies smoothly in K —
         # pad the (K-1) solution to length 6K in every front/back split
-        prev = _gen_coiflet(order - 6)  # already Σ=√2
+        prev = _coiflet_solution(order - 6)  # already Σ=√2
         seeds += [np.concatenate([np.zeros(f), prev, np.zeros(6 - f)])
                   for f in range(7)]
     seeds += [np.roll(db, s) for s in range(-2 * K, 2 * K + 1)]

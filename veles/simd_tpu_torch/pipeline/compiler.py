@@ -63,14 +63,12 @@ from __future__ import annotations
 
 import copy
 import threading
-import time
 import weakref
 
 import numpy as np
 import torch
 
 from veles.simd_tpu_torch import obs
-from veles.simd_tpu_torch.obs import compile as _compile
 from veles.simd_tpu_torch.pipeline.stages import MODES, Stage
 from veles.simd_tpu_torch.runtime import faults, routing
 from veles.simd_tpu_torch.utils import platform as _platform
@@ -309,15 +307,15 @@ class CompiledPipeline:
             with self._graph_lock:
                 g = self._graphs.get(key)
                 if g is None:
-                    t0 = time.perf_counter()
-                    g = _GraphStep(self._run_stages, x, states, self.name)
-                    _compile.record_duration(
-                        "/veles/pipeline/graph_capture_duration",
-                        time.perf_counter() - t0)
+                    with obs.compile_timer(
+                            "/veles/pipeline/graph_capture_duration"
+                    ) as capture:
+                        g = _GraphStep(self._run_stages, x, states,
+                                       self.name)
                     obs.record_decision(
                         "pipeline_graph", "captured", pipeline=self.name,
                         shape=list(key),
-                        seconds=round(time.perf_counter() - t0, 6))
+                        seconds=round(capture.seconds, 6))
                     self._graphs[key] = g
         return g.run(x, states)
 
