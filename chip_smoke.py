@@ -50,7 +50,11 @@ without printing a result):
             cascade, ``convolve2d``, ``stft``), each after
             ``obs.reset()``, whose ``("cuda", route)`` row of
             ``obs.resources()`` carries ``utils.benchmark``'s work at
-            that shape and at most 100 % of the roofline;
+            that shape and at most 100 % of the roofline; then the
+            ``resources ops`` line: one public op of each other family
+            the JAX package instruments (``OPS_RESOURCE_ROWS``, 64 x
+            16,384 float32, a 1024^2 gemm, 16 x 512^2 2D), each leaving
+            exactly its JAX key with its literal work, in under 15 s;
 4b. reference — the reference-header surface through its entry
             points, each op against a float64 NumPy oracle, then timed
             (chained CUDA events; host clock where a call ends on the
@@ -1413,6 +1417,152 @@ def resources_line(torch, obs, calls):
         # the cascade's plan tuples make its signature long
         rows[-1]["shapes"] = r["shapes"][:80]
     print("resources: " + json.dumps({"cuda": rows}))
+
+
+# the F13 resource rows: one public op per family that the JAX package
+# wraps as an instrumented core outside the kernels, at a user's size
+# (64 x 16,384 float32 for the 1D families, 1024^2 for the gemm,
+# 16 x 512^2 for 2D, 1024 angular frequencies for Lomb-Scargle), the
+# (op, route) keys obs.resources() must hold after it, alone, and each
+# row's work (the port's work= at that shape) as a literal formula of
+# the sizes, or utils.benchmark's where it is that function;
+# tests/test_torch_resources_parity.py runs this table on the CPU at
+# small sizes
+OPS_SIZES = {"rows": 64, "n": 1 << 14, "gemm": 1024, "imgs": 16,
+             "side": 512, "freqs": 1024}
+OPS_TAPS = 31           # resample_poly 3/2's taps
+OPS_CONV_TAPS = 257     # the FFT convolution's taps
+OPS_SOS = np.array([[0.0048243434, 0.0096486868, 0.0048243434, 1.0,
+                     -1.0485995764, 0.2961403575],
+                    [1.0, 2.0, 1.0, 1.0, -1.3209134308, 0.6327387929]])
+
+
+def _ops_out_len(s):
+    return -(-s["n"] * 3 // 2)
+
+
+OPS_RESOURCE_ROWS = (
+    ("arithmetic", lambda m, a: m.arithmetic.real_multiply(a["x"], a["x"]),
+     ("real_multiply", "default"),
+     lambda bm, s: (s["rows"] * s["n"], 12.0 * s["rows"] * s["n"])),
+    ("mathfun", lambda m, a: m.mathfun.sin_psv(a["x"]),
+     ("mathfun", "sin"),
+     lambda bm, s: (s["rows"] * s["n"], 8.0 * s["rows"] * s["n"])),
+    ("matrix", lambda m, a: m.matrix.matrix_multiply(a["ga"], a["gb"]),
+     ("matrix", "gemm"),
+     lambda bm, s: (2.0 * s["gemm"] ** 3, 12.0 * s["gemm"] ** 2)),
+    ("normalize", lambda m, a: m.normalize.normalize2D(a["x"]),
+     ("normalize2d", "default"),
+     lambda bm, s: (4.0 * s["rows"] * s["n"], 8.0 * s["rows"] * s["n"])),
+    ("detect_peaks",
+     lambda m, a: m.detect_peaks.detect_peaks_fixed(
+         a["x"], max_peaks=a["x"].shape[-1] // 16),
+     ("peaks_fixed", "default"),
+     lambda bm, s: (5.0 * s["rows"] * s["n"],
+                4.0 * s["rows"] * s["n"]
+                + (8.0 * (s["n"] // 16) + 4.0) * s["rows"])),
+    ("filters", lambda m, a: m.filters.medfilt(a["x"], 5),
+     ("rank_filter_xla", "default"),
+     lambda bm, s: (5.0 * s["rows"] * s["n"], 8.0 * s["rows"] * s["n"])),
+    ("iir", lambda m, a: m.iir.sosfilt(OPS_SOS, a["x"]),
+     ("sosfilt_xla", "default"),
+     lambda bm, s: (18.0 * s["rows"] * s["n"],
+                8.0 * s["rows"] * s["n"] + 48.0)),
+    ("resample",
+     lambda m, a: m.resample.resample_poly(a["x"], 3, 2, taps=a["taps"]),
+     ("resample_conv", "default"),
+     lambda bm, s: (2.0 * s["rows"] * _ops_out_len(s) * -(-OPS_TAPS // 3),
+                4.0 * (s["rows"] * s["n"] + OPS_TAPS
+                       + s["rows"] * _ops_out_len(s)))),
+    ("wavelet",
+     lambda m, a: m.wavelet.wavelet_reconstruct(
+         "daub", 8, a["x"][:, ::2], a["x"][:, 1::2]),
+     ("dwt_synth", "default"),
+     lambda bm, s: (16.0 * s["rows"] * s["n"],
+                8.0 * s["rows"] * s["n"] + 64.0)),
+    ("convolve",
+     lambda m, a: m.convolve.convolve(m.convolve.convolve_initialize(
+         a["x"].shape[-1], OPS_CONV_TAPS,
+         m.convolve.ConvolutionAlgorithm.FFT), a["x"], a["h"]),
+     ("convolve", "fft"),
+     lambda bm, s: bm.conv_work(s["rows"], s["n"], OPS_CONV_TAPS)),
+    ("convolve2d",
+     lambda m, a: m.convolve2d.convolve2d(a["img"], a["h2"],
+                                          algorithm="fft"),
+     ("convolve2d", "fft"),
+     lambda bm, s: bm.conv2d_work(s["imgs"], s["side"], s["side"], 5,
+                                  5)),
+    ("batched", lambda m, a: m.batched.batched_sosfilt(OPS_SOS, a["x"]),
+     ("batched_sosfilt", "batched"),
+     lambda bm, s: (18.0 * s["rows"] * s["n"],
+                8.0 * s["rows"] * s["n"] + 48.0)),
+    ("spectral",
+     lambda m, a: m.spectral.lombscargle(a["t"], a["x"][0], a["freqs"]),
+     ("lombscargle_xla", "default"),
+     lambda bm, s: (20.0 * s["freqs"] * s["n"],
+                4.0 * (3 * s["n"] + 2 * s["freqs"]))),
+)
+
+
+def ops_operands(torch, rng, dev, s):
+    """The table's operands on ``dev``, float32, from ``rng``."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    taps = np.hamming(OPS_TAPS) * np.sinc(
+        (np.arange(OPS_TAPS) - OPS_TAPS // 2) / 3.0)
+    return {"x": t(rng.randn(s["rows"], s["n"])),
+            "ga": t(rng.randn(s["gemm"], s["gemm"])),
+            "gb": t(rng.randn(s["gemm"], s["gemm"])),
+            "h": t(rng.randn(OPS_CONV_TAPS)),
+            "img": t(rng.randn(s["imgs"], s["side"], s["side"])),
+            "h2": t(rng.randn(5, 5)),
+            "taps": 3.0 * taps / taps.sum(),
+            "t": np.sort(rng.rand(s["n"])) * s["n"] / 64.0,
+            "freqs": np.linspace(0.5, 40.0, s["freqs"])}
+
+
+def ops_resource_rows(torch, obs, bm, dev, rng, sizes=OPS_SIZES):
+    """Each table row's op once on ``dev`` with telemetry on, after
+    ``obs.reset()``: its outputs finite, ``obs.resources()`` exactly
+    the row's key, carrying the row's work and at most 100 % of the
+    roofline.  Returns the rows."""
+    import importlib
+    import types
+
+    mods = types.SimpleNamespace(**{
+        name: importlib.import_module(f"veles.simd_tpu_torch.ops.{name}")
+        for name in (
+            "arithmetic", "mathfun", "matrix", "normalize",
+            "detect_peaks", "filters", "iir", "resample", "wavelet",
+            "convolve", "convolve2d", "batched", "spectral")})
+    a = ops_operands(torch, rng, dev, sizes)
+    rows = []
+    for family, call, key, want in OPS_RESOURCE_ROWS:
+        obs.reset()
+        out = call(mods, a)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        for o in (out if isinstance(out, tuple) else (out,)):
+            check(bool(torch.isfinite(torch.as_tensor(o)).all()),
+                  f"resources ops {family}: non-finite output")
+        got = obs.resources()
+        keys = [(r["op"], r["route"]) for r in got]
+        check(keys == [key], f"resources ops {family}: rows {keys}, "
+              f"want [{key}]")
+        flops, nbytes = (float(v) for v in want(bm, sizes))
+        r = got[0]
+        check(r["flops"] == flops and r["bytes_accessed"] == nbytes,
+              f"resources ops {family}: flops {r['flops']} bytes "
+              f"{r['bytes_accessed']} != {flops} {nbytes} at "
+              f"{r['shapes'][:80]}")
+        pct = r["attainable_pct_of_roofline"]
+        check(pct is not None and 0.0 < pct <= 100.0,
+              f"resources ops {family}: attainable {pct} %")
+        rows.append({"family": family, "op": key[0], "route": key[1],
+                     "flops": flops, "bytes_accessed": nbytes,
+                     "attainable_pct_of_roofline": pct})
+    return rows
 
 
 def pipeline_phase(torch, rng, bm, obs, faults, breaker, ck, smi):
@@ -4657,6 +4807,14 @@ def main():
         ("stft", lambda: sp.stft(x_st, L_ST, HOP_ST),
          bm.stft_work(1, N_ST, L_ST, HOP_ST))))
     healthy("resources", obs, faults, breaker)
+    # the other families' rows (the JAX package's instrumented cores)
+    t_ops = time.perf_counter()
+    ops_rows = ops_resource_rows(torch, obs, bm, dev, rng)
+    ops_s = time.perf_counter() - t_ops
+    check(ops_s < 15.0, f"resources ops: {ops_s:.1f} s, budget 15 s")
+    print("resources ops: " + json.dumps(
+        {"seconds": round(ops_s, 3), "rows": ops_rows}))
+    healthy("resources ops", obs, faults, breaker)
 
     # 4b. the reference-header surface and the filters
     reference(torch, rng, bm, obs, ck, smi)

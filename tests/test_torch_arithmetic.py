@@ -263,3 +263,33 @@ def test_64_bit_numpy_input_computes_in_32_bits():
     np.testing.assert_array_equal(got, want)
     got, want = _both("int16_to_float", np.array([3, -4], np.int64))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,a,b", [
+    ("real_multiply", np.ones(3, np.float32), np.ones(4, np.float32)),
+    ("real_multiply_array", np.ones((2, 3), np.float32),
+     np.ones((3, 2), np.float32)),
+    ("int16_multiply", np.ones(3, np.int16), np.ones(4, np.int16)),
+    ("complex_multiply", np.ones(4, np.float32), np.ones(6, np.float32)),
+    ("complex_multiply_conjugate", np.ones((2, 4), np.float32),
+     np.ones((3, 4), np.float32)),
+])
+def test_mismatched_shapes_raise_the_jax_class(name, a, b):
+    # F14: TypeError on the device path of both packages (torch alone
+    # would raise RuntimeError), NumPy's ValueError on both oracle paths
+    with pytest.raises(TypeError) as want:
+        getattr(jar, name)(a, b, simd=True)
+    with pytest.raises(TypeError) as got:
+        getattr(tar, name)(a, b, simd=True)
+    assert str(got.value) == str(want.value)
+    for mod in (jar, tar):
+        with pytest.raises(ValueError):
+            getattr(mod, name)(a, b, simd=False)
+
+
+def test_interleaved_halves_broadcast_as_in_jax():
+    # one complex value against two broadcasts, as its halves do
+    a = np.array([1.0, 2.0], np.float32)
+    b = np.arange(4, dtype=np.float32)
+    got, want = _both("complex_multiply", a, b)
+    np.testing.assert_array_equal(got, want)

@@ -355,3 +355,47 @@ def test_telemetry_names_match_jax():
     finally:
         tobs.reset()
         tobs.disable()
+
+
+@pytest.mark.parametrize("zi_shape", [(2, 3), (3, 2, 2), (4, 2, 2)])
+def test_sosfilt_zi_that_does_not_broadcast_raises_the_jax_class(
+        zi_shape):
+    # F14: ValueError in both packages (torch alone would raise
+    # RuntimeError from broadcast_to), checked before the scan
+    sos = FILTERS["butter4"]
+    x = _signal((2, 64), seed=5)
+    zi = np.ones(zi_shape, np.float32)
+    with pytest.raises(ValueError):
+        jiir.sosfilt(sos, x, zi=zi, simd=True)
+    with pytest.raises(ValueError, match="broadcasting"):
+        tiir.sosfilt(sos, x, zi=zi)
+
+
+@pytest.mark.parametrize("zi_shape", [(3, 2), (5, 2), (2, 3, 2)])
+def test_sosfilt_zi_with_extra_sections_reads_the_first(zi_shape):
+    # the JAX package's leniency, matched on both of the port's routes:
+    # a zi with more section rows than sos is filtered with its first
+    # len(sos) rows
+    sos = FILTERS["butter4"]
+    x = _signal((2, 300), seed=9)
+    zi = np.random.RandomState(4).randn(*zi_shape).astype(np.float32)
+    want, want_zf = jiir.sosfilt(sos, x, zi=zi, simd=True, return_zf=True)
+    got, got_zf = tiir.sosfilt(sos, x, zi=zi, return_zf=True)
+    assert _rel(got, want) <= TOL and _rel(got_zf, want_zf) <= TOL
+    head = zi[..., :len(sos), :]
+    assert _rel(got, jiir.sosfilt_na(sos, x, zi=head)) <= TOL
+    na = tiir.sosfilt(sos, x, zi=zi, simd=False)
+    assert _rel(na, want) <= TOL
+
+
+@pytest.mark.parametrize("simd", [True, False])
+def test_lfilter_with_an_empty_numerator_is_zeros(simd):
+    # F15: both JAX routes return zeros; the port's device route read
+    # b[0] and raised IndexError
+    x = _signal((2, 50), seed=3)
+    want = np.asarray(jiir.lfilter([], [1.0, -0.5], x, simd=simd))
+    got = tiir.lfilter([], [1.0, -0.5], x, simd=simd)
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    assert not np.any(want)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == x.shape and got.dtype == np.float32

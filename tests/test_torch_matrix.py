@@ -471,3 +471,20 @@ def test_gemv_mismatch_raises_the_jax_class(v_shape):
     with pytest.raises(TypeError) as got:
         tmx.matrix_vector_multiply(m, v, simd=True)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name", ["matrix_add", "matrix_sub"])
+def test_add_sub_mismatch_raises_the_jax_class(name):
+    # F14: operands that do not broadcast raise TypeError in both
+    # packages (torch alone would raise RuntimeError), checked before
+    # any torch call; the NumPy twins raise NumPy's ValueError alike
+    a = np.ones((2, 3), np.float32)
+    b = np.ones((3, 2), np.float32)
+    with pytest.raises(TypeError) as want:
+        getattr(jmx, name)(a, b, simd=True)
+    with pytest.raises(TypeError) as got:
+        getattr(tmx, name)(a, b, simd=True)
+    assert str(got.value) == str(want.value)
+    for mod in (jmx, tmx):
+        with pytest.raises(ValueError):
+            getattr(mod, name)(a, b, simd=False)

@@ -13,6 +13,7 @@ and the ``*_bf16_comp`` candidates each package's tables end with.
 """
 
 import dataclasses
+import inspect
 import json
 import os
 import threading
@@ -144,6 +145,64 @@ def test_all_is_the_jax_modules_plus_the_site_map():
                  "AUTOTUNE_MODES", "DEFAULT_PROBE_ITERS",
                  "TUNE_CACHE_VERSION", "TUNE_CACHE_MAX_ENTRIES"):
         assert getattr(routing, name) == getattr(jr, name), name
+
+
+@pytest.mark.parametrize("name", ["Route", "Family", "family"])
+def test_constructors_take_the_jax_packages_arguments(name):
+    # F16: Route(roofline=...) and (F|f)amily(decision_op=...) are
+    # public in the JAX package; the port refused both
+    assert str(inspect.signature(getattr(routing, name))) == \
+        str(inspect.signature(getattr(jr, name)))
+    fam = routing.family("f16_probe", (
+        routing.Route("a", roofline={"kind": "conv"}),),
+        decision_op="probe_route")
+    assert fam.decision_op == "probe_route"
+    assert routing.Family("g", (routing.Route("a"),)).decision_op == \
+        "g_route"
+    assert fam.route("a").roofline == {"kind": "conv"}
+
+
+@pytest.mark.parametrize("route", ["sharded_matmul_dft", "local_fft"])
+def test_fourier_decision_carries_the_jax_roofline_tag(route):
+    # F16: the decision event's roofline tag is read from the route, as
+    # the JAX package reads it, and names the same kind
+    from veles.simd_tpu import obs as jobs
+    from veles.simd_tpu import parallel as jpar
+    from veles.simd_tpu.parallel import fourier as jfr
+    from veles.simd_tpu_torch import parallel as tpar
+    from veles.simd_tpu_torch.parallel import fourier as tfr
+
+    x = RNG.randn(1024).astype(np.float32)
+    tags = []
+    for o, run in (
+            (jobs, lambda: jfr.sharded_rfft(
+                x, jpar.make_mesh({"sp": 8}), route=route)),
+            (obs, lambda: tfr.sharded_rfft(
+                x, tpar.make_mesh({"sp": 8}, devices=["cpu"] * 8),
+                route=route))):
+        o.enable()
+        o.reset()
+        try:
+            run()
+            tags.append([e["roofline"] for e in o.events()
+                         if e["op"] == "sharded_rfft"])
+        finally:
+            o.disable()
+            o.reset()
+    assert tags[0] == tags[1] == [
+        "fft" if route == "local_fft" else "dft_matmul"]
+    assert tfr._FOURIER_FAMILY.route(route).roofline == \
+        jfr._FOURIER_FAMILY.route(route).roofline
+
+
+def test_route_rooflines_match_the_jax_tables():
+    for port_fam, jax_fam in ((cv._OS_FAMILY, jcv._OS_FAMILY),
+                              (mx._GEMM_FAMILY, jmx._GEMM_FAMILY),
+                              (sp._STFT_FAMILY, jsp._STFT_FAMILY)):
+        for name in port_fam.names():
+            jname = {v: k for k, v in ROUTE_NAMES.items()}.get(name, name)
+            assert port_fam.route(name).roofline == \
+                jax_fam.route(jname).roofline, (port_fam.name, name)
 
 
 def test_autotune_mode_env(monkeypatch):

@@ -17,8 +17,9 @@ coverage JSON in DIR instead of the repo root (where ``.gitignore``
 lists them).
 
 ``--cuda`` is the card's report, with no floor: it runs the card
-suite (``--noconftest -m cuda tests/test_torch_cuda.py``) under the
-tracer, prints the coverage table of ``ops/cuda_kernels.py`` and the
+suite (``--noconftest -m cuda tests/test_torch_cuda.py``, with the
+card cases of ``tests/test_torch_properties.py``) under the tracer,
+prints the coverage table of ``ops/cuda_kernels.py`` and the
 lines of it that the card run reached and the CPU run did not (the
 CPU run's ``tests_torch_coverage.json`` in ``--out-dir``, else in the
 repo root; without one it says so and lists none).
@@ -43,6 +44,9 @@ import linecov_torch as linecov  # noqa: E402
 
 PKG = os.path.join("veles", "simd_tpu_torch")
 CUDA_SUITE = os.path.join("tests", "test_torch_cuda.py")
+# the other files with card cases (K2 held to the filter-bank
+# properties), run with the card suite
+CUDA_EXTRA = (os.path.join("tests", "test_torch_properties.py"),)
 CUDA_MODULE = os.path.join(PKG, "ops", "cuda_kernels.py")
 COVERAGE_JSON = "tests_torch_coverage.json"
 
@@ -129,11 +133,11 @@ def cuda_report(args) -> int:
     cov_out = os.path.join(args.out_dir, "coverage_torch_cuda.json")
     xml = os.path.join(args.out_dir, "test_results_torch_cuda.xml")
     ok, out, peak_kb = run_suite(
-        CUDA_SUITE, ["--noconftest", "-m", "cuda",
+        CUDA_SUITE, [*CUDA_EXTRA, "--noconftest", "-m", "cuda",
                      f"--junitxml={xml}"], args.timeout * 2, cov_out)
     status = "OK" if ok else "[FAILED]"
-    line = (f"=== {CUDA_SUITE} -m cuda: {status} "
-            f"(peak memory {peak_kb} Kb)")
+    line = (f"=== {' '.join((CUDA_SUITE,) + CUDA_EXTRA)} -m cuda: "
+            f"{status} (peak memory {peak_kb} Kb)")
     print(line)
     merged = linecov.merge([cov_out])
     table = linecov.table(merged, REPO, scope=CUDA_MODULE)

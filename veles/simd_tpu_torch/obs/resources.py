@@ -22,8 +22,9 @@ The port of ``veles.simd_tpu.obs.resources``.  Two pieces:
   - arithmetic intensity and the attainable share of the H100's fp32
     roofline at that intensity (:func:`utils.benchmark.fp32_bound`).
 
-  A call made inside another instrumented call records nothing — the
-  counterpart of JAX's rule that a tracer skips the harvest — so the
+  A call made inside another instrumented call, or inside a shard body
+  of ``parallel._spmd``, records nothing — the counterpart of JAX's
+  rule that a tracer skips the harvest (:mod:`..utils.trace`) — so the
   stages of a fused pipeline step never appear as entries of their own.
   With telemetry off a call costs one flag check.
 
@@ -50,6 +51,7 @@ import itertools
 import threading
 
 from veles.simd_tpu_torch.obs.lru import LRUSet
+from veles.simd_tpu_torch.utils.trace import TRACE_DEPTH
 
 __all__ = [
     "InstrumentedJit", "instrumented_jit", "ResourceRegistry",
@@ -233,14 +235,6 @@ register_cache("obs_analysis_memo", _ANALYZED.info)
 # the instrumented call
 # ---------------------------------------------------------------------------
 
-class _Depth(threading.local):
-    # a class default, so a thread's first read raises nothing
-    depth = 0
-
-
-_DEPTH = _Depth()
-
-
 def _leaves(tree, out):
     if isinstance(tree, (tuple, list)):
         for t in tree:
@@ -334,16 +328,16 @@ class InstrumentedJit:
     def __call__(self, *args, **kwargs):
         if not _ACTIVE:
             return self.fn(*args, **kwargs)
-        if _DEPTH.depth:
+        if TRACE_DEPTH.get():
             return self.fn(*args, **kwargs)
-        _DEPTH.depth = 1
+        token = TRACE_DEPTH.set(1)
         try:
             key = _signature(args, kwargs)
             if key is None or _ANALYZED.check_and_add((self._token, key)):
                 return self.fn(*args, **kwargs)
             return self._recorded_call(key, args, kwargs)
         finally:
-            _DEPTH.depth = 0
+            TRACE_DEPTH.reset(token)
 
     def _recorded_call(self, key, args, kwargs):
         """The first call of a geometry: run it, and record its work,

@@ -26,9 +26,13 @@ of the PyTorch path are tensors; 64-bit NumPy input computes in its
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_tensor, device
 
@@ -48,13 +52,32 @@ _F32_BELOW_2_31 = 2147483520.0
 
 
 # --------------------------------------------------------------------------
-# PyTorch paths
+# PyTorch paths: each an instrumented call under the JAX core's name
+# (``obs.resources()`` keys it ``(name, "default")``), whose work is
+# one operation an output element, or six a complex product
 # --------------------------------------------------------------------------
 
-def _to_float(x):
+def _ew(ops, out_itemsize=4):
+    """``work=`` of an elementwise core: ``ops`` operations an output
+    element of ``out_itemsize`` bytes (:func:`utils.benchmark.
+    elementwise_work`)."""
+    return lambda *args: bm.elementwise_work(ops, out_itemsize, *args)
+
+
+def _interleaved_work(*args):
+    """``work=`` of a complex product of interleaved arrays: six
+    operations a complex output, three a float."""
+    halves = [tuple(a.shape[:-1]) + (a.shape[-1] // 2,) for a in args]
+    out = 2 * math.prod(torch.broadcast_shapes(*halves))
+    return bm.elementwise_work(3, 4, *args, out_elems=out)
+
+
+@obs.instrumented_jit(work=_ew(1))
+def _int16_to_float(x):
     return x.to(torch.float32)
 
 
+@obs.instrumented_jit(work=_ew(1, 2))
 def _float_to_int16(x):
     # trunc-toward-zero + saturate: mirrors cvttps+packs
     # (arithmetic.h:262-270); NaN -> 0 as XLA's convert gives
@@ -62,6 +85,12 @@ def _float_to_int16(x):
     return torch.clamp(t, _I16_MIN, _I16_MAX).to(torch.int16)
 
 
+@obs.instrumented_jit(work=_ew(1))
+def _int32_to_float(x):
+    return x.to(torch.float32)
+
+
+@obs.instrumented_jit(work=_ew(1))
 def _float_to_int32(x):
     t = torch.trunc(x.to(torch.float32))
     # every value the cast sees is in range: NaN -> 0, and the top
@@ -71,48 +100,68 @@ def _float_to_int32(x):
     return torch.where(t >= 2.0 ** 31, torch.full_like(q, _I32_MAX), q)
 
 
+@obs.instrumented_jit(work=_ew(1))
 def _int16_to_int32(x):
     return x.to(torch.int32)
 
 
+@obs.instrumented_jit(work=_ew(1, 2))
 def _int32_to_int16(x):
     return torch.clamp(x, _I16_MIN, _I16_MAX).to(torch.int16)
 
 
+@obs.instrumented_jit(work=_ew(1))
 def _float16_to_float(bits):
     return bits.view(torch.float16).to(torch.float32)
 
 
+@obs.instrumented_jit(work=_ew(1))
 def _int16_multiply(a, b):
     return a.to(torch.int32) * b.to(torch.int32)
 
 
+@obs.instrumented_jit(work=_ew(1))
 def _real_multiply(a, b):
     return a * b
+
+
+@obs.instrumented_jit(work=_ew(1))
+def _real_multiply_scalar(x, value):
+    return x * value
 
 
 def _interleave(re, im):
     return torch.stack([re, im], dim=-1).reshape(*re.shape[:-1], -1)
 
 
+@obs.instrumented_jit(work=_interleaved_work)
 def _complex_multiply(a, b):
     ar, ai = a[..., 0::2], a[..., 1::2]
     br, bi = b[..., 0::2], b[..., 1::2]
     return _interleave(ar * br - ai * bi, ar * bi + br * ai)
 
 
+@obs.instrumented_jit(work=_interleaved_work)
 def _complex_multiply_conjugate(a, b):
     ar, ai = a[..., 0::2], a[..., 1::2]
     br, bi = b[..., 0::2], -b[..., 1::2]
     return _interleave(ar * br - ai * bi, ar * bi + br * ai)
 
 
+@obs.instrumented_jit(work=_ew(1))
 def _complex_conjugate(a):
     return _interleave(a[..., 0::2], -a[..., 1::2])
 
 
+@obs.instrumented_jit(
+    work=lambda x: bm.elementwise_work(1, 4, x, out_elems=x.numel()))
 def _sum_elements(x):
     return torch.sum(x, dim=-1)
+
+
+@obs.instrumented_jit(work=_ew(1))
+def _add_to_all(x, value):
+    return x + value
 
 
 # --------------------------------------------------------------------------
@@ -224,8 +273,33 @@ def _dispatch(simd, torch_fn, na_fn, *args):
     return na_fn(*[np.asarray(a) for a in args])
 
 
+def _check_broadcast(name, a, b, interleaved=False):
+    """The JAX package's ``TypeError`` for operands that do not
+    broadcast (torch would raise ``RuntimeError``), checked on the
+    shapes before any torch call; interleaved complex arrays broadcast
+    as their complex halves."""
+    shapes = [tuple(np.shape(v)) for v in (a, b)]
+    if interleaved:
+        shapes = [s[:-1] + (s[-1] // 2,) if s else s for s in shapes]
+    try:
+        np.broadcast_shapes(*shapes)
+    except ValueError:
+        raise TypeError(f"{name} got incompatible shapes for "
+                        f"broadcasting: {shapes[0]}, {shapes[1]}.") \
+            from None
+
+
+def _binary(simd, torch_fn, na_fn, a, b, interleaved=False):
+    """A two-operand op: the shapes checked as the JAX package checks
+    them on its device path, then :func:`_dispatch`."""
+    if resolve_simd(simd, op="arithmetic"):
+        _check_broadcast("mul", a, b, interleaved)
+        return torch_fn(as_tensor(a), as_tensor(b))
+    return na_fn(np.asarray(a), np.asarray(b))
+
+
 def int16_to_float(data, simd=None):
-    return _dispatch(simd, _to_float, int16_to_float_na, data)
+    return _dispatch(simd, _int16_to_float, int16_to_float_na, data)
 
 
 def float_to_int16(data, simd=None):
@@ -233,7 +307,7 @@ def float_to_int16(data, simd=None):
 
 
 def int32_to_float(data, simd=None):
-    return _dispatch(simd, _to_float, int32_to_float_na, data)
+    return _dispatch(simd, _int32_to_float, int32_to_float_na, data)
 
 
 def float_to_int32(data, simd=None):
@@ -270,12 +344,12 @@ def float16_to_float(bits, simd=None):
 
 
 def int16_multiply(a, b, simd=None):
-    return _dispatch(simd, _int16_multiply, int16_multiply_na, a, b)
+    return _binary(simd, _int16_multiply, int16_multiply_na, a, b)
 
 
 def real_multiply(a, b, simd=None):
     """Elementwise f32 multiply (``real_multiply_array``)."""
-    return _dispatch(simd, _real_multiply, real_multiply_array_na, a, b)
+    return _binary(simd, _real_multiply, real_multiply_array_na, a, b)
 
 
 # the reference publishes both spellings (inc/simd/arithmetic.h:170-176);
@@ -285,7 +359,7 @@ real_multiply_array = real_multiply
 
 def real_multiply_scalar(data, value, simd=None):
     if resolve_simd(simd, op="arithmetic"):
-        return as_tensor(data) * float(value)
+        return _real_multiply_scalar(as_tensor(data), float(value))
     return real_multiply_scalar_na(data, value)
 
 
@@ -298,13 +372,14 @@ def _check_interleaved(*arrays):
 
 def complex_multiply(a, b, simd=None):
     _check_interleaved(a, b)
-    return _dispatch(simd, _complex_multiply, complex_multiply_na, a, b)
+    return _binary(simd, _complex_multiply, complex_multiply_na, a, b,
+                   interleaved=True)
 
 
 def complex_multiply_conjugate(a, b, simd=None):
     _check_interleaved(a, b)
-    return _dispatch(simd, _complex_multiply_conjugate,
-                     complex_multiply_conjugate_na, a, b)
+    return _binary(simd, _complex_multiply_conjugate,
+                   complex_multiply_conjugate_na, a, b, interleaved=True)
 
 
 def complex_conjugate(data, simd=None):
@@ -318,7 +393,7 @@ def sum_elements(data, simd=None):
 
 def add_to_all(data, value, simd=None):
     if resolve_simd(simd, op="arithmetic"):
-        return as_tensor(data) + float(value)
+        return _add_to_all(as_tensor(data), float(value))
     return add_to_all_na(data, value)
 
 

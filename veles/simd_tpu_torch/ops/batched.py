@@ -215,10 +215,16 @@ def batched_resample_poly(x, up: int, down: int, taps=None, simd=None,
     key = ("resample_poly", rows, n, up, down, len(taps), _NO_DONATION)
 
     def build():
+        # one instrumented handle a geometry, as the JAX package
+        # compiles one: the ("batched_resample_poly", "batched") row;
+        # the core it calls records nothing inside it
         def run(xb, taps_b):
             return rs._resample_conv(xb, taps_b, up, down, out_len)
 
-        return run
+        return obs.instrumented_jit(
+            run, op="batched_resample_poly", route="batched",
+            work=lambda xb, taps_b: rs._resample_conv_work(
+                xb, taps_b, up, down, out_len))
 
     with obs.span("batched.resample_poly.dispatch"):
         handle = _get_handle(key, build)
@@ -258,7 +264,9 @@ def batched_sosfilt(sos, x, simd=None, donate: bool = False):
         def run(xb):
             return iir._sos_scan(xb, sos_rows)
 
-        return run
+        return obs.instrumented_jit(
+            run, op="batched_sosfilt", route="batched",
+            work=lambda xb: iir._sos_work(xb, sos_rows))
 
     with obs.span("batched.sosfilt.dispatch"):
         handle = _get_handle(key, build)
@@ -299,7 +307,9 @@ def batched_lfilter(b, a, x, simd=None, donate: bool = False):
         def run(xb):
             return iir._lfilter_torch(xb, b_arr, a_arr)
 
-        return run
+        return obs.instrumented_jit(
+            run, op="batched_lfilter", route="batched",
+            work=lambda xb: iir._lfilter_xla.work(xb, b_arr, a_arr))
 
     with obs.span("batched.lfilter.dispatch"):
         handle = _get_handle(key, build)

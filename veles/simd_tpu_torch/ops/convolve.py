@@ -50,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
+import math
 
 import numpy as np
 import torch
@@ -59,6 +60,7 @@ from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import cuda_kernels as _ck
 from veles.simd_tpu_torch.runtime import faults, routing
 from veles.simd_tpu_torch.runtime import precision as prx
+from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.config import get_config, resolve_simd
 from veles.simd_tpu_torch.utils.memory import (
     next_highest_power_of_2, zeropadding_length)
@@ -216,6 +218,19 @@ def _conv_direct_cuda(x, h, reverse=False):
     return y
 
 
+def _conv_core_work(x, h, *_, **__):
+    """``work=`` of every convolution core: the full convolution's
+    least work (:func:`utils.benchmark.conv_work`), whatever the
+    route."""
+    return _bm.conv_work(math.prod(x.shape[:-1]), x.shape[-1],
+                         h.shape[-1])
+
+
+# the XLA-route cores are instrumented calls keyed ("convolve", route)
+# as the JAX package's are; the two kernel routes are not, the kernel
+# wrapper's ("cuda", kernel) row stands for them
+@functools.partial(obs.instrumented_jit, op="convolve", route="direct_mxu",
+                   work=_conv_core_work)
 def _conv_direct(x, h, reverse=False):
     """Direct-form full convolution with conv1d (which correlates, so
     convolution flips ``h``; ``reverse=True`` correlates)."""
@@ -260,6 +275,8 @@ def _tuned_direct_route(eligible, x, h, reverse):
 
 # ---- FFT and overlap-save --------------------------------------------------
 
+@functools.partial(obs.instrumented_jit, op="convolve", route="fft",
+                   work=_conv_core_work)
 def _conv_fft(x, h, m, reverse=False):
     """Full-FFT method (``src/convolve.c:289-326``) with real FFTs."""
     n, k = x.shape[-1], h.shape[-1]
@@ -298,11 +315,13 @@ _OS_FAMILY = routing.family("convolve.os", (
         fault_site="convolve.os_cuda",
         rejection_cache=lambda: _CUDA_OS_REJECTED,
         rejection_key=lambda h_length, **_: h_length,
+        roofline={"kind": "conv"},
         doc="overlap-save kernel: an FFT segment per block in shared "
             "memory, halo reloaded (VELES_SIMD_DISABLE_CUDA_OS opts "
             "out)"),
     routing.Route(
         "xla_matmul",
+        roofline={"kind": "conv"},
         doc="fp32 block matmul over gather-free shifted frames"),
     # a precision variant AFTER the terminal fallback, as in the JAX
     # table: the static prior never picks it, the measured autotuner
@@ -312,6 +331,7 @@ _OS_FAMILY = routing.family("convolve.os", (
         "xla_matmul_bf16_comp",
         predicate=lambda **_: prx.precision_allowed("bf16_comp"),
         disable_env=prx.BF16_COMP_ENV,
+        roofline={"kind": "conv"},
         doc="the block matmul at bf16_comp: split bf16 operands, three "
             "passes, fp32 sums (VELES_SIMD_DISABLE_BF16_COMP opts "
             "out)"),
@@ -334,6 +354,8 @@ def _conv_os_cuda(x, h, reverse=False):
     return _ck.overlap_save_cuda(x, kernel.contiguous())
 
 
+@functools.partial(obs.instrumented_jit, op="convolve", route="os_matmul",
+                   work=_conv_core_work)
 def _conv_os_matmul(x, h, step, reverse=False, precision=None):
     """Overlap-save with the per-block filter as one fp32 matmul.
 
@@ -363,6 +385,8 @@ def _conv_os_matmul(x, h, step, reverse=False, precision=None):
     return y[..., :out_len]
 
 
+@functools.partial(obs.instrumented_jit, op="convolve", route="os_fft",
+                   work=_conv_core_work)
 def _conv_overlap_save(x, h, block_len, reverse=False):
     """Overlap-save as one batched-frames FFT (the long-filter path):
     every block is a row of a ``[n_blocks, L]`` frames view

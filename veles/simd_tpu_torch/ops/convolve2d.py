@@ -54,6 +54,7 @@ from veles.simd_tpu_torch.ops import cuda_kernels as _ck
 from veles.simd_tpu_torch.ops.convolve import _check_mode, _host, _operands
 from veles.simd_tpu_torch.runtime import faults, routing
 from veles.simd_tpu_torch.runtime import precision as prx
+from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.memory import next_highest_power_of_2
 from veles.simd_tpu_torch.utils.platform import as_f32, on_cuda
@@ -156,6 +157,26 @@ def _conv2d_direct_cuda(x, h, reverse=False, crop=(0, 0)):
                               reverse_taps=not reverse)
 
 
+def _conv2d_core_work(x, h, reverse=False, crop=(0, 0)):
+    """``work=`` of the two XLA-route cores: the full 2D convolution's
+    least work (:func:`utils.benchmark.conv2d_work`); for an extended
+    input cut back by ``crop``, the smaller of the direct form over the
+    kept outputs and the FFT form, and the kept outputs' bytes."""
+    imgs, (n0, n1), (k0, k1) = _images(x.shape), x.shape[-2:], h.shape[-2:]
+    full = _bm.conv2d_work(imgs, n0, n1, k0, k1)
+    if not any(crop):
+        return full
+    flops, nbytes = _bm.filter_2d_work(
+        imgs, n0, n1, k0, k1, n0 - 2 * crop[0] + k0 - 1,
+        n1 - 2 * crop[1] + k1 - 1)
+    return min(flops, full[0]), nbytes
+
+
+# the XLA-route cores are instrumented calls keyed ("convolve2d",
+# route) as the JAX package's are; the kernel route is not, the 2D
+# kernel wrapper's ("cuda", "filter_2d") row stands for it
+@obs.instrumented_jit(op="convolve2d", route="direct_mxu",
+                      work=_conv2d_core_work)
 def _conv2d_direct(x, h, reverse=False, crop=(0, 0)):
     """Direct form as ``conv2d`` (which correlates), cuDNN pinned to
     fp32."""
@@ -170,6 +191,8 @@ def _conv2d_direct(x, h, reverse=False, crop=(0, 0)):
                              + (n0 + k0 - 1, n1 + k1 - 1)), crop)
 
 
+@obs.instrumented_jit(op="convolve2d", route="fft",
+                      work=_conv2d_core_work)
 def _conv2d_fft(x, h, reverse=False, crop=(0, 0)):
     """Both axes padded to powers of two >= n+k-1, one batched
     ``rfft2 · multiply · irfft2``."""

@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32, as_tensor
 
@@ -47,6 +49,16 @@ class ExtremumType(enum.IntFlag):
     BOTH = 3
 
 
+# the instrumented cores, under the JAX package's names; their work
+# counts the operations a sample of the least pass (two differences,
+# a product and a compare for the mask; two nearest-greater searches
+# and two range minima for a prominence) and 4 bytes an output value
+def _per_sample(ops, out_values):
+    return lambda x, *_: bm.elementwise_work(ops, 4 * out_values, x)
+
+
+@obs.instrumented_jit(work=lambda data, type: (
+    4.0 * data.numel(), float(data.nbytes) + data.numel()))
 def _peak_mask(data, type):
     """Boolean mask over the full signal (interior-only can be True)."""
     prev = data[..., :-2]
@@ -108,6 +120,10 @@ def _compact_scatter(mask, data, max_peaks):
             torch.sum(mask, dim=-1, dtype=torch.int32))
 
 
+@obs.instrumented_jit(work=lambda data, type, max_peaks: (
+    5.0 * data.numel(),
+    float(data.nbytes) + (8.0 * max_peaks + 4.0) * (
+        data.numel() // max(1, data.shape[-1]))))
 def _peaks_fixed(data, type, max_peaks):
     mask = _peak_mask(data, type)
     if max_peaks * _TOPK_CAP_FRACTION <= data.shape[-1]:
@@ -262,6 +278,18 @@ def _prom_core(x):
     return mins, lspan, rspan, x - torch.maximum(lmin, rmin)
 
 
+@obs.instrumented_jit(work=_per_sample(4, 1))
+def _prominences_xla(x):
+    return _prom_core(x)[3]
+
+
+@obs.instrumented_jit(work=_per_sample(4, 3))
+def _prom_spans_xla(x):
+    """``(lspan, rspan, prom)`` for every index: the spans bound the
+    saddle intervals so the host can recover scipy's base positions."""
+    return _prom_core(x)[1:]
+
+
 def _bases_from_spans(x_np, peaks, lspan, rspan):
     """scipy's ``left_bases``/``right_bases`` from the device-computed
     saddle spans: the min of each side interval, ties resolved to the
@@ -326,7 +354,7 @@ def peak_prominences(x, peaks, simd=None):
     """
     peaks = _check_peaks(x, peaks)
     if resolve_simd(simd, op="detect_peaks"):
-        prom = _prom_core(as_f32(x))[3]
+        prom = _prominences_xla(as_f32(x))
         return prom[torch.as_tensor(peaks, device=prom.device)]
     return peak_prominences_na(x, peaks).astype(np.float32)
 
@@ -341,7 +369,8 @@ def peak_prominences_na(x, peaks):
     return _prominences_bases_na(x, peaks)[0]
 
 
-def _widths_core(x, rel_height):
+@obs.instrumented_jit(work=_per_sample(10, 7))
+def _widths_xla(x, rel_height):
     """(widths, h_eval, left_ip, right_ip, prom, lspan, rspan) for
     every index treated as a peak (garbage at non-peaks — callers
     gather at peak positions)."""
@@ -412,7 +441,7 @@ def peak_widths(x, peaks, rel_height: float = 0.5, simd=None):
     rel_height = _check_rel_height(rel_height)
     peaks = _check_peaks(x, peaks)
     if resolve_simd(simd, op="detect_peaks"):
-        w, h, li, ri = _widths_core(as_f32(x), rel_height)[:4]
+        w, h, li, ri = _widths_xla(as_f32(x), rel_height)[:4]
         pk = torch.as_tensor(peaks, device=w.device)
         return w[pk], h[pk], li[pk], ri[pk]
     return tuple(a.astype(np.float32)
@@ -548,17 +577,17 @@ def find_peaks(x, height=None, threshold=None, distance=None,
         for k in props:
             props[k] = props[k][keep]
     if prominence is not None or width is not None:
-        # one device pass covers both conditions: _widths_core already
+        # one device pass covers both conditions: _widths_xla already
         # computes the prominences it evaluates widths against
         if use:
             pk = torch.as_tensor(peaks, device=x_dev.device)
             if width is not None:
-                out = _widths_core(x_dev, _check_rel_height(rel_height))
+                out = _widths_xla(x_dev, _check_rel_height(rel_height))
                 w, wh, li, ri, prom, lsp, rsp = (
                     a[pk].cpu().numpy() for a in out)
             else:
                 lsp, rsp, prom = (a[pk].cpu().numpy() for a in
-                                  _prom_core(x_dev)[1:])
+                                  _prom_spans_xla(x_dev))
         else:
             prom, lbase, rbase = _prominences_bases_na(x_np, peaks)
             prom = prom.astype(np.float32)

@@ -36,8 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import waveforms as wf
 from veles.simd_tpu_torch.runtime import precision as prx
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32
 
@@ -142,6 +144,18 @@ def _apply_rank_network(lanes, rank):
     return torch.where(rank < n_nonnan, lanes[rank], np.nan)
 
 
+def _window_work(ops):
+    """``work=`` of a sliding-window core: ``ops(*sizes)`` operations
+    an output sample, the signal read and the float32 output written
+    once."""
+    return lambda x, *sizes: bm.elementwise_work(ops(*sizes), 4, x)
+
+
+# the instrumented cores, keyed by the JAX package's core names: a
+# rank selection takes an operation a window tap; the Wiener filter's
+# local mean and variance two, plus six for the scale
+@obs.instrumented_jit(op="rank_filter_xla",
+                      work=_window_work(lambda k, rank: k))
 def _rank_filter(x, k, rank):
     if k > _RANK_NETWORK_MAX_K:
         win = F.pad(x, (k // 2, k // 2)).unfold(-1, k, 1)
@@ -180,6 +194,8 @@ def medfilt_na(x, kernel_size: int = 3):
     return order_filter_na(x, k // 2, k)
 
 
+@obs.instrumented_jit(op="medfilt2d_xla",
+                      work=_window_work(lambda kh, kw: kh * kw))
 def _medfilt2d(img, kh, kw):
     k = kh * kw
     hh, hw = kh // 2, kw // 2
@@ -511,6 +527,8 @@ def _wiener_scale(x, mean, var, noise, xp):
     return mean + excess / denom * (x - mean)
 
 
+@obs.instrumented_jit(op="wiener_xla",
+                      work=_window_work(lambda k, noise: 2 * k + 6))
 def _wiener(x, k, noise):
     # Local statistics in the locally demeaned form mean((x_w -
     # mean_w)^2), algebraically scipy's E[x^2] - mean^2 over the

@@ -1035,14 +1035,41 @@ def _sosfilt_torch(x, sos, zi=None, want_zf=False, powers=None):
     rows = math.prod(batch)
     zi_rows = None
     if zi is not None:
-        zi_rows = torch.broadcast_to(
-            _state_tensor(zi, x), batch + (len(sos), 2)).reshape(
-                rows, len(sos), 2)
+        want = batch + (len(sos), 2)
+        # the JAX package reads the first len(sos) section rows of zi
+        # (extra rows are ignored) and raises ValueError where the
+        # rest does not broadcast; torch would raise RuntimeError
+        zi = _state_tensor(zi, x)[..., :len(sos), :]
+        got = tuple(zi.shape)
+        try:
+            ok = np.broadcast_shapes(got, want) == want
+        except ValueError:
+            ok = False
+        if not ok:
+            raise ValueError(f"Incompatible shapes for broadcasting: "
+                             f"{got} and requested shape {want}")
+        zi_rows = torch.broadcast_to(zi, want).reshape(rows, len(sos), 2)
     out = _sos_scan(x.reshape(rows, n), sos, zi_rows, want_zf, powers)
     if want_zf:
         y, zf = out
         return y.reshape(batch + (n,)), zf.reshape(batch + (len(sos), 2))
     return out.reshape(batch + (n,))
+
+
+def _sos_work(x, sos, *_, **__):
+    """``work=`` of a cascade: nine operations a sample and section
+    (the direct form's five multiplies and four adds), the signal read
+    and written once, 4 bytes a coefficient."""
+    n_sos = len(sos)
+    return (9.0 * n_sos * x.numel(),
+            8.0 * x.numel() + 24.0 * n_sos)
+
+
+# the instrumented core of sosfilt and StreamingSosfilt, the JAX
+# package's _sosfilt_xla (sos_stream_step runs the cascade bare, as
+# the JAX package's does)
+_sosfilt_xla = obs.instrumented_jit(_sosfilt_torch, op="sosfilt_xla",
+                                    work=_sos_work)
 
 
 def sosfilt(sos, x, zi=None, simd=None, return_zf=False):
@@ -1066,7 +1093,7 @@ def sosfilt(sos, x, zi=None, simd=None, return_zf=False):
         raise ValueError("return_zf needs at least 2 samples per block")
     if resolve_simd(simd, op="iir"):
         with obs.span("sosfilt.dispatch", sections=len(sos)):
-            return _sosfilt_torch(as_f32(x), sos, zi, return_zf)
+            return _sosfilt_xla(as_f32(x), sos, zi, return_zf)
     if return_zf:
         y, zf = sosfilt_na(sos, x, zi=zi, return_zf=True)
         return y.astype(np.float32), zf.astype(np.float32)
@@ -1162,8 +1189,8 @@ StreamingConvolution`: chunks arrive one at a time, each section's
         if np.shape(chunk)[-1] < 2:
             raise ValueError("chunks need at least 2 samples")
         if self._simd:
-            y, zf = _sosfilt_torch(as_f32(chunk), self._sos, self._zi,
-                                   want_zf=True)
+            y, zf = _sosfilt_xla(as_f32(chunk), self._sos, self._zi,
+                                 want_zf=True)
         else:
             y, zf = sosfilt_na(self._sos, chunk, zi=self._zi,
                                return_zf=True)
@@ -1317,12 +1344,24 @@ def _lfilter_torch(x, b, a):
     scan of the order-p companion recurrence (p = 1 with a zero
     companion for a pure FIR, which runs no level)."""
     batch, n = tuple(x.shape[:-1]), x.shape[-1]
+    if not len(b):
+        # an empty numerator drives nothing: zeros, as the JAX
+        # package's routes and lfilter_na give
+        return torch.zeros_like(x)
     x2 = x.reshape(math.prod(batch), n)
     comp = _companion(a)
     s = _fir_drive(x2, b, comp.shape[0])
     _doubling_scan(s, _device_powers(comp, n, x.device))
     y = s[0] if comp.shape[0] == 1 else s[0].clone()
     return y.reshape(batch + (n,))
+
+
+# the instrumented core of lfilter, the JAX package's _lfilter_xla: a
+# multiply and an add a numerator tap and a denominator lag each sample
+_lfilter_xla = obs.instrumented_jit(
+    _lfilter_torch, op="lfilter_xla",
+    work=lambda x, b, a: (2.0 * (len(b) + len(a) - 1) * x.numel(),
+                          8.0 * x.numel() + 4.0 * (len(b) + len(a))))
 
 
 def lfilter(b, a, x, simd=None):
@@ -1342,7 +1381,7 @@ def lfilter(b, a, x, simd=None):
             "(cascaded second-order sections) for high-order filters")
     if resolve_simd(simd, op="iir"):
         with obs.span("lfilter.dispatch", order=p):
-            return _lfilter_torch(as_f32(x), b, a)
+            return _lfilter_xla(as_f32(x), b, a)
     return lfilter_na(b, a, x).astype(np.float32)
 
 

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32
 
@@ -38,8 +40,20 @@ def _log(x):
                        torch.full_like(x, -np.inf), torch.log(x))
 
 
-_TORCH = {"sin": torch.sin, "cos": torch.cos, "log": _log,
-          "exp": torch.exp, "sqrt": torch.sqrt}
+def _one_op(*args):
+    """``work=``: one operation an output element."""
+    return bm.elementwise_work(1, 4, *args)
+
+
+# each function an instrumented call, keyed ("mathfun", name) as the
+# JAX package keys its cores
+_TORCH = {name: obs.instrumented_jit(fn, op="mathfun", route=name,
+                                     work=_one_op)
+          for name, fn in (("sin", torch.sin), ("cos", torch.cos),
+                           ("log", _log), ("exp", torch.exp),
+                           ("sqrt", torch.sqrt))}
+_POW = obs.instrumented_jit(torch.pow, op="mathfun", route="pow",
+                            work=_one_op)
 
 _NA = {"sin": np.sin, "cos": np.cos, "log": np.log, "exp": np.exp,
        "sqrt": np.sqrt}
@@ -74,7 +88,7 @@ def exp_psv(data, simd=None):
 def pow_psv(base, exponent, simd=None):
     """``avx_mathfun.h:720`` / ``neon_mathfun.h:307`` pow_ps."""
     if resolve_simd(simd, op="mathfun"):
-        return torch.pow(as_f32(base), as_f32(exponent))
+        return _POW(as_f32(base), as_f32(exponent))
     return np.power(np.asarray(base, np.float32),
                     np.asarray(exponent, np.float32))
 

@@ -39,6 +39,7 @@ and leaves only the output's rounding.
 from __future__ import annotations
 
 import functools
+import math
 import warnings
 
 import numpy as np
@@ -47,6 +48,7 @@ import torch
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.runtime import precision as prx
 from veles.simd_tpu_torch.runtime import routing
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import get_config, resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32, as_tensor
 
@@ -57,7 +59,31 @@ __all__ = [
 ]
 
 
-def _matmul_p(a, b, precision="highest"):
+def _contraction_work(a, b, w2):
+    """``(flops, bytes)`` of ``a[..., h1, w]`` contracted with ``b``
+    into ``w2`` columns a row: two operations a multiply-add, each
+    operand read once and the float32 output written once."""
+    lead = torch.broadcast_shapes(tuple(a.shape[:-2]), tuple(b.shape[:-2]))
+    out = math.prod(lead) * int(a.shape[-2]) * int(w2)
+    return (2.0 * out * int(a.shape[-1]),
+            float(a.nbytes + b.nbytes + 4 * out))
+
+
+def _ew_work(a, b):
+    return bm.elementwise_work(1, 4, a, b)
+
+
+@obs.instrumented_jit(work=_ew_work)
+def _add(a, b):
+    return a + b
+
+
+@obs.instrumented_jit(work=_ew_work)
+def _sub(a, b):
+    return a - b
+
+
+def _matmul(a, b, precision="highest"):
     if precision == "highest":
         # the fp32 route: float64 products and sums, rounded once
         return torch.matmul(a.to(torch.float64),
@@ -65,9 +91,25 @@ def _matmul_p(a, b, precision="highest"):
     return prx.p_matmul(a, b, precision=precision)
 
 
+_matmul_p = obs.instrumented_jit(
+    _matmul, op="matrix", route="gemm",
+    work=lambda a, b, precision="highest": _contraction_work(
+        a, b, b.shape[-1]))
+
+
+@obs.instrumented_jit(
+    op="matrix", route="gemm_t",
+    work=lambda a, bt, precision="highest": _contraction_work(
+        a, bt, bt.shape[-2]))
 def _matmul_t_p(a, bt, precision="highest"):
     # batched "[..., h1, w] @ [..., h2, w]^T": contract the last dims
-    return _matmul_p(a, bt.transpose(-1, -2), precision=precision)
+    return _matmul(a, bt.transpose(-1, -2), precision=precision)
+
+
+_matvec_p = obs.instrumented_jit(
+    _matmul, op="matrix", route="gemv",
+    work=lambda m, v, precision="highest": _contraction_work(
+        m, v, v.shape[-1] if v.dim() > 1 else 1))
 
 
 # ---- the precision candidate table ----------------------------------------
@@ -84,22 +126,26 @@ GEMM_PRECISIONS = {
 _GEMM_FAMILY = routing.family("matrix.gemm", (
     routing.Route(
         "fp32",
+        roofline={"kind": "gemm"},
         doc="float64 products and sums rounded once to float32 (no "
             "TF32) — the oracle-parity static prior"),
     routing.Route(
         "bf16_comp",
         predicate=lambda **_: prx.precision_allowed("bf16_comp"),
         disable_env=prx.BF16_COMP_ENV,
+        roofline={"kind": "gemm"},
         doc="split/compensated bf16 (3 passes, ~5e-6 rel err, inside "
             "the 1e-4 budget); VELES_SIMD_DISABLE_BF16_COMP opts out"),
     routing.Route(
         "int8",
         predicate=lambda **_: prx.precision_allowed("int8"),
+        roofline={"kind": "gemm"},
         doc="dynamically scaled symmetric int8 (int32 accumulate, "
             "~1.6e-2 rel err) — refused unless VELES_SIMD_ENABLE_INT8"),
     routing.Route(
         "bf16",
         predicate=lambda **_: False,
+        roofline={"kind": "gemm"},
         doc="plain 1-pass bf16 — forced-only (the fast=True shim): "
             "fails every oracle error budget, never engine-selected"),
 ))
@@ -219,15 +265,29 @@ def _check_contraction(m, v):
             f"same shape, got ({ms[-1]},) and ({w},).")
 
 
+def _check_broadcast(name, m1, m2):
+    """The JAX package's ``TypeError`` for operands that do not
+    broadcast (torch would raise ``RuntimeError``), checked on the
+    shapes before any torch call."""
+    s1, s2 = tuple(np.shape(m1)), tuple(np.shape(m2))
+    try:
+        np.broadcast_shapes(s1, s2)
+    except ValueError:
+        raise TypeError(f"{name} got incompatible shapes for "
+                        f"broadcasting: {s1}, {s2}.") from None
+
+
 def matrix_add(m1, m2, simd=None):
     if resolve_simd(simd, op="matrix"):
-        return as_tensor(m1) + as_tensor(m2)
+        _check_broadcast("add", m1, m2)
+        return _add(as_tensor(m1), as_tensor(m2))
     return matrix_add_novec(m1, m2)
 
 
 def matrix_sub(m1, m2, simd=None):
     if resolve_simd(simd, op="matrix"):
-        return as_tensor(m1) - as_tensor(m2)
+        _check_broadcast("sub", m1, m2)
+        return _sub(as_tensor(m1), as_tensor(m2))
     return matrix_sub_novec(m1, m2)
 
 
@@ -280,6 +340,6 @@ def matrix_vector_multiply(m, v, simd=None, precision=None):
     if resolve_simd(simd, op="matrix"):
         _check_contraction(m, v)
         route = _resolve_precision_route(precision, fast=False)
-        return _matmul_p(as_f32(m), as_f32(v),
+        return _matvec_p(as_f32(m), as_f32(v),
                          precision=GEMM_PRECISIONS[route or "fp32"])
     return matrix_vector_multiply_novec(m, v)

@@ -21,10 +21,13 @@ trailing 2 axes for 2D ops, trailing 1 for 1D).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from veles.simd_tpu_torch import obs
+from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_tensor
 
@@ -44,6 +47,16 @@ def _scale(v, mn, mx):
     return torch.where(flat, torch.zeros_like(out), out)
 
 
+def _reduced(src, axes: int) -> int:
+    """Planes (``axes`` 2) or rows (1) of ``src``: one min and one max
+    each."""
+    return src.numel() // max(1, math.prod(src.shape[-axes:]))
+
+
+# the instrumented cores, under the JAX package's names: a min and a
+# max are an operation a sample each, the scale (subtract, multiply)
+# two more
+@obs.instrumented_jit(work=lambda src: bm.elementwise_work(4, 4, src))
 def _normalize2d(src):
     v = src.to(torch.float32)
     mn = torch.amin(v, dim=(-2, -1), keepdim=True)
@@ -51,6 +64,8 @@ def _normalize2d(src):
     return _scale(v, mn, mx)
 
 
+@obs.instrumented_jit(work=lambda mn, mx, src: bm.elementwise_work(
+    2, 4, mn, mx, src, out_elems=src.numel()))
 def _normalize2d_minmax(mn, mx, src):
     v = src.to(torch.float32)
     mn = torch.as_tensor(mn, dtype=torch.float32, device=v.device)
@@ -59,6 +74,20 @@ def _normalize2d_minmax(mn, mx, src):
         mn = mn[..., None, None]
         mx = mx[..., None, None]
     return _scale(v, mn, mx)
+
+
+@obs.instrumented_jit(work=lambda src: (
+    2.0 * src.numel(),
+    float(src.nbytes) + 2.0 * src.element_size() * _reduced(src, 2)))
+def _minmax2d(src):
+    return (torch.amin(src, dim=(-2, -1)), torch.amax(src, dim=(-2, -1)))
+
+
+@obs.instrumented_jit(work=lambda src: (
+    2.0 * src.numel(),
+    float(src.nbytes) + 2.0 * src.element_size() * _reduced(src, 1)))
+def _minmax1d(src):
+    return torch.amin(src, dim=-1), torch.amax(src, dim=-1)
 
 
 # ---- NumPy oracles (reference *_novec, src/normalize.c:382-443) ----------
@@ -140,9 +169,7 @@ def minmax2D(src, simd=None):
     """(min, max) of a plane (``inc/simd/normalize.h:59-64``)."""
     _check_2d(src)
     if resolve_simd(simd, op="normalize"):
-        src = as_tensor(src)
-        return (torch.amin(src, dim=(-2, -1)),
-                torch.amax(src, dim=(-2, -1)))
+        return _minmax2d(as_tensor(src))
     return minmax2D_novec(np.asarray(src))
 
 
@@ -150,6 +177,5 @@ def minmax1D(src, simd=None):
     """(min, max) of a float array (``inc/simd/normalize.h:81-90``)."""
     _check_reducible(src, 1)
     if resolve_simd(simd, op="normalize"):
-        src = as_tensor(src)
-        return torch.amin(src, dim=-1), torch.amax(src, dim=-1)
+        return _minmax1d(as_tensor(src))
     return minmax1D_novec(np.asarray(src))

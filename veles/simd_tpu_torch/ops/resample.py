@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import iir as _iir
 from veles.simd_tpu_torch.runtime import precision as prx
+from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.cache import ConstantCache
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32
@@ -162,6 +163,16 @@ def _polyphase_runs(taps: np.ndarray, up: int, down: int, c0: int):
     return n_phase, step, runs
 
 
+def _resample_conv_work(x, taps, up, down, out_len, *_, **__):
+    """``work=`` of the polyphase core: an output reads at most
+    ``ceil(k / up)`` taps (a multiply-add each), the signal and the
+    taps read once and the float32 outputs written once."""
+    k, rows = len(taps), x.numel() // max(1, x.shape[-1])
+    return (2.0 * rows * out_len * -(-k // up),
+            4.0 * (x.numel() + k + rows * out_len))
+
+
+@obs.instrumented_jit(work=_resample_conv_work)
 def _resample_conv(x, taps, up, down, out_len, pad=None, runs=None):
     """The polyphase core: ``x[..., n]`` (a float32 tensor) through the
     up/down conversion with the host taps, ``[..., out_len]``.
@@ -479,6 +490,12 @@ def decimate(x, factor: int, taps=None, ftype: str = "fir",
     return y[..., ::factor]
 
 
+@obs.instrumented_jit(
+    op="resample_fourier_xla",
+    work=lambda x, num: (
+        x.numel() // max(1, x.shape[-1]) * (
+            _bm.rfft_flops(x.shape[-1]) + _bm.rfft_flops(num)),
+        4.0 * (x.numel() + x.numel() // max(1, x.shape[-1]) * num)))
 def _resample_fourier_torch(x, num):
     n = x.shape[-1]
     spec = torch.fft.rfft(x, dim=-1)

@@ -88,6 +88,7 @@ does.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -592,6 +593,7 @@ _STFT_FAMILY = routing.family("stft", (
         rejection_cache=lambda: _CUDA_STFT_REJECTED,
         rejection_key=lambda frame_length, hop, **_: (frame_length,
                                                       hop),
+        roofline={"kind": "stft"},
         doc="fused STFT kernel (csrc/stft.cu): a shared-memory FFT per "
             "frame over a span of frames staged once, the frames "
             "tensor never built"),
@@ -600,10 +602,12 @@ _STFT_FAMILY = routing.family("stft", (
         predicate=lambda frame_length, **_:
             frame_length <= AUTO_DFT_MATMUL_MAX_FRAME,
         disable_env=_DFT_MATMUL_ENV,
+        roofline={"kind": "stft"},
         doc="precomputed real-DFT basis matmul in fp32 (window folded "
             "in, basis LRU-cached per geometry)"),
     routing.Route(
         "xla_fft",
+        roofline={"kind": "stft"},
         doc="torch.fft.rfft of the windowed frames — the long-frame "
             "terminal fallback"),
     # the precision variant AFTER the terminal fallback (the JAX
@@ -616,6 +620,7 @@ _STFT_FAMILY = routing.family("stft", (
             and dft_matmul_allowed()
             and prx.precision_allowed("bf16_comp")),
         disable_env=prx.BF16_COMP_ENV,
+        roofline={"kind": "stft"},
         doc="the basis matmul at bf16_comp (split bf16 operands, "
             "three passes, fp32 sums)"),
 ))
@@ -1787,6 +1792,26 @@ def _czt_constants(n, m, w, a):
             post.astype(np.complex64), nfft)
 
 
+def _czt_work(x, pre, kern_f, post, m, nfft):
+    """``work=`` of the Bluestein core: a forward and an inverse
+    complex FFT of ``nfft`` points a row (``5 N log2 N`` each) and the
+    three complex products (six operations a point), every operand read
+    once and the complex64 output written once."""
+    rows, n = x.numel() // max(1, x.shape[-1]), x.shape[-1]
+    fft = 5.0 * nfft * math.log2(nfft) if nfft > 1 else 0.0
+    return (rows * (2 * fft + 6.0 * (n + nfft + m)),
+            float(x.nbytes + pre.nbytes + kern_f.nbytes + post.nbytes
+                  + 8 * rows * m))
+
+
+@obs.instrumented_jit(work=_czt_work)
+def _czt_xla(x, pre, kern_f, post, m, nfft):
+    n = x.shape[-1]
+    yf = torch.fft.fft(x * pre, nfft, dim=-1)
+    conv = torch.fft.ifft(yf * kern_f, dim=-1)
+    return conv[..., n - 1: n - 1 + m] * post
+
+
 def czt(x, m=None, w=None, a=1.0, simd=None):
     """Chirp-Z transform (scipy's ``czt``): ``m`` samples of the
     z-transform along the spiral ``z = a * w^-k``.
@@ -1807,10 +1832,8 @@ def czt(x, m=None, w=None, a=1.0, simd=None):
     pre, kern_f, post, nfft = _czt_constants(n, m, w, a)
     if resolve_simd(simd, op="czt"):
         xt = as_c64(x)
-        y = xt * _to_device(pre, xt.device)
-        yf = torch.fft.fft(y, nfft, dim=-1)
-        conv = torch.fft.ifft(yf * _to_device(kern_f, xt.device), dim=-1)
-        return conv[..., n - 1: n - 1 + m] * _to_device(post, xt.device)
+        return _czt_xla(xt, *(_to_device(c, xt.device)
+                              for c in (pre, kern_f, post)), m, nfft)
     # host fallback: the SAME Bluestein convolution in float64 numpy —
     # NOT the O(n*m) direct-sum oracle, which would materialize an
     # [m, n] matrix (33 GB for zoom_fft of a 1M-sample signal)
@@ -1909,6 +1932,11 @@ def _check_lombscargle_args(t, x, freqs, weights=None):
     return t, x, freqs, weights
 
 
+@obs.instrumented_jit(
+    op="lombscargle_xla",
+    work=lambda t, x, freqs, w: (
+        20.0 * freqs.numel() * t.numel(),
+        4.0 * (3 * t.numel() + 2 * freqs.numel())))
 def _lombscargle_torch(t, x, freqs, w):
     # [m, n] phase grids: the whole periodogram is a handful of
     # elementwise trig ops + reductions over the sample axis.  Every

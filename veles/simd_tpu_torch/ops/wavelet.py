@@ -62,6 +62,7 @@ from veles.simd_tpu_torch.ops.wavelet_coeffs import (
     validate_order)
 from veles.simd_tpu_torch.runtime import precision as prx
 from veles.simd_tpu_torch.runtime import routing
+from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import as_f32
 
@@ -174,6 +175,11 @@ def _extend(x, ext, ext_len):
 # the two DWT/SWT routes
 # --------------------------------------------------------------------------
 
+@obs.instrumented_jit(
+    op="filter_bank",
+    work=lambda x, type, order, ext, stride, dilation, out_len:
+        _bm.filter_bank_work(_rows(x.shape), x.shape[-1], 2, order,
+                             out_len))
 def _filter_bank_conv(x, type, order, ext, stride, dilation, out_len):
     """Extend, then the 2-channel strided/dilated cross-correlation as
     one ``conv1d``.  DWT: stride 2, dilation 1; SWT: stride 1, dilation
@@ -620,6 +626,44 @@ def _synth_conv(hi_band, lo_band, type, order, lhs_dil, rhs_dil, out_len):
     return y.reshape(batch_shape + (out_len,))
 
 
+def _synth_work(hi_band, order, stride, n):
+    """``(flops, bytes)`` of a synthesis of ``n`` samples a row from two
+    bands at ``stride``: each output a multiply-add over ``2 * order /
+    stride`` taps of the two bands, the bands and the taps read once
+    and the float32 output written once."""
+    rows = _rows(hi_band.shape)
+    return (2.0 * rows * n * (2 * int(order) // stride),
+            4.0 * (2 * hi_band.numel() + 2 * int(order) + rows * n))
+
+
+# the instrumented synthesis cores, under the JAX package's names: the
+# periodic DWT and SWT inverses, and the periodic adjoint the boundary
+# correction of the other extensions starts from
+@obs.instrumented_jit(work=lambda hi, lo, type, order: _synth_work(
+    hi, order, 2, 2 * hi.shape[-1]))
+def _dwt_synth(hi_band, lo_band, type, order):
+    _, lo_f = _filters(type, order)
+    out = _synth_conv(hi_band, lo_band, type, order, 2, 1,
+                      2 * hi_band.shape[-1])
+    return out / float(_c2(lo_f))
+
+
+@obs.instrumented_jit(work=lambda hi, lo, type, order, level: _synth_work(
+    hi, order, 1, hi.shape[-1]))
+def _swt_synth(hi_band, lo_band, type, order, level):
+    _, lo_f = _filters(type, order)
+    out = _synth_conv(hi_band, lo_band, type, order, 1, 1 << (level - 1),
+                      hi_band.shape[-1])
+    return out / float(2 * _c2(lo_f))
+
+
+@obs.instrumented_jit(
+    work=lambda hi, lo, type, order, stride, dil, n: _synth_work(
+        hi, order, stride, n))
+def _synth_conv_jit(hi_band, lo_band, type, order, stride, dil, n):
+    return _synth_conv(hi_band, lo_band, type, order, stride, dil, n)
+
+
 def _check_synth_args(type, order, hi_band, lo_band):
     if not validate_order(type, order):
         raise ValueError(
@@ -845,7 +889,7 @@ def _synth_ext_device(hi_band, lo_band, type, order, level, ext, stride):
         return torch.as_tensor(
             _synth_ext(hi_band.cpu().numpy(), lo_band.cpu().numpy(), type,
                        order, level, ext, stride), device=hi_band.device)
-    x = _synth_conv(hi_band, lo_band, type, order, stride, dil, n) / g
+    x = _synth_conv_jit(hi_band, lo_band, type, order, stride, dil, n) / g
     mapped = _synth_boundary_map_on(type, order, ext, n, stride, level,
                                     x.device)
     if mapped is None:
@@ -883,10 +927,7 @@ def wavelet_reconstruct(type, order, desthi, destlo, simd=None,
     desthi, destlo = _synth_operands(type, order, desthi, destlo)
     ext = ExtensionType(ext)
     if ext is ExtensionType.PERIODIC:
-        _, lo_f = _filters(type, order)
-        out = _synth_conv(desthi, destlo, type, order, 2, 1,
-                          2 * desthi.shape[-1])
-        return out / float(_c2(lo_f))
+        return _dwt_synth(desthi, destlo, WaveletType(type), int(order))
     return _synth_ext_device(desthi, destlo, type, order, 1, ext, 2)
 
 
@@ -921,10 +962,8 @@ def stationary_wavelet_reconstruct(type, order, level, desthi, destlo,
         raise ValueError("level must be >= 1")
     ext = ExtensionType(ext)
     if ext is ExtensionType.PERIODIC:
-        _, lo_f = _filters(type, order)
-        out = _synth_conv(desthi, destlo, type, order, 1,
-                          1 << (level - 1), desthi.shape[-1])
-        return out / float(2 * _c2(lo_f))
+        return _swt_synth(desthi, destlo, WaveletType(type), int(order),
+                          int(level))
     return _synth_ext_device(desthi, destlo, type, order, level, ext, 1)
 
 

@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from veles.simd_tpu_torch.runtime import precision as prx
+from veles.simd_tpu_torch.utils.trace import traced
 
 __all__ = ["P", "shard_map", "axis_index", "axis_size", "ppermute",
            "psum", "pmin", "pmax", "all_gather", "all_to_all"]
@@ -417,8 +418,10 @@ def _body(run, fn, coord, args, results, errors):
     _CTX.run, _CTX.coord = run, coord
     dev = run.device(coord)
     try:
+        # a shard body runs as a traced JAX body does: no instrumented
+        # call in it records resources
         with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), traced():
             results[coord] = fn(*args)
     except threading.BrokenBarrierError:
         pass    # a sibling failed; its error is the one reported

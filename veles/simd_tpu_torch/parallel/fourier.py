@@ -148,12 +148,14 @@ _FOURIER_FAMILY = routing.family("parallel.fourier", (
         "sharded_matmul_dft",
         predicate=_matmul_dft_viable,
         disable_env=SHARDED_DFT_ENV,
+        roofline={"kind": "dft_matmul"},
         doc="Cooley-Tukey N=N1*N2: per-factor DFT-basis matmul stages "
             "+ twiddle, all_to_all transposes between stages; the "
             "bytes between shards in the selector and the decision "
             "event"),
     routing.Route(
         "local_fft",
+        roofline={"kind": "fft"},
         doc="one torch.fft call on the gathered operand — the "
             "terminal fallback when the mesh or the size cannot pay "
             "for the transposes"),
@@ -164,14 +166,10 @@ _FOURIER_FAMILY = routing.family("parallel.fourier", (
         "sharded_matmul_dft_bf16_comp",
         predicate=_matmul_dft_comp_viable,
         disable_env=prx.BF16_COMP_ENV,
+        roofline={"kind": "dft_matmul"},
         doc="the factorized pipeline with bf16_comp stage matmuls "
             "over the exact f32 all_to_all payload"),
 ))
-
-# the roofline tag each route's decision event carries
-_ROOFLINE = {"sharded_matmul_dft": "dft_matmul", "local_fft": "fft",
-             "sharded_matmul_dft_bf16_comp": "dft_matmul"}
-
 
 def _select_fourier_route(op, n, n_shards, rows, n1, n2, cards=1) -> str:
     """The STATIC route decision for one sharded transform, in table
@@ -541,7 +539,8 @@ def _dispatch(op, table, operand, n, mesh, axis, route, oracle):
         a2a=2 if is_mm else 0,
         a2a_bytes=int(bytes_a2a) if is_mm else 0,
         precision=mm_precision if is_mm else "highest",
-        roofline=_ROOFLINE[chosen], forced=forced)
+        roofline=_FOURIER_FAMILY.route(chosen).roofline["kind"],
+        forced=forced)
     with obs.span(f"{op}.dispatch", route=chosen, n_shards=s):
         return faults.guarded(
             f"{op}.dispatch",

@@ -741,8 +741,10 @@ class Route:
     ``rejection_cache`` is a ZERO-ARG GETTER returning the bounded
     rejection set the demote-and-remember policy feeds (tests
     substitute plain sets through the owning module's global) and
-    ``rejection_key(**geom)`` derives the remembered key; ``doc`` is
-    one line for humans.
+    ``rejection_key(**geom)`` derives the remembered key;
+    ``roofline`` carries the route's roofline tag (``{"kind": ...}``)
+    for decision events and bench attribution; ``doc`` is one line for
+    humans.
     """
 
     name: str
@@ -751,6 +753,7 @@ class Route:
     fault_site: str | None = None
     rejection_cache: object = None
     rejection_key: object = None
+    roofline: dict | None = None
     doc: str = ""
 
     def rejected(self, geom: dict) -> bool:
@@ -783,9 +786,11 @@ class Route:
 
 class Family:
     """One op family's candidate table + selection policy; routes in
-    PRIORITY order (static selection is the first eligible one)."""
+    PRIORITY order (static selection is the first eligible one).
+    ``decision_op`` names its decision events (default
+    ``"<name>_route"``)."""
 
-    def __init__(self, name: str, routes):
+    def __init__(self, name: str, routes, *, decision_op=None):
         self.name = str(name)
         self._routes: dict[str, Route] = {}
         for r in routes:
@@ -795,6 +800,7 @@ class Family:
             self._routes[r.name] = r
         if not self._routes:
             raise ValueError(f"family {name!r} has no routes")
+        self.decision_op = decision_op or f"{self.name}_route"
         # the routes after the first unconditional one (the table's
         # terminal fallback): the static prior never reaches them, so
         # only the measured autotuner adds them to a caller's list
@@ -1038,10 +1044,10 @@ _families_lock = threading.Lock()
 _FAMILIES: dict[str, Family] = {}
 
 
-def family(name: str, routes) -> Family:
+def family(name: str, routes, *, decision_op=None) -> Family:
     """Declare (and register) one op family's candidate-route table.
     Re-declaring a name replaces the registration."""
-    fam = Family(name, routes)
+    fam = Family(name, routes, decision_op=decision_op)
     with _families_lock:
         _FAMILIES[fam.name] = fam
     return fam

@@ -64,7 +64,7 @@ import torch
 __all__ = ["device_time", "device_time_chained", "device_time_ms",
            "host_time", "rms_normalize", "device_busy_ms",
            "device_breakdown", "device_kernels", "device_profile",
-           "fp32_bound", "conv_work",
+           "fp32_bound", "conv_work", "elementwise_work",
            "conv2d_work", "stft_work", "filter_bank_work",
            "cascade_bank_work", "filter_2d_work", "gemm_work",
            "gemm_bound", "a2a_bytes", "ct_dft_flops", "rfft_flops",
@@ -536,6 +536,23 @@ def conv_work(rows: int, n: int, k: int) -> tuple[float, float]:
         N *= 2
     nbytes = 4.0 * (rows * n + k + rows * out_len)
     return flops, nbytes
+
+
+def elementwise_work(ops: float, out_itemsize: int, *operands,
+                     out_elems=None) -> tuple[float, float]:
+    """``(flops, bytes)`` of an elementwise or reducing function:
+    ``ops`` operations an output element, over ``out_elems`` outputs
+    (default: the broadcast size of the array operands) of
+    ``out_itemsize`` bytes, written once; each array operand (a tensor
+    or a NumPy array) is read once, and a Python scalar moves
+    nothing."""
+    arrays = [o for o in operands if hasattr(o, "shape")]
+    if out_elems is None:
+        out_elems = math.prod(torch.broadcast_shapes(
+            *(tuple(o.shape) for o in arrays))) if arrays else 1
+    read = sum(int(o.nbytes) for o in arrays)
+    return (float(ops) * out_elems,
+            float(read + int(out_itemsize) * out_elems))
 
 
 def conv2d_work(imgs: int, n0: int, n1: int, k0: int,
