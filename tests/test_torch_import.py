@@ -155,6 +155,7 @@ OWN_COPY_TOOLS = ("lint_torch.py", "linecov_torch.py", "run_tests_torch.py",
                                   "check_wavelet_parity_torch.py",
                                   "time_torch_spectral_obs.py",
                                   "time_torch_ops_obs.py",
+                                  "time_torch_spans.py",
                                   "gen_docs_torch.py",
                                   "lint_torch.py",
                                   "linecov_torch.py",

@@ -46,6 +46,33 @@ only at the Python dispatch layer.  Off by default; enable with
 ``VELES_SIMD_TELEMETRY=1`` or :func:`enable`.  While disabled every
 helper is one flag check.
 
+Span capture (the port's own facade names, not in the JAX package's
+``__all__``): :func:`start_capture` arms a mode in which :func:`span`
+and :func:`count` record into the span store and, with telemetry off,
+nothing else of telemetry runs (no decision, histogram, resource
+record, request trace or profiler bridge); with telemetry on, spans
+record as they always do.  A count taken inside a span while a capture
+is armed adds its increment to that span's attributes under its name,
+so that the span's record carries it; ``start_capture(counts=)``
+limits this to the counts named.
+:func:`stop_capture` disarms it and :func:`captured` reads the store
+back (``obs.spans.Capture``: ``CaptureRecord`` rows oldest first and
+the drop count).  The store is sized, and emptied, by
+``configure(max_spans=)`` alone.  A span record holds its name, the raw
+``time.perf_counter_ns`` stamps of its start and end, its parent's
+name, its attributes and the call id shared by everything inside one
+outermost span (a count outside every span belongs to no call and is
+dropped).
+The store is the one :func:`enable`'s spans use: a preallocated ring
+that counts what it overwrites.  The spans and counts the dispatch
+layer places, by layer: ``convolve.dispatch`` and
+``wavelet_transform.dispatch`` (a call's top span), ``fault.attempt``
+(each attempt of ``runtime.faults.guarded``, attribute ``site``),
+``routing.select`` (a route choice, attribute ``family``),
+``convolve.os_route`` and ``wavelet_apply.dispatch`` (a route's own
+host work and launch) and the count ``wavelet_extend_bytes`` (the
+bytes ``ops.wavelet``'s boundary extension writes on the device).
+
 Usage::
 
     from veles.simd_tpu_torch import obs
@@ -137,6 +164,12 @@ _request_axis = True
 _enabled = os.environ.get("VELES_SIMD_TELEMETRY",
                           "0").strip().lower() in ("1", "true", "yes",
                                                    "on")
+# a capture armed (start_capture) and the counts it folds into spans
+# (None: every count); telemetry on or a capture armed, the one flag
+# span() and count() check
+_capturing = False
+_capture_counts = None
+_live = _enabled
 if _enabled:
     _resources.set_active(True)
     _compile.install()
@@ -150,8 +183,8 @@ def enabled() -> bool:
 def enable(compile_listeners: bool = True) -> None:
     """Turn telemetry on (idempotent); ``compile_listeners`` also routes
     the port's compile events into the registry (:mod:`.compile`)."""
-    global _enabled
-    _enabled = True
+    global _enabled, _live
+    _enabled = _live = True
     _resources.set_active(True)
     if compile_listeners:
         _compile.install()
@@ -159,9 +192,32 @@ def enable(compile_listeners: bool = True) -> None:
 
 def disable() -> None:
     """Stop recording.  Existing metrics/events are kept."""
-    global _enabled
+    global _enabled, _live
     _enabled = False
+    _live = _capturing
     _resources.set_active(False)
+
+
+def start_capture(counts=None) -> None:
+    """Arm span capture (module docstring) over the span store as it
+    stands; size and empty it first with ``configure(max_spans=)``.
+    ``counts`` names the counts folded into their spans (None: every
+    count), so that a reader pays only for the counts it reads."""
+    global _capturing, _capture_counts, _live
+    _capture_counts = None if counts is None else frozenset(counts)
+    _capturing = _live = True
+
+
+def stop_capture() -> None:
+    """Disarm span capture; the records stay for :func:`captured`."""
+    global _capturing, _live
+    _capturing = False
+    _live = _enabled
+
+
+def captured() -> _spans_mod.Capture:
+    """The span store's records, oldest first, and its drop count."""
+    return _spans.captured()
 
 
 def configure(max_events: int | None = None,
@@ -227,10 +283,16 @@ def compile_timer(event: str):
 
 
 def count(name: str, n: int = 1, **labels) -> None:
-    """Increment counter ``name`` (no-op while disabled)."""
-    if not _enabled:
+    """Increment counter ``name`` (no-op while disabled); while a
+    capture is armed, also add ``n`` to the attribute ``name`` of the
+    span open on this thread."""
+    if not _live:
         return
-    _registry.count(name, n, **labels)
+    if _capturing and (_capture_counts is None
+                       or name in _capture_counts):
+        _spans.count_in_span(name, n)
+    if _enabled:
+        _registry.count(name, n, **labels)
 
 
 def gauge(name: str, value: float, **labels) -> None:
@@ -249,10 +311,13 @@ def observe(name: str, value: float, **labels) -> None:
 
 def span(name: str, **attrs):
     """Time a host-side dispatch scope (context manager); the shared
-    no-op context while telemetry is off."""
-    if not _enabled:
+    no-op context while telemetry and capture are off, a store-only
+    span while only capture is armed."""
+    if not _live:
         return _spans_mod.NULL_SPAN
-    return _spans.span(name, **attrs)
+    if _enabled:
+        return _spans.span(name, **attrs)
+    return _spans.capture_span(name, attrs)
 
 
 def request_trace(op: str, tenant: str = "default", *,

@@ -31,19 +31,42 @@ Attributes travel only into the trace event's ``args`` — never into
 histogram labels — so a caller can tag spans with shapes or routes
 without blowing up metric cardinality.
 
-Cost discipline: telemetry OFF, ``obs.span(...)`` is one module-global
-check returning a shared no-op context manager; telemetry ON, two
-``perf_counter_ns`` reads plus one locked append and one locked
-histogram update per span.
+Every completed span lands as one record in the tracer's single store:
+a preallocated ring of ``max_spans`` slots, each record numbered in
+order, the oldest overwritten once the ring is full (overflow counted
+in :attr:`SpanTracer.dropped`).  A record keeps the raw
+``perf_counter_ns`` stamps, the parent span's name and a *call id*: the
+number drawn when the outermost span open on the thread opened, shared
+by every span nested inside it, so one dispatch call's spans group
+without the clock.  A record is one tuple
+of atomic fields, its attributes held beside it: a tuple that holds a
+dict stays tracked by the cyclic garbage collector for good, and a
+million of them make each full collection walk the whole ring.
+
+**Capture** (the facade's ``obs.start_capture``) records spans through
+:meth:`SpanTracer.capture_span`, with telemetry off and nothing else of
+telemetry: no histogram, no warm-up class, no lock, no bridge, no crash
+hook; a count taken inside a span while it is armed adds its increment
+to that span's attributes (:meth:`SpanTracer.count_in_span`), so the
+span's one record carries it.  :meth:`SpanTracer.captured` reads the
+store back as :class:`CaptureRecord` rows oldest first, with the drop
+count.
+
+Cost discipline: telemetry and capture OFF, ``obs.span(...)`` is one
+module-global check returning a shared no-op context manager; capture
+alone, two ``perf_counter_ns`` reads, a thread-local stack push and
+pop and one slot write per span; telemetry ON, that plus one locked
+warm-up lookup and one histogram update per span.
 """
 
 from __future__ import annotations
 
-import collections
+import itertools
 import os
 import sys
 import threading
 import time
+from typing import NamedTuple
 
 __all__ = [
     "Span", "SpanTracer", "NULL_SPAN", "DEFAULT_MAX_SPANS",
@@ -51,6 +74,8 @@ __all__ = [
 ]
 
 DEFAULT_MAX_SPANS = 32768
+
+_clock = time.perf_counter_ns
 
 # armed by utils.profiler.trace (and tests); checked per span enter
 _XLA_TRACE_ACTIVE = False
@@ -90,25 +115,101 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class CaptureRecord(NamedTuple):
+    """One span of the store, as :meth:`SpanTracer.captured` returns
+    it: its raw ``perf_counter_ns`` ``start_ns`` and ``end_ns``, the
+    name of the span open around it on its thread (``parent``, None at
+    the top), the call id of the outermost one (``call``), its
+    attributes with the counts folded into them (``attrs``), the
+    thread's ident (``tid``), its place in the order of records
+    (``seq``) and, for a telemetry span, its ``phase`` (None for a
+    captured one)."""
+
+    seq: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: str | None
+    call: int
+    attrs: dict
+    tid: int
+    phase: str | None
+
+
+class Capture(NamedTuple):
+    """The store read back: its records oldest first, and how many
+    records the ring overwrote before they were read."""
+
+    records: list
+    dropped: int
+
+
+class _Thread:
+    """One thread's open spans: their frames ``(name, attrs, parent,
+    call, start_ns)``, innermost last, and the thread's ident.  It is
+    also the context manager :meth:`SpanTracer.capture_span` hands out,
+    one per thread, set to open the next captured span: opening one
+    allocates only its frame."""
+
+    __slots__ = ("tracer", "stack", "tid", "name", "attrs")
+
+    def __init__(self, tracer: "SpanTracer"):
+        self.tracer = tracer
+        self.stack = []
+        self.tid = threading.get_ident()
+
+    def push(self, name: str, attrs: dict) -> tuple:
+        """Open a frame for ``name``, child of the innermost open one or
+        the first of a new call, its clock read last."""
+        stack = self.stack
+        if stack:
+            top = stack[-1]
+            frame = (name, attrs, top[0], top[3], _clock())
+        else:
+            frame = (name, attrs, None, next(self.tracer._calls),
+                     _clock())
+        stack.append(frame)
+        return frame
+
+    # push() and SpanTracer._write, inlined: they are a captured span's
+    # whole cost
+    def __enter__(self):
+        stack = self.stack
+        if stack:
+            top = stack[-1]
+            stack.append((self.name, self.attrs, top[0], top[3], _clock()))
+        else:
+            stack.append((self.name, self.attrs, None,
+                          next(self.tracer._calls), _clock()))
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        end_ns = _clock()
+        name, attrs, parent, call, start_ns = self.stack.pop()
+        tracer = self.tracer
+        seq = next(tracer._seq)
+        i = seq % tracer.max_spans
+        tracer._ring[i] = (seq, name, start_ns, end_ns, parent, call,
+                           self.tid, None)
+        tracer._attrs[i] = attrs
+        tracer._written = seq + 1
+        return False
+
+
 class Span:
-    """One live span (context manager).  Created by
+    """One live telemetry span (context manager).  Created by
     :meth:`SpanTracer.span`; not constructed directly."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_start_ns", "_ann",
-                 "_parent")
+    __slots__ = ("_tracer", "name", "attrs", "_ann", "_frame", "_thread")
 
     def __init__(self, tracer: "SpanTracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
-        self._start_ns = 0
         self._ann = None
-        self._parent = None
 
     def __enter__(self):
-        stack = self._tracer._stack()
-        self._parent = stack[-1] if stack else None
-        stack.append(self.name)
+        self._thread = self._tracer._thread()
         if _XLA_TRACE_ACTIVE and "torch" in sys.modules:
             try:  # best-effort: a failed bridge must not fail dispatch
                 import torch
@@ -117,25 +218,26 @@ class Span:
                 self._ann.__enter__()
             except Exception:  # noqa: BLE001
                 self._ann = None
-        # the clock read is LAST so bridge setup never inflates the span
-        self._start_ns = time.perf_counter_ns()
+        # the frame's clock read is LAST so bridge setup never inflates
+        # the span
+        self._frame = self._thread.push(self.name, self.attrs)
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        end_ns = time.perf_counter_ns()
+        end_ns = _clock()
         if self._ann is not None:
             try:
                 self._ann.__exit__(exc_type, exc, tb)
             except Exception:  # noqa: BLE001
                 pass
             self._ann = None
-        stack = self._tracer._stack()
-        if stack and stack[-1] == self.name:
+        stack = self._thread.stack
+        if stack and stack[-1] is self._frame:
             stack.pop()
-        self._tracer._finish(self.name, self._start_ns, end_ns,
-                             threading.get_ident(), self._parent,
-                             self.attrs)
-        if exc_type is not None and self._parent is None:
+        name, attrs, parent, call, start_ns = self._frame
+        self._tracer._finish(name, start_ns, end_ns, self._thread.tid,
+                             parent, attrs, call)
+        if exc_type is not None and parent is None:
             # an exception escaping a TOP-LEVEL dispatch span is the
             # flight recorder's trigger (obs/flightrec.py); the hook is
             # best-effort and must never mask the unwinding exception
@@ -149,13 +251,17 @@ class Span:
 
 
 class SpanTracer:
-    """Span storage + histogram feed behind one lock.
+    """Span storage + histogram feed.
 
     ``observe`` is a ``registry.observe``-compatible callable; each
-    completed span calls ``observe("span." + name, seconds,
-    phase=...)``.  Completed spans are retained in a bounded ring
-    (``max_spans``; overflow counted in :attr:`dropped`) as raw tuples,
-    rendered to Chrome trace events on export.
+    completed span of :meth:`span` calls ``observe("span." + name,
+    seconds, phase=...)``.  Completed spans are retained in a
+    preallocated ring (``max_spans``; overflow counted in
+    :attr:`dropped`), rendered to Chrome trace events on export; the
+    capture mode's spans (:meth:`capture_span`) go into the same ring.
+    Slots and call ids are drawn from ``itertools.count`` (one step
+    under the interpreter lock) and a record is two slot stores, so
+    recording takes no lock.
     """
 
     def __init__(self, observe, max_spans: int = DEFAULT_MAX_SPANS):
@@ -165,28 +271,69 @@ class SpanTracer:
         self.max_spans = max_spans
         self._observe = observe
         self._lock = threading.Lock()
-        # (name, start_ns, dur_ns, tid, phase, parent, attrs)
-        self._spans = collections.deque(maxlen=max_spans)
-        self._dropped = 0
         self._warmed: set[tuple] = set()
         self._tls = threading.local()
+        self._calls = itertools.count(1)
         self._epoch_ns = time.perf_counter_ns()
+        self._clear()
         # called as on_crash(exc_type, exc) when an exception escapes a
         # top-level span; armed by the obs facade with the flight
         # recorder's hook (None = one attribute check per crash)
         self.on_crash = None
 
+    def _clear(self) -> None:
+        # a record's fields but its attributes, (seq, name, start_ns,
+        # end_ns, parent, call, tid, phase), and its attributes
+        self._ring = [None] * self.max_spans
+        self._attrs = [None] * self.max_spans
+        self._seq = itertools.count()
+        self._written = 0           # records written so far
+
     def span(self, name: str, **attrs) -> Span:
         return Span(self, str(name), attrs)
 
-    def _stack(self) -> list:
-        stack = getattr(self._tls, "stack", None)
-        if stack is None:
-            stack = self._tls.stack = []
-        return stack
+    def capture_span(self, name: str, attrs: dict) -> _Thread:
+        """A span that leaves its record in the store and nothing else
+        (no histogram, warm-up class, profiler bridge or crash hook):
+        this thread's one capture context, set to open ``name`` when it
+        is entered, which has to follow at once."""
+        try:
+            thread = self._tls.thread
+        except AttributeError:
+            thread = self._thread()
+        thread.name = name
+        thread.attrs = attrs
+        return thread
 
-    def _finish(self, name, start_ns, end_ns, tid, parent, attrs):
-        dur_ns = max(0, end_ns - start_ns)
+    def count_in_span(self, name: str, n) -> None:
+        """Add ``n`` to attribute ``name`` of the span open on this
+        thread, so that its record carries the count with its stamps and
+        call id.  A count outside every span belongs to no call and is
+        dropped."""
+        try:
+            stack = self._tls.thread.stack
+        except AttributeError:
+            return          # no span was ever open on this thread
+        if stack:
+            attrs = stack[-1][1]
+            attrs[name] = attrs.get(name, 0) + n
+
+    def _thread(self) -> _Thread:
+        thread = getattr(self._tls, "thread", None)
+        if thread is None:
+            thread = self._tls.thread = _Thread(self)
+        return thread
+
+    def _write(self, name, start_ns, end_ns, parent, call, attrs, tid,
+               phase) -> None:
+        seq = next(self._seq)
+        i = seq % self.max_spans
+        self._ring[i] = (seq, name, start_ns, end_ns, parent, call, tid,
+                         phase)
+        self._attrs[i] = attrs
+        self._written = seq + 1
+
+    def _finish(self, name, start_ns, end_ns, tid, parent, attrs, call):
         # warmup is per (name, attrs) class: a different route through
         # the same span builds its own kernels and deserves its own
         # warmup mark, not a mislabel into steady-state
@@ -198,50 +345,63 @@ class SpanTracer:
             else:
                 self._warmed.add(warm_key)
                 phase = "warmup"
-            if len(self._spans) == self.max_spans:
-                self._dropped += 1
-            self._spans.append((name, start_ns, dur_ns, tid, phase,
-                                parent, attrs))
+        self._write(name, start_ns, end_ns, parent, call, attrs, tid,
+                    phase)
         # registry has its own lock; never observe under ours
-        self._observe("span." + name, dur_ns * 1e-9, phase=phase)
+        self._observe("span." + name, max(0, end_ns - start_ns) * 1e-9,
+                      phase=phase)
+
+    def _records(self) -> list:
+        """The ring's records in :class:`CaptureRecord`'s field order,
+        oldest first."""
+        recs = [r[:6] + (a,) + r[6:]
+                for r, a in zip(self._ring, self._attrs) if r is not None]
+        recs.sort(key=lambda r: r[0])
+        return recs
+
+    def captured(self) -> Capture:
+        """Every record of the store as :class:`CaptureRecord` rows,
+        oldest first, and how many were overwritten."""
+        return Capture([CaptureRecord._make(r) for r in self._records()],
+                       self.dropped)
 
     @property
     def dropped(self) -> int:
-        with self._lock:
-            return self._dropped
+        """Records overwritten before they were read (exact once the
+        threads writing records are quiet)."""
+        return max(0, self._written - self.max_spans)
 
     def reset(self) -> None:
         """Clear retained spans, the drop count, and the warmup
         marks."""
+        self._clear()
         with self._lock:
-            self._spans.clear()
-            self._dropped = 0
             self._warmed.clear()
 
     def to_chrome_trace(self) -> dict:
         """Chrome trace-event JSON (the ``traceEvents`` object form):
         complete ("X") events with microsecond ``ts`` relative to the
         tracer's epoch, sorted so ``ts`` is monotonic."""
-        with self._lock:
-            records = sorted(self._spans, key=lambda r: r[1])
-            dropped = self._dropped
+        records = sorted(self._records(), key=lambda r: r[2])
         pid = os.getpid()
         events = [{
             "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
             "args": {"name": "veles.simd_tpu_torch host dispatch"},
         }]
-        for name, start_ns, dur_ns, tid, phase, parent, attrs in records:
+        for (_seq, name, start_ns, end_ns, parent, _call, attrs, tid,
+             phase) in records:
             # "phase"/"parent" are reserved arg keys
             args = {k: v for k, v in attrs.items()
                     if k not in ("phase", "parent")}
-            args["phase"] = phase
+            if phase is not None:       # None: a captured span
+                args["phase"] = phase
             if parent is not None:
                 args["parent"] = parent
             events.append({
                 "name": name, "cat": "dispatch", "ph": "X",
                 "ts": (start_ns - self._epoch_ns) / 1e3,
-                "dur": dur_ns / 1e3,
+                "dur": max(0, end_ns - start_ns) / 1e3,
                 "pid": pid, "tid": tid, "args": args,
             })
         return {"traceEvents": events, "displayTimeUnit": "ms",
-                "otherData": {"spans_dropped": dropped}}
+                "otherData": {"spans_dropped": self.dropped}}

@@ -39,6 +39,12 @@ demotion serve host operands only: with an operand already on the
 card a transient fault is retried and then re-raised, recorded, and a
 refused launch raises untouched (``faults.on_card``).
 
+Spans (``obs.span``, recorded while telemetry is on or a capture is
+armed): ``convolve.dispatch`` over a handle call's guarded dispatch,
+``fault.attempt`` inside it for each attempt, ``routing.select``
+(family ``convolve.os``) around the overlap-save route's choice and
+``convolve.os_route`` around the chosen route's run.
+
 Result length is always ``x_length + h_length - 1`` (full linear
 convolution); ``mode=`` slices it numpy's way.  All entry points accept
 leading batch dimensions.  Results are float32 torch tensors on the
@@ -604,11 +610,12 @@ def _run_torch(handle: ConvolutionHandle, x, h):
             with obs.span("convolve.os_route", route=route):
                 return _OS_RUNNERS[route](x, h, handle)
 
-        eligible = (["cuda_fused", "xla_matmul"]
-                    if _use_cuda_os(handle.h_length, x)
-                    else ["xla_matmul"])
-        route = (eligible[0] if routing.autotune_mode() == "off"
-                 else _tuned_os_route(eligible, x, h, handle))
+        with obs.span("routing.select", family="convolve.os"):
+            eligible = (["cuda_fused", "xla_matmul"]
+                        if _use_cuda_os(handle.h_length, x)
+                        else ["xla_matmul"])
+            route = (eligible[0] if routing.autotune_mode() == "off"
+                     else _tuned_os_route(eligible, x, h, handle))
         if route != "cuda_fused":
             return os_route(route)
 

@@ -31,6 +31,15 @@ Routes, JAX name → port name where they differ:
   ``VELES_SIMD_FORCE_FUSED_CASCADE`` as in the JAX package;
   ``level_loop``, one filter-bank pass per level, the default.
 
+Spans and counts (``obs``, recorded while telemetry is on or a
+capture is armed): ``wavelet_transform.dispatch`` over a transform's
+run, either route (attribute ``route``), ``routing.select`` (family
+``wavelet``) around each level's route choice and
+``wavelet_apply.dispatch`` around each level's run;
+``wavelet_extend_bytes`` counts the bytes of every boundary extension
+made on the device (in a capture, on the level's
+``wavelet_apply.dispatch``).
+
 Synthesis is the transposed convolution (``conv_transpose1d``, cuDNN
 pinned to fp32) with the periodic fold; the non-periodic inverses add
 the JAX package's Woodbury boundary correction, precomputed in float64
@@ -146,7 +155,8 @@ def _extension_indices(ext, ext_len, length):
 
 def _extend(x, ext, ext_len):
     """``x`` extended on the right by ``ext_len`` samples (NumPy array
-    or tensor in, the same kind out)."""
+    or tensor in, the same kind out).  A tensor's extension is counted:
+    ``wavelet_extend_bytes`` gets the bytes of the extended copy."""
     ext = ExtensionType(ext)
     length = x.shape[-1]
     if not isinstance(x, torch.Tensor):
@@ -154,6 +164,12 @@ def _extend(x, ext, ext_len):
         if idx is None:
             return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, ext_len)])
         return np.concatenate([x, np.take(x, idx, axis=-1)], axis=-1)
+    out = _extend_tensor(x, ext, ext_len, length)
+    obs.count("wavelet_extend_bytes", out.nbytes)
+    return out
+
+
+def _extend_tensor(x, ext, ext_len, length):
     if ext is ExtensionType.ZERO:
         return F.pad(x, (0, ext_len))
     if ext_len <= length:
@@ -260,17 +276,18 @@ def _select_wavelet_route(src, order, dilation, stride, route=None,
                 f"route must be one of "
                 f"{sorted(_WAVELET_FAMILY.names())}, got {route!r}")
         return route, True
-    eligible = (["cuda", "xla_conv"]
-                if _use_cuda(src, order, dilation, stride)
-                else ["xla_conv"])
-    if routing.autotune_mode() == "off":
-        return eligible[0], False
-    # rows and n pow2-bucketed, the filter design exact (the JAX key)
-    return _WAVELET_FAMILY.select(
-        eligible=eligible, runners=runners, probe_operand=src,
-        rows=routing.pow2_bucket(_rows(src.shape)),
-        n=routing.pow2_bucket(int(src.shape[-1])), order=int(order),
-        dilation=int(dilation), stride=int(stride)), False
+    with obs.span("routing.select", family="wavelet"):
+        eligible = (["cuda", "xla_conv"]
+                    if _use_cuda(src, order, dilation, stride)
+                    else ["xla_conv"])
+        if routing.autotune_mode() == "off":
+            return eligible[0], False
+        # rows and n pow2-bucketed, the filter design exact (the JAX key)
+        return _WAVELET_FAMILY.select(
+            eligible=eligible, runners=runners, probe_operand=src,
+            rows=routing.pow2_bucket(_rows(src.shape)),
+            n=routing.pow2_bucket(int(src.shape[-1])), order=int(order),
+            dilation=int(dilation), stride=int(stride)), False
 
 
 # --------------------------------------------------------------------------
@@ -516,21 +533,28 @@ def wavelet_transform(type, order, ext, src, levels, simd=None):
     :func:`_fused_cascade_gate`).
     """
     levels = int(levels)
-    if resolve_simd(simd, op="wavelet_transform"):
-        src = as_f32(src).contiguous()
-        _check_apply_args(type, order, src.shape[-1])
-        fused = _use_fused_cascade(src.shape, int(order), ext, levels,
-                                   cuda=src.is_cuda)
-        obs.record_decision(
-            "wavelet_transform",
-            "fused_cascade" if fused else "level_loop",
-            family=WaveletType(type).value, order=int(order),
-            levels=levels, ext=ExtensionType(ext).value,
-            length=int(src.shape[-1]))
+    if not resolve_simd(simd, op="wavelet_transform"):
+        return _level_loop(type, order, ext, src, levels, simd)
+    src = as_f32(src).contiguous()
+    _check_apply_args(type, order, src.shape[-1])
+    fused = _use_fused_cascade(src.shape, int(order), ext, levels,
+                               cuda=src.is_cuda)
+    route = "fused_cascade" if fused else "level_loop"
+    obs.record_decision(
+        "wavelet_transform", route,
+        family=WaveletType(type).value, order=int(order),
+        levels=levels, ext=ExtensionType(ext).value,
+        length=int(src.shape[-1]))
+    # one span over the route's whole run, whichever route it is
+    with obs.span("wavelet_transform.dispatch", route=route,
+                  levels=levels):
         if fused:
-            with obs.span("wavelet_transform.dispatch",
-                          route="fused_cascade", levels=levels):
-                return list(_fused_cascade(src, type, int(order), levels))
+            return list(_fused_cascade(src, type, int(order), levels))
+        return _level_loop(type, order, ext, src, levels, simd)
+
+
+def _level_loop(type, order, ext, src, levels, simd):
+    """The DWT cascade one :func:`wavelet_apply` a level."""
     coeffs = []
     cur = src
     for _ in range(levels):

@@ -76,6 +76,12 @@ afterwards, so retries fail again and the oracle is the only answer
 for host operands.  Execution faults surface at the next
 synchronisation, outside the guard: the guard sees launch-time
 errors, and adds no synchronisation.
+
+Each attempt of :func:`guarded` runs inside an ``obs.span(
+"fault.attempt", site=...)``: the guard's own host time is its
+caller's dispatch span less its attempts, and a retry shows as a
+second attempt.  A fault closes the span before the policy sees it, so
+the span never trips the flight recorder's crash hook.
 """
 
 from __future__ import annotations
@@ -830,8 +836,18 @@ def guarded(site: str, thunk, *, fallback=None, retries: int | None = None,
                 inject(site)
                 if subsite is not None:
                     inject(f"{site}@{subsite}")
-            result = (_call_with_deadline(thunk, deadline, site)
-                      if deadline > 0 else thunk())
+            # the attempt's span ends before the policy sees a fault:
+            # it never carries the exception, so even one opened outside
+            # every dispatch span never trips the crash hook
+            with obs.span("fault.attempt", site=site):
+                try:
+                    result, fault = (
+                        _call_with_deadline(thunk, deadline, site)
+                        if deadline > 0 else thunk()), None
+                except Exception as e:  # noqa: BLE001 — raised below
+                    fault = e
+            if fault is not None:
+                raise fault
         except Exception as e:
             if is_overload(e):
                 # typed shed: a policy outcome, not a fault — no
