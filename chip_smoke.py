@@ -31,9 +31,9 @@ without printing a result):
             ``convolve_simd`` on 512 x 16384 with 129 taps (the
             filter-bank kernel); the wavelet slice on 512 x 4096 daub8
             (``wavelet_apply`` and ``stationary_wavelet_apply`` through
-            the filter-bank kernel, ``wavelet_transform`` at 3 levels
-            as the level loop and, with VELES_SIMD_FORCE_FUSED_CASCADE,
-            through the cascade-bank kernel, a DWT round trip); and
+            the filter-bank kernel, the 3-level cascade as a loop of
+            ``wavelet_apply`` and as ``wavelet_transform``, whose
+            default is one cascade-bank launch, a DWT round trip); and
             ``convolve2d`` on 16 x 512 x 512 with 7 x 7 (the 2D
             kernel; also ``mode='same'`` and ``boundary='wrap'``),
             ``cross_correlate2d`` and a 2D ``fftconvolve``;
@@ -372,7 +372,6 @@ ROWS_CWT, N_CWT, SCALES_CWT = 8, 4096, 32
 STFT_TRIP_TOL = 1e-3     # istft(stft(x)) interior (bench.py:699-701)
 CASCADE_TOL = 5e-4       # fused vs level loop (tests/test_pallas.py)
 ROUND_TRIP_TOL = 2e-4    # DWT round trip (test_wavelet_synthesis.py)
-FORCE_FUSED = "VELES_SIMD_FORCE_FUSED_CASCADE"
 # the reference phase: BASELINE configs 1-3 (bench.py:107-177, 380-400)
 N_EL = 4096                              # config 1: 4096 x 4096 step
 N_CPX, ROWS_SUM, N_SUM = 1 << 23, 64, 1 << 18
@@ -4421,6 +4420,15 @@ def main():
             4096)
     P = wv.ExtensionType.PERIODIC
 
+    def level_loop(v):
+        # the cascade one wavelet_apply a level (K2 at >= MIN_ROWS rows),
+        # beside wavelet_transform's default, the fused cascade
+        bands = []
+        for _ in range(LEVELS):
+            hi_, v = wv.wavelet_apply("daub", 8, P, v)
+            bands.append(hi_)
+        return bands + [v]
+
     # K3 in both call forms against its plain versions run in float64:
     # the contract form on the periodically extended input, the
     # periodic form (wrap read in place, natural-order levels) on the
@@ -4592,9 +4600,8 @@ def main():
         h_, cur = wv.wavelet_apply_na("daub", 8, P, cur)
         want_c.append(h_)
     want_c.append(cur)
-    check(FORCE_FUSED not in os.environ, f"{FORCE_FUSED} is set")
     ck.reset_launches()
-    loop = wv.wavelet_transform("daub", 8, P, x_wv, LEVELS)
+    loop = level_loop(x_wv)
     torch.cuda.synchronize()
     loop_launches = dict(ck.LAUNCHES)
     check(loop_launches["filter_bank"] == LEVELS
@@ -4603,19 +4610,16 @@ def main():
     err_loop = max(rel_err(g.cpu().numpy(), w)
                    for g, w in zip(loop, want_c))
     check(err_loop <= ORACLE_TOL, f"level loop rel err {err_loop:.3e}")
-    os.environ[FORCE_FUSED] = "1"
-    try:
-        ck.reset_launches()
-        fused = wv.wavelet_transform("daub", 8, P, x_wv, LEVELS)
-        torch.cuda.synchronize()
-        fused_launches = dict(ck.LAUNCHES)
-        launches["cascade_bank"] = ck.LAUNCHES["cascade_bank"]
-    finally:
-        del os.environ[FORCE_FUSED]
-    # one launch of the periodic form and nothing else of the port's
+    ck.reset_launches()
+    fused = wv.wavelet_transform("daub", 8, P, x_wv, LEVELS)
+    torch.cuda.synchronize()
+    fused_launches = dict(ck.LAUNCHES)
+    launches["cascade_bank"] = ck.LAUNCHES["cascade_bank"]
+    # the default: one launch of the periodic form and nothing else of
+    # the port's
     check(launches["cascade_bank"] == 1
           and sum(fused_launches.values()) == 1,
-          f"the forced fused cascade launched {fused_launches}")
+          f"the default cascade launched {fused_launches}")
     fused_gap = max(
         float((f - g).abs().max().item())
         / max(1.0, float(g.abs().max().item()))
@@ -4786,11 +4790,7 @@ def main():
         wv.WaveletType("daub"), 8, LEVELS)[0])
 
     def fused_cascade_call():
-        os.environ[FORCE_FUSED] = "1"
-        try:
-            wv.wavelet_transform("daub", 8, P, x_wv, LEVELS)
-        finally:
-            del os.environ[FORCE_FUSED]
+        wv.wavelet_transform("daub", 8, P, x_wv, LEVELS)
 
     resources_line(torch, obs, (
         ("overlap_save", lambda: cv.convolve(handle, x_head, h_head),
@@ -4915,14 +4915,10 @@ def main():
           + bm.device_breakdown(dwt, calls=5))
 
     def cascade():
-        return wv.wavelet_transform("daub", 8, P, xw_t, LEVELS)
+        return level_loop(xw_t)
 
     def fused_cascade():
-        os.environ[FORCE_FUSED] = "1"
-        try:
-            return cascade()
-        finally:
-            del os.environ[FORCE_FUSED]
+        return wv.wavelet_transform("daub", 8, P, xw_t, LEVELS)
 
     # in turns: loop, fused, fused, loop (one card, one call); the
     # chained time (CUDA events) and the device's busy time per call

@@ -410,28 +410,105 @@ def test_wavelet_routes_launch_the_filter_bank():
     assert _rel(slo.cpu(), want[1]) <= TOL
 
 
-def test_fused_cascade_launches_the_cascade_bank(monkeypatch):
+def _dwt64(x, type, order, levels):
+    """The periodic DWT's level loop in float64 NumPy on the program's
+    float32 taps: ``[hi_1, ..., hi_L, lo_L]``."""
+    hi_f, lo_f = (f.astype(np.float64) for f in wv._filters(
+        wv.WaveletType(type), order))
+    cur, bands = np.asarray(x, np.float64), []
+    for _ in range(levels):
+        n = cur.shape[-1]
+        ext = np.concatenate([cur, cur[..., :order]], -1)
+        hi = sum(hi_f[k] * ext[..., k:k + n:2] for k in range(order))
+        cur = sum(lo_f[k] * ext[..., k:k + n:2] for k in range(order))
+        bands.append(hi)
+    return bands + [cur]
+
+
+@pytest.mark.parametrize("rows", [64, 512, 16384])
+def test_fused_cascade_launches_the_cascade_bank(rows):
+    # the default 3-level daub8 periodic DWT: one cascade-bank launch,
+    # no filter-bank pass, no copy kernel, the float64 level loop's
+    # bands within 5e-5 of max|y| each
     r = np.random.RandomState(7)
-    x = r.randn(64, 4096).astype(np.float32)
+    x = r.randn(rows, 4096).astype(np.float32)
     P = wv.ExtensionType.PERIODIC
+    xt = _t(x)
     ck.reset_launches()
-    loop = wv.wavelet_transform("daub", 8, P, x, 3)
-    assert ck.LAUNCHES["filter_bank"] == 3
-    assert ck.LAUNCHES["cascade_bank"] == 0
-    monkeypatch.setenv("VELES_SIMD_FORCE_FUSED_CASCADE", "1")
-    ck.reset_launches()
-    fused = wv.wavelet_transform("daub", 8, P, x, 3)
+    fused = wv.wavelet_transform("daub", 8, P, xt, 3)
+    torch.cuda.synchronize()
     assert ck.LAUNCHES["cascade_bank"] == 1
     assert ck.LAUNCHES["filter_bank"] == 0
-    for f, g in zip(fused, loop):
-        assert f.shape == g.shape
-        assert _rel(f.cpu(), g.cpu()) <= 5e-5
+    want = _dwt64(x, "daub", 8, 3)
+    assert [tuple(f.shape) for f in fused] == [w.shape for w in want]
+    for f, w in zip(fused, want):
+        assert _rel(f.cpu(), w) <= 5e-5
     # the route's device work is the one cascade-bank launch: no
     # extension copy, no interleaving stack
-    xt = _t(x)
     kernels = bm.device_kernels(
         lambda: wv.wavelet_transform("daub", 8, P, xt, 3), calls=3)
     assert kernels and all("cb_frames" in k for k in kernels), kernels
+
+
+def test_fused_cascade_bypasses_keep_the_level_loop(monkeypatch):
+    r = np.random.RandomState(8)
+    P, M = wv.ExtensionType.PERIODIC, wv.ExtensionType.MIRROR
+    x = r.randn(64, 4096).astype(np.float32)
+    fused = wv.wavelet_transform("daub", 8, P, x, 3)
+    # (rows, ext, levels) -> filter-bank launches of the level loop
+    cases = [(4, P, 3, 0), (64, M, 3, 3), (64, P, 1, 1)]
+    for rows, ext, levels, fb in cases:
+        ck.reset_launches()
+        got = wv.wavelet_transform("daub", 8, ext, x[:rows], levels)
+        assert ck.LAUNCHES["cascade_bank"] == 0, (rows, ext, levels)
+        assert ck.LAUNCHES["filter_bank"] == fb, (rows, ext, levels)
+        want = wv.wavelet_transform("daub", 8, ext, x[:rows], levels,
+                                    simd=False)
+        for g, w in zip(got, want):
+            assert _rel(g.cpu(), w) <= TOL
+    # the wavelet routes' opt-out: the conv1d level loop, no kernel of
+    # csrc/, the fused bands within 5e-5
+    monkeypatch.setenv("VELES_SIMD_DISABLE_CUDA_WAVELET", "1")
+    ck.reset_launches()
+    loop = wv.wavelet_transform("daub", 8, P, x, 3)
+    assert not any(ck.LAUNCHES.values()), ck.LAUNCHES
+    for f, g in zip(fused, loop):
+        assert f.shape == g.shape
+        assert _rel(f.cpu(), g.cpu()) <= 5e-5
+
+
+@pytest.mark.parametrize("type,order,levels,p", [
+    ("daub", 8, 3, 37), ("daub", 8, 3, 4095), ("daub", 4, 4, 0),
+    ("sym", 8, 2, 70)])
+def test_fused_cascade_nonfinite_spread_on_the_card(monkeypatch, type,
+                                                    order, levels, p):
+    # a zero tap of the kernel's dense frame table still multiplies its
+    # sample, so a NaN poisons the outputs whose support, widened to
+    # whole frames of 2^L samples, holds it; the level loop (K2) poisons
+    # the support alone
+    n, split = 4096, 1 << levels
+    x = np.random.RandomState(p).randn(8, n).astype(np.float32)
+    x[3, p] = np.nan
+    P = wv.ExtensionType.PERIODIC
+    fused = wv.wavelet_transform(type, order, P, x, levels)
+    monkeypatch.setattr(wv, "_use_fused_cascade", lambda *a, **k: False)
+    ck.reset_launches()
+    loop = wv.wavelet_transform(type, order, P, x, levels)
+    assert ck.LAUNCHES["filter_bank"] == levels
+    for lvl, f, g in zip(list(range(1, levels + 1)) + [levels], fused,
+                         loop):
+        reach = (order - 1) * ((1 << lvl) - 1)
+        j = np.arange(n >> lvl)
+        start = j << lvl
+        support = (p - start) % n <= reach
+        first, last = start // split, (start + reach) // split
+        frames = (p // split - first) % (n // split) <= last - first
+        bad_f = ~np.isfinite(f.cpu().numpy())
+        bad_g = ~np.isfinite(g.cpu().numpy())
+        assert not bad_f[[0, 1, 2, 4, 5, 6, 7]].any()
+        assert not bad_g[[0, 1, 2, 4, 5, 6, 7]].any()
+        assert (bad_g[3] == support).all(), lvl
+        assert (bad_f[3] == frames).all(), lvl
 
 
 def test_convolve2d_routes():

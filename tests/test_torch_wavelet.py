@@ -10,10 +10,12 @@ pins) and ``veles.simd_tpu_torch.ops.wavelet`` with ``device="cpu"``.
   interpret mode off the TPU); the port side its auto route (``conv1d``
   on the CPU) and, forced, its ``cuda`` route (the filter-bank
   kernel's plain version on a CPU tensor).
-* The fused cascade: both gates opened (``should_route`` monkeypatched
-  and ``VELES_SIMD_FORCE_FUSED_CASCADE`` set, as ``tests/test_pallas.py``
-  does for the JAX side); the two fused results agree to 1e-5 of
-  max|y| and each matches the level loop within that file's 5e-4.
+* The fused cascade: both gates opened (``should_route`` monkeypatched;
+  the JAX side also needs ``VELES_SIMD_FORCE_FUSED_CASCADE``, its own
+  opt-in, as ``tests/test_pallas.py`` sets it, while the port's route
+  is its default); the two fused results agree to 1e-5 of max|y| and
+  each matches the level loop within that file's 5e-4.  Both routes
+  poison the same outputs with a non-finite input sample.
 * Synthesis: the JAX package's own tolerances from
   ``tests/test_wavelet_synthesis.py`` (5e-5 between backends, 2e-4 and
   5e-4 for round trips, 5e-3 for the non-periodic SWT).
@@ -40,6 +42,8 @@ TRIP_TOL = 2e-4         # test_dwt_round_trip / test_swt_round_trip
 CASCADE_TRIP_TOL = 5e-4  # test_dwt_cascade_round_trip
 NONPERIODIC_SWT_TOL = 5e-3  # test_swt_round_trip_nonperiodic
 FUSED_TOL = 5e-4        # test_fused_cascade_vs_level_loop
+# the JAX package's opt-in of its fused cascade; the port reads none
+JAX_FORCE_FUSED = "VELES_SIMD_FORCE_FUSED_CASCADE"
 
 WAVELETS = [("daub", 4), ("daub", 8), ("daub", 16), ("coif", 12),
             ("sym", 8)]
@@ -137,18 +141,21 @@ def test_multilevel_transforms_agree(ext):
 def test_fused_cascade_agrees(monkeypatch, type, order, levels, n):
     monkeypatch.setattr(jpk, "should_route", lambda *a: True)
     monkeypatch.setattr(tck, "should_route", lambda *a: True)
-    monkeypatch.setenv("VELES_SIMD_FORCE_FUSED_CASCADE", "1")
     P = tw.ExtensionType.PERIODIC
     x = _x(n + levels, (8, n))
-    assert jw._use_fused_cascade(x.shape, order, jw.ExtensionType.PERIODIC,
-                                 levels)
+    # the port's default: no environment variable opens the route
     assert tw._use_fused_cascade(x.shape, order, P, levels)
     got = tw.wavelet_transform(type, order, P, x, levels)
+    monkeypatch.setenv(JAX_FORCE_FUSED, "1")
+    assert jw._use_fused_cascade(x.shape, order, jw.ExtensionType.PERIODIC,
+                                 levels)
     want = jw.wavelet_transform(type, order, jw.ExtensionType.PERIODIC, x,
                                 levels, simd=True)
     assert len(got) == levels + 1
     assert _pair_rel(got, want) < REL_TOL
-    monkeypatch.delenv("VELES_SIMD_FORCE_FUSED_CASCADE")
+    # the wavelet routes' opt-out closes it: the level loop
+    monkeypatch.setenv("VELES_SIMD_DISABLE_CUDA_WAVELET", "1")
+    assert not tw._use_fused_cascade(x.shape, order, P, levels)
     loop = tw.wavelet_transform(type, order, P, x, levels)
     for g, w in zip(got, loop):
         scale = max(1.0, float(w.abs().max()))
@@ -161,23 +168,76 @@ def test_fused_cascade_gate_terms(monkeypatch):
     cases = [((8, 256), 8, P, 2), ((8, 256), 8, M, 2), ((8, 256), 8, P, 1),
              ((8, 250), 8, P, 2), ((8, 64), 8, P, 4), ((8, 4096), 16, P, 3),
              ((8, 4096), 16, P, 4), ((8, 1024), 4, P, 4)]
-    for force in (False, True):
-        if force:
-            monkeypatch.setenv("VELES_SIMD_FORCE_FUSED_CASCADE", "1")
-        for shape, order, ext, levels in cases:
-            want = jw._use_fused_cascade(shape, order,
-                                         jw.ExtensionType(ext.value),
-                                         levels)
-            got = tw._use_fused_cascade(shape, order, ext, levels,
-                                        cuda=True)
-            assert got == want, (force, shape, order, ext, levels)
-            # off the card the fused route never opens
-            assert not tw._use_fused_cascade(shape, order, ext, levels)
-    # the default is the level loop, as in the JAX package
-    monkeypatch.delenv("VELES_SIMD_FORCE_FUSED_CASCADE")
-    assert tw._CASCADE_FAMILY.static_select(
-        rows=512, n=4096, order=8, ext="periodic", levels=3,
-        cuda=True) == "level_loop"
+    for shape, order, ext, levels in cases:
+        monkeypatch.delenv(JAX_FORCE_FUSED, raising=False)
+        got = tw._use_fused_cascade(shape, order, ext, levels, cuda=True)
+        # the JAX gate under its opt-in has the port's shape terms, and
+        # the port ignores that opt-in
+        monkeypatch.setenv(JAX_FORCE_FUSED, "1")
+        want = jw._use_fused_cascade(shape, order,
+                                     jw.ExtensionType(ext.value), levels)
+        assert got == want, (shape, order, ext, levels)
+        assert tw._use_fused_cascade(shape, order, ext, levels,
+                                     cuda=True) == got
+        # off the card the fused route never opens
+        assert not tw._use_fused_cascade(shape, order, ext, levels)
+    # the default is the fused cascade where the gate admits the shape,
+    # and the level loop below MIN_ROWS, off the card and under the
+    # wavelet routes' opt-out (the port's name or the JAX package's)
+    monkeypatch.delenv(JAX_FORCE_FUSED)
+    geom = dict(rows=512, n=4096, order=8, ext="periodic", levels=3,
+                cuda=True)
+    select = tw._CASCADE_FAMILY.static_select
+    assert select(**geom) == "fused_cascade"
+    assert select(**dict(geom, rows=tck.MIN_ROWS - 1)) == "level_loop"
+    assert select(**dict(geom, cuda=False)) == "level_loop"
+    for env in ("VELES_SIMD_DISABLE_CUDA_WAVELET",
+                "VELES_SIMD_DISABLE_PALLAS_WAVELET"):
+        monkeypatch.setenv(env, "1")
+        assert select(**geom) == "level_loop"
+        monkeypatch.delenv(env)
+
+
+def _poisoned(bands, row):
+    """Per band, the indices of ``row`` that are not finite."""
+    return [np.flatnonzero(~np.isfinite(_np(b)[row])).tolist()
+            for b in bands]
+
+
+def _support(p, n, order, levels):
+    """Per band of a ``levels``-level periodic DWT of length ``n``, the
+    outputs whose filter support holds sample ``p``: level l's output
+    i reads samples 2^l i .. 2^l i + (order - 1)(2^l - 1), mod n."""
+    out = []
+    for lvl in list(range(1, levels + 1)) + [levels]:
+        reach = (order - 1) * ((1 << lvl) - 1)
+        out.append([i for i in range(n >> lvl)
+                    if (p - (i << lvl)) % n <= reach])
+    return out
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("type,order,levels,n,p", [
+    ("daub", 8, 3, 256, 37), ("daub", 8, 3, 256, 255),
+    ("daub", 4, 4, 64, 0), ("sym", 8, 2, 128, 70)])
+def test_fused_cascade_nonfinite_spread(monkeypatch, type, order, levels,
+                                        n, p, bad):
+    # plain versions on the CPU: each route poisons exactly the outputs
+    # whose composed filter spans the sample (the card's kernel widens
+    # that to whole frames, tests/test_torch_cuda.py)
+    monkeypatch.setattr(tck, "should_route", lambda *a: True)
+    P = tw.ExtensionType.PERIODIC
+    x = _x(p + n, (8, n))
+    x[3, p] = bad
+    assert tw._use_fused_cascade(x.shape, order, P, levels)
+    fused = tw.wavelet_transform(type, order, P, x, levels)
+    monkeypatch.setenv("VELES_SIMD_DISABLE_CUDA_WAVELET", "1")
+    loop = tw.wavelet_transform(type, order, P, x, levels)
+    want = _support(p, n, order, levels)
+    assert _poisoned(fused, 3) == _poisoned(loop, 3) == want
+    for row in (0, 2, 4, 7):
+        assert _poisoned(fused, row) == [[]] * (levels + 1)
+        assert _poisoned(loop, row) == [[]] * (levels + 1)
 
 
 @pytest.mark.parametrize("rows,n,order,level,stride", [

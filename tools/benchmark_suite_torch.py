@@ -578,8 +578,9 @@ def section_dwt_families(rng, rows_, n) -> list:
 
 
 # --- fused multi-level cascade (K3) vs the level loop (K2 a level);
-# the level loop is the default, as in the JAX package, and the fused
-# entry measures the opt-in kernel so the comparison stays on record ---
+# the fused cascade is the port's default where its gate admits the
+# shape (the JAX package keeps it opt-in), and the level-loop entry
+# runs one wavelet_apply a level so the comparison stays on record ---
 def section_cascade(rng, rows_, n) -> list:
     import torch
 
@@ -591,12 +592,8 @@ def section_cascade(rng, rows_, n) -> list:
     ext = wv.ExtensionType.PERIODIC
 
     def fused(v):
-        os.environ["VELES_SIMD_FORCE_FUSED_CASCADE"] = "1"
-        try:
-            return wv.wavelet_transform(WaveletType.DAUBECHIES, 8, ext,
-                                        v, 3, simd=True)
-        finally:
-            os.environ.pop("VELES_SIMD_FORCE_FUSED_CASCADE", None)
+        return wv.wavelet_transform(WaveletType.DAUBECHIES, 8, ext, v, 3,
+                                    simd=True)
 
     def cascade_fused_step(v):
         return torch.cat(list(fused(v)), dim=-1)

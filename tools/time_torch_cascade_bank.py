@@ -21,10 +21,11 @@ at the main path's shape, 512 x 4096 daub8 at 3 levels: the contract
 form on the periodically extended input and, where the checkout has
 it, the periodic form that reads the wrap and writes natural order.
 The intact build also times three other plans at 512 x 4096 (daub4 at
-4 levels, sym16 at 3, coif12 at 2) and the forced fused
-``wavelet_transform``, with its device breakdown.  Prints the card's
-name and power limit, then one JSON line per build, device time per
-call from ``torch.profiler``.  Exits non-zero without a card.  The
+4 levels, sym16 at 3, coif12 at 2) and ``wavelet_transform`` at the
+main shape, with its device breakdown: the fused cascade, where the
+checkout's default takes it there.  Prints the card's name and power
+limit, then one JSON line per build, device time per call from
+``torch.profiler``.  Exits non-zero without a card.  The
 copies are diagnostics only; their outputs are not checked.
 """
 
@@ -41,7 +42,6 @@ ROWS, N = 512, 4096
 MAIN = ("daub", 8, 3)
 OTHERS = (("daub", 4, 4), ("sym", 16, 3), ("coif", 12, 2))
 SEED = 20261016
-FORCE_FUSED = "VELES_SIMD_FORCE_FUSED_CASCADE"
 # the texts each build replaces in cascade_bank.cu, by form; every text
 # must be found
 FORMS = {
@@ -187,11 +187,7 @@ def main():
         return out
 
     def fused():
-        os.environ[FORCE_FUSED] = "1"
-        try:
-            return wv.wavelet_transform(*MAIN[:2], P, x, MAIN[2])
-        finally:
-            del os.environ[FORCE_FUSED]
+        return wv.wavelet_transform(*MAIN[:2], P, x, MAIN[2])
 
     for name, d in dirs.items():
         ck._CSRC = Path(d)

@@ -27,9 +27,13 @@ Routes, JAX name → port name where they differ:
 * ``wavelet.cascade`` (:func:`wavelet_transform`): ``fused_cascade``,
   the whole PERIODIC cascade in one launch of the cascade-bank kernel
   (``csrc/cascade_bank.cu``), which reads the signal's wrap and writes
-  every level in natural order, so nothing is copied; opt-in through
-  ``VELES_SIMD_FORCE_FUSED_CASCADE`` as in the JAX package;
-  ``level_loop``, one filter-bank pass per level, the default.
+  every level in natural order, so nothing is copied: the default
+  wherever its shape gate admits the call (gate note at
+  :func:`_fused_cascade_gate`), closed by
+  ``VELES_SIMD_DISABLE_CUDA_WAVELET`` with the kernel route above; the
+  JAX package keeps it opt-in (its ``VELES_SIMD_FORCE_FUSED_CASCADE``,
+  which the port does not read); ``level_loop``, one ``wavelet`` step
+  per level, everywhere else.
 
 Spans and counts (``obs``, recorded while telemetry is on or a
 capture is armed): ``wavelet_transform.dispatch`` over a transform's
@@ -59,6 +63,7 @@ from __future__ import annotations
 
 import enum
 import functools
+import math
 
 import numpy as np
 import torch
@@ -131,7 +136,9 @@ def _check_apply_args(type, order, length):
 
 
 def _rows(shape) -> int:
-    return int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    # math.prod: np.prod of a torch.Size builds an array first, which
+    # was most of a route gate's host time
+    return int(math.prod(shape[:-1]))
 
 
 # --------------------------------------------------------------------------
@@ -402,19 +409,27 @@ def stationary_wavelet_apply(type, order, level, ext, src, simd=None,
 #
 # Level l's stride-2^l output splits into 2^(L-l) output phases, each a
 # stride-2^L bank over the input, so one pass of the cascade-bank kernel
-# reads the input once for every level.  The composed filters cost more
-# multiply-adds than the level loop (level-l taps grow to
-# (order-1)(2^l - 1) + 1), so the fused pass wins only where the card is
-# bound by bytes.  It stays opt-in, as in the JAX package, until that is
-# measured on the H100 (VELES_SIMD_FORCE_FUSED_CASCADE=1).  Non-PERIODIC
-# extensions do not commute with filtering (the cascade re-extends each
-# computed lowpass), so they keep the level loop.
+# reads the input once for every level, copies no extension and makes
+# one launch where the level loop makes L filter-bank passes and L
+# extension copies.  The composed filters cost more multiply-adds than
+# the level loop (level-l taps grow to (order-1)(2^l - 1) + 1), so the
+# fused pass wins only where the card is bound by bytes.  On an NVIDIA
+# H100 (tools/sweep_torch_fused_cascade.py) it took 2.1-20x less device
+# time a call than the level loop in every group it admits up to the
+# budget's top (daub22 at 3 levels, daub64 at 2), at 8 to 16,384 rows
+# of 256 to 65,536 samples, so the gate's shape terms alone decide and
+# the route is the port's default (the JAX package keeps it opt-in
+# through VELES_SIMD_FORCE_FUSED_CASCADE, which the port does not
+# read); VELES_SIMD_DISABLE_CUDA_WAVELET closes it with the
+# filter-bank route.  Non-PERIODIC extensions do not commute with
+# filtering (the cascade re-extends each computed lowpass), so they
+# keep the level loop, as do 1 or more than 4 levels, CPU operands and
+# fewer than MIN_ROWS rows.
 
 # multiply-add budget of the fused pass: 3 levels of daub8 is 176
 # slots, sym16 at 3 levels 368
 _FUSED_MAX_MACS = 512
 _FUSED_MAX_LEVELS = 4
-_FORCE_FUSED_ENV = "VELES_SIMD_FORCE_FUSED_CASCADE"
 
 
 def _composed_cascade_filters(type, order, levels):
@@ -470,8 +485,6 @@ def _cascade_plan_for(type, order, levels):
 
 
 def _fused_cascade_gate(rows, n, order, ext, levels, cuda=False, **_):
-    if not routing.env_truthy(_FORCE_FUSED_ENV):
-        return False
     levels = int(levels)
     if (ext != ExtensionType.PERIODIC.value
             or not 2 <= levels <= _FUSED_MAX_LEVELS):
@@ -494,14 +507,17 @@ def _fused_cascade_gate(rows, n, order, ext, levels, cuda=False, **_):
                                  1 << levels))
 
 
-# the cascade's own two-candidate table: the fused one-pass kernel is
-# opt-in (the note above), the level loop is the terminal fallback
+# the cascade's own two-candidate table: the fused one-pass kernel
+# wherever its gate admits the shape (the note above), the level loop
+# the terminal fallback
 _CASCADE_FAMILY = routing.family("wavelet.cascade", (
     routing.Route("fused_cascade", predicate=_fused_cascade_gate,
+                  disable_env=_WAVELET_DISABLE_ENV,
                   doc="whole PERIODIC DWT cascade in one cascade-bank "
-                      "pass (opt-in: VELES_SIMD_FORCE_FUSED_CASCADE)"),
+                      "pass where the gate admits the shape "
+                      "(VELES_SIMD_DISABLE_CUDA_WAVELET opts out)"),
     routing.Route("level_loop",
-                  doc="one filter-bank pass per level (the default)"),
+                  doc="one wavelet step per level (every other shape)"),
 ))
 
 
@@ -527,10 +543,23 @@ def wavelet_transform(type, order, ext, src, levels, simd=None):
     """Multi-level DWT cascade: repeatedly split the lowpass band.
 
     Returns ``[hi_1, hi_2, ..., hi_levels, lo_levels]`` like the usual
-    pyramid.  Runs as the level loop (one filter-bank pass per level);
-    the fused one-pass cascade for PERIODIC is opt-in through
-    ``VELES_SIMD_FORCE_FUSED_CASCADE=1`` (gate note at
-    :func:`_fused_cascade_gate`).
+    pyramid.  A PERIODIC cascade of 2-4 levels on the card, of at least
+    ``MIN_ROWS`` rows and within the fused pass's multiply-add budget,
+    runs as one launch of the cascade-bank kernel (gate note at
+    :func:`_fused_cascade_gate`; ``VELES_SIMD_DISABLE_CUDA_WAVELET``
+    closes it); every other call runs the level loop, one
+    :func:`wavelet_apply` per level.  The fused pass composes each
+    level's filters in float64, rounds them once and sums over the
+    input in float32, so finite inputs give the level loop's bands
+    within float32 rounding.  A NaN or Inf spreads further on the card:
+    the kernel reads the input in frames of ``2^levels`` samples and
+    multiplies every sample of a frame it reads, zero taps included,
+    so a non-finite sample poisons each output of level l whose support
+    (samples ``2^l i`` to ``2^l i + (order - 1)(2^l - 1)``, periodic),
+    widened to whole frames, holds it.  The level loop, and both
+    routes' CPU versions, poison the outputs whose support holds it.
+    (``VELES_SIMD_FORCE_FUSED_CASCADE``, the JAX package's opt-in, is
+    not read.)
     """
     levels = int(levels)
     if not resolve_simd(simd, op="wavelet_transform"):
