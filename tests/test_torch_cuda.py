@@ -639,6 +639,69 @@ def test_stft_routes_launch_the_kernel(monkeypatch):
     assert ck.LAUNCHES["stft"] == 0
 
 
+def _stft_2p20_rows():
+    """64 recordings of 2^20 samples on the card: the benchmark's
+    ``stft_2p20`` batch."""
+    g = torch.Generator(device="cuda").manual_seed(26)
+    return torch.randn(64, 1 << 20, generator=g, device="cuda")
+
+
+def _dev_rel(got, want):
+    """max|got - want| / max|want| over real and imaginary parts, on
+    the card."""
+    got, want = torch.view_as_real(got), torch.view_as_real(want)
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def test_stft_kernel_at_librosa_geometry():
+    # librosa's default spectrogram, 2048/512: 2045 frames a row
+    x = _stft_2p20_rows()
+    ck.reset_launches()
+    got = ck.stft_cuda(x, _t(sp.hann_window(2048)), 2048, 512)
+    assert ck.LAUNCHES["stft"] == 1
+    assert got.shape == (64, 2045, 1025)
+    # the plain version in float64 (a float32 sum of L terms drifts)
+    want = ck.stft_plain(x.double(), sp.hann_window(2048), 2048, 512)
+    assert _dev_rel(got, want) <= TOL
+
+
+def test_stft_whisper_geometry_takes_the_basis_matmul():
+    """Whisper's front end, 400/160 on a card operand: hop 160 is no
+    128-lane multiple and does not divide 400, so the basis matmul
+    runs, and its span's ``scratch_bytes`` is what the allocator hands
+    out in the call besides the output."""
+    from veles.simd_tpu_torch import obs
+    from veles.simd_tpu_torch.obs import spans as tspans
+
+    x = _stft_2p20_rows()
+    sp.stft(x, 400, 160)            # the basis's device copy, cuBLAS's
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    obs.configure(max_spans=256)
+    obs.start_capture()
+    try:
+        before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+        y = sp.stft(x, 400, 160)
+        torch.cuda.synchronize()
+        allocated = (torch.cuda.memory_stats()
+                     ["allocated_bytes.all.allocated"] - before)
+    finally:
+        obs.stop_capture()
+        recs = obs.captured().records
+        obs.configure(max_spans=tspans.DEFAULT_MAX_SPANS)
+        obs.reset()
+    assert ck.LAUNCHES["stft"] == 0
+    (route,) = [r for r in recs if r.name == "stft.route"]
+    assert route.attrs["route"] == "rdft_matmul"
+    assert route.attrs["scratch_bytes"] == 1_345_204_224
+    out_bytes = y.numel() * y.element_size()
+    assert allocated - out_bytes == route.attrs["scratch_bytes"]
+    hann = torch.as_tensor(sp.hann_window(400), device="cuda").double()
+    want = torch.fft.rfft(x.double().unfold(-1, 400, 160) * hann, dim=-1)
+    assert y.shape == want.shape == (64, 6552, 201)
+    assert _dev_rel(y, want) <= TOL
+
+
 def test_analytic_and_psd_routes_on_the_card():
     r = np.random.RandomState(11)
     for n in (1024, 65536):

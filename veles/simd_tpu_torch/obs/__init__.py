@@ -65,13 +65,16 @@ outermost span (a count outside every span belongs to no call and is
 dropped).
 The store is the one :func:`enable`'s spans use: a preallocated ring
 that counts what it overwrites.  The spans and counts the dispatch
-layer places, by layer: ``convolve.dispatch`` and
-``wavelet_transform.dispatch`` (a call's top span), ``fault.attempt``
-(each attempt of ``runtime.faults.guarded``, attribute ``site``),
-``routing.select`` (a route choice, attribute ``family``),
-``convolve.os_route`` and ``wavelet_apply.dispatch`` (a route's own
-host work and launch) and the count ``wavelet_extend_bytes`` (the
-bytes ``ops.wavelet``'s boundary extension writes on the device).
+layer places, by layer: ``convolve.dispatch``,
+``wavelet_transform.dispatch`` and ``stft.dispatch`` (a call's top
+span), ``fault.attempt`` (each attempt of ``runtime.faults.guarded``,
+attribute ``site``), ``routing.select`` (a route choice, attribute
+``family``), ``convolve.os_route``, ``wavelet_apply.dispatch`` and
+``stft.route`` (a route's own host work and launch; ``stft.route``
+carries ``scratch_bytes``, the bytes of the device intermediates its
+route writes besides the output) and the count
+``wavelet_extend_bytes`` (the bytes ``ops.wavelet``'s boundary
+extension writes on the device).
 
 Usage::
 

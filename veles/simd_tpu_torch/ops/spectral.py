@@ -69,6 +69,15 @@ hands the engine its routes' calls, forced, as probe runners, keyed by
 the JAX package's geometry classes; ``batched_stft`` consults the
 tune cache through :func:`_stft_route_for` and never probes.
 
+Spans (``obs.span``, recorded while telemetry is on or a capture is
+armed): ``stft.dispatch`` over an ``stft`` call's guarded dispatch,
+``fault.attempt`` inside it for each attempt, and ``stft.route``
+inside that around the chosen route's run (the kernel wrapper's
+checks, allocation and C launch, or the basis lookup, framing and
+matmul launches), with attributes ``route`` and ``scratch_bytes``,
+the bytes of the device intermediates the route writes besides its
+output (:func:`_stft_scratch_bytes`).
+
 Each route core of the four tables is an ``obs.instrumented_jit``
 with the JAX package's ``op=``/``route=`` labels, so
 ``obs.resources()`` has a row for every route a call ran, as the JAX
@@ -815,6 +824,25 @@ _STFT_ROUTES = {"xla_fft": _run_stft_xla,
                 "cuda_fused": _run_stft_cuda}
 
 
+def _stft_scratch_bytes(route, rows, frames, frame_length):
+    """Bytes of the device intermediates that stft ``route`` writes
+    besides its complex64 output, the ``scratch_bytes`` of its
+    ``stft.route`` span: none for the fused kernel; for
+    ``rdft_matmul`` the contiguous float32 frames that the matmul's
+    operand needs and its float32 ``[..., 2*bins]`` product before
+    the complex assembly; for ``xla_fft`` the windowed float32 frames.
+    None for ``rdft_matmul_bf16_comp``, whose operand splits are not
+    counted."""
+    cells = rows * frames
+    if route == "cuda_fused":
+        return 0
+    if route == "rdft_matmul":
+        return 4 * cells * (frame_length + 2 * (frame_length // 2 + 1))
+    if route == "xla_fft":
+        return 4 * cells * frame_length
+    return None
+
+
 def _run_stft_route(route, x, window, frame_length, hop, forced=False,
                     host=True):
     """One stft route on a float32 tensor; only the kernel route takes
@@ -961,9 +989,14 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
         hop=int(hop))
 
     def run():
-        return _run_stft_route(chosen, as_f32(x), window,
-                               int(frame_length), int(hop),
-                               forced=forced, host=host)
+        xt = as_f32(x)
+        with obs.span("stft.route", route=chosen,
+                      scratch_bytes=_stft_scratch_bytes(
+                          chosen, xt.numel() // n, frames,
+                          int(frame_length))):
+            return _run_stft_route(chosen, xt, window,
+                                   int(frame_length), int(hop),
+                                   forced=forced, host=host)
 
     with obs.span("stft.dispatch", route=chosen, path=path):
         # the transient-fault policy around the whole route call,
