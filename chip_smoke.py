@@ -1272,7 +1272,11 @@ def faults_phase(torch, rng, bm, ck, obs, smi):
         check(res[1] <= ORACLE_TOL and res[2] <= ORACLE_TOL,
               f"packed_stft {L}/{hop}: rel {res[1]:.3e}, vs unpacked "
               f"{res[2]:.3e}")
-        check((res[0] >= 1) == (hop % 128 == 0),
+        # K4 where the gate admits a packed row (128/64's rows of 4096
+        # samples hold 63 frames, under its 64)
+        k4 = sp._select_stft_route(L, hop, sp.frame_count(width, L, hop),
+                                   cuda=True) == "cuda_fused"
+        check((res[0] >= 1) == k4,
               f"packed_stft {L}/{hop} stft launches {res[0]}")
         seg_lines.append(
             f"packed_stft {L}/{hop} 256 segments {lo}-{hi} "
@@ -4515,6 +4519,13 @@ def main():
     stft_case("stft 2x5000 640/128", 2, 5000, 640, 128)
     stft_case("stft 2x20000 4096/128", 2, 20000, 4096, 128)
     stft_case("stft 2x40000 16384/128", 2, 40000, 16384, 128)
+    # hops that do not divide the frame: the benchmark's two shapes,
+    # a span of no 16-byte alignment, and a hop over half the frame
+    stft_case("stft 64x1048576 400/160", 64, 1 << 20, 400, 160)
+    stft_case("stft 64x1048576 2048/512", 64, 1 << 20, 2048, 512)
+    stft_case("stft 2x30000 2048/441", 2, 30000, 2048, 441)
+    stft_case("stft 2x5000 512/200", 2, 5000, 512, 200)
+    stft_case("stft 2x5000 512/384", 2, 5000, 512, 384)
     for name, (diff, rel) in parity.items():
         check(rel <= PARITY_TOL, f"{name}: rel err {rel:.3e} > "
               f"{PARITY_TOL}")

@@ -586,6 +586,13 @@ def _stft64(x, L, hop):
     (2, 8192, 1024, 128), (4, 4096, 384, 128), (2, 700, 512, 128),
     (3, 2000, 255, 85), (70000, 600, 512, 128), (2, 5000, 640, 128),
     (2, 20000, 4096, 128), (2, 40000, 16384, 128),
+    # hops that do not divide the frame: Whisper's 400/160 (M = 200 =
+    # 8 * 5 * 5), a hop of three to a frame, the odd-L complex path,
+    # a span of no 16-byte alignment (441 floats a hop), 512/200 and a
+    # hop over half the frame
+    (1, 1 << 20, 400, 160), (4, 65536, 400, 160), (2, 20000, 1024, 300),
+    (3, 9000, 255, 100), (2, 30000, 2048, 441), (2, 5000, 512, 200),
+    (2, 5000, 512, 384),
 ])
 def test_stft_kernel_matches_plain_and_float64(rows, n, L, hop):
     r = np.random.RandomState(rows + L)
@@ -622,13 +629,16 @@ def test_stft_routes_launch_the_kernel(monkeypatch):
         assert ck.LAUNCHES["stft"] == launches
         assert y.device.type == "cuda"
         assert np.max(np.abs(y.cpu().numpy() - ref)) <= TOL * scale
-    # hop 64 is no 128-lane multiple: the basis matmul
-    ck.reset_launches()
-    y = sp.stft(x, 512, 64)
-    assert ck.LAUNCHES["stft"] == 0
-    ref64 = _stft64(x, 512, 64)
-    assert np.max(np.abs(y.cpu().numpy() - ref64)) <= \
-        TOL * np.max(np.abs(ref64))
+    # hop 64 is no 128-lane multiple, and 200 does not divide 512:
+    # the kernel all the same; one hop a frame (384) takes the basis
+    # matmul
+    for hop, launches in ((64, 1), (200, 1), (384, 0)):
+        ck.reset_launches()
+        y = sp.stft(x, 512, hop)
+        assert ck.LAUNCHES["stft"] == launches, hop
+        ref64 = _stft64(x, 512, hop)
+        assert np.max(np.abs(y.cpu().numpy() - ref64)) <= \
+            TOL * np.max(np.abs(ref64))
     s = sp.spectrogram(x, 512, 128)
     assert _rel(s.cpu(), np.abs(ref) ** 2) <= TOL
     rec = sp.istft(sp.stft(x, 512, 128), 16384, 512, 128)
@@ -666,40 +676,48 @@ def test_stft_kernel_at_librosa_geometry():
 
 
 def test_stft_whisper_geometry_takes_the_basis_matmul():
-    """Whisper's front end, 400/160 on a card operand: hop 160 is no
-    128-lane multiple and does not divide 400, so the basis matmul
-    runs, and its span's ``scratch_bytes`` is what the allocator hands
-    out in the call besides the output."""
+    """Whisper's front end, 400/160 on a card operand: the default
+    route is the kernel (hop 160 neither a 128-lane multiple nor a
+    divisor of 400 keeps it off the TPU kernel's route, not K4's), one
+    launch and no scratch: the allocator hands out the output alone.
+    Forced, the basis matmul still runs, and its span's
+    ``scratch_bytes`` is what the allocator hands out in the call
+    besides the output."""
     from veles.simd_tpu_torch import obs
     from veles.simd_tpu_torch.obs import spans as tspans
 
     x = _stft_2p20_rows()
-    sp.stft(x, 400, 160)            # the basis's device copy, cuBLAS's
-    torch.cuda.synchronize()
-    ck.reset_launches()
-    obs.configure(max_spans=256)
-    obs.start_capture()
-    try:
-        before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
-        y = sp.stft(x, 400, 160)
-        torch.cuda.synchronize()
-        allocated = (torch.cuda.memory_stats()
-                     ["allocated_bytes.all.allocated"] - before)
-    finally:
-        obs.stop_capture()
-        recs = obs.captured().records
-        obs.configure(max_spans=tspans.DEFAULT_MAX_SPANS)
-        obs.reset()
-    assert ck.LAUNCHES["stft"] == 0
-    (route,) = [r for r in recs if r.name == "stft.route"]
-    assert route.attrs["route"] == "rdft_matmul"
-    assert route.attrs["scratch_bytes"] == 1_345_204_224
-    out_bytes = y.numel() * y.element_size()
-    assert allocated - out_bytes == route.attrs["scratch_bytes"]
     hann = torch.as_tensor(sp.hann_window(400), device="cuda").double()
     want = torch.fft.rfft(x.double().unfold(-1, 400, 160) * hann, dim=-1)
-    assert y.shape == want.shape == (64, 6552, 201)
-    assert _dev_rel(y, want) <= TOL
+    for route, launches, scratch in ((None, 1, 0),
+                                     ("rdft_matmul", 0, 1_345_204_224)):
+        # the window's and basis's device copies, cuBLAS's workspace
+        sp.stft(x, 400, 160, route=route)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        obs.configure(max_spans=256)
+        obs.start_capture()
+        try:
+            before = (torch.cuda.memory_stats()
+                      ["allocated_bytes.all.allocated"])
+            y = sp.stft(x, 400, 160, route=route)
+            torch.cuda.synchronize()
+            allocated = (torch.cuda.memory_stats()
+                         ["allocated_bytes.all.allocated"] - before)
+        finally:
+            obs.stop_capture()
+            recs = obs.captured().records
+            obs.configure(max_spans=tspans.DEFAULT_MAX_SPANS)
+            obs.reset()
+        assert ck.LAUNCHES["stft"] == launches, route
+        (span,) = [r for r in recs if r.name == "stft.route"]
+        assert span.attrs == {"route": route or "cuda_fused",
+                              "scratch_bytes": scratch}
+        out_bytes = y.numel() * y.element_size()
+        assert allocated - out_bytes == scratch
+        assert y.shape == want.shape == (64, 6552, 201)
+        assert _dev_rel(y, want) <= TOL
+        del y
 
 
 def test_analytic_and_psd_routes_on_the_card():

@@ -604,7 +604,16 @@ def test_stft_plain_window_forms_and_float64():
 @pytest.mark.parametrize("side", ["jax", "torch"])
 def test_stft_contract_errors_match(args, match, side):
     n, L, hop = args
-    x = np.ones((2, n), np.float32)
+    x = np.random.RandomState(n + L + hop).randn(2, n).astype(np.float32)
+    if side == "torch" and L % hop:
+        # the designed difference: the TPU kernel's hop | L term is no
+        # term of the port's, whose blocks stage their span of frames,
+        # so the port answers where the JAX package raises
+        got = ck.stft_cuda(torch.from_numpy(x), _window(L), L, hop)
+        want = jsp.stft_na(x, L, hop)
+        assert np.max(np.abs(got.numpy() - want)) < \
+            REL_TOL * np.max(np.abs(want))
+        return
     with pytest.raises(ValueError, match=match):
         if side == "jax":
             pk.stft_pallas(x, L, hop, interpret=True)
@@ -638,18 +647,38 @@ def test_stft_shared_memory_admission():
     assert all(ck.fits_smem_stft(L, hop) for L, hop in
                ((256, 128), (4096, 128), (16384, 128), (3, 1)))
     assert not ck.fits_smem_stft(0, 128)
+    # a hop that does not divide the frame is in the contract: the
+    # block stages the span of its frames, 16 of them in 2800 samples
+    # at Whisper's 400/160
+    assert ck.fits_smem_stft(256, 96) and ck.fits_smem_stft(400, 160)
+    assert ck.stft_smem_bytes(400, 160) == \
+        4 * (15 * 160 + 400) + 8 * 16 * (200 + 12 + 1) == 38464
     # outside the contract, or too large for one block: refused
-    assert not ck.fits_smem_stft(256, 96) and not ck.fits_smem_stft(256, 256)
+    assert not ck.fits_smem_stft(256, 256) and not ck.fits_smem_stft(256, 300)
     assert not ck.fits_smem_stft(32768, 128)
 
 
+@pytest.mark.parametrize("L,hop", [(400, 160), (1024, 300)])
+def test_stft_plain_at_hops_that_do_not_divide_the_frame(L, hop):
+    # Whisper's 400/160 and a hop of three to a frame: the wrapper's
+    # plain path answers as the float64 oracle does
+    x = np.random.RandomState(L + hop).randn(3, 9000).astype(np.float32)
+    got = ck.stft_cuda(torch.from_numpy(x), _window(L), L, hop)
+    want = jsp.stft_na(x, L, hop)
+    assert got.shape == want.shape == (3, 1 + (9000 - L) // hop, L // 2 + 1)
+    assert np.max(np.abs(got.numpy() - want)) < \
+        REL_TOL * np.max(np.abs(want))
+
+
 def test_stft_admission_covers_every_frame_up_to_16384():
-    # every L <= 16384 with hop | L and L > hop: the largest hop needs
-    # the most shared memory, hop 1 the longest span per frame count
+    # every L <= 16384 with any hop < L: the span grows with the hop,
+    # so hop L - 1 needs the most shared memory; the largest dividing
+    # hop and hop 1 as before
     for L in range(2, 16385):
         p = next(f for f in range(2, L + 1) if L % f == 0)
         assert ck.fits_smem_stft(L, L // p), L
         assert ck.fits_smem_stft(L, 1), L
+        assert ck.fits_smem_stft(L, L - 1), L
         assert ck.stft_frames_per_block(L) * ck.stft_fft_length(L) <= \
             512 * 32
 

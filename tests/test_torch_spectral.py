@@ -137,16 +137,31 @@ def test_stft_route_priors_match(monkeypatch):
             == js._select_stft_route(frame, hop, frames)
     monkeypatch.setattr(tck, "on_card", lambda cuda: True)
     monkeypatch.setattr(jpk, "pallas_available", lambda: True)
+    widened = 0
     for frame, hop, frames in grid:
+        # the designed difference: the kernel's gate has no hop | L or
+        # 128-lane hop term (the TPU's priors; the H100 sweep in
+        # PERF.md), so where only those refuse the JAX kernel the port
+        # runs its kernel and the JAX package the basis matmul
+        wide = ((frame % hop or hop % 128) and frame // hop >= 2
+                and frames >= tck.STFT_MIN_FRAMES)
+        widened += bool(wide)
         want = js._select_stft_route(frame, hop, frames)
         got = ts._select_stft_route(frame, hop, frames, cuda=True)
-        assert got == ts.ROUTE_NAMES.get(want, want), (frame, hop, frames)
+        if wide:
+            assert (want, got) == ("rdft_matmul", "cuda_fused"), \
+                (frame, hop, frames)
+        else:
+            assert got == ts.ROUTE_NAMES.get(want, want), \
+                (frame, hop, frames)
         for rows in (1, 5, 64):
             want = js._stft_route_for(frame, hop, frames, rows)
             got = ts._stft_route_for(frame, hop, frames, rows, cuda=True)
-            assert got == ts.ROUTE_NAMES.get(want, want)
+            assert got == ("cuda_fused" if wide
+                           else ts.ROUTE_NAMES.get(want, want))
         assert ts._stft_tune_class(frame, hop, frames, 5) == \
             js._stft_tune_class(frame, hop, frames, 5)
+    assert widened > 0
     # the opt-outs close the same gates
     monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_PALLAS", "1")
     monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_CUDA", "1")
@@ -177,6 +192,17 @@ def test_route_gate_needs_a_card():
     # no operand: the configured device (the CPU here) decides
     assert not ts._use_cuda_stft(512, 128, 500)
     assert ts._select_stft_route(512, 128, 500) == "rdft_matmul"
+
+
+def test_route_gate_admits_hops_that_do_not_divide_the_frame():
+    # Whisper's 400/160 on a 2^20-sample row: 6552 frames, K4's route;
+    # under the 64-frame minimum, which this gate keeps, it is not
+    assert ts._use_cuda_stft(400, 160, 6552, cuda=True)
+    assert ts._select_stft_route(400, 160, 6552, cuda=True) == "cuda_fused"
+    assert not ts._use_cuda_stft(400, 160, 63, cuda=True)
+    assert ts._select_stft_route(400, 160, 63, cuda=True) == "rdft_matmul"
+    # one hop a frame stays off the kernel's route
+    assert not ts._use_cuda_stft(400, 300, 6552, cuda=True)
 
 
 def test_named_windows_resolve_through_the_port():

@@ -134,8 +134,10 @@ def test_kernel_route_matches_the_reference(open_gate):
     assert ts._select_stft_route(2048, 512, 1 + (N - 2048) // 512,
                                  cuda=True) == "cuda_fused"
     assert ts._select_stft_route(400, 160, 1 + (N - 400) // 160,
-                                 cuda=True) == "rdft_matmul"
+                                 cuda=True) == "cuda_fused"
     assert _rel(ts.stft(x, 2048, 512, route="cuda_fused"), want) <= TOL
+    assert _rel(ts.stft(x, 400, 160, route="cuda_fused"),
+                _ref(x, 400, 160)) <= TOL
 
 
 @pytest.mark.parametrize("L,hop", GEOMETRIES)

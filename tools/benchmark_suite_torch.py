@@ -718,8 +718,8 @@ def section_mathfun(rng, n) -> list:
 
 
 # --- spectral: STFT over a long signal (K4 where its route admits the
-# geometry: hop % 128 == 0, at least 64 frames, the frame in shared
-# memory) ---
+# geometry: at least two hops a frame, at least 64 frames, the frame in
+# shared memory) ---
 def section_stft(rng, ns, frame=1024, hop=256) -> list:
     import torch
 

@@ -19,14 +19,17 @@
 // the bound: hence an FFT per frame.
 //
 // Design.  The TPU kernel walks each row's hop-blocks in grid order and
-// carries the L - hop sample overlap in VMEM.  Hopper runs blocks in
-// parallel, so each block takes F consecutive frames of one row and
-// loads the samples they share, (F-1)*hop + L of them, into shared
-// memory once, with 16-byte loads where the span is 16-byte aligned:
-// the block's frames read device memory once, where the DFT-form
-// kernel read each sample L/hop times.  The block's 512 threads form F
-// groups of G = 512 / F, one frame each (smem_fft.cuh): G is the least
-// power of two >= M/8 (M = L/2, the FFT length) from a warp up, so at
+// carries the L - hop sample overlap in VMEM, so it needs hop | L and
+// 128-lane hops.  Hopper runs blocks in parallel, so each block takes
+// F consecutive frames of one row and loads the samples they share,
+// (F-1)*hop + L of them, into shared memory once, with 16-byte loads
+// where the span is 16-byte aligned (scalar loads where it is not): the
+// block's frames read device memory once, where the DFT-form kernel
+// read each sample L/hop times.  Frame f of the block starts at f * hop
+// in the span, so any hop < L serves, dividing L or not (Whisper's
+// 400/160 stages 16 frames in 2800 samples).  The block's 512 threads
+// form F groups of G = 512 / F, one frame each (smem_fft.cuh): G is the
+// least power of two >= M/8 (M = L/2, the FFT length) from a warp up, so at
 // L = 512 a warp transforms a frame of 256 complex values with 8 values
 // a thread and synchronises with __syncwarp alone (radix 8, 8, 4).  A
 // group windows and real-packs its frame (z[m] = w[2m] x[2m] + i
@@ -36,9 +39,10 @@
 // with a zero imaginary part.  From L = 8192 on a frame takes the whole
 // block (F = 1), with up to 32 values a thread.  Shared memory, the
 // span and F padded FFT buffers, grows with L: 44.7 KB at 512/128,
-// 135 KB at 16384/128, 204 KB at 16383/43, so every L up to 16384 with
-// hop | L, L > hop fits.  Twiddles come from the wrapper's
-// float64-built table of e^{-2 pi i t / L}, t < L.
+// 135 KB at 16384/128, 204 KB at 16383 (one frame a block, whatever
+// the hop), so every L up to 16384 with any hop < L fits.  Twiddles
+// come from the wrapper's float64-built table of e^{-2 pi i t / L},
+// t < L.
 //
 // Accuracy: fp32 throughout, within 1e-5 of max|X| of the plain version
 // (ops/cuda_kernels.py: stft_plain, the basis sum), not bit-equal.
@@ -195,7 +199,7 @@ extern "C" long long veles_stft_smem_bytes(int L, int hop)
 
 // x [rows, n], win [L], tw [L] complex (e^{-2 pi i t / L}), out [rows,
 // frames, L/2 + 1] complex; all on the device, contiguous; frames = 1 +
-// (n - L) / hop >= 1, hop | L, L > hop.  Launches on `stream` and returns
+// (n - L) / hop >= 1, 1 <= hop < L.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a geometry the kernel
 // does not admit: the wrapper checks first).
 extern "C" int veles_stft_f32(const float* x, const float* win,
@@ -203,7 +207,7 @@ extern "C" int veles_stft_f32(const float* x, const float* win,
                               long long n, int L, int hop, long long frames,
                               void* stream)
 {
-    if (L < 2 || hop < 1 || L % hop != 0 || L <= hop || frames < 1
+    if (L < 2 || hop < 1 || L <= hop || frames < 1
             || smem_bytes(L, hop) > 232448)
         return (int)cudaErrorInvalidValue;
     const float2* tw2 = reinterpret_cast<const float2*>(tw);

@@ -355,12 +355,13 @@ def stft_smem_bytes(frame_length: int, hop: int) -> int:
 
 
 def fits_smem_stft(frame_length: int, hop: int) -> bool:
-    """Admission of the STFT kernel: a geometry of its contract (hop |
-    L, L > hop) whose block fits the block-level FFT (F * M <= 512 *
-    32 values) and shared memory.  Every L <= 16384 fits (135 KB at
-    16384/128, 204 KB at 16383/43)."""
+    """Admission of the STFT kernel: a geometry of its contract (1 <=
+    hop < L, dividing L or not) whose block fits the block-level FFT
+    (F * M <= 512 * 32 values) and shared memory.  Every L <= 16384
+    fits with any such hop (135 KB at 16384/128, 204 KB at 16383, one
+    frame a block whatever the hop)."""
     L, hop = int(frame_length), int(hop)
-    if L < 2 or hop < 1 or L % hop or L <= hop:
+    if L < 2 or hop < 1 or L <= hop:
         return False
     vals = stft_frames_per_block(L) * stft_fft_length(L)
     return (vals <= _FFT_THREADS * _FFT_VPT_MAX
@@ -1260,18 +1261,15 @@ def _device_twiddles(n: int, device):
 
 
 def _check_stft(x, window, frame_length, hop):
-    """The contract of ``stft_pallas``, with its messages (its 128-lane
-    hop term belongs to the route gate here); returns the frame
-    count."""
+    """The contract of ``stft_pallas``, with its messages, less its
+    two TPU terms: the kernel stages each block's span of frames, so
+    any hop below the frame serves, dividing it or not, and the
+    128-lane hop term is no term here; returns the frame count."""
     L, s = int(frame_length), int(hop)
     if L < 1 or s < 1:
         raise ValueError(f"frame_length and hop must be positive, got "
                          f"{L} and {s}")
-    if L % s != 0:
-        raise ValueError(
-            f"fused STFT needs hop | frame_length, got {s}, {L} "
-            "(use the rdft_matmul route for non-dividing hops)")
-    if L // s < 2:
+    if L <= s:
         raise ValueError("fused STFT needs frame_length > hop (no "
                          "overlap to carry; use the rdft_matmul route)")
     n = int(x.shape[-1])
@@ -1324,9 +1322,9 @@ def stft_cuda(x, window, frame_length, hop):
     """Short-time Fourier transform ``x[..., n] -> complex64 [...,
     frames, L // 2 + 1]`` with ``frames = 1 + (n - L) // hop`` of the
     frames windowed by ``window`` ([L] float32), sign ``e^{-2 pi i n k
-    / L}`` — the contract of the JAX package's ``stft_pallas`` (hop
-    divides L, L > hop, n >= L; its 128-lane hop term is the route's,
-    not the kernel's).  Leading batch dims ride along.  A CPU tensor
+    / L}`` — the contract of the JAX package's ``stft_pallas`` (L >
+    hop, n >= L) less its TPU terms: the hop need not divide L nor be
+    a multiple of 128.  Leading batch dims ride along.  A CPU tensor
     takes the plain version; a CUDA tensor launches ``csrc/stft.cu``,
     or raises for a geometry :func:`fits_smem_stft` refuses."""
     frames = _check_stft(x, window, frame_length, hop)

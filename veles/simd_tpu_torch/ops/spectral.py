@@ -22,10 +22,13 @@ Routes, JAX name → port name where they differ:
 * ``morlet_cwt``: ``matmul_dft`` (positive-frequency DFT basis pair),
   ``ct_matmul`` (Cooley-Tukey factorized matmul DFT) and ``xla_fft``.
 
-The route gates keep every term of the JAX tables as static priors,
-none yet measured on the H100: the fused kernel serves hops that divide
-the frame and are multiples of 128, at least two hops a frame and at
-least 64 frames; the basis matmuls serve frames up to 4096 samples and
+The route gates keep the terms of the JAX tables as static priors but
+the fused kernel's two hop terms: the fused kernel serves any hop with
+at least two hops a frame, at least 64 frames and a block that fits
+its shared memory, where the JAX package's needs hops that divide the
+frame and are multiples of 128.  ``tools/sweep_torch_stft_route.py``
+times the three routes on the card over these shapes (``PERF.md``
+section 6).  The basis matmuls serve frames up to 4096 samples and
 transforms up to 1024 samples.  The fused route needs its operand on a
 CUDA card (``cuda_kernels.on_card``, the JAX package's
 ``pallas_available``).
@@ -593,7 +596,6 @@ _STFT_FAMILY = routing.family("stft", (
         "cuda_fused",
         predicate=lambda frame_length, hop, frames=0, cuda=False, **_: (
             _ck.on_card(cuda)
-            and frame_length % hop == 0 and hop % 128 == 0
             and frame_length // hop >= 2
             and frames >= _ck.STFT_MIN_FRAMES
             and _ck.fits_smem_stft(frame_length, hop)),
@@ -715,8 +717,8 @@ def _use_cuda_stft(frame_length: int, hop: int, frames: int,
     the ``stft`` table — rejection memory first, then an armed fault
     plan (which opens the gate on the CPU), then the
     ``VELES_SIMD_DISABLE_STFT_CUDA`` opt-out and the kernel gates
-    (operand on a card, dividing 128-multiple hop, at least two hops a
-    frame, enough frames, shared-memory admission)."""
+    (operand on a card, at least two hops a frame, enough frames,
+    shared-memory admission)."""
     return _STFT_FAMILY.route_allowed(
         "cuda_fused", frame_length=int(frame_length), hop=int(hop),
         frames=int(frames), cuda=_cuda_flag(cuda))

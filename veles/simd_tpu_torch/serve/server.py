@@ -108,8 +108,8 @@ Supported ops (``SUPPORTED_OPS``): ``resample_poly`` (params
 ``stft`` (``frame_length``/``hop``).  Each answers with the same
 numerics as its single-call twin, as NumPy; DEGRADED-mode answers are
 the NumPy oracle's (flagged ``degraded`` on the ticket).  An ``stft``
-batch whose hop is a multiple of 128 dividing the frame, on rows of at
-least 64 frames, is one launch of the fused STFT kernel.
+batch with at least two hops a frame, on rows of at least 64 frames, is
+one launch of the fused STFT kernel.
 
 **Pipelines are first-class tenants too**: a compiled pipeline
 (:mod:`veles.simd_tpu_torch.pipeline`) registered via
