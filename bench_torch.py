@@ -606,7 +606,8 @@ def bench_stft(rng):
     x = rng.randn(batch, n).astype(np.float32)
     xd = _dev(x)
     frames = sp.frame_count(n, fl, hop)
-    sel = sp._select_stft_route(fl, hop, frames)
+    sel = sp._STFT_FAMILY.select(frame_length=fl, hop=hop, frames=frames,
+                                 cuda=xd.is_cuda)
 
     want = sp.stft_na(x[:2], fl, hop)
     for route in (sel, "xla_fft"):
@@ -648,7 +649,8 @@ def bench_stft(rng):
     x1m_np = rng.randn(n1m).astype(np.float32)
     x1m = _dev(x1m_np)
     frames1m = sp.frame_count(n1m, fl, hop1m)
-    sel1m = sp._select_stft_route(fl, hop1m, frames1m)
+    sel1m = sp._STFT_FAMILY.select(frame_length=fl, hop=hop1m,
+                                   frames=frames1m, cuda=x1m.is_cuda)
     want1m = sp.stft_na(x1m_np, fl, hop1m)
     got1m = to_host(sp.stft(x1m, fl, hop1m, simd=True, route=sel1m))
     rel1m = float(np.max(np.abs(got1m - want1m)) / np.max(np.abs(want1m)))
@@ -763,8 +765,9 @@ def bench_batched_stft(rng):
     return {"metric": "batched stft 256x4096 512/128",
             "unit": "Msamples/s", "value": samples / t_b / 1e6,
             "baseline": samples / t_s / 1e6,
-            "stft_route": sp._select_stft_route(
-                fl, hop, sp.frame_count(n, fl, hop)),
+            "stft_route": sp._STFT_FAMILY.select(
+                frame_length=fl, hop=hop,
+                frames=sp.frame_count(n, fl, hop), cuda=xd.is_cuda),
             "launches": _launches(batched_call)}
 
 

@@ -1274,8 +1274,9 @@ def faults_phase(torch, rng, bm, ck, obs, smi):
               f"{res[2]:.3e}")
         # K4 where the gate admits a packed row (128/64's rows of 4096
         # samples hold 63 frames, under its 64)
-        k4 = sp._select_stft_route(L, hop, sp.frame_count(width, L, hop),
-                                   cuda=True) == "cuda_fused"
+        k4 = sp._STFT_FAMILY.select(
+            frame_length=L, hop=hop, frames=sp.frame_count(width, L, hop),
+            cuda=True) == "cuda_fused"
         check((res[0] >= 1) == k4,
               f"packed_stft {L}/{hop} stft launches {res[0]}")
         seg_lines.append(
@@ -1371,7 +1372,8 @@ def faults_phase(torch, rng, bm, ck, obs, smi):
         "demote_and_remember": lambda: faults.demote_and_remember(
             "guard.cost", noop, noop, cache=rej, key=1, route="a",
             fallback_route="b", counter="c"),
-        "route_allowed": lambda: cv._use_cuda_os(K_HEAD, xh),
+        "os route select": lambda: cv._OS_FAMILY.select(
+            h_length=K_HEAD, cuda=xh.is_cuda),
     }
     print("guard parts: host-clock us per call (no plan): " + " | ".join(
         f"{k} {per_call_us(fn):.2f}" for k, fn in parts.items()))

@@ -112,7 +112,8 @@ def test_direct_route_priors_match(monkeypatch, rows, n, k):
                                            cuda=True)
     assert got == tcv.ROUTE_NAMES.get(want, want)
     x = torch.zeros(rows, n)
-    assert not tcv._use_cuda_direct(x, k)       # CPU tensor: conv1d
+    assert tcv._DIRECT_FAMILY.select(rows=rows, n=n, k=k, cuda=x.is_cuda) \
+        != "direct_cuda"                        # CPU tensor: conv1d
 
 
 def _inputs(algo, batched, seed):
@@ -175,8 +176,8 @@ def test_kernel_routes_agree(monkeypatch):
     # versions (CPU tensors), through the full handle dispatch
     monkeypatch.setattr(jcv, "_use_pallas_os", lambda k: True)
     monkeypatch.setattr(jcv, "_use_pallas_direct", lambda *a: True)
-    monkeypatch.setattr(tcv, "_use_cuda_os", lambda *a: True)
-    monkeypatch.setattr(tcv, "_use_cuda_direct", lambda *a: True)
+    monkeypatch.setattr(tck, "on_card", lambda cuda: True)
+    monkeypatch.setattr(tck, "should_route", lambda *a: True)
     r = np.random.RandomState(29)
     x = r.randn(2, 6000).astype(np.float32)
     h = r.randn(513).astype(np.float32)
@@ -201,7 +202,7 @@ def test_direct_kernel_route_agrees(monkeypatch, k):
     # and the taps' reversal to the filter bank, the JAX package pads
     # and flips before its Pallas kernel (interpret mode)
     monkeypatch.setattr(jcv, "_use_pallas_direct", lambda *a: True)
-    monkeypatch.setattr(tcv, "_use_cuda_direct", lambda *a: True)
+    monkeypatch.setattr(tck, "should_route", lambda *a: True)
     r = np.random.RandomState(k + 50)
     x = r.randn(2, 4, 400).astype(np.float32)
     h = r.randn(k).astype(np.float32)

@@ -7,7 +7,8 @@ conftest pins) and ``veles.simd_tpu_torch.ops.convolve2d`` with
 side's direct route is its Pallas 2D kernel in interpret mode (gate
 monkeypatched open, as ``tests/test_pallas.py`` does) or its fft route;
 the port's direct route is the 2D kernel's plain version on a CPU
-tensor (gate monkeypatched open) or its fft route.  Both sides are
+tensor (the gate's device term, ``cuda_kernels.on_card``,
+monkeypatched open) or its fft route.  Both sides are
 float32 with different summation orders, so outputs agree to 1e-5 of
 max|y|; the NumPy oracles agree exactly.
 """
@@ -58,7 +59,7 @@ def _inputs(seed, x_shape=(2, 3, 19, 23), k_shape=(4, 5)):
 @pytest.mark.parametrize("op", ["convolve2d", "cross_correlate2d"])
 def test_modes_and_boundaries_agree(monkeypatch, op, mode, boundary):
     monkeypatch.setattr(j2, "_use_pallas_direct2d", lambda *a: True)
-    monkeypatch.setattr(t2, "_use_cuda_direct2d", lambda *a: True)
+    monkeypatch.setattr(tck, "on_card", lambda cuda: True)
     x, h = _inputs(len(op) + len(mode) + len(boundary))
     fill = 0.75 if boundary == "fill" else 0.0
     kw = dict(mode=mode, boundary=boundary, fillvalue=fill)
@@ -77,7 +78,7 @@ def test_modes_and_boundaries_agree(monkeypatch, op, mode, boundary):
                                      (16, 16), (2, 7)])
 def test_kernel_route_agrees_with_pallas(monkeypatch, k_shape):
     monkeypatch.setattr(j2, "_use_pallas_direct2d", lambda *a: True)
-    monkeypatch.setattr(t2, "_use_cuda_direct2d", lambda *a: True)
+    monkeypatch.setattr(tck, "on_card", lambda cuda: True)
     x, h = _inputs(sum(k_shape), (3, 16, 20), k_shape)
     for op in ("convolve2d", "cross_correlate2d"):
         got = getattr(t2, op)(x, h, "direct")
@@ -135,8 +136,7 @@ def test_select_algorithm2d(monkeypatch, k0, k1):
     # with the device terms open the area rule is the same
     monkeypatch.setattr(jpk, "pallas_available", lambda: True)
     want = j2.select_algorithm2d(k0, k1, (2, 32, 32))
-    got = ("direct" if t2._CONV2D_FAMILY.gate("direct", k0=k0, k1=k1,
-                                               cuda=True) else "fft")
+    got = t2._CONV2D_FAMILY.static_select(k0=k0, k1=k1, cuda=True)
     assert got == want
 
 
@@ -147,9 +147,10 @@ def test_every_admitted_kernel_fits_shared_memory():
 
 
 def test_disable_env_closes_the_kernel_route(monkeypatch):
-    assert t2._CONV2D_FAMILY.gate("direct", k0=7, k1=7, cuda=True)
+    geom = dict(k0=7, k1=7, cuda=True)
+    assert t2._CONV2D_FAMILY.static_select(**geom) == "direct"
     monkeypatch.setenv("VELES_SIMD_DISABLE_CUDA2D", "1")
-    assert not t2._CONV2D_FAMILY.gate("direct", k0=7, k1=7, cuda=True)
+    assert t2._CONV2D_FAMILY.static_select(**geom) != "direct"
 
 
 @pytest.mark.parametrize("call,match", [

@@ -96,7 +96,8 @@ def test_kernels_refuse_what_they_do_not_admit():
         ck.overlap_save_cuda(_t(np.ones(40000)), _t(np.ones(16385)))
     with pytest.raises(ValueError, match="refuses"):
         ck.stft_cuda(_t(np.ones(40000)), _t(np.ones(32768)), 32768, 128)
-    assert sp._select_stft_route(32768, 128, 500, cuda=True) == "xla_fft"
+    assert sp._STFT_FAMILY.select(frame_length=32768, hop=128, frames=500,
+                                  cuda=True) == "xla_fft"
 
 
 def test_overlap_save_kernel_many_rows():
@@ -491,7 +492,8 @@ def test_fused_cascade_nonfinite_spread_on_the_card(monkeypatch, type,
     x[3, p] = np.nan
     P = wv.ExtensionType.PERIODIC
     fused = wv.wavelet_transform(type, order, P, x, levels)
-    monkeypatch.setattr(wv, "_use_fused_cascade", lambda *a, **k: False)
+    monkeypatch.setattr(wv._CASCADE_FAMILY, "static_select",
+                        lambda **geom: "level_loop")
     ck.reset_launches()
     loop = wv.wavelet_transform(type, order, P, x, levels)
     assert ck.LAUNCHES["filter_bank"] == levels

@@ -384,13 +384,16 @@ def test_convolve_os_route_demotes_remembers_and_answers():
     with jfaults.fault_plan("convolve.os_pallas:vmem_oom:5"):
         want = np.asarray(jcv.convolve_overlap_save(jhandle, x, h))
     with faults.fault_plan("convolve.os_cuda:vmem_oom:5"):
-        assert cv._use_cuda_os(443, torch.zeros(1))    # armed: gate open
+        # armed: gate open
+        assert cv._OS_FAMILY.select(h_length=443, cuda=False) \
+            == "cuda_fused"
         got = cv.convolve_overlap_save(handle, x, h)
         assert isinstance(got, torch.Tensor)
         assert _rel(got, want) < REL_TOL
         assert 443 in cv._CUDA_OS_REJECTED
         # remembered beats armed: the next call skips the kernel
-        assert not cv._use_cuda_os(443, torch.zeros(1))
+        assert cv._OS_FAMILY.select(h_length=443, cuda=False) \
+            != "cuda_fused"
         assert _rel(cv.convolve_overlap_save(handle, x, h), want) \
             < REL_TOL
         assert faults.plan_snapshot()["convolve.os_cuda"]["remaining"] \
@@ -429,11 +432,11 @@ def test_convolve2d_route_demotes_remembers_and_answers(algorithm,
     with jfaults.fault_plan("convolve2d.direct_pallas:vmem_oom:5"):
         want = np.asarray(jcv2.convolve2d(x, h, algorithm))
     with faults.fault_plan("convolve2d.direct_cuda:vmem_oom:5"):
-        assert cv2._use_cuda_direct2d(x.shape, 3, 5, False)
+        assert cv2.select_algorithm2d(3, 5, x.shape) == "direct"
         got = cv2.convolve2d(x, h, algorithm)
         assert _rel(got, want) < REL_TOL
         assert key in cv2._CUDA2D_REJECTED
-        assert not cv2._use_cuda_direct2d(x.shape, 3, 5, False)
+        assert cv2.select_algorithm2d(3, 5, x.shape) != "direct"
         assert _rel(cv2.convolve2d(x, h, algorithm), want) < REL_TOL
     ev, n = _demotes("cuda2d_demotion")
     assert n == 1 and ev[0]["fallback"] == fallback
@@ -447,11 +450,13 @@ def test_stft_route_demotes_remembers_and_answers():
         want = np.asarray(jsp.stft(x, 256, 128, simd=True))
     with faults.fault_plan("spectral.stft_cuda:vmem_oom:5"):
         frames = sp.frame_count(16384, 256, 128)
-        assert sp._select_stft_route(256, 128, frames) == "cuda_fused"
+        assert sp._STFT_FAMILY.select(
+            frame_length=256, hop=128, frames=frames) == "cuda_fused"
         got = sp.stft(x, 256, 128)
         assert _rel(got, want) < STFT_TOL
         assert (256, 128) in sp._CUDA_STFT_REJECTED
-        assert not sp._use_cuda_stft(256, 128, 1000)
+        assert sp._STFT_FAMILY.select(
+            frame_length=256, hop=128, frames=1000) != "cuda_fused"
         assert _rel(sp.stft(x, 256, 128), want) < STFT_TOL
     ev, n = _demotes("cuda_stft_demotion")
     assert n == 1 and ev[0]["fallback"] == "rdft_matmul"

@@ -173,7 +173,8 @@ def test_routing_matches(monkeypatch, opt_out):
         monkeypatch.setenv(env, "yes")
     fams = [_family(jrouting, env), _family(trouting, env)]
     for n in (0, 1, 2, 7, 8, 100):
-        got = [(f.eligible(n=n), f.static_select(n=n), f.gate("fast", n=n),
+        got = [(f.eligible(n=n), f.static_select(n=n),
+                f.route("fast").gate({"n": n}),
                 f.select(n=n), f.select(eligible=["mid", "slow"], n=n),
                 f.select(eligible=[], n=n)) for f in fams]
         assert got[0] == got[1], n
@@ -181,7 +182,7 @@ def test_routing_matches(monkeypatch, opt_out):
     assert trouting.get_family("test.port_parity") is fams[1]
     for f, mod in zip(fams, (jrouting, trouting)):
         with pytest.raises(ValueError, match="route must be one of"):
-            f.gate("nope", n=1)
+            f.route("nope")
         with pytest.raises(ValueError, match="duplicate"):
             mod.family("dup", (mod.Route("a"), mod.Route("a")))
         with pytest.raises(ValueError, match="no routes"):

@@ -308,7 +308,7 @@ from {P}.runtime import routing
 _FAM = routing.family("demo", ())
 _DEMO_ROUTES = {{}}
 def _use_fast(n):
-    return _FAM.gate("fast", n=n)
+    return _FAM.static_select(n=n) == "fast"
 def select_demo(n):
     return _FAM.static_select(n=n)
 ''', None),
@@ -316,8 +316,40 @@ def select_demo(n):
 import {P}.runtime.routing as rt
 _FAM = rt.family("demo", ())
 def _use_fast(n):
-    return _FAM.gate("fast", n=n)
+    return _FAM.select(n=n) == "fast"
 ''', None),
+    "routing_select_with_mode_field": ("routing_selector_errors", OPS, f'''
+from {P} import obs
+from {P}.runtime import routing
+_FAM = routing.family("demo", ())
+def select_demo(n, route=None):
+    chosen = _FAM.select(route=route, n=n, tune_geom=lambda: {{"n": n}})
+    obs.record_decision("demo", chosen, mode=routing.autotune_mode())
+    return chosen
+''', None),
+    "routing_autotune_shortcut": ("routing_selector_errors", OPS, f'''
+from {P}.runtime import routing
+_FAM = routing.family("demo", ())
+def _dispatch(n):
+    if routing.autotune_mode() == "off":
+        return _FAM.static_select(n=n)
+    return _FAM.select(n=n)
+''', "branches on routing.autotune_mode()"),
+    "routing_autotune_shortcut_alias": ("routing_selector_errors", OPS,
+                                        f'''
+import {P}.runtime.routing as rt
+_FAM = rt.family("demo", ())
+def _dispatch(n):
+    return (_FAM.static_select(n=n) if rt.autotune_mode() != "on"
+            else _FAM.select(n=n))
+''', "branches on routing.autotune_mode()"),
+    "routing_hand_gate": ("routing_selector_errors", OPS, f'''
+from {P}.runtime import routing
+_FAM = routing.family("demo", ())
+def _dispatch(n):
+    fast = _FAM.route_allowed("fast", n=n)
+    return _FAM.select(eligible=["fast", "slow"] if fast else ["slow"], n=n)
+''', "calls Family.route_allowed"),
     "routing_family_fn_import": ("routing_selector_errors", OPS, f'''
 from {P}.runtime.routing import family
 _FAM = family("demo", ())
@@ -888,7 +920,7 @@ FINDINGS = [
     (f"{SP}:1268", "spectral_dispatch_errors", "_CWT_ROUTES values", SP,
      '"matmul_dft_bf16_comp": _run_cwt_matmul_comp,'),
     (f"{CV2}:114", "routing_selector_errors", "select_algorithm2d", CV2,
-     'return ("direct" if _CONV2D_FAMILY.route_allowed('),
+     'return _CONV2D_FAMILY.static_select('),
     (f"{CK}:92", "telemetry_errors", "telemetry internals", CK,
      'obs.compile_event("/veles/cuda/library_cache_misses")'),
     (f"{CK}:565", "telemetry_errors", "perf_counter", CK,

@@ -27,6 +27,7 @@ from veles.simd_tpu.ops import batched as jbt
 from veles.simd_tpu.ops import spectral as jsp
 from veles.simd_tpu_torch import obs as tobs
 from veles.simd_tpu_torch.ops import batched as tbt
+from veles.simd_tpu_torch.ops import cuda_kernels as tck
 from veles.simd_tpu_torch.ops import spectral as tsp
 from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils import config
@@ -221,13 +222,12 @@ _MODULES = {"ar": "arithmetic", "mf": "mathfun", "mx": "matrix",
 # a kernel route's gate, opened in both packages so that the CPU runs
 # it (the JAX package's Pallas kernel in interpret mode, the port's
 # kernel wrapper as its plain version): name -> (module, JAX gate,
-# port gate)
-GATES = {"fused": ("wv", "_use_fused_cascade", "_use_fused_cascade"),
-         "wavelet": ("wv", "_use_pallas", "_use_cuda"),
-         "direct": ("cv", "_use_pallas_direct", "_use_cuda_direct"),
-         "os": ("cv", "_use_pallas_os", "_use_cuda_os"),
-         "direct2d": ("c2", "_use_pallas_direct2d",
-                      "_use_cuda_direct2d")}
+# the port's device term in ops/cuda_kernels.py that opens its gate)
+GATES = {"fused": ("wv", "_use_fused_cascade", "should_route"),
+         "wavelet": ("wv", "_use_pallas", "should_route"),
+         "direct": ("cv", "_use_pallas_direct", "should_route"),
+         "os": ("cv", "_use_pallas_os", "on_card"),
+         "direct2d": ("c2", "_use_pallas_direct2d", "on_card")}
 
 
 def _mods(pkg):
@@ -526,10 +526,11 @@ def _ops_run(pkg, call, gate, monkeypatch):
     o = jobs if pkg == "jax" else tobs
     with monkeypatch.context() as mp:
         if gate is not None:
-            mod, jax_gate, port_gate = GATES[gate]
-            mp.setattr(getattr(m, mod),
-                       jax_gate if pkg == "jax" else port_gate,
-                       lambda *a, **k: True)
+            mod, jax_gate, port_seam = GATES[gate]
+            if pkg == "jax":
+                mp.setattr(getattr(m, mod), jax_gate, lambda *a, **k: True)
+            else:
+                mp.setattr(tck, port_seam, lambda *a, **k: True)
         o.reset()
         o.enable()
         try:

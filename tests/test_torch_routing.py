@@ -1245,7 +1245,7 @@ def test_convolve_os_parity(table):
 ])
 def test_convolve_direct_parity(monkeypatch, table):
     monkeypatch.setattr(jcv, "_use_pallas_direct", lambda *a: True)
-    monkeypatch.setattr(cv, "_use_cuda_direct", lambda *a: True)
+    monkeypatch.setattr(ck, "should_route", lambda *a: True)
     x = RNG.randn(8, 200).astype(np.float32)
     h = RNG.randn(9).astype(np.float32)
     (jy, jent), (py, pent) = _both(
@@ -1279,7 +1279,7 @@ def test_wavelet_parity(monkeypatch, table):
                                    {"direct": 1.0, "fft": 9.0}])
 def test_convolve2d_parity(monkeypatch, table):
     monkeypatch.setattr(jcv2, "_use_pallas_direct2d", lambda *a: True)
-    monkeypatch.setattr(cv2, "_use_cuda_direct2d", lambda *a: True)
+    monkeypatch.setattr(ck, "on_card", lambda cuda: True)
     x = RNG.randn(3, 20, 30).astype(np.float32)
     h = RNG.randn(3, 3).astype(np.float32)
     # the timer runs no candidate; the winner is dispatched (the JAX
@@ -1419,8 +1419,9 @@ class TestAutotunedDispatch:
         ref = sp.stft(x, 256, 128, route="rdft_matmul")
         got = sp.stft(x, 256, 128)
         ev = [e for e in obs.events() if e["op"] == "stft_route"][-1]
-        assert ev["decision"] == sp._select_stft_route(
-            256, 128, sp.frame_count(4096, 256, 128))
+        assert ev["decision"] == sp._STFT_FAMILY.static_select(
+            frame_length=256, hop=128,
+            frames=sp.frame_count(4096, 256, 128))
         assert not [e for e in obs.events() if e["op"] == "autotune"]
         assert torch.equal(got, ref)
 
@@ -1445,13 +1446,17 @@ class TestAutotunedDispatch:
     def test_batched_stft_honors_pack_winner(self, fresh_cache,
                                              monkeypatch):
         frames = sp.frame_count(4096, 512, 128)
-        assert sp._select_stft_route(512, 128, frames) == "rdft_matmul"
+        assert sp._STFT_FAMILY.static_select(
+            frame_length=512, hop=128, frames=frames) == "rdft_matmul"
         for winner in ("xla_fft", "rdft_matmul_bf16_comp"):
             routing.tune_cache().store(
                 "stft", sp._stft_tune_class(512, 128, frames, rows=4),
                 winner)
             monkeypatch.setenv(routing.AUTOTUNE_ENV, "readonly")
-            assert sp._stft_route_for(512, 128, frames, 4) == winner
+            assert sp._STFT_FAMILY.select(
+                frame_length=512, hop=128, frames=frames,
+                tune_geom=sp._stft_tune_class(512, 128, frames, 4)) \
+                == winner
             x = RNG.randn(4, 4096).astype(np.float32)
             before = routing.tune_cache().info()["hits"]
             got = bt.batched_stft(x, 512, 128)
@@ -1459,11 +1464,14 @@ class TestAutotunedDispatch:
             assert _rel(got, sp.stft_na(x, 512, 128)) <= \
                 prx.ERROR_BUDGETS["bf16_comp"]
         monkeypatch.setenv(routing.AUTOTUNE_ENV, "off")
-        assert sp._stft_route_for(512, 128, frames, 4) == "rdft_matmul"
+        assert sp._STFT_FAMILY.select(
+            frame_length=512, hop=128, frames=frames,
+            tune_geom=sp._stft_tune_class(512, 128, frames, 4)) \
+            == "rdft_matmul"
 
     def test_convolve2d_measured_fft_is_recorded(
             self, fresh_cache, autotune_on, monkeypatch, telemetry):
-        monkeypatch.setattr(cv2, "_use_cuda_direct2d", lambda *a: True)
+        monkeypatch.setattr(ck, "on_card", lambda cuda: True)
         x = RNG.randn(2, 16, 16).astype(np.float32)
         h = RNG.randn(3, 3).astype(np.float32)
         with routing.probe_timer(_fake_timer({"direct": 9.0,
@@ -1497,7 +1505,7 @@ class TestAutotunedDispatch:
                                                    monkeypatch):
         from veles.simd_tpu_torch.ops import correlate as cr
 
-        monkeypatch.setattr(cv, "_use_cuda_direct", lambda *a: True)
+        monkeypatch.setattr(ck, "should_route", lambda *a: True)
         x = RNG.randn(8, 100).astype(np.float32)
         h = RNG.randn(5).astype(np.float32)
         with routing.probe_timer(_fake_timer({"direct_cuda": 1.0,
@@ -1558,10 +1566,10 @@ def test_comp_route_is_last_after_the_terminal_fallback(port, ref, comp,
     route = port.route(comp)
     assert route.disable_env == prx.BF16_COMP_ENV
     geom = {"h_length": 300, "frame_length": 256, "hop": 128, "n": 256}
-    assert port.gate(comp, **geom)
+    assert comp in port.eligible(**geom)
     assert port.static_select(**geom) != comp
     monkeypatch.setenv(prx.BF16_COMP_ENV, "1")
-    assert not port.gate(comp, **geom)
+    assert comp not in port.eligible(**geom)
 
 
 @pytest.mark.parametrize("jax_env,family,route,geom", [
@@ -1583,12 +1591,12 @@ def test_jax_opt_out_switches_close_the_port_routes(monkeypatch, jax_env,
     r = fam.route(route)
     port_env = r.disable_env
     assert routing._JAX_DISABLE_ENVS[port_env] == jax_env
-    assert fam.gate(route, **geom)
+    assert fam.static_select(**geom) == route
     monkeypatch.setenv(jax_env, "1")
-    assert not fam.gate(route, **geom)
+    assert fam.static_select(**geom) != route
     monkeypatch.delenv(jax_env)
     monkeypatch.setenv(port_env, "1")
-    assert not fam.gate(route, **geom)
+    assert fam.static_select(**geom) != route
 
 
 @pytest.mark.parametrize("jax_name,port_name,family", [
@@ -1605,3 +1613,126 @@ def test_families_accept_the_jax_route_names(jax_name, port_name, family):
                         | wv.ROUTE_NAMES)
     with pytest.raises(ValueError, match="route must be one of"):
         fam.route("nonsense")
+
+
+# ---------------------------------------------------------------------------
+# every routed entry is steered by its tune-cache winner
+# ---------------------------------------------------------------------------
+
+def _decisions(op):
+    return [e["decision"] for e in obs.events() if e["op"] == op]
+
+
+def _batched_stft_routes():
+    return [k[-1] for k in bt.handle_cache_info()["keys"]
+            if k[0] == "stft"]
+
+
+def _packed_stft(x):
+    from veles.simd_tpu_torch.ops import segments as seg
+
+    # four segments of a hop multiple pack one a row: the packed array
+    # is [4, 4096], the geometry of the stft cases
+    return seg.packed_stft(list(x), 512, 128, simd=True)
+
+
+_STFT_CLASS = {"frame_length": 512, "hop": 128, "rows": 4,
+               "frames_class": 0}
+
+# entry -> (family, the entry's tune class, the static prior as the
+# call reports it, planted winner, device term opened on the CPU or
+# None, the call, what the call dispatched: its decision event or the
+# runner that ran)
+_STEERED = {
+    "convolve-direct": (
+        "convolve.direct", {"rows": 8, "n": 256, "k": 9}, "direct_cuda",
+        "direct_mxu", "should_route",
+        lambda: cv.convolve_simd(RNG.randn(8, 200).astype(np.float32),
+                                 RNG.randn(9).astype(np.float32)),
+        lambda: _decisions("convolve_direct_route")[-1]),
+    "convolve-os": (
+        "convolve.os", {"rows": 2, "x_length": 8192, "h_length": 300,
+                        "step": 256, "precision": "highest"},
+        "cuda_fused", "xla_matmul", "on_card",
+        lambda: cv.convolve(cv.convolve_overlap_save_initialize(5000, 300),
+                            RNG.randn(2, 5000).astype(np.float32),
+                            RNG.randn(300).astype(np.float32)),
+        lambda: _decisions("convolve_os_route")[-1]),
+    "wavelet_apply": (
+        "wavelet", {"rows": 8, "n": 256, "order": 8, "dilation": 1,
+                    "stride": 2}, "cuda", "xla_conv", "should_route",
+        lambda: wv.wavelet_apply(wv.WaveletType.DAUBECHIES, 8,
+                                 wv.ExtensionType.PERIODIC,
+                                 RNG.randn(8, 256).astype(np.float32)),
+        lambda: _decisions("wavelet_apply")[-1]),
+    "stft": (
+        "stft", _STFT_CLASS, "rdft_matmul", "xla_fft", None,
+        lambda: sp.stft(RNG.randn(4, 4096).astype(np.float32), 512, 128),
+        lambda: _decisions("stft_route")[-1]),
+    "batched_stft": (
+        "stft", _STFT_CLASS, "rdft_matmul", "xla_fft", None,
+        lambda: bt.batched_stft(RNG.randn(4, 4096).astype(np.float32),
+                                512, 128),
+        lambda: _batched_stft_routes()[-1]),
+    "packed_stft": (
+        "stft", _STFT_CLASS, "rdft_matmul", "xla_fft", None,
+        lambda: _packed_stft(RNG.randn(4, 4096).astype(np.float32)),
+        lambda: _batched_stft_routes()[-1]),
+    "istft": (
+        "istft", {"frame_length": 512, "hop": 128, "rows": 4},
+        "rdft_matmul", "xla_fft", None,
+        lambda: sp.istft(sp.stft_na(RNG.randn(4, 4096), 512, 128)
+                         .astype(np.complex64), 4096, 512, 128),
+        lambda: _decisions("istft_route")[-1]),
+    "hilbert": (
+        "hilbert", {"n": 512, "rows": 4}, "matmul_dft", "xla_fft", None,
+        lambda: sp.hilbert(RNG.randn(4, 300).astype(np.float32)),
+        lambda: _decisions("hilbert_route")[-1]),
+    "morlet_cwt": (
+        "morlet_cwt", {"n": 256, "scales": 4}, "matmul_dft", "xla_fft",
+        None,
+        lambda: sp.morlet_cwt(RNG.randn(2, 256).astype(np.float32),
+                              [2.0, 4.0, 8.0]),
+        lambda: _decisions("morlet_cwt_route")[-1]),
+    "gemm": (
+        "matrix.gemm", {"h1": 64, "w1": 32, "w2": 64, "rows": 1, "t": 0},
+        "fp32", "bf16_comp", None,
+        lambda: mx.matrix_multiply(RNG.randn(40, 24).astype(np.float32),
+                                   RNG.randn(24, 33).astype(np.float32)),
+        lambda: _decisions("matrix_precision_route")[-1]),
+    "convolve2d": (
+        "convolve2d", {"rows": 4, "n0": 32, "n1": 32, "k0": 3, "k1": 3},
+        "direct_cuda", "fft", "on_card",
+        lambda: cv2.convolve2d(RNG.randn(3, 20, 30).astype(np.float32),
+                               RNG.randn(3, 3).astype(np.float32)),
+        lambda: _decisions("convolve2d")[-1]),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_STEERED))
+def test_every_entry_dispatches_its_pack_winner(entry, fresh_cache,
+                                                monkeypatch, telemetry):
+    family, tune_class, static, winner, seam, call, dispatched = \
+        _STEERED[entry]
+    if seam is not None:
+        monkeypatch.setattr(ck, seam, lambda *a: True)
+    bt.clear_handle_cache()
+    # off: the static prior, whatever the pack holds
+    routing.tune_cache().store(family, tune_class, winner)
+    call()
+    assert dispatched() == static
+    # readonly: the planted winner, from the entry's own tune key, and
+    # nothing probed
+    monkeypatch.setenv(routing.AUTOTUNE_ENV, "readonly")
+    bt.clear_handle_cache()
+    before = obs.counter_value("autotune_cache_hit", family=family)
+
+    def no_probe(thunk, name):
+        raise AssertionError(f"{entry} probed {name}")
+
+    with routing.probe_timer(no_probe):
+        call()
+    assert dispatched() == winner
+    assert obs.counter_value("autotune_cache_hit", family=family) \
+        > before
+    assert not _decisions("autotune")

@@ -19,6 +19,7 @@ from veles.simd_tpu.ops import segments as jseg
 from veles.simd_tpu.runtime import faults as jfaults
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.ops import convolve as cv
+from veles.simd_tpu_torch.ops import cuda_kernels as ck
 from veles.simd_tpu_torch.ops import segments as seg
 from veles.simd_tpu_torch.ops import spectral as sp
 from veles.simd_tpu_torch.runtime import breaker, faults
@@ -130,7 +131,7 @@ def test_packed_convolve_agrees(lengths):
 def test_packed_rows_on_the_kernel_route_agree(monkeypatch):
     # the direct gate forced open: the packed rows take the filter
     # bank's plain version, as the card takes K2 from 8 rows
-    monkeypatch.setattr(cv, "_use_cuda_direct", lambda *a: True)
+    monkeypatch.setattr(ck, "should_route", lambda *a: True)
     segs = _segs((300,) * 9 + (41,))
     h = np.random.RandomState(8).randn(33).astype(np.float32)
     outs, _ = seg.packed_convolve(segs, h, simd=True)

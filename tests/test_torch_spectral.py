@@ -62,6 +62,22 @@ def open_gate(monkeypatch):
     monkeypatch.setattr(tck, "on_card", lambda cuda: True)
 
 
+def _route(frame, hop, frames, cuda=False, rows=None):
+    """The port's stft route for a call's geometry: the ``stft``
+    table's pick, as ``stft`` asks for it (``rows``: the tune class's
+    batch, which the pick reads under the autotuner alone)."""
+    return ts._STFT_FAMILY.select(
+        frame_length=frame, hop=hop, frames=frames, cuda=cuda,
+        tune_geom=(None if rows is None
+                   else ts._stft_tune_class(frame, hop, frames, rows)))
+
+
+def _kernel_admitted(frame, hop, frames, cuda=False):
+    """Does the ``stft`` table admit the fused kernel for the call?"""
+    return "cuda_fused" in ts._STFT_FAMILY.eligible(
+        frame_length=frame, hop=hop, frames=frames, cuda=cuda)
+
+
 def _np(y):
     return y.numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
 
@@ -133,7 +149,7 @@ def test_stft_route_priors_match(monkeypatch):
     grid = list(_stft_grid())
     # gate closed: the JAX package off the TPU, the port on CPU tensors
     for frame, hop, frames in grid:
-        assert ts._select_stft_route(frame, hop, frames, cuda=False) \
+        assert _route(frame, hop, frames, cuda=False) \
             == js._select_stft_route(frame, hop, frames)
     monkeypatch.setattr(tck, "on_card", lambda cuda: True)
     monkeypatch.setattr(jpk, "pallas_available", lambda: True)
@@ -147,7 +163,7 @@ def test_stft_route_priors_match(monkeypatch):
                 and frames >= tck.STFT_MIN_FRAMES)
         widened += bool(wide)
         want = js._select_stft_route(frame, hop, frames)
-        got = ts._select_stft_route(frame, hop, frames, cuda=True)
+        got = _route(frame, hop, frames, cuda=True)
         if wide:
             assert (want, got) == ("rdft_matmul", "cuda_fused"), \
                 (frame, hop, frames)
@@ -156,7 +172,7 @@ def test_stft_route_priors_match(monkeypatch):
                 (frame, hop, frames)
         for rows in (1, 5, 64):
             want = js._stft_route_for(frame, hop, frames, rows)
-            got = ts._stft_route_for(frame, hop, frames, rows, cuda=True)
+            got = _route(frame, hop, frames, cuda=True, rows=rows)
             assert got == ("cuda_fused" if wide
                            else ts.ROUTE_NAMES.get(want, want))
         assert ts._stft_tune_class(frame, hop, frames, 5) == \
@@ -166,14 +182,15 @@ def test_stft_route_priors_match(monkeypatch):
     monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_PALLAS", "1")
     monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_CUDA", "1")
     for frame, hop, frames in grid:
-        assert ts._select_stft_route(frame, hop, frames, cuda=True) \
+        assert _route(frame, hop, frames, cuda=True) \
             == js._select_stft_route(frame, hop, frames)
     assert ts.dft_matmul_allowed() is js.dft_matmul_allowed() is True
     monkeypatch.setenv("VELES_SIMD_DISABLE_DFT_MATMUL", "1")
     assert ts.dft_matmul_allowed() is js.dft_matmul_allowed() is False
-    assert ts._select_stft_route(512, 128, 500, cuda=True) == "xla_fft"
+    assert _route(512, 128, 500, cuda=True) == "xla_fft"
     assert js._select_stft_route(512, 128, 500) == "xla_fft"
-    assert ts._use_matmul_dft(512) is js._use_matmul_dft(512) is False
+    assert ("rdft_matmul" in ts._STFT_FAMILY.eligible(
+        frame_length=512, hop=128)) is js._use_matmul_dft(512) is False
 
 
 def test_shared_memory_admits_what_vmem_refuses(open_gate, monkeypatch):
@@ -182,27 +199,29 @@ def test_shared_memory_admits_what_vmem_refuses(open_gate, monkeypatch):
     monkeypatch.setattr(jpk, "pallas_available", lambda: True)
     assert not jpk.fits_vmem_stft(4096, 128)
     assert js._select_stft_route(4096, 128, 500) == "rdft_matmul"
-    assert ts._select_stft_route(4096, 128, 500, cuda=True) == "cuda_fused"
+    assert _route(4096, 128, 500, cuda=True) == "cuda_fused"
     assert tck.fits_smem_stft(4096, 128)
 
 
 def test_route_gate_needs_a_card():
-    assert ts._use_cuda_stft(512, 128, 500, cuda=True)
-    assert not ts._use_cuda_stft(512, 128, 500, cuda=False)
+    assert _kernel_admitted(512, 128, 500, cuda=True)
+    assert not _kernel_admitted(512, 128, 500, cuda=False)
     # no operand: the configured device (the CPU here) decides
-    assert not ts._use_cuda_stft(512, 128, 500)
-    assert ts._select_stft_route(512, 128, 500) == "rdft_matmul"
+    assert not _kernel_admitted(512, 128, 500,
+                                cuda=ts._operand_on_cuda(None))
+    assert _route(512, 128, 500,
+                  cuda=ts._operand_on_cuda(None)) == "rdft_matmul"
 
 
 def test_route_gate_admits_hops_that_do_not_divide_the_frame():
     # Whisper's 400/160 on a 2^20-sample row: 6552 frames, K4's route;
     # under the 64-frame minimum, which this gate keeps, it is not
-    assert ts._use_cuda_stft(400, 160, 6552, cuda=True)
-    assert ts._select_stft_route(400, 160, 6552, cuda=True) == "cuda_fused"
-    assert not ts._use_cuda_stft(400, 160, 63, cuda=True)
-    assert ts._select_stft_route(400, 160, 63, cuda=True) == "rdft_matmul"
+    assert _kernel_admitted(400, 160, 6552, cuda=True)
+    assert _route(400, 160, 6552, cuda=True) == "cuda_fused"
+    assert not _kernel_admitted(400, 160, 63, cuda=True)
+    assert _route(400, 160, 63, cuda=True) == "rdft_matmul"
     # one hop a frame stays off the kernel's route
-    assert not ts._use_cuda_stft(400, 300, 6552, cuda=True)
+    assert not _kernel_admitted(400, 300, 6552, cuda=True)
 
 
 def test_named_windows_resolve_through_the_port():
@@ -685,10 +704,10 @@ def test_jax_stft_opt_out_switch_is_an_alias(monkeypatch):
     # F3: VELES_SIMD_DISABLE_STFT_PALLAS closes the kernel route as the
     # port's VELES_SIMD_DISABLE_STFT_CUDA does
     geom = dict(frame_length=512, hop=128, frames=64, cuda=True)
-    assert ts._STFT_FAMILY.gate("cuda_fused", **geom)
-    assert ts._STFT_FAMILY.gate("pallas_fused", **geom)
+    assert ts._STFT_FAMILY.static_select(**geom) == "cuda_fused"
+    assert ts._STFT_FAMILY.select(route="pallas_fused") == "cuda_fused"
     monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_PALLAS", "1")
-    assert not ts._STFT_FAMILY.gate("cuda_fused", **geom)
+    assert "cuda_fused" not in ts._STFT_FAMILY.eligible(**geom)
     assert ts._STFT_FAMILY.static_select(**geom) == "rdft_matmul"
     monkeypatch.setenv("VELES_SIMD_DISABLE_STFT_PALLAS", "0")
-    assert ts._STFT_FAMILY.gate("cuda_fused", **geom)
+    assert ts._STFT_FAMILY.static_select(**geom) == "cuda_fused"

@@ -131,10 +131,12 @@ def test_kernel_plain_twin_matches_the_reference():
 def test_kernel_route_matches_the_reference(open_gate):
     x = _x(8)
     want = _ref(x, 2048, 512)
-    assert ts._select_stft_route(2048, 512, 1 + (N - 2048) // 512,
-                                 cuda=True) == "cuda_fused"
-    assert ts._select_stft_route(400, 160, 1 + (N - 400) // 160,
-                                 cuda=True) == "cuda_fused"
+    assert ts._STFT_FAMILY.select(
+        frame_length=2048, hop=512, frames=1 + (N - 2048) // 512,
+        cuda=True) == "cuda_fused"
+    assert ts._STFT_FAMILY.select(
+        frame_length=400, hop=160, frames=1 + (N - 400) // 160,
+        cuda=True) == "cuda_fused"
     assert _rel(ts.stft(x, 2048, 512, route="cuda_fused"), want) <= TOL
     assert _rel(ts.stft(x, 400, 160, route="cuda_fused"),
                 _ref(x, 400, 160)) <= TOL

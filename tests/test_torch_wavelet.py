@@ -23,6 +23,7 @@ pins) and ``veles.simd_tpu_torch.ops.wavelet`` with ``device="cpu"``.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -71,6 +72,15 @@ def _rel(got, want):
 def _pair_rel(got, want):
     assert len(got) == len(want)
     return max(_rel(g, w) for g, w in zip(got, want))
+
+
+def _fused(shape, order, ext, levels, cuda=False):
+    """Does the ``wavelet.cascade`` table choose the fused pass for a
+    call of ``shape`` (the choice ``wavelet_transform`` makes)?"""
+    return tw._CASCADE_FAMILY.static_select(
+        rows=math.prod(shape[:-1]), n=int(shape[-1]), order=int(order),
+        ext=tw.ExtensionType(ext).value, levels=int(levels),
+        cuda=bool(cuda)) == "fused_cascade"
 
 
 def _x(seed, shape=(8, 128)):
@@ -144,7 +154,7 @@ def test_fused_cascade_agrees(monkeypatch, type, order, levels, n):
     P = tw.ExtensionType.PERIODIC
     x = _x(n + levels, (8, n))
     # the port's default: no environment variable opens the route
-    assert tw._use_fused_cascade(x.shape, order, P, levels)
+    assert _fused(x.shape, order, P, levels)
     got = tw.wavelet_transform(type, order, P, x, levels)
     monkeypatch.setenv(JAX_FORCE_FUSED, "1")
     assert jw._use_fused_cascade(x.shape, order, jw.ExtensionType.PERIODIC,
@@ -155,7 +165,7 @@ def test_fused_cascade_agrees(monkeypatch, type, order, levels, n):
     assert _pair_rel(got, want) < REL_TOL
     # the wavelet routes' opt-out closes it: the level loop
     monkeypatch.setenv("VELES_SIMD_DISABLE_CUDA_WAVELET", "1")
-    assert not tw._use_fused_cascade(x.shape, order, P, levels)
+    assert not _fused(x.shape, order, P, levels)
     loop = tw.wavelet_transform(type, order, P, x, levels)
     for g, w in zip(got, loop):
         scale = max(1.0, float(w.abs().max()))
@@ -170,17 +180,17 @@ def test_fused_cascade_gate_terms(monkeypatch):
              ((8, 4096), 16, P, 4), ((8, 1024), 4, P, 4)]
     for shape, order, ext, levels in cases:
         monkeypatch.delenv(JAX_FORCE_FUSED, raising=False)
-        got = tw._use_fused_cascade(shape, order, ext, levels, cuda=True)
+        got = _fused(shape, order, ext, levels, cuda=True)
         # the JAX gate under its opt-in has the port's shape terms, and
         # the port ignores that opt-in
         monkeypatch.setenv(JAX_FORCE_FUSED, "1")
         want = jw._use_fused_cascade(shape, order,
                                      jw.ExtensionType(ext.value), levels)
         assert got == want, (shape, order, ext, levels)
-        assert tw._use_fused_cascade(shape, order, ext, levels,
+        assert _fused(shape, order, ext, levels,
                                      cuda=True) == got
         # off the card the fused route never opens
-        assert not tw._use_fused_cascade(shape, order, ext, levels)
+        assert not _fused(shape, order, ext, levels)
     # the default is the fused cascade where the gate admits the shape,
     # and the level loop below MIN_ROWS, off the card and under the
     # wavelet routes' opt-out (the port's name or the JAX package's)
@@ -229,7 +239,7 @@ def test_fused_cascade_nonfinite_spread(monkeypatch, type, order, levels,
     P = tw.ExtensionType.PERIODIC
     x = _x(p + n, (8, n))
     x[3, p] = bad
-    assert tw._use_fused_cascade(x.shape, order, P, levels)
+    assert _fused(x.shape, order, P, levels)
     fused = tw.wavelet_transform(type, order, P, x, levels)
     monkeypatch.setenv("VELES_SIMD_DISABLE_CUDA_WAVELET", "1")
     loop = tw.wavelet_transform(type, order, P, x, levels)
@@ -507,7 +517,7 @@ def test_jax_wavelet_opt_out_switch_is_an_alias(monkeypatch):
     # F3: VELES_SIMD_DISABLE_PALLAS_WAVELET closes the kernel route as
     # the port's VELES_SIMD_DISABLE_CUDA_WAVELET does
     geom = dict(rows=8, n=4096, order=8, stride=2, dilation=1, cuda=True)
-    assert tw._WAVELET_FAMILY.gate("cuda", **geom)
+    assert tw._WAVELET_FAMILY.static_select(**geom) == "cuda"
+    assert tw._WAVELET_FAMILY.select(route="pallas") == "cuda"
     monkeypatch.setenv("VELES_SIMD_DISABLE_PALLAS_WAVELET", "1")
-    assert not tw._WAVELET_FAMILY.gate("pallas", **geom)
-    assert not tw._WAVELET_FAMILY.gate("cuda", **geom)
+    assert tw._WAVELET_FAMILY.static_select(**geom) == "xla_conv"

@@ -306,9 +306,9 @@ def section_convolve(rng, sizes) -> list:
             check=Check(lambda handle=handle, xd=xd, hd=hd:
                         cv.convolve(handle, xd, hd, simd=True),
                         oracle, TOL["oracle"], (x, h)))
-        res["route"] = (("cuda_fused" if cv._use_cuda_os(hlen, xd)
-                         else "xla_matmul") if handle.os_matmul
-                        else handle.algorithm.value)
+        res["route"] = (cv._OS_FAMILY.select(h_length=hlen,
+                                             cuda=xd.is_cuda)
+                        if handle.os_matmul else handle.algorithm.value)
         rows.append(res)
         if (handle.os_matmul and xlen >= 1 << 17
                 and res["samples_per_s"]
@@ -345,8 +345,8 @@ def section_convolve_high(rng, xlen, hlen) -> list:
             conv_hi_step, xd, oracle, samples=xlen, baseline_repeats=1,
             check=Check(lambda: cv.convolve(handle, xd, hd, simd=True),
                         oracle, TOL["oracle"], (x, h)))
-        res["route"] = ("cuda_fused" if cv._use_cuda_os(hlen, xd)
-                        else "xla_matmul")
+        res["route"] = cv._OS_FAMILY.select(h_length=hlen,
+                                            cuda=xd.is_cuda)
         rows = [res]
         if res["samples_per_s"] and np.isfinite(res["samples_per_s"]):
             rows.append(_roofline_line(
@@ -739,8 +739,9 @@ def section_stft(rng, ns, frame=1024, hop=256) -> list:
         check=Check(lambda: sp.stft(xsd, frame, hop, simd=True),
                     lambda: sp.stft_na(xs, frame, hop), TOL["oracle"],
                     (xs,)))
-    res["route"] = sp._select_stft_route(
-        frame, hop, (ns - frame) // hop + 1, cuda=xsd.is_cuda)
+    res["route"] = sp._STFT_FAMILY.select(
+        frame_length=frame, hop=hop, frames=(ns - frame) // hop + 1,
+        cuda=xsd.is_cuda)
     print(f"[stft {ns >> 10}k fl={frame} hop={hop}] route "
           f"{res['route']}", flush=True)
     return [res]

@@ -515,15 +515,24 @@ def artifact_serialization_errors(tree, fname) -> list:
 
 
 # --- routing-engine rule (ops/, parallel/) ----------------------------------
-# A module-level selector (``_use_*`` / ``_select_*`` / ``select_*``)
-# must reference the routing engine — a name bound from a
-# ``routing.family(...)`` call, the family factory, or
-# ``<alias>.family``/``get_family`` — and a module with a ``*_ROUTES``
-# runner table must declare its candidate table through
-# ``routing.family`` too.
+# The route choice has one home, runtime/routing.py.  A module-level
+# selector (``_use_*`` / ``_select_*`` / ``select_*``) must reference
+# the routing engine — a name bound from a ``routing.family(...)`` call,
+# the family factory, or ``<alias>.family``/``get_family``; a module
+# with a ``*_ROUTES`` runner table must declare its candidate table
+# through ``routing.family`` too; and no code asks the table by hand:
+# nothing branches on ``routing.autotune_mode()`` (``Family.select``
+# applies the mode) and nothing calls a per-route gate (``.gate`` /
+# ``.route_allowed``).  Reading the mode as a value — a decision
+# event's field — is no branch.
 
 _ROUTING_MOD = f"{PKG}.runtime.routing"
 _SELECTOR_PREFIXES = ("_use_", "_select_", "select_")
+_HAND_GATES = ("gate", "route_allowed")
+_ASK_THE_TABLE = ("a dispatch site asks Family.select for its route "
+                  "(Family.static_select for a choice that is static by "
+                  "contract), which applies the table's eligibility and "
+                  "the autotune mode")
 
 
 def _routing_aliases(tree) -> tuple:
@@ -602,9 +611,44 @@ def routing_selector_errors(tree, fname) -> list:
         if not references_engine(node):
             errors.append(
                 f"{fname}:{node.lineno}: selector {node.name} does not "
-                "consult the routing engine — route predicates and "
-                "selection belong in a runtime.routing candidate table "
-                "(routing.family), with the selector a thin delegate")
+                "consult the routing engine — route predicates belong in "
+                "a runtime.routing candidate table (routing.family), and "
+                + _ASK_THE_TABLE)
+    errors += _hand_selection(tree, fname, modules)
+    return errors
+
+
+def _hand_selection(tree, fname, modules) -> list:
+    """The protocol re-implemented around the table: a branch on
+    ``autotune_mode()`` or a call of a per-route gate."""
+    def is_mode_call(n) -> bool:
+        if not isinstance(n, ast.Call):
+            return False
+        f = n.func
+        return ((isinstance(f, ast.Attribute) and f.attr == "autotune_mode"
+                 and isinstance(f.value, ast.Name)
+                 and f.value.id in modules)
+                or (isinstance(f, ast.Name) and f.id == "autotune_mode"))
+
+    tests = []
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.If, ast.IfExp, ast.While, ast.Assert)):
+            tests.append(node.test)
+        elif isinstance(node, (ast.Compare, ast.BoolOp)) or (
+                isinstance(node, ast.UnaryOp)
+                and isinstance(node.op, ast.Not)):
+            tests.append(node)
+    branch_lines = sorted({n.lineno for t in tests for n in ast.walk(t)
+                           if is_mode_call(n)})
+    errors = [f"{fname}:{line}: branches on routing.autotune_mode() — "
+              + _ASK_THE_TABLE for line in branch_lines]
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in _HAND_GATES):
+            errors.append(
+                f"{fname}:{node.lineno}: calls Family.{node.func.attr} "
+                "— " + _ASK_THE_TABLE)
     return errors
 
 

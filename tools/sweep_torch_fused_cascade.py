@@ -80,8 +80,9 @@ def main():
                     "loop": lambda: wv._level_loop(type, order, P, x,
                                                    levels, None)}
                 row = {"group": f"{type}{order} L{levels}", "rows": rows,
-                       "n": n, "gate": wv._use_fused_cascade(
-                           x.shape, order, P, levels, cuda=True)}
+                       "n": n, "gate": wv._CASCADE_FAMILY.static_select(
+                           rows=rows, n=n, order=order, ext=P.value,
+                           levels=levels, cuda=True) == "fused_cascade"}
                 bands = {k: fn() for k, fn in routes.items()}
                 row["max_rel_diff"] = max(
                     float((f - g).abs().max() / g.abs().max())

@@ -87,8 +87,9 @@ def main():
                 frames = sp.frame_count(n, L, hop)
                 row = {"L": L, "hop": hop, "rows": rows, "n": n,
                        "frames": frames,
-                       "gate": sp._select_stft_route(L, hop, frames,
-                                                     cuda=True)}
+                       "gate": sp._STFT_FAMILY.select(
+                           frame_length=L, hop=hop, frames=frames,
+                           cuda=True)}
                 ref = torch.view_as_real(routes["xla_fft"]())
                 scale = float(ref.abs().max())
                 for route in ROUTES[:2]:

@@ -564,7 +564,7 @@ def _check_pallas2d(rng):
     k2 = rng.randn(5, 7).astype(np.float32)
     cuda = on_cuda()
     if cuda and not os.environ.get("VELES_SIMD_DISABLE_CUDA2D") \
-            and not cv2._use_cuda_direct2d(img.shape, 5, 7, cuda):
+            and cv2.select_algorithm2d(5, 7, img.shape) != "direct":
         raise RuntimeError("pallas2d: the direct route's gate refused "
                            f"{img.shape} with 5 x 7 on the card")
     got = cv2.convolve2d(img, k2, algorithm="direct", simd=True)

@@ -152,7 +152,8 @@ def main() -> int:
                     lambda: cv._conv_os_matmul(x, h, step,
                                                precision="bf16_comp"),
                     gate("bf16_comp"))
-            if cv._use_cuda_os(k, x):
+            if "cuda_fused" in cv._OS_FAMILY.eligible(h_length=k,
+                                                      cuda=x.is_cuda):
                 runs["cuda_fused"] = (lambda: cv._conv_os_cuda(x, h),
                                       ERR_GATE)
             timings_us = {}
@@ -190,7 +191,8 @@ def main() -> int:
                 "xla_matmul_bf16_comp": lambda: cv._conv_os_matmul(
                     xs, hs, cv.overlap_save_step(k),
                     precision="bf16_comp")}
-        if cv._use_cuda_direct(xs, k):
+        if "direct_cuda" in cv._DIRECT_FAMILY.eligible(
+                rows=rows, n=n_s, k=k, cuda=xs.is_cuda):
             runs["filter_bank kernel"] = lambda: cv._conv_direct_cuda(
                 xs, hs)
         for name, fn in runs.items():

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import math
 import threading
 
 import numpy as np
@@ -211,7 +212,7 @@ def batched_resample_poly(x, up: int, down: int, taps=None, simd=None,
     if up == 1 and down == 1:
         return as_f32(x)
     out_len = rs.resample_length(n, up, down)
-    rows = int(np.prod(batch_shape))
+    rows = math.prod(batch_shape)
     key = ("resample_poly", rows, n, up, down, len(taps), _NO_DONATION)
 
     def build():
@@ -255,7 +256,7 @@ def batched_sosfilt(sos, x, simd=None, donate: bool = False):
     if not resolve_simd(simd, op="batched_sosfilt"):
         return iir.sosfilt_na(sos, x).astype(np.float32)
     sos_key = tuple(tuple(float(v) for v in row) for row in sos)
-    rows = int(np.prod(batch_shape))
+    rows = math.prod(batch_shape)
     key = ("sosfilt", rows, n, sos_key, _NO_DONATION)
 
     def build():
@@ -298,7 +299,7 @@ def batched_lfilter(b, a, x, simd=None, donate: bool = False):
         a = np.concatenate([a, [0.0]])  # the JAX package's FIR key
     b_key = tuple(float(v) for v in b)
     a_key = tuple(float(v) for v in a)
-    rows = int(np.prod(batch_shape))
+    rows = math.prod(batch_shape)
     key = ("lfilter", rows, n, b_key, a_key, _NO_DONATION)
 
     def build():
@@ -329,11 +330,11 @@ def batched_stft(x, frame_length: int, hop: int, window=None,
 
     Same numerics and route family as
     :func:`~veles.simd_tpu_torch.ops.spectral.stft`: the route comes
-    from ``spectral._stft_route_for`` (the same selection ``stft``
-    uses, so a tune-cache winner steers both; this path consults the
-    pack but never probes), and the ``rdft_matmul`` (or its
-    ``bf16_comp`` variant) / ``xla_fft`` routes run through the
-    handle LRU keyed ``(rows, n, frame_length, hop, route)`` — the
+    from the ``stft`` table under ``stft``'s tune class (the same
+    selection ``stft`` makes, so a tune-cache winner steers both; this
+    path consults the pack but never probes), and the ``rdft_matmul``
+    (or its ``bf16_comp`` variant) / ``xla_fft`` routes run through
+    the handle LRU keyed ``(rows, n, frame_length, hop, route)`` — the
     basis and the window are runtime operands, so switching windows
     builds nothing new, only a new geometry does.  A ``cuda_fused``
     selection delegates to ``spectral.stft``: the fused kernel is
@@ -348,12 +349,13 @@ def batched_stft(x, frame_length: int, hop: int, window=None,
     if not resolve_simd(simd, op="batched_stft"):
         return sp.stft_na(x, frame_length, hop,
                           window).astype(np.complex64)
-    rows = int(np.prod(batch_shape))
+    rows = math.prod(batch_shape)
     frames = sp.frame_count(n, frame_length, hop)
-    route = sp._stft_route_for(
-        frame_length, hop, frames, rows,
-        cuda=x.is_cuda if isinstance(x, torch.Tensor) else None,
-        probe_operand=x)
+    route = sp._STFT_FAMILY.select(
+        frame_length=frame_length, hop=hop, frames=frames,
+        cuda=sp._operand_on_cuda(x), probe_operand=x,
+        tune_geom=lambda: sp._stft_tune_class(frame_length, hop, frames,
+                                              rows))
     if route == "cuda_fused":
         # the caller's operand, as the JAX package passes it: host data
         # keeps stft's oracle fallback

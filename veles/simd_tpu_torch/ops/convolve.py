@@ -56,7 +56,6 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
-import math
 
 import numpy as np
 import torch
@@ -70,7 +69,7 @@ from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.config import get_config, resolve_simd
 from veles.simd_tpu_torch.utils.memory import (
     next_highest_power_of_2, zeropadding_length)
-from veles.simd_tpu_torch.utils.platform import as_f32
+from veles.simd_tpu_torch.utils.platform import as_f32, lead_rows
 
 __all__ = [
     "ConvolutionAlgorithm", "ConvolutionHandle", "handle_from_fields",
@@ -195,22 +194,12 @@ _DIRECT_FAMILY = routing.family("convolve.direct", (
     routing.Route(
         "direct_cuda",
         predicate=lambda rows, n, k, cuda=False, **_: (
-            cuda and k <= _ck.DIRECT_MAX_H and rows >= _ck.MIN_ROWS
+            _ck.should_route(rows, cuda) and k <= _ck.DIRECT_MAX_H
             and _ck.fits_smem_fb(1, k, 1, 1)),
         doc="shifted-MAC filter-bank kernel (batched, short filters)"),
     routing.Route("direct_mxu",
                   doc="conv1d, cuDNN pinned to fp32"),
 ))
-
-
-def _use_cuda_direct(x, k: int) -> bool:
-    """Route batched direct convolution through the filter-bank kernel
-    — a thin delegate into the ``convolve.direct`` table.  Tests
-    monkeypatch this gate."""
-    rows = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
-    return _DIRECT_FAMILY.gate("direct_cuda", rows=rows,
-                               n=int(x.shape[-1]), k=int(k),
-                               cuda=x.is_cuda)
 
 
 def _conv_direct_cuda(x, h, reverse=False):
@@ -228,8 +217,7 @@ def _conv_core_work(x, h, *_, **__):
     """``work=`` of every convolution core: the full convolution's
     least work (:func:`utils.benchmark.conv_work`), whatever the
     route."""
-    return _bm.conv_work(math.prod(x.shape[:-1]), x.shape[-1],
-                         h.shape[-1])
+    return _bm.conv_work(lead_rows(x.shape), x.shape[-1], h.shape[-1])
 
 
 # the XLA-route cores are instrumented calls keyed ("convolve", route)
@@ -258,25 +246,17 @@ def _direct(x, h, reverse=False):
     Under ``VELES_SIMD_AUTOTUNE=on`` the engine probes both candidates
     once per geometry class (rows and n pow2-bucketed, k exact, the
     JAX package's key) and the measured winner persists."""
-    eligible = (["direct_cuda", "direct_mxu"]
-                if _use_cuda_direct(x, h.shape[-1]) else ["direct_mxu"])
-    chosen = (eligible[0] if routing.autotune_mode() == "off"
-              else _tuned_direct_route(eligible, x, h, reverse))
-    obs.record_decision("convolve_direct_route", chosen,
-                        n=int(x.shape[-1]), k=int(h.shape[-1]))
-    return _DIRECT_RUNNERS[chosen](x, h, reverse=reverse)
-
-
-def _tuned_direct_route(eligible, x, h, reverse):
-    """The ``convolve.direct`` engine's pick under the autotuner."""
-    rows = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
-    return _DIRECT_FAMILY.select(
-        eligible=eligible,
+    rows, n, k = lead_rows(x.shape), int(x.shape[-1]), int(h.shape[-1])
+    chosen = _DIRECT_FAMILY.select(
+        rows=rows, n=n, k=k, cuda=x.is_cuda,
         runners=lambda: {name: functools.partial(run, x, h,
                                                  reverse=reverse)
                          for name, run in _DIRECT_RUNNERS.items()},
-        probe_operand=x, rows=routing.pow2_bucket(rows),
-        n=routing.pow2_bucket(int(x.shape[-1])), k=int(h.shape[-1]))
+        probe_operand=x,
+        tune_geom=lambda: {"rows": routing.pow2_bucket(rows),
+                           "n": routing.pow2_bucket(n), "k": k})
+    obs.record_decision("convolve_direct_route", chosen, n=n, k=k)
+    return _DIRECT_RUNNERS[chosen](x, h, reverse=reverse)
 
 
 # ---- FFT and overlap-save --------------------------------------------------
@@ -315,7 +295,7 @@ _OS_FAMILY = routing.family("convolve.os", (
     routing.Route(
         "cuda_fused",
         predicate=lambda h_length, cuda=False, **_: (
-            cuda and h_length >= _ck.OS_MIN_H
+            _ck.on_card(cuda) and h_length >= _ck.OS_MIN_H
             and _ck.fits_smem_os(h_length)),
         disable_env="VELES_SIMD_DISABLE_CUDA_OS",
         fault_site="convolve.os_cuda",
@@ -342,16 +322,6 @@ _OS_FAMILY = routing.family("convolve.os", (
             "passes, fp32 sums (VELES_SIMD_DISABLE_BF16_COMP opts "
             "out)"),
 ))
-
-
-def _use_cuda_os(h_length: int, x) -> bool:
-    """Route the overlap-save handle through the overlap-save kernel
-    — a thin delegate into the ``convolve.os`` table: rejection memory
-    first, then an armed fault plan (which opens the gate on the CPU),
-    then the env opt-out and the kernel gates.  Tests monkeypatch this
-    gate."""
-    return _OS_FAMILY.route_allowed("cuda_fused", h_length=int(h_length),
-                                    cuda=x.is_cuda)
 
 
 def _conv_os_cuda(x, h, reverse=False):
@@ -576,22 +546,6 @@ _OS_RUNNERS = {
 }
 
 
-def _tuned_os_route(eligible, x, h, handle):
-    """The ``convolve.os`` engine's pick under the autotuner, keyed by
-    the JAX package's tune class: rows and x_length pow2-bucketed,
-    h_length and step exact (gate dimensions and the rejection key),
-    precision too (the runners read it)."""
-    rows = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
-    return _OS_FAMILY.select(
-        eligible=eligible,
-        runners=lambda: {name: functools.partial(run, x, h, handle)
-                         for name, run in _OS_RUNNERS.items()},
-        probe_operand=x, rows=routing.pow2_bucket(rows),
-        x_length=routing.pow2_bucket(handle.x_length),
-        h_length=handle.h_length, step=handle.step,
-        precision=os_precision())
-
-
 def _run_torch(handle: ConvolutionHandle, x, h):
     """The PyTorch side of :func:`_run`."""
     host = not faults.on_card(x, h)
@@ -610,12 +564,20 @@ def _run_torch(handle: ConvolutionHandle, x, h):
             with obs.span("convolve.os_route", route=route):
                 return _OS_RUNNERS[route](x, h, handle)
 
+        # the tune class is the JAX package's: rows and x_length
+        # pow2-bucketed, h_length and step exact (gate dimensions and
+        # the rejection key), precision too (the runners read it)
         with obs.span("routing.select", family="convolve.os"):
-            eligible = (["cuda_fused", "xla_matmul"]
-                        if _use_cuda_os(handle.h_length, x)
-                        else ["xla_matmul"])
-            route = (eligible[0] if routing.autotune_mode() == "off"
-                     else _tuned_os_route(eligible, x, h, handle))
+            route = _OS_FAMILY.select(
+                h_length=handle.h_length, cuda=x.is_cuda,
+                runners=lambda: {name: functools.partial(run, x, h, handle)
+                                 for name, run in _OS_RUNNERS.items()},
+                probe_operand=x,
+                tune_geom=lambda: {
+                    "rows": routing.pow2_bucket(lead_rows(x.shape)),
+                    "x_length": routing.pow2_bucket(handle.x_length),
+                    "h_length": handle.h_length, "step": handle.step,
+                    "precision": os_precision()})
         if route != "cuda_fused":
             return os_route(route)
 

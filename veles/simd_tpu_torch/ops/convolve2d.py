@@ -69,7 +69,7 @@ def _direct2d_gate(k0, k1, cuda=False, **_):
     constants: on the card, kernel area <= MAX_AREA_2D, and the
     kernel's tile fits shared memory (which depends on the kernel
     only, not on the image)."""
-    return (bool(cuda) and k0 * k1 <= _ck.MAX_AREA_2D
+    return (_ck.on_card(cuda) and k0 * k1 <= _ck.MAX_AREA_2D
             and _ck.fits_smem_f2d(k0, k1))
 
 
@@ -107,25 +107,17 @@ def _direct2d_geom(x_shape, k0: int, k1: int, cuda: bool) -> dict:
                 n0=int(x_shape[-2]), n1=int(x_shape[-1]), cuda=bool(cuda))
 
 
-def _use_cuda_direct2d(x_shape, k0: int, k1: int, cuda: bool) -> bool:
-    """Route the direct form through the 2D kernel — a thin delegate
-    into the ``convolve2d`` table: rejection memory first (a demoted
-    shape skips the kernel without re-raising), then an armed fault
-    plan (which opens the gate on the CPU), then the env opt-out and
-    the kernel gates.  Tests monkeypatch this gate."""
-    return _CONV2D_FAMILY.route_allowed(
-        "direct", **_direct2d_geom(x_shape, k0, k1, cuda))
-
-
 def select_algorithm2d(k0: int, k1: int, x_shape=None) -> str:
     """``'direct'`` when the 2D kernel will take the shape on the
     configured device, else ``'fft'`` — the JAX package's rule, with the
-    card in place of the TPU; it answers from the ``convolve2d`` table,
-    as :func:`_use_cuda_direct2d` does."""
+    card in place of the TPU.  It is the ``convolve2d`` table's static
+    choice (rejection memory first, so a demoted shape skips the
+    kernel, then an armed fault plan, which opens the gate on the CPU,
+    then the env opt-out and the kernel gates), which a call's auto
+    algorithm makes for its operand's device."""
     shape = x_shape if x_shape is not None else (1, 1)
-    return ("direct" if _CONV2D_FAMILY.route_allowed(
-        "direct", **_direct2d_geom(shape, k0, k1, on_cuda()))
-        else "fft")
+    return _CONV2D_FAMILY.static_select(
+        **_direct2d_geom(shape, k0, k1, on_cuda()))
 
 
 def _images(x_shape) -> int:
@@ -234,8 +226,8 @@ def _run2d(x, h, reverse, algorithm, simd, crop=(0, 0)):
     auto = algorithm is None
     # the kernel gate, evaluated once for the call: it picks the auto
     # algorithm and the direct route alike
-    kernel = algorithm != "fft" and _use_cuda_direct2d(x_shape, k0, k1,
-                                                       cuda)
+    kernel = algorithm != "fft" and _CONV2D_FAMILY.static_select(
+        **_direct2d_geom(x_shape, k0, k1, cuda)) == "direct"
     if auto:
         algorithm = "direct" if kernel else "fft"
     with obs.span("convolve2d.dispatch", algo=algorithm, auto=auto):
@@ -274,26 +266,25 @@ def _run2d_torch(x, h, reverse, algorithm, auto, kernel, crop):
         obs.record_decision("convolve2d", route, **geom)
         return _RUNNERS[route](x, h, reverse=reverse, crop=crop)
 
-    if kernel and auto and routing.autotune_mode() != "off":
-        # the measured autotuner: the kernel against the batched fft,
-        # once per geometry class.  geom carries the exact dims (a
-        # probe's refused launch feeds the rejection cache under the
-        # demotion key); the tune class pow2-buckets the image dims,
-        # kernel dims exact — the JAX package's key
+    if kernel and auto:
+        # the measured autotuner may flip the static "direct" to the
+        # batched fft, once per geometry class.  The table reads the
+        # exact dims (a probe's refused launch feeds the rejection
+        # cache under the demotion key); the tune class pow2-buckets
+        # the image dims, kernel dims exact — the JAX package's key
         chosen = _CONV2D_FAMILY.select(
-            eligible=["direct", "fft"],
             runners=lambda: {
                 "direct": lambda: _RUNNERS["direct_cuda"](
                     x, h, reverse=reverse, crop=crop),
                 "fft": lambda: _RUNNERS["fft"](
                     x, h, reverse=reverse, crop=crop)},
             probe_operand=x,
-            tune_geom={"rows": routing.pow2_bucket(geom["images"]),
-                       "n0": routing.pow2_bucket(geom["n0"]),
-                       "n1": routing.pow2_bucket(geom["n1"]),
-                       "k0": int(k0), "k1": int(k1)},
-            rows=geom["images"], n0=geom["n0"], n1=geom["n1"],
-            k0=int(k0), k1=int(k1))
+            tune_geom=lambda: {
+                "rows": routing.pow2_bucket(geom["images"]),
+                "n0": routing.pow2_bucket(geom["n0"]),
+                "n1": routing.pow2_bucket(geom["n1"]),
+                "k0": int(k0), "k1": int(k1)},
+            **_direct2d_geom(x.shape, k0, k1, x.is_cuda))
         if chosen == "fft":
             # the flip away from the static "direct" must be
             # attributable (the dispatch span still says direct)

@@ -90,6 +90,7 @@ import torch
 from veles.simd_tpu_torch import obs
 from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.cache import ConstantCache
+from veles.simd_tpu_torch.utils.platform import lead_rows
 
 __all__ = [
     "overlap_save_cuda", "overlap_save_plain",
@@ -369,19 +370,20 @@ def fits_smem_stft(frame_length: int, hop: int) -> bool:
 
 
 def on_card(cuda: bool) -> bool:
-    """The device term of the fused STFT route: the operand lies on a
-    CUDA card (the JAX package's ``pallas_available``).  Tests
-    monkeypatch it to open the gate on the CPU."""
+    """The device term of every kernel route's gate: the operand lies
+    on a CUDA card (the JAX package's ``pallas_available``).  Tests
+    monkeypatch it to open the gates on the CPU."""
     return bool(cuda)
 
 
 def should_route(rows: int, cuda: bool) -> bool:
-    """The device terms the 1D wavelet routes share: operands on a CUDA
-    card and at least MIN_ROWS batch rows (the JAX package's
-    ``should_route``, whose VMEM term becomes each route's own
-    shared-memory admission here).  Tests monkeypatch it to open the
-    gates on the CPU."""
-    return bool(cuda) and int(rows) >= MIN_ROWS
+    """The device terms the 1D filter-bank routes share (direct
+    convolution, the wavelet steps, the fused cascade): operands on a
+    CUDA card (:func:`on_card`) and at least MIN_ROWS batch rows (the
+    JAX package's ``should_route``, whose VMEM term becomes each
+    route's own shared-memory admission here).  Tests monkeypatch it to
+    open those gates on the CPU whatever the rows."""
+    return on_card(cuda) and int(rows) >= MIN_ROWS
 
 
 # ---- launch counters -------------------------------------------------------
@@ -693,8 +695,7 @@ def overlap_save_plain(x, taps):
 
 def _rows_n(x):
     """``(rows, n)`` of ``x[..., n]``."""
-    n = int(x.shape[-1])
-    return x.numel() // max(n, 1), n
+    return lead_rows(x.shape), int(x.shape[-1])
 
 
 def _os_work(x, taps):

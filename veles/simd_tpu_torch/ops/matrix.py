@@ -50,7 +50,7 @@ from veles.simd_tpu_torch.runtime import precision as prx
 from veles.simd_tpu_torch.runtime import routing
 from veles.simd_tpu_torch.utils import benchmark as bm
 from veles.simd_tpu_torch.utils.config import get_config, resolve_simd
-from veles.simd_tpu_torch.utils.platform import as_f32, as_tensor
+from veles.simd_tpu_torch.utils.platform import as_f32, as_tensor, lead_rows
 
 __all__ = [
     "matrix_add", "matrix_sub", "matrix_multiply",
@@ -151,20 +151,6 @@ _GEMM_FAMILY = routing.family("matrix.gemm", (
 ))
 
 
-def _select_gemm_route(core, a, b, geom: dict) -> str:
-    """Engine-selected precision route for one GEMM-shaped dispatch:
-    the static prior ``fp32``, or the tune-cache winner or measured
-    probe under ``VELES_SIMD_AUTOTUNE`` — precision as the candidate
-    axis, as in the JAX package."""
-    if routing.autotune_mode() == "off":
-        return _GEMM_FAMILY.static_select(**geom)
-    # the engine probes only the eligible names
-    return _GEMM_FAMILY.select(
-        runners=lambda: {name: functools.partial(core, a, b, precision=p)
-                         for name, p in GEMM_PRECISIONS.items()},
-        probe_operand=a, **geom)
-
-
 def _resolve_precision_route(precision, fast: bool) -> str | None:
     """The forced-route half of the shim: an explicit ``precision=``
     names a route (or ``'highest'``); ``fast=True`` is the deprecated
@@ -192,10 +178,16 @@ def _resolve_precision_route(precision, fast: bool) -> str | None:
 
 def _gemm_dispatch(core, a, b, geom: dict, precision, fast: bool):
     """Shared route resolution + decision event + in-span dispatch for
-    the two GEMM entry points."""
+    the two GEMM entry points.  The engine's pick is the static prior
+    ``fp32``, or the tune-cache winner or measured probe under
+    ``VELES_SIMD_AUTOTUNE`` — precision as the candidate axis, as in
+    the JAX package; it probes only the eligible names."""
     forced = _resolve_precision_route(precision, fast)
-    chosen = forced if forced is not None \
-        else _select_gemm_route(core, a, b, geom)
+    chosen = _GEMM_FAMILY.select(
+        route=forced,
+        runners=lambda: {name: functools.partial(core, a, b, precision=p)
+                         for name, p in GEMM_PRECISIONS.items()},
+        probe_operand=a, **geom)
     obs.record_decision(
         "matrix_precision_route", chosen, forced=forced is not None,
         **geom)
@@ -206,7 +198,7 @@ def _gemm_dispatch(core, a, b, geom: dict, precision, fast: bool):
 def _gemm_tune_class(a, b, t: int) -> dict:
     """The ``matrix.gemm`` geometry class: every dim pow2-bucketed,
     plus the transposed-B flag."""
-    rows = int(np.prod(a.shape[:-2])) if a.ndim > 2 else 1
+    rows = lead_rows(a.shape, 2)
     return {"h1": routing.pow2_bucket(int(a.shape[-2])),
             "w1": routing.pow2_bucket(int(a.shape[-1])),
             "w2": routing.pow2_bucket(int(b.shape[-2] if t

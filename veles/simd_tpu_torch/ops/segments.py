@@ -176,8 +176,12 @@ def _stft_rows(x, frame_length: int, hop: int, window):
     unguarded handles."""
     rows, n = x.shape
     frames = sp.frame_count(n, frame_length, hop)
-    if sp._stft_route_for(frame_length, hop, frames, rows,
-                          probe_operand=x) == "cuda_fused":
+    route = sp._STFT_FAMILY.select(
+        frame_length=int(frame_length), hop=int(hop), frames=int(frames),
+        cuda=sp._operand_on_cuda(x), probe_operand=x,
+        tune_geom=lambda: sp._stft_tune_class(frame_length, hop, frames,
+                                              rows))
+    if route == "cuda_fused":
         return sp._run_stft_cuda(as_f32(x), window, frame_length, hop)
     return batched.batched_stft(x, frame_length, hop, window=window,
                                 simd=True)

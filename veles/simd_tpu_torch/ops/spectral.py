@@ -67,10 +67,18 @@ terminal fallback, as in the JAX package: ``rdft_matmul_bf16_comp``
 (``runtime/precision.py``; ``VELES_SIMD_DISABLE_BF16_COMP`` closes
 them).  The static prior never picks them: only the measured
 autotuner (``VELES_SIMD_AUTOTUNE``, ``runtime/routing.py``) and a
-``route=`` force reach them.  Under the autotuner each entry point
-hands the engine its routes' calls, forced, as probe runners, keyed by
-the JAX package's geometry classes; ``batched_stft`` consults the
-tune cache through :func:`_stft_route_for` and never probes.
+``route=`` force reach them.
+
+Every entry asks its table's ``Family.select`` for the route, a forced
+``route=`` included, which the table validates (the port's names or
+the JAX package's).  Each hands the engine its call's exact geometry,
+its routes' calls, forced, as probe runners, and the JAX package's
+geometry class as the tune key.  ``batched.batched_stft`` and the
+packed segments ask the ``stft`` table with :func:`stft`'s tune class
+(:func:`_stft_tune_class`) and no runners: one pack entry steers all
+three, and only :func:`stft` probes.  The streaming STFT
+(:func:`select_stft_stream_route`) narrows the table's eligible routes
+to those without the kernel, as the JAX package does.
 
 Spans (``obs.span``, recorded while telemetry is on or a capture is
 armed): ``stft.dispatch`` over an ``stft`` call's guarded dispatch,
@@ -114,7 +122,7 @@ from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.cache import ConstantCache
 from veles.simd_tpu_torch.utils.config import resolve_simd
 from veles.simd_tpu_torch.utils.platform import (as_c64, as_f32, device,
-                                                 on_cuda)
+                                                 lead_rows, on_cuda)
 
 __all__ = [
     "stft", "stft_na", "istft", "istft_na", "spectrogram",
@@ -498,15 +506,10 @@ def hermitian_extend(spec, n: int):
 # ---------------------------------------------------------------------------
 
 
-def _lead_rows(t, core_dims=1) -> int:
-    """Rows of ``t`` before its last ``core_dims`` dimensions."""
-    return int(np.prod(tuple(t.shape)[:t.dim() - core_dims]))
-
-
 def _stft_work(x, operand, frame_length, hop):
     """``work=`` of the stft cores: :func:`utils.benchmark.stft_work`
     at the call's shape (the function's least work)."""
-    return _bm.stft_work(_lead_rows(x), x.shape[-1], frame_length, hop)
+    return _bm.stft_work(lead_rows(x.shape), x.shape[-1], frame_length, hop)
 
 
 def _istft_work(spec, operand, env_inv, n, frame_length, hop):
@@ -515,7 +518,7 @@ def _istft_work(spec, operand, env_inv, n, frame_length, hop):
     overlap-add's adds, then one envelope multiply a sample; the bytes
     read the spectrum, the window and the envelope once and write the
     signal once."""
-    rows, L, n = _lead_rows(spec, 2), int(frame_length), int(n)
+    rows, L, n = lead_rows(spec.shape, 2), int(frame_length), int(n)
     frames = int(spec.shape[-2])
     flops = rows * (frames * (_bm.rfft_flops(L) + 2 * L) + n)
     nbytes = 8.0 * rows * frames * (L // 2 + 1) + 4.0 * (L + n + rows * n)
@@ -527,7 +530,7 @@ def _hilbert_work(x, operand):
     multiplier and a complex inverse FFT a row (``5 n log2 n``); the
     bytes read the signal and the multiplier and write the complex64
     analytic signal once."""
-    rows, n = _lead_rows(x), int(x.shape[-1])
+    rows, n = lead_rows(x.shape), int(x.shape[-1])
     flops = rows * (_bm.rfft_flops(n) + 2 * n + 2 * _bm.rfft_flops(n))
     return flops, 4.0 * (rows * n + n) + 8.0 * rows * n
 
@@ -537,7 +540,8 @@ def _cwt_work(x, hat):
     then per scale the wavelet's multiplies and a complex inverse FFT;
     the bytes read the signal and the ``[S, n]`` bank and write the
     complex64 ``[S, n]`` result of each row once."""
-    rows, n, scales = _lead_rows(x), int(x.shape[-1]), int(hat.shape[0])
+    rows, n, scales = (lead_rows(x.shape), int(x.shape[-1]),
+                       int(hat.shape[0]))
     flops = rows * (_bm.rfft_flops(n)
                     + scales * (2 * n + 2 * _bm.rfft_flops(n)))
     nbytes = 4.0 * (rows * n + scales * n) + 8.0 * rows * scales * n
@@ -696,76 +700,24 @@ _CWT_FAMILY = routing.family("morlet_cwt", (
 ))
 
 
-def _cuda_flag(cuda):
-    """``cuda=None`` means the configured device is a present card."""
-    return on_cuda() if cuda is None else bool(cuda)
-
-
-def _use_matmul_dft(frame_length: int) -> bool:
-    """Route a spectral transform through the precomputed real-DFT
-    basis matmul — a thin delegate into the ``stft`` table, where the
-    ``AUTO_DFT_MATMUL_MAX_FRAME`` bound and the
-    ``VELES_SIMD_DISABLE_DFT_MATMUL`` opt-out live."""
-    return _STFT_FAMILY.gate("rdft_matmul",
-                             frame_length=int(frame_length))
-
-
-def _use_cuda_stft(frame_length: int, hop: int, frames: int,
-                   cuda=None) -> bool:
-    """Route STFT through the fused kernel (:func:`~veles.
-    simd_tpu_torch.ops.cuda_kernels.stft_cuda`): a thin delegate into
-    the ``stft`` table — rejection memory first, then an armed fault
-    plan (which opens the gate on the CPU), then the
-    ``VELES_SIMD_DISABLE_STFT_CUDA`` opt-out and the kernel gates
-    (operand on a card, at least two hops a frame, enough frames,
-    shared-memory admission)."""
-    return _STFT_FAMILY.route_allowed(
-        "cuda_fused", frame_length=int(frame_length), hop=int(hop),
-        frames=int(frames), cuda=_cuda_flag(cuda))
-
-
-def _select_stft_route(frame_length: int, hop: int, frames: int,
-                       cuda=None) -> str:
-    """The static stft route decision, in table priority order (the
-    one home: :func:`stft` and ``batched.batched_stft`` ask here).
-    ``cuda`` says whether the operand lies on a card (None: the
-    configured device)."""
-    return _STFT_FAMILY.static_select(
-        frame_length=int(frame_length), hop=int(hop),
-        frames=int(frames), cuda=_cuda_flag(cuda))
+def _operand_on_cuda(x) -> bool:
+    """Does ``x`` compute on a card: a tensor on its own device,
+    anything else on the configured one (the ``cuda`` term of the
+    ``stft`` table's geometry)."""
+    return x.is_cuda if isinstance(x, torch.Tensor) else on_cuda()
 
 
 def _stft_tune_class(frame_length: int, hop: int, frames: int,
                      rows: int) -> dict:
-    """The stft geometry class shared by :func:`stft` and
-    ``batched.batched_stft``: frames bucketed at the fused gate's
-    threshold (the only frames-dependence any route has), rows
-    pow2-bucketed."""
+    """The stft geometry class shared by :func:`stft`,
+    ``batched.batched_stft`` and the packed segments, so one pack entry
+    steers all three: frames bucketed at the fused gate's threshold
+    (the only frames-dependence any route has), rows pow2-bucketed.
+    The ``stft`` table's eligibility reads the exact frame count."""
     return {"frame_length": int(frame_length), "hop": int(hop),
             "rows": routing.pow2_bucket(int(rows)),
             "frames_class": (_ck.STFT_MIN_FRAMES
                              if frames >= _ck.STFT_MIN_FRAMES else 0)}
-
-
-def _stft_route_for(frame_length: int, hop: int, frames: int,
-                    rows: int, cuda=None, runners=None,
-                    probe_operand=None) -> str:
-    """Engine-selected stft route for the true frame count and the
-    operand's device: the static prior, or under
-    ``VELES_SIMD_AUTOTUNE`` a tune-cache winner (one pack entry
-    steers :func:`stft`, ``batched.batched_stft`` and the packed
-    segments alike).  Only :func:`stft` passes ``runners``, so only it
-    probes."""
-    geom = dict(frame_length=int(frame_length), hop=int(hop),
-                frames=int(frames), cuda=_cuda_flag(cuda))
-    if routing.autotune_mode() == "off":
-        return _STFT_FAMILY.static_select(**geom)
-    # eligibility reads the exact frame count, the tune class buckets
-    # it (the JAX package's key)
-    return _STFT_FAMILY.select(
-        runners=runners, probe_operand=probe_operand,
-        tune_geom=_stft_tune_class(frame_length, hop, frames, rows),
-        **geom)
 
 
 def _run_stft_xla(x, window, frame_length, hop):
@@ -799,8 +751,10 @@ def _run_stft_cuda(x, window, frame_length, hop, forced=False,
     a caller who pinned the kernel must never silently get another
     route's numbers.  ``host=False`` (the caller's operand was already
     on the card) demotes nothing: a refusal raises untouched."""
-    fb_route = ("rdft_matmul" if _use_matmul_dft(frame_length)
-                else "xla_fft")
+    # the demotion target, the table's order without the kernel: the
+    # basis matmul where its route admits the frame, else the FFT
+    fb_route = ("rdft_matmul" if _STFT_FAMILY.route("rdft_matmul").allowed(
+        {"frame_length": int(frame_length)}) else "xla_fft")
 
     def demoted():
         obs.record_decision(
@@ -942,7 +896,7 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
     :func:`istft`).  ``window`` defaults to the periodic Hann window.
 
     ``route`` forces one of ``cuda_fused`` / ``rdft_matmul`` /
-    ``xla_fft`` (None auto-selects via :func:`_stft_route_for`); the
+    ``xla_fft`` (None auto-selects through the ``stft`` table); the
     chosen route is recorded as a ``stft_route`` decision event.  A
     device loss or timeout is retried, then answered by the float64
     oracle (NumPy); a forced route retries but never degrades.
@@ -955,31 +909,24 @@ def stft(x, frame_length: int, hop: int, window=None, simd=None,
         return stft_na(x, frame_length, hop, window).astype(np.complex64)
     frames = frame_count(n, frame_length, hop)
     forced = route is not None
-    route = ROUTE_NAMES.get(route, route)
-    if forced and route not in _STFT_ROUTES:
-        raise ValueError(
-            f"route must be one of {sorted(_STFT_ROUTES)}, "
-            f"got {route!r}")
     host = not faults.on_card(x)
-    if forced:
-        chosen = route
-    else:
-        rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
 
-        def runners():
-            # the probes run the routes forced (a refused launch is
-            # remembered and skipped, never rerouted) on the operand
-            # moved to the device once
-            xt = as_f32(x)
-            return {name: functools.partial(
-                _run_stft_route, name, xt, window, int(frame_length),
-                int(hop), forced=True, host=host)
-                for name in _STFT_ROUTES}
+    def runners():
+        # the probes run the routes forced (a refused launch is
+        # remembered and skipped, never rerouted) on the operand
+        # moved to the device once
+        xt = as_f32(x)
+        return {name: functools.partial(
+            _run_stft_route, name, xt, window, int(frame_length),
+            int(hop), forced=True, host=host)
+            for name in _STFT_ROUTES}
 
-        chosen = _stft_route_for(
-            frame_length, hop, frames, rows,
-            cuda=x.is_cuda if isinstance(x, torch.Tensor) else None,
-            runners=runners, probe_operand=x)
+    chosen = _STFT_FAMILY.select(
+        route=route, frame_length=int(frame_length), hop=int(hop),
+        frames=int(frames), cuda=_operand_on_cuda(x), runners=runners,
+        probe_operand=x,
+        tune_geom=lambda: _stft_tune_class(frame_length, hop, frames,
+                                           lead_rows(shape)))
     path = _framing_path(frame_length, hop)
     obs.record_decision(
         "stft_route", chosen, n=n, frame_length=int(frame_length),
@@ -1143,31 +1090,22 @@ def istft(spec, n: int, frame_length: int, hop: int, window=None,
         return istft_na(spec, n, frame_length, hop,
                         window).astype(np.float32)
     forced = route is not None
-    if forced and route not in _ISTFT_ROUTES:
-        raise ValueError(
-            f"route must be one of {sorted(_ISTFT_ROUTES)}, "
-            f"got {route!r}")
-    if forced:
-        chosen = route
-    elif routing.autotune_mode() == "off":
-        chosen = _ISTFT_FAMILY.static_select(
-            frame_length=int(frame_length), hop=int(hop))
-    else:
-        rows = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
 
-        def runners():
-            spec_t = as_c64(spec)
-            env_t = _to_device(env_inv, spec_t.device)
-            return {name: functools.partial(
-                fn, spec_t, window, env_t, int(n), int(frame_length),
-                int(hop)) for name, fn in _ISTFT_ROUTES.items()}
+    def runners():
+        spec_t = as_c64(spec)
+        env_t = _to_device(env_inv, spec_t.device)
+        return {name: functools.partial(
+            fn, spec_t, window, env_t, int(n), int(frame_length),
+            int(hop)) for name, fn in _ISTFT_ROUTES.items()}
 
-        # no istft route depends on the frame count: the class is
-        # (frame_length, hop) and the pow2-bucketed batch
-        chosen = _ISTFT_FAMILY.select(
-            runners=runners, probe_operand=spec,
-            frame_length=int(frame_length), hop=int(hop),
-            rows=routing.pow2_bucket(rows))
+    # no istft route depends on the frame count: the class is
+    # (frame_length, hop) and the pow2-bucketed batch
+    chosen = _ISTFT_FAMILY.select(
+        route=route, frame_length=int(frame_length), hop=int(hop),
+        runners=runners, probe_operand=spec,
+        tune_geom=lambda: {
+            "frame_length": int(frame_length), "hop": int(hop),
+            "rows": routing.pow2_bucket(lead_rows(shape, 2))})
     # the adjoint decomposition: framing gather <-> overlap-add
     # scatter, framing reshape <-> per-phase reshape adds
     path = ("scatter" if _framing_path(frame_length, hop) == "gather"
@@ -1329,24 +1267,16 @@ def hilbert(x, simd=None, route=None):
         return hilbert_na(x).astype(np.complex64)
     xt = as_f32(x)
     forced = route is not None
-    if forced and route not in _HILBERT_ROUTES:
-        raise ValueError(
-            f"route must be one of {sorted(_HILBERT_ROUTES)}, "
-            f"got {route!r}")
-    if forced:
-        chosen = route
-    elif routing.autotune_mode() == "off":
-        chosen = _HILBERT_FAMILY.static_select(n=n)
-    else:
-        rows = int(np.prod(xt.shape[:-1])) if xt.ndim > 1 else 1
-        # the exact n for the eligibility predicates; the tune class
-        # pow2-buckets it, as the JAX package does
-        chosen = _HILBERT_FAMILY.select(
-            runners=lambda: {name: functools.partial(fn, xt)
-                             for name, fn in _HILBERT_ROUTES.items()},
-            probe_operand=xt, n=n, rows=routing.pow2_bucket(rows),
-            tune_geom={"n": routing.pow2_bucket(n),
-                       "rows": routing.pow2_bucket(rows)})
+    # the exact n for the eligibility predicates; the tune class
+    # pow2-buckets it, as the JAX package does
+    chosen = _HILBERT_FAMILY.select(
+        route=route, n=n,
+        runners=lambda: {name: functools.partial(fn, xt)
+                         for name, fn in _HILBERT_ROUTES.items()},
+        probe_operand=xt,
+        tune_geom=lambda: {"n": routing.pow2_bucket(n),
+                           "rows": routing.pow2_bucket(
+                               lead_rows(xt.shape))})
     obs.record_decision("hilbert_route", chosen, n=n, forced=forced)
     with obs.span("hilbert.dispatch", route=chosen):
         return _HILBERT_ROUTES[chosen](xt)
@@ -1519,29 +1449,20 @@ def morlet_cwt(x, scales, w0: float = 6.0, simd=None, route=None):
     if not resolve_simd(simd, op="morlet_cwt"):
         return morlet_cwt_na(x, scales, w0).astype(np.complex64)
     forced = route is not None
-    if forced and route not in _CWT_ROUTES:
-        raise ValueError(
-            f"route must be one of {sorted(_CWT_ROUTES)}, "
-            f"got {route!r}")
-    if forced and route == "ct_matmul" and ct_factor(n) is None:
-        raise ValueError(
-            f"n={n} has no Cooley-Tukey split with both factors "
-            f"<= {AUTO_DFT_MATMUL_MAX_FRAME}")
     xt = as_f32(x)
     # the scale count keys the class too (pow2-bucketed); the exact n
     # for eligibility, pow2-bucketed in the tune class
-    if forced:
-        chosen = route
-    elif routing.autotune_mode() == "off":
-        chosen = _CWT_FAMILY.static_select(n=n)
-    else:
-        chosen = _CWT_FAMILY.select(
-            runners=lambda: {name: functools.partial(fn, xt, hat)
-                             for name, fn in _CWT_ROUTES.items()},
-            probe_operand=xt, n=n,
-            scales=routing.pow2_bucket(len(scales)),
-            tune_geom={"n": routing.pow2_bucket(n),
-                       "scales": routing.pow2_bucket(len(scales))})
+    chosen = _CWT_FAMILY.select(
+        route=route, n=n,
+        runners=lambda: {name: functools.partial(fn, xt, hat)
+                         for name, fn in _CWT_ROUTES.items()},
+        probe_operand=xt,
+        tune_geom=lambda: {"n": routing.pow2_bucket(n),
+                           "scales": routing.pow2_bucket(len(scales))})
+    if forced and chosen == "ct_matmul" and ct_factor(n) is None:
+        raise ValueError(
+            f"n={n} has no Cooley-Tukey split with both factors "
+            f"<= {AUTO_DFT_MATMUL_MAX_FRAME}")
     obs.record_decision("morlet_cwt_route", chosen, n=n,
                         scales=len(scales), forced=forced)
     with obs.span("morlet_cwt.dispatch", route=chosen):

@@ -63,7 +63,6 @@ from __future__ import annotations
 
 import enum
 import functools
-import math
 
 import numpy as np
 import torch
@@ -78,7 +77,7 @@ from veles.simd_tpu_torch.runtime import precision as prx
 from veles.simd_tpu_torch.runtime import routing
 from veles.simd_tpu_torch.utils import benchmark as _bm
 from veles.simd_tpu_torch.utils.config import resolve_simd
-from veles.simd_tpu_torch.utils.platform import as_f32
+from veles.simd_tpu_torch.utils.platform import as_f32, lead_rows
 
 __all__ = [
     "WaveletType", "ExtensionType",
@@ -133,12 +132,6 @@ def _check_apply_args(type, order, length):
         raise ValueError(
             "signal length must be even and >= 2 "
             "(inc/simd/wavelet.h check_length contract)")
-
-
-def _rows(shape) -> int:
-    # math.prod: np.prod of a torch.Size builds an array first, which
-    # was most of a route gate's host time
-    return int(math.prod(shape[:-1]))
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +194,7 @@ def _extend_tensor(x, ext, ext_len, length):
 @obs.instrumented_jit(
     op="filter_bank",
     work=lambda x, type, order, ext, stride, dilation, out_len:
-        _bm.filter_bank_work(_rows(x.shape), x.shape[-1], 2, order,
+        _bm.filter_bank_work(lead_rows(x.shape), x.shape[-1], 2, order,
                              out_len))
 def _filter_bank_conv(x, type, order, ext, stride, dilation, out_len):
     """Extend, then the 2-channel strided/dilated cross-correlation as
@@ -248,16 +241,6 @@ _WAVELET_FAMILY = routing.family("wavelet", (
 ))
 
 
-def _use_cuda(src, order, dilation, stride) -> bool:
-    """Route a DWT/SWT step through the filter-bank kernel — a thin
-    delegate into the ``wavelet`` candidate table.  Tests monkeypatch
-    this gate."""
-    return _WAVELET_FAMILY.gate(
-        "cuda", rows=_rows(src.shape), n=int(src.shape[-1]),
-        order=int(order), dilation=int(dilation), stride=int(stride),
-        cuda=src.is_cuda)
-
-
 def _wavelet_runners(src, type, order, ext, stride, dilation, out_len):
     """Route name -> zero-arg call, the one home of the candidate call
     expressions."""
@@ -267,34 +250,27 @@ def _wavelet_runners(src, type, order, ext, stride, dilation, out_len):
             "xla_conv": lambda: _filter_bank_conv(*args)}
 
 
-def _select_wavelet_route(src, order, dilation, stride, route=None,
-                          runners=None):
-    """Shared DWT/SWT route choice: a forced ``route`` is validated and
-    pinned (a forced route re-raises on failure, it never degrades);
-    otherwise the gate builds the candidate list and the engine
-    selects — the static prior, or the measured/cached winner under
-    ``VELES_SIMD_AUTOTUNE`` (``runners``: the callers'
+def _step_route(src, order: int, dilation: int, stride: int, route,
+                runners):
+    """The route of one DWT/SWT step from the ``wavelet`` table: a
+    forced ``route`` is validated and pinned (it re-raises on failure,
+    never degrades); otherwise the engine selects inside the step's
+    ``routing.select`` span — the static prior, or the measured/cached
+    winner under ``VELES_SIMD_AUTOTUNE`` (``runners``: the callers'
     :func:`_wavelet_runners`, the thunks dispatch runs).  Returns
     ``(route, forced)``."""
     if route is not None:
-        route = ROUTE_NAMES.get(route, route)
-        if route not in _WAVELET_FAMILY.names():
-            raise ValueError(
-                f"route must be one of "
-                f"{sorted(_WAVELET_FAMILY.names())}, got {route!r}")
-        return route, True
+        return _WAVELET_FAMILY.select(route=route), True
     with obs.span("routing.select", family="wavelet"):
-        eligible = (["cuda", "xla_conv"]
-                    if _use_cuda(src, order, dilation, stride)
-                    else ["xla_conv"])
-        if routing.autotune_mode() == "off":
-            return eligible[0], False
+        rows, n = lead_rows(src.shape), int(src.shape[-1])
         # rows and n pow2-bucketed, the filter design exact (the JAX key)
         return _WAVELET_FAMILY.select(
-            eligible=eligible, runners=runners, probe_operand=src,
-            rows=routing.pow2_bucket(_rows(src.shape)),
-            n=routing.pow2_bucket(int(src.shape[-1])), order=int(order),
-            dilation=int(dilation), stride=int(stride)), False
+            rows=rows, n=n, order=order, dilation=dilation, stride=stride,
+            cuda=src.is_cuda, runners=runners, probe_operand=src,
+            tune_geom=lambda: {
+                "rows": routing.pow2_bucket(rows),
+                "n": routing.pow2_bucket(n), "order": order,
+                "dilation": dilation, "stride": stride}), False
 
 
 # --------------------------------------------------------------------------
@@ -360,8 +336,7 @@ def wavelet_apply(type, order, ext, src, simd=None, route=None):
     _check_apply_args(type, order, src.shape[-1])
     runners = _wavelet_runners(src, type, order, ext, 2, 1,
                                src.shape[-1] // 2)
-    chosen, forced = _select_wavelet_route(src, int(order), 1, 2, route,
-                                           runners)
+    chosen, forced = _step_route(src, int(order), 1, 2, route, runners)
     obs.record_decision(
         "wavelet_apply", chosen,
         family=WaveletType(type).value, order=int(order),
@@ -388,8 +363,8 @@ def stationary_wavelet_apply(type, order, level, ext, src, simd=None,
     dilation = 1 << (level - 1)
     runners = _wavelet_runners(src, type, order, ext, 1, dilation,
                                src.shape[-1])
-    chosen, forced = _select_wavelet_route(src, int(order), dilation, 1,
-                                           route, runners)
+    chosen, forced = _step_route(src, int(order), dilation, 1, route,
+                                 runners)
     obs.record_decision(
         "stationary_wavelet_apply", chosen,
         family=WaveletType(type).value, order=int(order),
@@ -521,15 +496,6 @@ _CASCADE_FAMILY = routing.family("wavelet.cascade", (
 ))
 
 
-def _use_fused_cascade(src_shape, order, ext, levels, cuda=False) -> bool:
-    """Thin delegate into the ``wavelet.cascade`` candidate table (gate
-    note above)."""
-    return _CASCADE_FAMILY.gate(
-        "fused_cascade", rows=_rows(src_shape), n=int(src_shape[-1]),
-        order=int(order), ext=ExtensionType(ext).value,
-        levels=int(levels), cuda=bool(cuda))
-
-
 def _fused_cascade(src, type, order, levels):
     """The whole PERIODIC DWT cascade in one cascade-bank launch (see
     the note above), which reads the wrap and writes each level in
@@ -566,9 +532,10 @@ def wavelet_transform(type, order, ext, src, levels, simd=None):
         return _level_loop(type, order, ext, src, levels, simd)
     src = as_f32(src).contiguous()
     _check_apply_args(type, order, src.shape[-1])
-    fused = _use_fused_cascade(src.shape, int(order), ext, levels,
-                               cuda=src.is_cuda)
-    route = "fused_cascade" if fused else "level_loop"
+    # static by contract: the tune cache has never steered it
+    route = _CASCADE_FAMILY.static_select(
+        rows=lead_rows(src.shape), n=int(src.shape[-1]), order=int(order),
+        ext=ExtensionType(ext).value, levels=levels, cuda=src.is_cuda)
     obs.record_decision(
         "wavelet_transform", route,
         family=WaveletType(type).value, order=int(order),
@@ -577,7 +544,7 @@ def wavelet_transform(type, order, ext, src, levels, simd=None):
     # one span over the route's whole run, whichever route it is
     with obs.span("wavelet_transform.dispatch", route=route,
                   levels=levels):
-        if fused:
+        if route == "fused_cascade":
             return list(_fused_cascade(src, type, int(order), levels))
         return _level_loop(type, order, ext, src, levels, simd)
 
@@ -684,7 +651,7 @@ def _synth_work(hi_band, order, stride, n):
     bands at ``stride``: each output a multiply-add over ``2 * order /
     stride`` taps of the two bands, the bands and the taps read once
     and the float32 output written once."""
-    rows = _rows(hi_band.shape)
+    rows = lead_rows(hi_band.shape)
     return (2.0 * rows * n * (2 * int(order) // stride),
             4.0 * (2 * hi_band.numel() + 2 * int(order) + rows * n))
 

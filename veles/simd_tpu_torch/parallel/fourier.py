@@ -59,6 +59,7 @@ from veles.simd_tpu_torch.utils.benchmark import (
     GEMM_PEAK_TFLOPS, H100_FP32_TFLOPS, H100_HBM_TBPS, a2a_bytes,
     ct_dft_flops, mesh_copy_gbps, rfft_flops)
 from veles.simd_tpu_torch.utils.platform import device as _config_device
+from veles.simd_tpu_torch.utils.platform import lead_rows
 
 __all__ = ["sharded_dft", "sharded_rfft", "sharded_irfft",
            "frame_rfft_fn", "frame_irfft_fn", "select_frame_route",
@@ -496,38 +497,30 @@ def _dispatch(op, table, operand, n, mesh, axis, route, oracle):
     s = int(mesh.shape[axis])
     shape = operand.shape if hasattr(operand, "shape") \
         else np.shape(operand)
-    rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    rows = lead_rows(shape)
     _mesh_device(mesh, operand)
     cards = _cards(mesh)
     factor = sp.ct_factor(n, multiple=s)
     n1, n2 = factor if factor else (0, 0)
     forced = route is not None
-    if forced and route not in table:
-        raise ValueError(f"route must be one of {sorted(table)}, "
-                         f"got {route!r}")
-    if forced and route.startswith("sharded_matmul_dft") \
+    chosen = _FOURIER_FAMILY.select(
+        route=route,
+        runners=lambda: {name: (lambda fn=fn: fn(operand, mesh, axis,
+                                                 n1, n2, forced=True))
+                         for name, fn in table.items()
+                         if not name.startswith("sharded_matmul_dft")
+                         or factor},
+        probe_operand=operand,
+        tune_geom=lambda: _fourier_tune_class(op, n, rows, mesh, axis),
+        mesh=routing.mesh_class(mesh, axis),
+        op=op, n=int(n), n_shards=s, rows=rows, n1=n1, n2=n2,
+        cards=cards)
+    if forced and chosen.startswith("sharded_matmul_dft") \
             and not factor:
         raise ValueError(
             f"n={n} has no Cooley-Tukey split with both factors "
             f"divisible by {axis}={s} (and <= "
             f"{sp.AUTO_DFT_MATMUL_MAX_FRAME})")
-    if forced:
-        chosen = route
-    else:
-        geom = {"op": op, "n": int(n), "n_shards": s, "rows": rows,
-                "n1": n1, "n2": n2, "cards": cards}
-        runners = {name: (lambda fn=fn: fn(operand, mesh, axis,
-                                           n1, n2, forced=True))
-                   for name, fn in table.items()
-                   if not name.startswith("sharded_matmul_dft")
-                   or factor}
-        chosen = _FOURIER_FAMILY.select(
-            eligible=_FOURIER_FAMILY.eligible(**geom),
-            runners=lambda: runners,
-            probe_operand=operand,
-            tune_geom=_fourier_tune_class(op, n, rows, mesh, axis),
-            mesh=routing.mesh_class(mesh, axis),
-            **geom)
     is_mm = chosen.startswith("sharded_matmul_dft")
     mm_precision = ("bf16_comp" if chosen.endswith("_bf16_comp")
                     else "highest")

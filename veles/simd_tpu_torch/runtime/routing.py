@@ -12,6 +12,18 @@ follows the JAX engine's order of precedence: rejection memory first,
 then an armed plan, then the env opt-out, then the predicate; static
 selection is the first eligible route in table order.
 
+**One selection call.**  Every dispatch site of ``ops/`` and
+``parallel/`` gets its route from :meth:`Family.select`: it hands over
+the call's exact geometry, its probe runners, its operand and its tune
+class, and a forced ``route=`` goes through the same call, which
+validates it.  :meth:`Family.static_select` serves the choices that are
+static by contract (``convolve.select_algorithm``,
+``convolve2d.select_algorithm2d``, the packing and sharded-transform
+layouts, the ``wavelet.cascade`` choice), which the tune cache never
+steers.  Test seams open kernel gates on the CPU through the device
+terms the predicates read (``cuda_kernels.on_card``,
+``cuda_kernels.should_route``) or an armed fault plan.
+
 **Measured autotuning** — ``VELES_SIMD_AUTOTUNE=off|on|readonly``
 (default ``off``, the static prior).  With ``on``, the first encounter
 of a geometry class with two or more eligible candidates probes each
@@ -777,7 +789,7 @@ class Route:
         """Full eligibility: rejection memory outranks everything (a
         demoted geometry skips the route without re-raising), an armed
         fault plan opens the gate, then env + predicate."""
-        if self.rejected(geom):
+        if self.rejection_cache is not None and self.rejected(geom):
             return False
         if self.fault_site and faults.armed(self.fault_site):
             return True
@@ -801,6 +813,7 @@ class Family:
         if not self._routes:
             raise ValueError(f"family {name!r} has no routes")
         self.decision_op = decision_op or f"{self.name}_route"
+        self._last = tuple(self._routes)[-1]
         # the routes after the first unconditional one (the table's
         # terminal fallback): the static prior never reaches them, so
         # only the measured autotuner adds them to a caller's list
@@ -815,14 +828,13 @@ class Family:
     def route(self, name: str) -> Route:
         """The route ``name`` (the port's name, or the JAX package's
         for the same route)."""
-        if name not in self._routes:
-            name = _JAX_ROUTE_NAMES.get(name, name)
-        try:
-            return self._routes[name]
-        except KeyError:
+        route = self._routes.get(name) or self._routes.get(
+            _JAX_ROUTE_NAMES.get(name, name))
+        if route is None:
             raise ValueError(
                 f"route must be one of {sorted(self._routes)}, "
-                f"got {name!r}") from None
+                f"got {name!r}")
+        return route
 
     def describe(self) -> dict:
         """JSON-native table summary (tools, docs, tests)."""
@@ -835,19 +847,13 @@ class Family:
                             "doc": r.doc}
                            for r in self._routes.values()]}
 
-    def gate(self, name: str, **geom) -> bool:
-        """Pure geometry gate of one route (env + predicate)."""
-        return self.route(name).gate(geom)
-
-    def route_allowed(self, name: str, **geom) -> bool:
-        """Full eligibility of one route (rejection memory, armed
-        fault plan, env, predicate)."""
-        return self.route(name).allowed(geom)
-
     def eligible(self, **geom) -> list:
-        """Eligible route names in table order, by full eligibility.
-        Never empty: when every route refuses, the last route — the
-        terminal fallback — is returned alone."""
+        """Eligible route names in table order, by full eligibility,
+        the variants after the terminal fallback included: the list a
+        caller narrows before it hands it to :meth:`select` (the
+        streaming STFT leaves the kernel out).  Never empty: when
+        every route refuses, the last route — the terminal fallback —
+        is returned alone."""
         names = [n for n, r in self._routes.items() if r.allowed(geom)]
         return names or [tuple(self._routes)[-1]]
 
@@ -857,45 +863,58 @@ class Family:
         that allows the geometry: the gates after it (the
         ``*_bf16_comp`` variants behind the terminal fallback) are not
         evaluated."""
+        return self._static(geom)
+
+    def _static(self, geom: dict) -> str:
         for name, r in self._routes.items():
             if r.allowed(geom):
                 return name
-        return tuple(self._routes)[-1]
+        return self._last
 
     def select(self, eligible=None, runners=None, probe_operand=None,
-               tune_geom=None, mesh=None, **geom) -> str:
-        """Pick the route to dispatch.
+               tune_geom=None, mesh=None, route=None, **geom) -> str:
+        """The route a call dispatches: the one query every dispatch
+        site asks.
 
-        ``eligible`` is the priority-ordered candidate list the caller
-        computed (None: the table's own eligibility), so dispatch and
-        its gates never disagree.  ``runners`` maps route name ->
-        zero-arg probe thunk (the call dispatch makes, forced), or is a
-        zero-arg FACTORY of that dict, invoked only when the engine
-        really probes.  ``probe_operand`` is a representative operand:
-        its device picks the device kind (:func:`device_kind`) and the
-        probe clock.  ``tune_geom`` is the geometry CLASS that keys the
-        tune cache when it must differ from ``geom`` (exact dims in
-        ``geom`` for a rejection key, bucketed ones here).  ``mesh``
-        is the topology stamp of sharded families.
+        ``geom`` is the call's exact geometry, which the predicates,
+        the rejection keys and the armed-plan check read.  ``route``
+        is a caller's forced route (the port's name or the JAX
+        package's): it is validated through :meth:`route` — the one
+        ``ValueError`` of every entry — and returned, with nothing
+        else consulted.  ``eligible`` narrows the candidates to a
+        priority-ordered list the caller built from :meth:`eligible`
+        (None: the table's own eligibility).  ``runners`` maps route
+        name -> zero-arg probe thunk (the call dispatch makes, forced),
+        or is a zero-arg FACTORY of that dict, invoked only when the
+        engine really probes.  ``probe_operand`` is a representative
+        operand: its device picks the device kind (:func:`device_kind`)
+        and the probe clock.  ``tune_geom`` is the geometry CLASS that
+        keys the tune cache when it must differ from ``geom`` (exact
+        dims in ``geom``, bucketed ones here), or a zero-arg factory of
+        it, so the bucketing costs nothing while the autotuner is off.
+        ``mesh`` is the topology stamp of sharded families.
 
         With the autotuner on (or ``readonly``), the table's allowed
         routes after its terminal fallback (the ``*_bf16_comp``
         variants) join a caller's ``eligible`` list, so they are
         candidates but never the prior.
 
-        In order: ``off`` or fewer than two candidates -> the static
-        prior; an armed fault plan on any candidate -> the static prior
-        (the plan must dispatch its doomed route); an operand on a
-        device of another kind than the cache's -> the static prior; a
-        cached winner still eligible -> it; a cached winner no longer
-        eligible -> the static prior (the entry is kept); ``on`` with
-        runners, outside a capture -> probe, persist and return the
-        measured winner; else the static prior.
+        In order: a forced ``route`` -> it; ``off`` -> the static prior
+        (:meth:`static_select`, or the head of ``eligible``); fewer
+        than two candidates -> the static prior; an armed fault plan on
+        any candidate -> the static prior (the plan must dispatch its
+        doomed route); an operand on a device of another kind than the
+        cache's -> the static prior; a cached winner still eligible ->
+        it; a cached winner no longer eligible -> the static prior (the
+        entry is kept); ``on`` with runners, outside a capture -> probe,
+        persist and return the measured winner; else the static prior.
         """
+        if route is not None:
+            return self.route(route).name
         mode = autotune_mode()
         if eligible is None:
             if mode == "off":
-                return self.static_select(**geom)
+                return self._static(geom)
             eligible = self.eligible(**geom)
         elif mode != "off":
             eligible = list(eligible) + [
@@ -906,8 +925,6 @@ class Family:
         static = eligible[0]
         if mode == "off" or len(eligible) < 2:
             return static
-        if tune_geom is None:
-            tune_geom = geom
         for name in eligible:
             r = self._routes.get(name)
             if r is not None and r.fault_site \
@@ -917,6 +934,10 @@ class Family:
         if device_kind(probe_operand) != cache.device:
             obs.count("autotune_device_skip", family=self.name)
             return static
+        if tune_geom is None:
+            tune_geom = geom
+        elif callable(tune_geom):
+            tune_geom = tune_geom()
         cached = cache.lookup(self.name, tune_geom, mesh=mesh)
         if cached is not None and cached in eligible:
             obs.count("autotune_cache_hit", family=self.name)

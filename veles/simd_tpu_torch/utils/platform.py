@@ -26,6 +26,7 @@ here.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import shutil
 import subprocess
@@ -42,7 +43,7 @@ __all__ = ["probe_device_count", "require_reachable_device",
            "init_deadline", "to_host", "to_device", "probe_history",
            "reset_probe_history",
            "device", "on_cuda", "as_tensor", "as_f32", "as_c64",
-           "smi_line", "device_line"]
+           "lead_rows", "smi_line", "device_line"]
 
 # Device-reachability probe records (require_reachable_device's retry
 # loop), retained for the flight recorder regardless of telemetry.
@@ -320,6 +321,16 @@ def as_c64(x) -> torch.Tensor:
         return x.to(torch.complex64)
     arr = np.asarray(x, np.complex64)
     return torch.as_tensor(_sharable(arr), device=device())
+
+
+def lead_rows(shape, core_dims: int = 1) -> int:
+    """The row count of an operand of ``shape``: the product of its
+    dims before the last ``core_dims`` (1 for a single row).  The
+    routes' gates, tune classes and work counts all read it.
+    ``math.prod``, not ``np.prod``: that builds an array of a
+    ``torch.Size`` first, which was most of a route gate's host
+    time."""
+    return int(math.prod(shape[:-core_dims]))
 
 
 def smi_line() -> str:
