@@ -33,7 +33,8 @@ without printing a result):
             (``wavelet_apply`` and ``stationary_wavelet_apply`` through
             the filter-bank kernel, the 3-level cascade as a loop of
             ``wavelet_apply`` and as ``wavelet_transform``, whose
-            default is one cascade-bank launch, a DWT round trip); and
+            default is one cascade-bank launch, also at 4 x 2^20 and
+            on one signal of 2^16, a DWT round trip); and
             ``convolve2d`` on 16 x 512 x 512 with 7 x 7 (the 2D
             kernel; also ``mode='same'`` and ``boundary='wrap'``),
             ``cross_correlate2d`` and a 2D ``fftconvolve``;
@@ -4428,7 +4429,8 @@ def main():
 
     def level_loop(v):
         # the cascade one wavelet_apply a level (K2 at >= MIN_ROWS rows),
-        # beside wavelet_transform's default, the fused cascade
+        # beside wavelet_transform's default, the fused cascade at any
+        # row count
         bands = []
         for _ in range(LEVELS):
             hi_, v = wv.wavelet_apply("daub", 8, P, v)
@@ -4481,6 +4483,10 @@ def main():
     cb_case("cb daub8 L3 37x1000", 37, 1000, "daub", 8, 3)
     cb_case("cb sym16 L3 3x2048", 3, 2048, "sym", 16, 3)
     cb_case("cb daub2 L2 70000x4", 70000, 4, "daub", 2, 2)  # wrap > n
+    # the benchmark's two DWT shapes: 2^26 samples a call in 4 rows of
+    # 2^24 (per-row indices past 2^24) and in 16,384 rows of 4096
+    cb_case("cb daub8 L3 4x16777216", 4, 1 << 24, "daub", 8, LEVELS)
+    cb_case("cb daub8 L3 16384x4096", 16384, 4096, "daub", 8, LEVELS)
     # the contract form on a plan of its own: 3 phases, odd rows off
     # 16-byte alignment (4-byte staging), more channels than a pass
     cb_plans = tuple(tuple((int(rng.randint(3)), int(rng.randint(3)))
@@ -4642,6 +4648,29 @@ def main():
                     for g, w in zip(fused, want_c))
     check(err_fused <= ORACLE_TOL, f"fused cascade rel err "
           f"{err_fused:.3e}")
+    # fewer than MIN_ROWS rows (the benchmark's 4-row form, one signal
+    # alone): the default is one launch of the periodic form and
+    # nothing else of the port's, against the NumPy level loop
+    few = {}
+    for shape in ((4, 1 << 20), (1 << 16,)):
+        x_few = rng.randn(*shape).astype(np.float32)
+        ck.reset_launches()
+        got_few = wv.wavelet_transform("daub", 8, P, x_few, LEVELS)
+        torch.cuda.synchronize()
+        few_launches = dict(ck.LAUNCHES)
+        name = "x".join(map(str, shape))
+        check(few_launches["cascade_bank"] == 1
+              and sum(few_launches.values()) == 1,
+              f"wavelet_transform {name} launched {few_launches}")
+        want_few, cur = [], x_few
+        for _ in range(LEVELS):
+            h_, cur = wv.wavelet_apply_na("daub", 8, P, cur)
+            want_few.append(h_)
+        want_few.append(cur)
+        few[name] = max(rel_err(g.cpu().numpy(), w)
+                        for g, w in zip(got_few, want_few))
+        check(few[name] <= ORACLE_TOL, f"wavelet_transform {name} rel "
+              f"err {few[name]:.3e}")
     rec = wv.wavelet_reconstruct("daub", 8, hi, lo)
     trip = float(np.max(np.abs(rec.cpu().numpy() - x_wv)))
     check(trip <= ROUND_TRIP_TOL, f"DWT round trip {trip:.3e}")
@@ -4651,8 +4680,9 @@ def main():
           f"(fb launches {swt_launches}) | wavelet_transform L{LEVELS} "
           f"level loop rel {err_loop:.2e} (launches {loop_launches}) | "
           f"fused rel {err_fused:.2e}, vs loop {fused_gap:.2e} "
-          f"(cb launches {launches['cascade_bank']}) | round trip max "
-          f"abs {trip:.2e}")
+          f"(cb launches {launches['cascade_bank']}) | fused "
+          + ", ".join(f"{k} rel {v:.2e}" for k, v in few.items())
+          + f" (one cb launch each) | round trip max abs {trip:.2e}")
 
     # 2D convolution: 16 x 512 x 512 with 7 x 7
     x_2d = rng.randn(IMGS_2D, N_2D, N_2D).astype(np.float32)

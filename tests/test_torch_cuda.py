@@ -451,13 +451,34 @@ def test_fused_cascade_launches_the_cascade_bank(rows):
     assert kernels and all("cb_frames" in k for k in kernels), kernels
 
 
+@pytest.mark.parametrize("shape", [(4096,), (1, 4096), (2, 4096),
+                                   (4, 4096), (7, 4096), (4, 1 << 20)])
+def test_fused_cascade_serves_few_rows(shape):
+    # below MIN_ROWS rows the default 3-level daub8 periodic DWT is the
+    # one cascade-bank launch too, with no filter-bank pass, and gives
+    # the NumPy oracle's bands
+    x = np.random.RandomState(len(shape) + shape[0]).randn(
+        *shape).astype(np.float32)
+    P = wv.ExtensionType.PERIODIC
+    ck.reset_launches()
+    got = wv.wavelet_transform("daub", 8, P, x, 3)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cascade_bank"] == 1, shape
+    assert ck.LAUNCHES["filter_bank"] == 0, shape
+    want = wv.wavelet_transform("daub", 8, P, x, 3, simd=False)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        assert _rel(g.cpu(), w) <= TOL
+
+
 def test_fused_cascade_bypasses_keep_the_level_loop(monkeypatch):
     r = np.random.RandomState(8)
     P, M = wv.ExtensionType.PERIODIC, wv.ExtensionType.MIRROR
     x = r.randn(64, 4096).astype(np.float32)
     fused = wv.wavelet_transform("daub", 8, P, x, 3)
     # (rows, ext, levels) -> filter-bank launches of the level loop
-    cases = [(4, P, 3, 0), (64, M, 3, 3), (64, P, 1, 1)]
+    # (fewer than MIN_ROWS rows: conv1d, no kernel of csrc/)
+    cases = [(4, M, 3, 0), (64, M, 3, 3), (64, P, 1, 1)]
     for rows, ext, levels, fb in cases:
         ck.reset_launches()
         got = wv.wavelet_transform("daub", 8, ext, x[:rows], levels)

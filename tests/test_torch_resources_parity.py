@@ -223,7 +223,7 @@ _MODULES = {"ar": "arithmetic", "mf": "mathfun", "mx": "matrix",
 # it (the JAX package's Pallas kernel in interpret mode, the port's
 # kernel wrapper as its plain version): name -> (module, JAX gate,
 # the port's device term in ops/cuda_kernels.py that opens its gate)
-GATES = {"fused": ("wv", "_use_fused_cascade", "should_route"),
+GATES = {"fused": ("wv", "_use_fused_cascade", "on_card"),
          "wavelet": ("wv", "_use_pallas", "should_route"),
          "direct": ("cv", "_use_pallas_direct", "should_route"),
          "os": ("cv", "_use_pallas_os", "on_card"),

@@ -10,12 +10,15 @@ pins) and ``veles.simd_tpu_torch.ops.wavelet`` with ``device="cpu"``.
   interpret mode off the TPU); the port side its auto route (``conv1d``
   on the CPU) and, forced, its ``cuda`` route (the filter-bank
   kernel's plain version on a CPU tensor).
-* The fused cascade: both gates opened (``should_route`` monkeypatched;
-  the JAX side also needs ``VELES_SIMD_FORCE_FUSED_CASCADE``, its own
-  opt-in, as ``tests/test_pallas.py`` sets it, while the port's route
-  is its default); the two fused results agree to 1e-5 of max|y| and
-  each matches the level loop within that file's 5e-4.  Both routes
-  poison the same outputs with a non-finite input sample.
+* The fused cascade: both gates opened (the port's device term
+  ``cuda_kernels.on_card`` and the JAX package's ``should_route``
+  monkeypatched; the JAX side also needs
+  ``VELES_SIMD_FORCE_FUSED_CASCADE``, its own opt-in, as
+  ``tests/test_pallas.py`` sets it, while the port's route is its
+  default); the two fused results agree to 1e-5 of max|y| and each
+  matches the level loop within that file's 5e-4.  Both routes poison
+  the same outputs with a non-finite input sample.  The port's gate
+  reads no row count: one row is admitted as 8 are.
 * Synthesis: the JAX package's own tolerances from
   ``tests/test_wavelet_synthesis.py`` (5e-5 between backends, 2e-4 and
   5e-4 for round trips, 5e-3 for the non-periodic SWT).
@@ -150,7 +153,7 @@ def test_multilevel_transforms_agree(ext):
     ("daub", 8, 3, 56), ("daub", 2, 2, 4)])
 def test_fused_cascade_agrees(monkeypatch, type, order, levels, n):
     monkeypatch.setattr(jpk, "should_route", lambda *a: True)
-    monkeypatch.setattr(tck, "should_route", lambda *a: True)
+    monkeypatch.setattr(tck, "on_card", lambda *a: True)
     P = tw.ExtensionType.PERIODIC
     x = _x(n + levels, (8, n))
     # the port's default: no environment variable opens the route
@@ -192,20 +195,58 @@ def test_fused_cascade_gate_terms(monkeypatch):
         # off the card the fused route never opens
         assert not _fused(shape, order, ext, levels)
     # the default is the fused cascade where the gate admits the shape,
-    # and the level loop below MIN_ROWS, off the card and under the
-    # wavelet routes' opt-out (the port's name or the JAX package's)
+    # at any row count (below MIN_ROWS too), and the level loop off the
+    # card and under the wavelet routes' opt-out (the port's name or the
+    # JAX package's)
     monkeypatch.delenv(JAX_FORCE_FUSED)
     geom = dict(rows=512, n=4096, order=8, ext="periodic", levels=3,
                 cuda=True)
     select = tw._CASCADE_FAMILY.static_select
     assert select(**geom) == "fused_cascade"
-    assert select(**dict(geom, rows=tck.MIN_ROWS - 1)) == "level_loop"
+    assert select(**dict(geom, rows=tck.MIN_ROWS - 1)) == "fused_cascade"
     assert select(**dict(geom, cuda=False)) == "level_loop"
+    assert select(**dict(geom, rows=tck.MIN_ROWS - 1,
+                         cuda=False)) == "level_loop"
     for env in ("VELES_SIMD_DISABLE_CUDA_WAVELET",
                 "VELES_SIMD_DISABLE_PALLAS_WAVELET"):
         monkeypatch.setenv(env, "1")
         assert select(**geom) == "level_loop"
         monkeypatch.delenv(env)
+
+
+@pytest.mark.parametrize("shape", [(256,), (1, 256), (2, 256), (3, 256),
+                                   (4, 256), (5, 256), (6, 256), (7, 256),
+                                   (2, 3, 256)])
+def test_fused_cascade_admits_any_row_count(monkeypatch, shape):
+    # the gate's terms are the card and the shape of one row: a call of
+    # 1-7 rows is admitted as 8 are, off the card it is refused, and a
+    # MIRROR extension or a single level keeps the level loop at any
+    # row count
+    P, M = tw.ExtensionType.PERIODIC, tw.ExtensionType.MIRROR
+    assert not _fused(shape, 8, P, 3)
+    monkeypatch.setattr(tck, "on_card", lambda *a: True)
+    assert _fused(shape, 8, P, 3)
+    assert not _fused(shape, 8, M, 3)
+    assert not _fused(shape, 8, P, 1)
+    # the call runs the fused pass (its plain version on a CPU tensor)
+    # and gives the JAX package's default bands, the level loop's
+    calls = []
+    fused_cuda = tck.cascade_bank_periodic_cuda
+    monkeypatch.setattr(tck, "cascade_bank_periodic_cuda",
+                        lambda *a: calls.append(1) or fused_cuda(*a))
+    x = _x(sum(shape), shape)
+    got = tw.wavelet_transform("daub", 8, P, x, 3)
+    assert len(calls) == 1
+    want = jw.wavelet_transform("daub", 8, jw.ExtensionType.PERIODIC, x,
+                                3, simd=True)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    assert _pair_rel(got, want) < REL_TOL
+    # a MIRROR cascade of the same rows: the level loop, no fused pass
+    got = tw.wavelet_transform("daub", 8, M, x, 3)
+    assert len(calls) == 1
+    want = jw.wavelet_transform("daub", 8, jw.ExtensionType.MIRROR, x,
+                                3, simd=True)
+    assert _pair_rel(got, want) < REL_TOL
 
 
 def _poisoned(bands, row):
@@ -235,7 +276,7 @@ def test_fused_cascade_nonfinite_spread(monkeypatch, type, order, levels,
     # plain versions on the CPU: each route poisons exactly the outputs
     # whose composed filter spans the sample (the card's kernel widens
     # that to whole frames, tests/test_torch_cuda.py)
-    monkeypatch.setattr(tck, "should_route", lambda *a: True)
+    monkeypatch.setattr(tck, "on_card", lambda *a: True)
     P = tw.ExtensionType.PERIODIC
     x = _x(p + n, (8, n))
     x[3, p] = bad

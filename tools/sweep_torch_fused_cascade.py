@@ -5,8 +5,10 @@ over the shapes that set the ``wavelet.cascade`` gate.
     python3 tools/sweep_torch_fused_cascade.py [--quick] [--out FILE]
 
 For each wavelet group (family, order, levels) near the top of the
-fused pass's multiply-add budget and each shape of rows in 8, 512 and
-16,384 by n in 256, 4096 and 65,536, the two routes of
+fused pass's multiply-add budget and each shape of rows in 1, 2, 4,
+7, 8, 512 and 16,384 by n in 256, 4096, 65,536, 2^20 and 2^24,
+wherever rows x n is at most 2^26 (the benchmark's samples a call),
+the two routes of
 ``ops.wavelet.wavelet_transform`` run on the same seeded operand: the
 fused cascade (one cascade-bank launch, ``wavelet._fused_cascade``)
 and the level loop (one ``wavelet`` step a level,
@@ -37,8 +39,9 @@ sys.path.insert(0, HERE)
 GROUPS = (("daub", 8, 3), ("daub", 4, 4), ("daub", 8, 2), ("daub", 8, 4),
           ("sym", 16, 3), ("coif", 18, 3), ("daub", 22, 3),
           ("daub", 64, 2))
-ROWS = (8, 512, 16384)
-LENGTHS = (256, 4096, 65536)
+ROWS = (1, 2, 4, 7, 8, 512, 16384)
+LENGTHS = (256, 4096, 65536, 1 << 20, 1 << 24)
+MAX_SAMPLES = 1 << 26
 SEED = 20261018
 # samples a profiled window should cover, so short calls are many
 WINDOW_SAMPLES = 1 << 28
@@ -66,7 +69,8 @@ def main():
     P = wv.ExtensionType.PERIODIC
     groups = GROUPS[:1] if args.quick else GROUPS
     shapes = ([(512, 4096)] if args.quick
-              else [(r, n) for r in ROWS for n in LENGTHS])
+              else [(r, n) for r in ROWS for n in LENGTHS
+                    if r * n <= MAX_SAMPLES])
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     with open(args.out, "w") as out:
@@ -81,8 +85,8 @@ def main():
                                                    levels, None)}
                 row = {"group": f"{type}{order} L{levels}", "rows": rows,
                        "n": n, "gate": wv._CASCADE_FAMILY.static_select(
-                           rows=rows, n=n, order=order, ext=P.value,
-                           levels=levels, cuda=True) == "fused_cascade"}
+                           n=n, order=order, ext=P.value, levels=levels,
+                           cuda=True) == "fused_cascade"}
                 bands = {k: fn() for k, fn in routes.items()}
                 row["max_rel_diff"] = max(
                     float((f - g).abs().max() / g.abs().max())

@@ -378,11 +378,11 @@ def on_card(cuda: bool) -> bool:
 
 def should_route(rows: int, cuda: bool) -> bool:
     """The device terms the 1D filter-bank routes share (direct
-    convolution, the wavelet steps, the fused cascade): operands on a
-    CUDA card (:func:`on_card`) and at least MIN_ROWS batch rows (the
-    JAX package's ``should_route``, whose VMEM term becomes each
-    route's own shared-memory admission here).  Tests monkeypatch it to
-    open those gates on the CPU whatever the rows."""
+    convolution and the wavelet steps): operands on a CUDA card
+    (:func:`on_card`) and at least MIN_ROWS batch rows (the JAX
+    package's ``should_route``, whose VMEM term becomes each route's
+    own shared-memory admission here).  Tests monkeypatch it to open
+    those gates on the CPU whatever the rows."""
     return on_card(cuda) and int(rows) >= MIN_ROWS
 
 

@@ -389,17 +389,19 @@ def stationary_wavelet_apply(type, order, level, ext, src, simd=None,
 # extension copies.  The composed filters cost more multiply-adds than
 # the level loop (level-l taps grow to (order-1)(2^l - 1) + 1), so the
 # fused pass wins only where the card is bound by bytes.  On an NVIDIA
-# H100 (tools/sweep_torch_fused_cascade.py) it took 2.1-20x less device
-# time a call than the level loop in every group it admits up to the
-# budget's top (daub22 at 3 levels, daub64 at 2), at 8 to 16,384 rows
-# of 256 to 65,536 samples, so the gate's shape terms alone decide and
-# the route is the port's default (the JAX package keeps it opt-in
-# through VELES_SIMD_FORCE_FUSED_CASCADE, which the port does not
-# read); VELES_SIMD_DISABLE_CUDA_WAVELET closes it with the
-# filter-bank route.  Non-PERIODIC extensions do not commute with
-# filtering (the cascade re-extends each computed lowpass), so they
-# keep the level loop, as do 1 or more than 4 levels, CPU operands and
-# fewer than MIN_ROWS rows.
+# H100 (tools/sweep_torch_fused_cascade.py) it took 1.3-20x less device
+# time and 1.3-19x less chained time a call than the level loop in
+# every group it admits up to the budget's top (daub22 at 3 levels,
+# daub64 at 2), at 1 to 16,384 rows of 256 to 2^24 samples, up to 2^26
+# a call: the kernel runs persistent over rows x output
+# tiles, so how the samples split into rows does not matter to it.  So
+# the gate's shape terms alone decide, at any row count, and the route
+# is the port's default (the JAX package keeps it opt-in through
+# VELES_SIMD_FORCE_FUSED_CASCADE, which the port does not read);
+# VELES_SIMD_DISABLE_CUDA_WAVELET closes it with the filter-bank
+# route.  Non-PERIODIC extensions do not commute with filtering (the
+# cascade re-extends each computed lowpass), so they keep the level
+# loop, as do 1 or more than 4 levels and CPU operands.
 
 # multiply-add budget of the fused pass: 3 levels of daub8 is 176
 # slots, sym16 at 3 levels 368
@@ -459,7 +461,7 @@ def _cascade_plan_for(type, order, levels):
     return _cascade_plan(gs, g_lo, levels) + (len(g_lo) - 1,)
 
 
-def _fused_cascade_gate(rows, n, order, ext, levels, cuda=False, **_):
+def _fused_cascade_gate(n, order, ext, levels, cuda=False, **_):
     levels = int(levels)
     if (ext != ExtensionType.PERIODIC.value
             or not 2 <= levels <= _FUSED_MAX_LEVELS):
@@ -477,7 +479,7 @@ def _fused_cascade_gate(rows, n, order, ext, levels, cuda=False, **_):
         return False
     # every slot's offset is at most reach // 2^L (the final lowpass's
     # last tap)
-    return (_ck.should_route(rows, cuda)
+    return (_ck.on_card(cuda)
             and _ck.fits_smem_cb(1 << levels, reach >> levels,
                                  1 << levels))
 
@@ -509,21 +511,22 @@ def wavelet_transform(type, order, ext, src, levels, simd=None):
     """Multi-level DWT cascade: repeatedly split the lowpass band.
 
     Returns ``[hi_1, hi_2, ..., hi_levels, lo_levels]`` like the usual
-    pyramid.  A PERIODIC cascade of 2-4 levels on the card, of at least
-    ``MIN_ROWS`` rows and within the fused pass's multiply-add budget,
-    runs as one launch of the cascade-bank kernel (gate note at
+    pyramid.  A PERIODIC cascade of 2-4 levels on the card, of any
+    row count and within the fused pass's multiply-add budget, runs as
+    one launch of the cascade-bank kernel (gate note at
     :func:`_fused_cascade_gate`; ``VELES_SIMD_DISABLE_CUDA_WAVELET``
     closes it); every other call runs the level loop, one
     :func:`wavelet_apply` per level.  The fused pass composes each
     level's filters in float64, rounds them once and sums over the
     input in float32, so finite inputs give the level loop's bands
-    within float32 rounding.  A NaN or Inf spreads further on the card:
-    the kernel reads the input in frames of ``2^levels`` samples and
-    multiplies every sample of a frame it reads, zero taps included,
-    so a non-finite sample poisons each output of level l whose support
-    (samples ``2^l i`` to ``2^l i + (order - 1)(2^l - 1)``, periodic),
-    widened to whole frames, holds it.  The level loop, and both
-    routes' CPU versions, poison the outputs whose support holds it.
+    within float32 rounding.  A NaN or Inf spreads further on the card,
+    whatever the row count: the kernel reads the input in frames of
+    ``2^levels`` samples and multiplies every sample of a frame it
+    reads, zero taps included, so a non-finite sample poisons each
+    output of level l whose support (samples ``2^l i`` to
+    ``2^l i + (order - 1)(2^l - 1)``, periodic), widened to whole
+    frames, holds it.  The level loop, and both routes' CPU versions,
+    poison the outputs whose support holds it.
     (``VELES_SIMD_FORCE_FUSED_CASCADE``, the JAX package's opt-in, is
     not read.)
     """
@@ -534,7 +537,7 @@ def wavelet_transform(type, order, ext, src, levels, simd=None):
     _check_apply_args(type, order, src.shape[-1])
     # static by contract: the tune cache has never steered it
     route = _CASCADE_FAMILY.static_select(
-        rows=lead_rows(src.shape), n=int(src.shape[-1]), order=int(order),
+        n=int(src.shape[-1]), order=int(order),
         ext=ExtensionType(ext).value, levels=levels, cuda=src.is_cuda)
     obs.record_decision(
         "wavelet_transform", route,
