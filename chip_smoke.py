@@ -37,7 +37,12 @@ without printing a result):
             on one signal of 2^16, a DWT round trip); and
             ``convolve2d`` on 16 x 512 x 512 with 7 x 7 (the 2D
             kernel; also ``mode='same'`` and ``boundary='wrap'``),
-            ``cross_correlate2d`` and a 2D ``fftconvolve``;
+            ``cross_correlate2d`` and a 2D ``fftconvolve``; the
+            benchmark's two 2D cells against float64 on the card:
+            ``cross_correlate2d`` 'valid' of 320 x 512^2 with SSIM's
+            11 x 11 Gaussian (one 2D kernel launch) and ``convolve2d``
+            'same'/'symm' of 256 x 512^2 with a 51 x 51 Gaussian (the
+            FFT route, no launch);
             the spectral slice: ``stft`` on 2^20 samples at 512/128
             through the auto route (the fused STFT kernel) and the
             forced ``rdft_matmul`` and ``xla_fft`` routes,
@@ -471,6 +476,28 @@ def fft_conv64(x, h):
     spec = (np.fft.rfft(x.astype(np.float64), m, axis=-1)
             * np.fft.rfft(h.astype(np.float64), m))
     return np.fft.irfft(spec, m, axis=-1)[..., : n + k - 1]
+
+
+def conv2d64_card(torch, x, h, block=32):
+    """float64 full 2D convolution of every image of the card tensor
+    ``x`` with ``h``, on the card, in blocks of images."""
+    m = (x.shape[-2] + h.shape[0] - 1, x.shape[-1] + h.shape[1] - 1)
+    size = tuple(1 << (v - 1).bit_length() for v in m)
+    spec_h = torch.fft.rfft2(h.double(), size)
+    out = torch.empty(tuple(x.shape[:-2]) + m, dtype=torch.float64,
+                      device=x.device)
+    for i in range(0, x.shape[0], block):
+        full = torch.fft.irfft2(
+            torch.fft.rfft2(x[i:i + block].double(), size) * spec_h, size)
+        out[i:i + block] = full[..., :m[0], :m[1]]
+    return out
+
+
+def gauss2d(torch, k, sigma, device):
+    """``fspecial('gaussian', k, sigma)`` in float32 on ``device``."""
+    r = torch.arange(k, dtype=torch.float64) - (k - 1) / 2
+    g = torch.exp(-(r[:, None] ** 2 + r[None, :] ** 2) / (2 * sigma ** 2))
+    return (g / g.sum()).to(torch.float32).to(device)
 
 
 def conv2d64(x, h):
@@ -4507,6 +4534,8 @@ def main():
     f2d_case("f2d 4x100x77 16x16 pad", 4, 100, 77, 16, 16, True)
     f2d_case("f2d 3x64x300 1x256 pad", 3, 64, 300, 1, 256, True)
     f2d_case("f2d 2x300x20 256x1 pad", 2, 300, 20, 256, 1, True)
+    # the benchmark's ssim11 shape (conv2d_512): 320 x 512^2, 11 x 11
+    f2d_case("f2d 320x512x512 11x11 pad", 320, 512, 512, 11, 11, True)
 
     def stft_case(name, rows, n, L, hop):
         x = cuda(rng.randn(rows, n))
@@ -4737,6 +4766,45 @@ def main():
           f"{xc_launches}) | fftconvolve 2D rel {err_fc:.2e} | "
           + " | ".join(f"convolve2d {k} rel {v:.2e} (f2d launches "
                        f"{mb_launches[k]})" for k, v in mb_err.items()))
+
+    # the benchmark's 2D cells (conv2d_512): SSIM's 11 x 11 window
+    # 'valid' through the 2D kernel, and a 51 x 51 blur 'same'/'symm',
+    # whose area the kernel's gate refuses, through the FFT route
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x_ss = torch.randn(320, N_2D, N_2D, generator=gen, device=dev)
+    w11 = gauss2d(torch, 11, 1.5, dev)
+    ck.reset_launches()
+    y_ss = cv2.cross_correlate2d(x_ss, w11, mode="valid")
+    torch.cuda.synchronize()
+    ss_launches = ck.LAUNCHES["filter_2d"]
+    check(ss_launches == 1, f"ssim11 filter_2d launches {ss_launches}")
+    want = conv2d64_card(torch, x_ss, w11.flip((0, 1)))[:, 10:N_2D,
+                                                         10:N_2D]
+    err_ss = float((y_ss.double() - want).abs().max() / want.abs().max())
+    check(err_ss <= ORACLE_TOL, f"ssim11 rel err {err_ss:.3e}")
+    x_ss = y_ss = want = None
+    x_bl = torch.randn(256, N_2D, N_2D, generator=gen, device=dev)
+    w51 = gauss2d(torch, 51, 2.0, dev)
+    obs.reset()
+    ck.reset_launches()
+    y_bl = cv2.convolve2d(x_bl, w51, mode="same", boundary="symm")
+    torch.cuda.synchronize()
+    bl_launches = ck.LAUNCHES["filter_2d"]
+    bl_routes = [e["decision"] for e in obs.events()
+                 if e["op"] == "convolve2d"]
+    check(bl_launches == 0 and bl_routes == ["fft"],
+          f"blur51 launches {bl_launches}, routes {bl_routes}")
+    idx = torch.as_tensor(np.pad(np.arange(N_2D), 25, mode="symmetric"),
+                          device=dev)
+    want = conv2d64_card(torch, x_bl[:, idx][:, :, idx], w51)[
+        :, 50:50 + N_2D, 50:50 + N_2D]
+    err_bl = float((y_bl.double() - want).abs().max() / want.abs().max())
+    check(err_bl <= ORACLE_TOL, f"blur51 rel err {err_bl:.3e}")
+    x_bl = y_bl = want = None
+    print(f"main: conv2d_512 ssim11 320x{N_2D}^2 11x11 valid rel "
+          f"{err_ss:.2e} (f2d launches {ss_launches}) | blur51 "
+          f"256x{N_2D}^2 51x51 same symm rel {err_bl:.2e} (f2d launches "
+          f"{bl_launches}, routes {bl_routes})")
 
     # the spectral slice: stft on 2^20 samples at 512/128
     x_st = rng.randn(N_ST).astype(np.float32)

@@ -39,6 +39,18 @@ the JAX package's compile-time stack model for traced calls, which
 belongs to the TPU's compiler; the kernel's shared-memory admission
 here is exact arithmetic.  Results are float32 tensors;
 ``simd=False`` runs the float64 NumPy oracle and returns NumPy.
+
+Spans (``obs.span``, recorded while telemetry is on or a capture is
+armed), on the PyTorch path: ``convolve2d.dispatch`` (``algo``,
+``auto``), a call's top span, from the public entry over the boundary
+extension, the guarded dispatch and the mode's slice;
+``convolve2d.extend`` (``boundary``, ``scratch_bytes``) inside it
+around :func:`_pad2d`, whose copies it counts
+(:func:`_extend_scratch_bytes`); ``fault.attempt`` for each attempt of
+the guard; and ``convolve2d.route`` (``route``, ``scratch_bytes``)
+inside that around the runner the dispatch picks (``direct_cuda``,
+``direct_mxu`` or ``fft``), with the bytes the runner writes besides
+the outputs the call returns (:func:`_route_scratch_bytes`).
 """
 
 from __future__ import annotations
@@ -210,19 +222,11 @@ def _check2d(x, h):
             f"{tuple(np.shape(x))} and {tuple(np.shape(h))}")
 
 
-def _run2d(x, h, reverse, algorithm, simd, crop=(0, 0)):
-    """Full convolution (or correlation) with ``algorithm`` None (auto),
-    ``'direct'`` or ``'fft'``; of an input extended by ``crop`` per side,
-    the part that is the unextended input's full output."""
-    _check2d(x, h)
-    if algorithm not in (None, "direct", "fft"):
-        raise ValueError(f"algorithm must be 'direct' or 'fft', "
-                         f"got {algorithm!r}")
-    if not resolve_simd(simd, op="convolve2d"):
-        return _run2d_oracle(x, h, reverse, crop)
-    x_shape, h_shape = tuple(np.shape(x)), tuple(np.shape(h))
+def _choose2d(x_shape, h_shape, cuda, algorithm):
+    """``(algorithm, auto, kernel)`` of a call on an (extended) input
+    of ``x_shape``: ``algorithm`` None (auto) resolved, and whether the
+    2D kernel's gate admits the call (``kernel``)."""
     k0, k1 = h_shape
-    cuda = x.is_cuda if isinstance(x, torch.Tensor) else on_cuda()
     auto = algorithm is None
     # the kernel gate, evaluated once for the call: it picks the auto
     # algorithm and the direct route alike
@@ -230,32 +234,81 @@ def _run2d(x, h, reverse, algorithm, simd, crop=(0, 0)):
         **_direct2d_geom(x_shape, k0, k1, cuda)) == "direct"
     if auto:
         algorithm = "direct" if kernel else "fft"
-    with obs.span("convolve2d.dispatch", algo=algorithm, auto=auto):
-        # transient device faults: bounded retry, then the float64
-        # oracle for host operands, behind the shape class's circuit
-        # breaker (image dims pow2-bucketed, kernel dims exact)
-        return faults.breaker_guarded(
-            "convolve2d.dispatch",
-            (algorithm, h_shape,
-             tuple(routing.pow2_bucket(d) for d in x_shape)),
-            lambda: _run2d_torch(x, h, reverse, algorithm, auto, kernel,
-                                 crop),
-            fallback=None if faults.on_card(x, h)
-            else lambda: _run2d_oracle(x, h, reverse, crop))
+    return algorithm, auto, kernel
 
 
 def _run2d_oracle(x, h, reverse, crop):
-    """The NumPy-oracle side of :func:`_run2d` (also the fault
-    policy's degradation target)."""
+    """The full convolution on the NumPy oracle (``simd=False``, and
+    the fault policy's degradation target)."""
     h = _host(h).astype(np.float32)
     return _crop(convolve2d_na(_host(x), h[::-1, ::-1] if reverse else h),
                  crop)
 
 
-def _run2d_torch(x, h, reverse, algorithm, auto, kernel, crop):
-    """The PyTorch side of :func:`_run2d`: operands to the device, the
-    route (``kernel``: the 2D kernel's gate admitted the call), and the
-    kernel route's demotion."""
+def _extend_scratch_bytes(boundary, images, n0, n1, p0, p1):
+    """Bytes of the float32 copies :func:`_pad2d` writes on the tensor
+    path for ``images`` images of ``n0 x n1`` extended by ``(p0, p1)``
+    per side, the ``scratch_bytes`` of its ``convolve2d.extend`` span:
+    ``fill`` one padded copy; ``wrap`` and ``symm`` two gathers, the
+    rows' ``[e0, n1]`` and then the columns' ``[e0, e1]``."""
+    e0, e1 = n0 + 2 * p0, n1 + 2 * p1
+    if boundary == "fill":
+        return 4 * images * e0 * e1
+    return 4 * images * e0 * (n1 + e1)
+
+
+def _route_scratch_bytes(route, images, n0, n1, k0, k1, crop=(0, 0),
+                         kept=None, reverse=False):
+    """Bytes that convolve2d ``route`` writes on the device besides the
+    ``kept`` outputs (``[images, kept0, kept1]``, by default the
+    runner's whole result) that the call returns, for ``images`` inputs
+    of ``n0 x n1`` extended by ``crop`` per side and a ``k0 x k1``
+    kernel: the ``scratch_bytes`` of its ``convolve2d.route`` span.
+
+    * ``direct_cuda``: the 2D kernel's output, the extended input's
+      full output cut back by ``crop``, that the mode slices;
+    * ``direct_mxu``: ``conv2d``'s whole full output and, for a
+      convolution, the flipped kernel;
+    * ``fft``: the zero-padded input and kernel at the powers of two,
+      both spectra, their product and the inverse, and for a
+      correlation the flipped kernel.
+
+    Library workspaces (cuDNN's, cuFFT's) are not counted."""
+    c0, c1 = crop
+    if kept is None:
+        kept = (n0 - 2 * c0 + k0 - 1, n1 - 2 * c1 + k1 - 1)
+    out = images * kept[0] * kept[1]
+    if route == "direct_cuda":
+        return 4 * (images * (n0 - 2 * c0 + k0 - 1)
+                    * (n1 - 2 * c1 + k1 - 1) - out)
+    # conv2d correlates, so a convolution flips the kernel; the FFT
+    # product convolves, so a correlation does
+    flip = k0 * k1 if reverse == (route == "fft") else 0
+    if route == "direct_mxu":
+        return 4 * (images * (n0 + k0 - 1) * (n1 + k1 - 1) + flip - out)
+    m0 = next_highest_power_of_2(n0 + k0 - 1)
+    m1 = next_highest_power_of_2(n1 + k1 - 1)
+    grid, bins = m0 * m1, m0 * (m1 // 2 + 1)
+    return (4 * ((images + 1) * grid + flip + images * grid - out)
+            + 8 * (2 * images + 1) * bins)
+
+
+def _run_route(route, x, h, reverse, crop, kept):
+    """One convolve2d runner under its ``convolve2d.route`` span."""
+    with obs.span("convolve2d.route", route=route,
+                  scratch_bytes=_route_scratch_bytes(
+                      route, _images(x.shape), int(x.shape[-2]),
+                      int(x.shape[-1]), int(h.shape[-2]),
+                      int(h.shape[-1]), crop, kept, reverse)):
+        return _RUNNERS[route](x, h, reverse=reverse, crop=crop)
+
+
+def _run2d_torch(x, h, reverse, algorithm, auto, kernel, crop,
+                 kept=None):
+    """The PyTorch side of a call: operands to the device, the route
+    (``kernel``: the 2D kernel's gate admitted the call), and the
+    kernel route's demotion.  ``kept`` is the last two dims of the
+    part of the result the call returns (None: all of it)."""
     host = not faults.on_card(x, h)
     x, h = _operands(x, h)
     k0, k1 = h.shape
@@ -264,7 +317,7 @@ def _run2d_torch(x, h, reverse, algorithm, auto, kernel, crop):
 
     def run(route):
         obs.record_decision("convolve2d", route, **geom)
-        return _RUNNERS[route](x, h, reverse=reverse, crop=crop)
+        return _run_route(route, x, h, reverse, crop, kept)
 
     if kernel and auto:
         # the measured autotuner may flip the static "direct" to the
@@ -298,7 +351,7 @@ def _run2d_torch(x, h, reverse, algorithm, auto, kernel, crop):
     fallback = "fft" if auto else "direct_mxu"
 
     def direct_cuda():
-        out = _RUNNERS["direct_cuda"](x, h, reverse=reverse, crop=crop)
+        out = _run_route("direct_cuda", x, h, reverse, crop, kept)
         # recorded after the launch: a demotion records its own route
         obs.record_decision("convolve2d", "direct_cuda", **geom)
         return out
@@ -381,36 +434,64 @@ def _mode_boundary_2d(x, h, reverse, algorithm, simd, mode, boundary,
             swapped = True
         # the fully-overlapped region never sees the boundary
         boundary, fillvalue = "fill", 0.0
+    if algorithm not in (None, "direct", "fft"):
+        raise ValueError(f"algorithm must be 'direct' or 'fft', "
+                         f"got {algorithm!r}")
     plain = boundary == "fill" and fillvalue == 0.0
     # 'full' border outputs reach k-1 extension samples, 'same' ones
-    # only k//2
-    p0, p1 = (k0 - 1, k1 - 1) if mode == "full" else (k0 // 2, k1 // 2)
-    if not plain:
-        if resolve_simd(simd, op="convolve2d"):
-            x = as_f32(x)
-        else:
-            x = np.asarray(x)
-        x = _pad2d(x, p0, p1, boundary, fillvalue)
-    # an extended input's full output, cut to the unextended one's: the
-    # kernel route computes only that part
-    out = _run2d(x, h, reverse, algorithm, simd,
-                 crop=(0, 0) if plain else (p0, p1))
-    if mode == "full":
-        return out
+    # only k//2; an extended input's full output is cut to the
+    # unextended one's (the kernel route computes only that part)
+    p0, p1 = (0, 0) if plain else (
+        (k0 - 1, k1 - 1) if mode == "full" else (k0 // 2, k1 // 2))
 
-    def span(n, k):
+    def part(n, k):
+        """Start and length of the mode's part of an axis."""
+        if mode == "full":
+            return 0, n + k - 1
         if mode == "same":
             start = k // 2 if reverse else (k - 1) // 2
             return start, n
         lo, hi = min(n, k), max(n, k)
         return lo - 1, hi - lo + 1
-    s0, l0 = span(n0, k0)
-    s1, l1 = span(n1, k1)
-    out = out[..., s0:s0 + l0, s1:s1 + l1]
-    if swapped and reverse:
-        out = (out.flip((-2, -1)) if isinstance(out, torch.Tensor)
-               else out[..., ::-1, ::-1])
-    return out
+    (s0, l0), (s1, l1) = part(n0, k0), part(n1, k1)
+
+    def cut(out):
+        if mode == "full":
+            return out
+        out = out[..., s0:s0 + l0, s1:s1 + l1]
+        if swapped and reverse:
+            out = (out.flip((-2, -1)) if isinstance(out, torch.Tensor)
+                   else out[..., ::-1, ::-1])
+        return out
+
+    if not resolve_simd(simd, op="convolve2d"):
+        if not plain:
+            x = _pad2d(np.asarray(x), p0, p1, boundary, fillvalue)
+        return cut(_run2d_oracle(x, h, reverse, (p0, p1)))
+    if not plain:
+        x = as_f32(x)
+    x_shape = tuple(np.shape(x)[:-2]) + (n0 + 2 * p0, n1 + 2 * p1)
+    cuda = x.is_cuda if isinstance(x, torch.Tensor) else on_cuda()
+    algorithm, auto, kernel = _choose2d(x_shape, (k0, k1), cuda,
+                                        algorithm)
+    with obs.span("convolve2d.dispatch", algo=algorithm, auto=auto):
+        if not plain:
+            with obs.span("convolve2d.extend", boundary=boundary,
+                          scratch_bytes=_extend_scratch_bytes(
+                              boundary, _images(x_shape), n0, n1, p0,
+                              p1)):
+                x = _pad2d(x, p0, p1, boundary, fillvalue)
+        # transient device faults: bounded retry, then the float64
+        # oracle for host operands, behind the shape class's circuit
+        # breaker (image dims pow2-bucketed, kernel dims exact)
+        return cut(faults.breaker_guarded(
+            "convolve2d.dispatch",
+            (algorithm, (k0, k1),
+             tuple(routing.pow2_bucket(d) for d in x_shape)),
+            lambda: _run2d_torch(x, h, reverse, algorithm, auto, kernel,
+                                 (p0, p1), (l0, l1)),
+            fallback=None if faults.on_card(x, h)
+            else lambda: _run2d_oracle(x, h, reverse, (p0, p1))))
 
 
 def convolve2d(x, h, algorithm=None, simd=None, *, mode="full",
